@@ -1,0 +1,61 @@
+"""Model configuration: the port's own copy of ``repro.configs.base``.
+
+The field set and defaults equal the reference ``ModelConfig`` so a config
+compares field by field against its JAX counterpart. Sub-configs of the
+families not yet ported (MoE, SSM, RG-LRU, encoder) stay ``None`` here; the
+registry admits only ported architectures. ``param_count`` lives in
+``repro_torch.models.registry.count_params``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Optional
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                     # dense (the only family ported so far)
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 128
+    # --- normalization / activation / position ---
+    norm: str = "rmsnorm"           # rmsnorm | layernorm
+    act: str = "swiglu"             # swiglu | geglu | gelu_mlp
+    rope_theta: float = 10000.0
+    pos: str = "rope"               # rope | learned | sinusoidal
+    qkv_bias: bool = False
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-6
+    # --- sub-configs of families not yet ported (always None here) ---
+    moe: Optional[Any] = None
+    ssm: Optional[Any] = None
+    rglru: Optional[Any] = None
+    encoder: Optional[Any] = None
+    n_vision_tokens: int = 0
+    # --- numerics ---
+    dtype: str = "bfloat16"         # activation/weight compute dtype
+    kv_dtype: str = "bfloat16"      # "int8" enables quantized KV
+    weight_int8: bool = False       # int8 weight storage
+    # --- tiered KV cache (not ported yet: hot_window must stay 0) ---
+    hot_window: int = 0
+    kv_cold_dtype: str = "int8"
+    kv_cold_block: int = 16
+    subquadratic: bool = False
+    source: str = ""
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+    def reduced(self) -> "ModelConfig":
+        """Same structure at tiny widths, for CPU tests (the reference's
+        ``reduced()`` for the dense family)."""
+        return self.replace(name=self.name + "-reduced",
+                            n_layers=min(self.n_layers, 3), d_model=128,
+                            n_heads=4, n_kv_heads=min(self.n_kv_heads, 2),
+                            head_dim=32, d_ff=256, vocab_size=512)

@@ -1,0 +1,84 @@
+"""Bridge from the reference's numpy images to the port's tensors.
+
+``params_from_numpy`` takes the JAX parameter tree as nested dicts of numpy
+arrays (layers stacked on a leading axis, a quantized weight as
+``{"values", "scale"}``, bf16 leaves as float32 arrays, which is exact) and
+returns the port's parameters: the same tree with ``blocks`` split into a
+list of per-layer dicts, float leaves in the config's compute dtype and
+quantization scales in float32. ``kv_cache_from_numpy`` does the same for a
+cache. Turning a JAX pytree into numpy is the caller's job (the tests' own
+helper); this module imports no JAX.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kv.cache import KVCache
+from repro_torch.models.common import dtype_of
+from repro_torch.quant.int8 import QuantizedTensor
+
+
+def _leaf(a: np.ndarray, dtype, device) -> torch.Tensor:
+    t = torch.from_numpy(np.array(a, copy=True))
+    if t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def _convert(node, dtype, device):
+    if isinstance(node, dict):
+        if set(node) == {"values", "scale"}:
+            return QuantizedTensor(_leaf(node["values"], None, device),
+                                   _leaf(node["scale"], torch.float32,
+                                         device))
+        return {k: _convert(v, dtype, device) for k, v in node.items()}
+    return _leaf(np.asarray(node), dtype, device)
+
+
+def _layer(node, i: int):
+    if isinstance(node, QuantizedTensor):
+        return node[i]
+    if isinstance(node, dict):
+        return {k: _layer(v, i) for k, v in node.items()}
+    return node[i]
+
+
+def params_from_numpy(tree: Dict[str, Any], cfg,
+                      device: DeviceLike = None) -> Dict[str, Any]:
+    dev = resolve_device(device)
+    out = _convert(tree, dtype_of(cfg), dev)
+    stacked = out["blocks"]
+    out["blocks"] = [_layer(stacked, i) for i in range(cfg.n_layers)]
+    return out
+
+
+def kv_cache_from_numpy(tree: Dict[str, Any], cfg,
+                        device: DeviceLike = None) -> KVCache:
+    """``tree``: {"k", "v", "k_scale", "v_scale", "length"} numpy arrays
+    (scales None for a float cache)."""
+    dev = resolve_device(device)
+    dt = dtype_of(cfg)
+
+    def t(name, dtype):
+        a = tree.get(name)
+        return None if a is None else _leaf(np.asarray(a), dtype, dev)
+
+    k = t("k", dt)
+    return KVCache(k, t("v", dt), t("k_scale", torch.float32),
+                   t("v_scale", torch.float32),
+                   _leaf(np.asarray(tree["length"], np.int32), None, dev))
+
+
+def to_device(tree, device):
+    """The same parameter tree with every tensor moved to ``device``."""
+    if isinstance(tree, QuantizedTensor):
+        return QuantizedTensor(tree.values.to(device), tree.scale.to(device))
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, device) for v in tree]
+    return tree.to(device)

@@ -1,0 +1,138 @@
+"""Attention: GQA projections, decode attention (K1 on CUDA), chunk-prefill
+attention and the causal attention of monolithic prefill.
+
+Port of ``repro.models.attention``. ``decode_attention`` routes through the
+flash-decode wrapper: the hand-written kernel on CUDA, its plain version on
+the CPU, both in f32 (the reference rounds the softmax weights to the value
+dtype before the PV product; the kernel keeps them in f32). The prefill
+forms are plain PyTorch, as the reference's are jnp: bf16 operands enter
+the products exactly (upcast to f32) with f32 accumulation.
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels.flash_decode.ops import flash_decode
+from repro_torch.models import common
+
+NEG_INF = -1e30
+
+
+def _f32_einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """einsum of operands in their own precision with f32 accumulation and
+    an f32 result (JAX's ``preferred_element_type=float32``)."""
+    return torch.einsum(eq, a.to(torch.float32), b.to(torch.float32))
+
+
+def _masked_softmax_pv(s: torch.Tensor, mask: torch.Tensor, v: torch.Tensor,
+                       eq: str) -> torch.Tensor:
+    """Reference softmax: masked scores -> NEG_INF, max-shift, weights
+    rounded to v's dtype before the PV product, normalised by max(l,1e-30)."""
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    w = (p / torch.clamp_min(l, 1e-30)).to(v.dtype)
+    return _f32_einsum(eq, w, v)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                    ) -> torch.Tensor:
+    """Forward of the reference ``flash_attention`` for monolithic prefill,
+    as one causal masked softmax. q: (B,Sq,Hq,hd); k/v: (B,Sk,Hkv,hd) ->
+    (B,Sq,Hq,hd). Inference only: no backward in this port yet."""
+    B, Sq, Hq, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qg = q.reshape(B, Sq, Hkv, G, hd)
+    s = _f32_einsum("bqkgh,btkh->bkgqt", qg, k) / math.sqrt(hd)
+    mask = torch.arange(Sk, device=q.device)[None, :] \
+        <= torch.arange(Sq, device=q.device)[:, None]
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1)
+    o = _f32_einsum("bkgqt,btkh->bqkgh", p.to(v.dtype), v)
+    o = o / torch.clamp_min(l, 1e-30).permute(0, 3, 1, 2)[..., None]
+    return o.reshape(B, Sq, Hq, hd).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mask: torch.Tensor, k_scale=None, v_scale=None,
+                     kv_limit=None) -> torch.Tensor:
+    """q: (B,Hq,hd); k/v: (B,n_kv,S,hd) as STORED (int8 with scales
+    (B,n_kv,S,1), or float); mask: (B,S) bool; kv_limit: device int32 —
+    tiles at or past it are skipped. -> (B,Hq,hd) in q's dtype."""
+    o = flash_decode(q.contiguous(), k, v, mask, k_scale, v_scale,
+                     kv_limit=kv_limit)
+    return o.to(q.dtype)
+
+
+def chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    mask: torch.Tensor) -> torch.Tensor:
+    """q: (B,C,Hq,hd); k/v: (B,n_kv,S,hd); mask: (C,S) or (B,C,S) bool ->
+    (B,C,Hq,hd): the chunked-prefill lane's masked softmax over the cache."""
+    B, C, Hq, hd = q.shape
+    n_kv = k.shape[1]
+    G = Hq // n_kv
+    qg = q.reshape(B, C, n_kv, G, hd)
+    s = _f32_einsum("bqkgh,bksh->bkgqs", qg, k) / math.sqrt(hd)
+    if mask.ndim == 2:
+        mask = mask[None]
+    o = _masked_softmax_pv(s, mask[:, None, None], v, "bkgqs,bksh->bqkgh")
+    return o.reshape(B, C, Hq, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Length buckets for the decode KV walk
+# ---------------------------------------------------------------------------
+
+def kv_buckets(s_max: int, chunk: int) -> Tuple[int, ...]:
+    """Static bucket set for a cache of extent ``s_max``: chunk multiples
+    with ``s_max`` always last. ``chunk <= 0`` disables bucketing."""
+    if chunk <= 0 or chunk >= s_max:
+        return (s_max,)
+    return tuple(range(chunk, s_max, chunk)) + (s_max,)
+
+
+def bucket_for(needed: int, buckets: Tuple[int, ...]) -> int:
+    """Smallest bucket covering ``needed`` KV positions."""
+    for b in buckets:
+        if b >= needed:
+            return b
+    return buckets[-1]
+
+
+# ---------------------------------------------------------------------------
+# GQA projection parameters
+# ---------------------------------------------------------------------------
+
+def make_attn_params(gen, cfg) -> dict:
+    d = cfg.d_model
+    dt = common.dtype_of(cfg)
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {
+        "wq": common.make_linear(gen, d, hq * hd, dt, bias=cfg.qkv_bias,
+                                 int8=cfg.weight_int8),
+        "wk": common.make_linear(gen, d, hkv * hd, dt, bias=cfg.qkv_bias,
+                                 int8=cfg.weight_int8),
+        "wv": common.make_linear(gen, d, hkv * hd, dt, bias=cfg.qkv_bias,
+                                 int8=cfg.weight_int8),
+        "wo": common.make_linear(gen, hq * hd, d, dt, int8=cfg.weight_int8),
+    }
+
+
+def qkv_project(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x: (B,S,D) -> q (B,S,Hq,hd), k/v (B,S,Hkv,hd) with RoPE applied."""
+    B, S, _ = x.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = common.linear(p["wq"], x).reshape(B, S, hq, hd)
+    k = common.linear(p["wk"], x).reshape(B, S, hkv, hd)
+    v = common.linear(p["wv"], x).reshape(B, S, hkv, hd)
+    q = common.apply_rope(q, positions, cfg.rope_theta)
+    k = common.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v

@@ -1,0 +1,145 @@
+"""Building blocks: initializers, norms, RoPE, linear (float or int8
+weights), gated activations, embedding and the decode unembedding.
+
+Port of ``repro.models.common``. Parameters are nested dicts of tensors.
+JAX's rounding points are kept: every ``linear`` accumulates in f32 and
+returns the compute dtype, and ``gated_act`` rounds ``silu(gate)`` to the
+compute dtype before the multiply.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.gemv.ops import gemv_int8
+from repro_torch.quant.int8 import QuantizedTensor, quantize_int8
+
+Params = Dict[str, Any]
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def dtype_of(cfg) -> torch.dtype:
+    return _DTYPES[cfg.dtype]
+
+
+# ---------------------------------------------------------------------------
+# Init — fan-in scaled normal, drawn from a torch.Generator on the device
+# ---------------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, shape, dtype, fan_in: Optional[int] = None
+               ) -> torch.Tensor:
+    fan_in = fan_in if fan_in is not None else shape[0]
+    std = 1.0 / math.sqrt(max(fan_in, 1))
+    w = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    return (w * std).to(dtype)
+
+
+def make_linear(gen, d_in: int, d_out: int, dtype, *, bias: bool = False,
+                int8: bool = False) -> Params:
+    w = dense_init(gen, (d_in, d_out), dtype)
+    p: Params = {"w": quantize_int8(w, axis=0) if int8 else w}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=gen.device)
+    return p
+
+
+def linear(p: Params, x: torch.Tensor, out_dtype=None) -> torch.Tensor:
+    """x: (..., d_in) @ w: (d_in, d_out). An int8 ``QuantizedTensor``
+    weight goes through K4 (f32 out, then cast); a float weight is a plain
+    matmul with f32 accumulation, as JAX leaves it to XLA."""
+    w = p["w"]
+    out_dtype = out_dtype or x.dtype
+    if isinstance(w, QuantizedTensor):
+        y = gemv_int8(x, w).to(out_dtype)
+    else:
+        y = torch.matmul(x, w).to(out_dtype)
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def make_norm(d: int, dtype, device) -> Params:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def apply_norm(p: Params, x: torch.Tensor, eps: float = 1e-6
+               ) -> torch.Tensor:
+    """RMSNorm in f32, returned in x's dtype (the ported configs all use
+    rmsnorm; ``transformer.check_supported`` refuses layernorm)."""
+    xf = x.to(torch.float32)
+    n = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (n * p["scale"].to(torch.float32)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE (rotate-half split)
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq) int."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    ang = positions[..., None].to(torch.float32) * freqs
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Activations
+# ---------------------------------------------------------------------------
+
+def gated_act(kind: str, up: torch.Tensor, gate: torch.Tensor
+              ) -> torch.Tensor:
+    g = gate.to(torch.float32)
+    if kind == "swiglu":
+        return F.silu(g).to(up.dtype) * up
+    if kind == "geglu":
+        return F.gelu(g, approximate="tanh").to(up.dtype) * up
+    raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+def make_embedding(gen, vocab: int, d: int, dtype) -> Params:
+    return {"table": dense_init(gen, (vocab, d), dtype, fan_in=d)}
+
+
+def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
+    return p["table"][tokens]
+
+
+def unembed_logits(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """f32 logits (..., V) of x (..., D) against the (V, D) table, with f32
+    accumulation of the table's exact values. The reference upcasts the
+    whole table every call; here a bf16 table on the GPU goes straight into
+    one bf16 x bf16 -> f32-output product (``torch.mm(..., out_dtype=
+    torch.float32)``: bf16 products are exact in f32 and cuBLAS
+    accumulates in f32), so no per-step f32 copy of the table exists. A
+    float32 table (or the CPU) takes the plain f32 product."""
+    lead, D = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, D)
+    if table.dtype == torch.float32 or table.device.type != "cuda":
+        out = torch.matmul(x2.to(torch.float32), table.to(torch.float32).t())
+    else:
+        out = torch.mm(x2.to(table.dtype), table.t(),
+                       out_dtype=torch.float32)
+    return out.reshape(*lead, -1)

@@ -1,0 +1,286 @@
+"""Decoder-only dense transformer: parameters, prefill, slotted decode and
+chunked prefill.
+
+Port of the dense, inference part of ``repro.models.transformer``. The
+reference's layer ``lax.scan`` over stacked parameters becomes a Python
+loop over the per-layer parameter dicts of ``params["blocks"]``; caches are
+updated in place (see ``repro_torch.kv.cache``). On CUDA the decode path
+launches K1 (attention over the stored bucket view, int8 dequantized inside
+the kernel), K3 (the gated FFN with float weights) and K4 (every linear
+with int8 weights).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.fused_ffn.ops import fused_ffn
+from repro_torch.kv.cache import (KVCache, batch_valid_mask, bucket_view,
+                                  init_kv_cache, layer_append_slotted,
+                                  layer_read_slot, layer_write_chunk)
+from repro_torch.models import common
+from repro_torch.models.attention import (chunk_attention, decode_attention,
+                                          flash_attention, make_attn_params,
+                                          qkv_project)
+from repro_torch.quant.int8 import (QuantizedTensor, dequantize_kv,
+                                    quantize_kv)
+
+_FUSED_ACTS = {"swiglu": "silu", "geglu": "gelu"}
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for configurations the port does not serve yet."""
+    if cfg.family != "dense":
+        raise ValueError(f"family {cfg.family!r} is not ported to "
+                         "repro_torch yet (dense only)")
+    if cfg.act not in _FUSED_ACTS:
+        raise ValueError(f"activation {cfg.act!r} is not ported yet "
+                         f"(gated: {sorted(_FUSED_ACTS)})")
+    if cfg.pos != "rope" or cfg.norm != "rmsnorm":
+        raise ValueError("only rope + rmsnorm dense models are ported yet")
+    if cfg.hot_window:
+        raise ValueError("tiered KV (hot_window > 0) waits for the "
+                         "tiered-KV slice of the port")
+    if cfg.kv_dtype not in ("bfloat16", "float32", "int8"):
+        raise ValueError(f"kv_dtype {cfg.kv_dtype!r} unsupported")
+
+
+# ---------------------------------------------------------------------------
+# FFN
+# ---------------------------------------------------------------------------
+
+def make_ffn_params(gen, cfg: ModelConfig) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    dt = common.dtype_of(cfg)
+    return {"w_gate": common.make_linear(gen, d, f, dt, int8=cfg.weight_int8),
+            "w_up": common.make_linear(gen, d, f, dt, int8=cfg.weight_int8),
+            "w_down": common.make_linear(gen, f, d, dt,
+                                         int8=cfg.weight_int8)}
+
+
+def ffn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Gated FFN. Float weights: one fused call (K3 on CUDA, f32 through
+    the intermediate, cast once at the end). int8 weights: the three
+    linears through K4 with the reference's rounding points."""
+    if isinstance(p["w_gate"]["w"], QuantizedTensor):
+        up = common.linear(p["w_up"], x)
+        gate = common.linear(p["w_gate"], x)
+        return common.linear(p["w_down"], common.gated_act(cfg.act, up, gate))
+    lead = x.shape[:-1]
+    out = fused_ffn(x.reshape(-1, x.shape[-1]), p["w_gate"]["w"],
+                    p["w_up"]["w"], p["w_down"]["w"],
+                    act=_FUSED_ACTS[cfg.act])
+    return out.reshape(*lead, -1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+def make_block_params(gen, cfg: ModelConfig) -> dict:
+    dt = common.dtype_of(cfg)
+    dev = gen.device
+    return {"ln1": common.make_norm(cfg.d_model, dt, dev),
+            "attn": make_attn_params(gen, cfg),
+            "ln2": common.make_norm(cfg.d_model, dt, dev),
+            "ffn": make_ffn_params(gen, cfg)}
+
+
+def _ffn_half(p, x, cfg):
+    h = common.apply_norm(p["ln2"], x, cfg.norm_eps)
+    return x + ffn_apply(p["ffn"], h, cfg)
+
+
+def block_full_seq(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                   positions: torch.Tensor,
+                   kv_quant_roundtrip: bool = False):
+    """Full-sequence block (prefill). x: (B,S,D) -> (x', (k, v)).
+    ``kv_quant_roundtrip`` (int8-KV prefill): attend the quantize ->
+    dequantize image of K/V, the values the cache will hold; the original
+    K/V still go to the caller."""
+    h = common.apply_norm(p["ln1"], x, cfg.norm_eps)
+    q, k, v = qkv_project(p["attn"], h, cfg, positions)
+    k_att, v_att = k, v
+    if kv_quant_roundtrip:
+        k_att = dequantize_kv(*quantize_kv(k), dtype=k.dtype)
+        v_att = dequantize_kv(*quantize_kv(v), dtype=v.dtype)
+    o = flash_attention(q, k_att, v_att)
+    o = common.linear(p["attn"]["wo"], o.reshape(x.shape[0], x.shape[1], -1))
+    return _ffn_half(p, x + o, cfg), (k, v)
+
+
+def block_decode_slotted(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                         kv_slices: Tuple, positions: torch.Tensor,
+                         active: torch.Tensor, kv_bucket: int = 0,
+                         kv_limit=None) -> torch.Tensor:
+    """One decode layer with per-row cursors. x: (B,1,D). Row b appends at
+    ``positions[b]`` (inactive rows write nothing) and attends its own
+    prefix over the first ``kv_bucket`` positions (0 = full extent); the
+    cache slices in ``kv_slices`` are updated in place. ``kv_limit``
+    (device int32) lets the kernel skip tiles past every live cursor."""
+    B = x.shape[0]
+    h = common.apply_norm(p["ln1"], x, cfg.norm_eps)
+    q, k, v = qkv_project(p["attn"], h, cfg, positions[:, None])
+    k_l, v_l, ks_l, vs_l = layer_append_slotted(*kv_slices, k[:, 0], v[:, 0],
+                                                positions, active)
+    kc, vc, ksc, vsc = bucket_view(k_l, v_l, ks_l, vs_l, kv_bucket)
+    mask = batch_valid_mask(kc.shape[2], positions)
+    o = decode_attention(q[:, 0], kc, vc, mask, ksc, vsc, kv_limit=kv_limit)
+    o = common.linear(p["attn"]["wo"], o.reshape(B, 1, -1))
+    return _ffn_half(p, x + o, cfg)
+
+
+def block_prefill_chunk(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                        kv_slices: Tuple, slot: int, start: int,
+                        valid_len: int) -> torch.Tensor:
+    """Chunk-prefill layer: x (1,C,D) is slot ``slot``'s prompt chunk at
+    absolute positions [start, start+C). Writes the chunk's K/V (positions
+    >= valid_len keep their bytes), reads the slot's prefix back from the
+    STORED cache and runs causal chunk attention against it."""
+    _, C, _ = x.shape
+    positions = start + torch.arange(C, dtype=torch.int32,
+                                     device=x.device)[None]
+    h = common.apply_norm(p["ln1"], x, cfg.norm_eps)
+    q, k, v = qkv_project(p["attn"], h, cfg, positions)
+    k_l = kv_slices[0]
+    S = k_l.shape[2]
+    mask = torch.arange(S, device=x.device)[None, :] \
+        <= positions[0][:, None]                                   # (C,S)
+    slices = layer_write_chunk(*kv_slices, k[0].transpose(0, 1),
+                               v[0].transpose(0, 1), slot, start, valid_len)
+    kc, vc = layer_read_slot(*slices, slot, dtype=x.dtype)
+    o = chunk_attention(q, kc, vc, mask)
+    o = common.linear(p["attn"]["wo"], o.reshape(1, C, -1))
+    return _ffn_half(p, x + o, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Whole-model parameters
+# ---------------------------------------------------------------------------
+
+def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
+    """Seeded random parameters on ``gen.device``: ``blocks`` is a list of
+    per-layer dicts (the reference stacks them for its scan)."""
+    check_supported(cfg)
+    dt = common.dtype_of(cfg)
+    params: Dict[str, Any] = {
+        "embed": common.make_embedding(gen, cfg.vocab_size, cfg.d_model, dt),
+        "blocks": [make_block_params(gen, cfg) for _ in range(cfg.n_layers)],
+        "ln_f": common.make_norm(cfg.d_model, dt, gen.device),
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = common.make_embedding(gen, cfg.vocab_size,
+                                                  cfg.d_model, dt)
+    return params
+
+
+def unembed_table(params, cfg: ModelConfig) -> torch.Tensor:
+    return (params["embed"] if cfg.tie_embeddings
+            else params["unembed"])["table"]
+
+
+def _final_logits(params, x, cfg):
+    x = common.apply_norm(params["ln_f"], x, cfg.norm_eps)
+    return common.unembed_logits(unembed_table(params, cfg), x)
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence forward (prefill, inference only)
+# ---------------------------------------------------------------------------
+
+def forward_hidden(params, tokens: torch.Tensor, cfg: ModelConfig):
+    """Inference forward of a prompt. tokens: (B,S) -> (hidden (B,S,D)
+    after the final norm, per-layer list of (k, v) each (B,S,n_kv,hd)).
+    int8-KV configs attend the quantized image of K/V, as the reference's
+    prefill does."""
+    x = common.embed(params["embed"], tokens)
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device)[None].expand(B, S)
+    roundtrip = cfg.kv_dtype == "int8"
+    kvs: List[Tuple[torch.Tensor, torch.Tensor]] = []
+    for lp in params["blocks"]:
+        x, kv = block_full_seq(lp, x, cfg, positions,
+                               kv_quant_roundtrip=roundtrip)
+        kvs.append(kv)
+    return common.apply_norm(params["ln_f"], x, cfg.norm_eps), kvs
+
+
+def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, cache: KVCache
+            ) -> Tuple[KVCache, torch.Tensor]:
+    """Encode the context, fill the cache, return last-position logits
+    (B,1,V) f32."""
+    x, kvs = forward_hidden(params, tokens, cfg)
+    k_all = torch.stack([k for k, _ in kvs]).transpose(2, 3)  # (L,B,n_kv,S,hd)
+    v_all = torch.stack([v for _, v in kvs]).transpose(2, 3)
+    cache = write_prefill(cache, k_all, v_all, tokens.shape[1])
+    logits = common.unembed_logits(unembed_table(params, cfg), x[:, -1:])
+    return cache, logits
+
+
+def write_prefill(cache: KVCache, k_all, v_all, S: int) -> KVCache:
+    """Bulk-write a prefilled context (positions [0, S)) into the cache."""
+    if cache.is_quantized:
+        kq, ks = quantize_kv(k_all)
+        vq, vs = quantize_kv(v_all)
+        cache.k[..., :S, :].copy_(kq)
+        cache.v[..., :S, :].copy_(vq)
+        cache.k_scale[..., :S, :].copy_(ks)
+        cache.v_scale[..., :S, :].copy_(vs)
+    else:
+        cache.k[..., :S, :].copy_(k_all)
+        cache.v[..., :S, :].copy_(v_all)
+    cache.length = torch.full((), S, dtype=torch.int32,
+                              device=cache.k.device)
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# Slotted decode and chunked prefill
+# ---------------------------------------------------------------------------
+
+def decode_step_slotted(params, cache: KVCache, tokens: torch.Tensor,
+                        positions: torch.Tensor, active: torch.Tensor,
+                        cfg: ModelConfig, kv_bucket: int = 0
+                        ) -> Tuple[KVCache, torch.Tensor]:
+    """Continuous-batching decode step. tokens/positions/active: (B,)
+    device tensors. Row b appends at positions[b] and attends
+    0..positions[b]. Returns (cache, logits (B,1,V) f32). Makes no host
+    sync: the kernel's tile limit ``max(positions[active]) + 1`` stays on
+    the device."""
+    x = common.embed(params["embed"], tokens[:, None])
+    live = torch.where(active, positions, torch.full_like(positions, -1))
+    kv_limit = (live.max() + 1).to(torch.int32)
+    for i, lp in enumerate(params["blocks"]):
+        x = block_decode_slotted(lp, x, cfg, cache.layer(i), positions,
+                                 active, kv_bucket=kv_bucket,
+                                 kv_limit=kv_limit)
+    cache.length = torch.maximum(
+        cache.length, (torch.where(active, positions, 0).max() + 1)
+        .to(torch.int32))
+    return cache, _final_logits(params, x, cfg)
+
+
+def prefill_chunk(params, cache: KVCache, tokens: torch.Tensor, slot: int,
+                  start: int, valid_len: int, cfg: ModelConfig
+                  ) -> Tuple[KVCache, torch.Tensor]:
+    """Chunked prefill: tokens (1,C) are slot ``slot``'s prompt chunk at
+    positions [start, start+valid_len); positions >= valid_len are padding,
+    masked out of the KV write and of the returned logits. Returns (cache,
+    logits (1,1,V)) at the chunk's last valid position."""
+    x = common.embed(params["embed"], tokens)
+    for i, lp in enumerate(params["blocks"]):
+        x = block_prefill_chunk(lp, x, cfg, cache.layer(i), slot, start,
+                                valid_len)
+    cache.length = torch.clamp_min(cache.length, start + valid_len)
+    return cache, _final_logits(params, x[:, valid_len - 1:valid_len], cfg)
+
+
+def make_cache(cfg: ModelConfig, batch: int, max_len: int, device
+               ) -> KVCache:
+    check_supported(cfg)
+    return init_kv_cache(cfg.n_layers, batch, cfg.n_kv_heads, max_len,
+                         cfg.head_dim, dtype=common.dtype_of(cfg),
+                         quantized=(cfg.kv_dtype == "int8"), device=device)

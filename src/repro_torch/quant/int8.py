@@ -1,0 +1,78 @@
+"""INT8 quantization, bit-exact with ``repro.quant.int8``.
+
+Symmetric per-channel scales. Bit-exactness rests on three choices kept
+from the reference: the division ``x / scale`` (never a multiply by the
+reciprocal), round-half-to-even (``torch.round`` and ``jnp.round`` agree),
+and the all-zero-row KV scale of 1.0.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Sequence, Tuple, Union
+
+import torch
+
+
+@dataclass
+class QuantizedTensor:
+    """int8 values + f32 scale broadcastable against ``values``."""
+    values: torch.Tensor        # int8
+    scale: torch.Tensor         # float32, quantized axes of size 1
+
+    def __getitem__(self, i) -> "QuantizedTensor":
+        """Leading-axis view (one layer of a stacked weight)."""
+        return QuantizedTensor(self.values[i], self.scale[i])
+
+
+def _axes(x: torch.Tensor, axis) -> Tuple[int, ...]:
+    if axis is None:
+        return tuple(range(x.ndim))
+    if isinstance(axis, int):
+        return (axis,)
+    return tuple(axis)
+
+
+def quantize_int8(x: torch.Tensor,
+                  axis: Union[None, int, Sequence[int]] = None
+                  ) -> QuantizedTensor:
+    """``axis`` = reduction axes for the scale (one scale per remaining
+    channel); ``None`` is per-tensor."""
+    xf = x.to(torch.float32)
+    amax = torch.amax(xf.abs(), dim=_axes(x, axis), keepdim=True)
+    scale = torch.clamp_min(amax, 1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return QuantizedTensor(q, scale)
+
+
+def dequantize(q: QuantizedTensor, dtype=torch.bfloat16) -> torch.Tensor:
+    return (q.values.to(torch.float32) * q.scale).to(dtype)
+
+
+def int8_matmul(x: torch.Tensor, w: QuantizedTensor,
+                out_dtype: Optional[torch.dtype] = torch.bfloat16
+                ) -> torch.Tensor:
+    """x @ w for int8 weights, W8A8: x quantized per row on the fly,
+    int32-exact accumulation (computed in float64, exact for
+    |acc| < 2^53), then ``(acc * x_scale) * w_scale`` in f32 as the
+    reference orders it. The model path reaches this through the K4
+    kernel wrapper (``kernels.gemv.ops.gemv_int8``)."""
+    xq = quantize_int8(x, axis=-1)
+    acc = torch.matmul(xq.values.to(torch.float64),
+                       w.values.to(torch.float64)).to(torch.float32)
+    return (acc * xq.scale * w.scale.reshape(1, -1)).to(out_dtype)
+
+
+def quantize_kv(kv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """kv: (..., head_dim) -> (int8 values, f32 scales (..., 1)). All-zero
+    rows take scale 1.0 (reset slots, padded chunk tails)."""
+    kf = kv.to(torch.float32)
+    amax = torch.amax(kf.abs(), dim=-1, keepdim=True)
+    scale = torch.where(amax > 0.0, torch.clamp_min(amax, 1e-8),
+                        torch.full_like(amax, 127.0)) / 127.0
+    q = torch.clamp(torch.round(kf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_kv(values: torch.Tensor, scale: torch.Tensor,
+                  dtype=torch.bfloat16) -> torch.Tensor:
+    return (values.to(torch.float32) * scale).to(dtype)

@@ -1,0 +1,794 @@
+"""Continuous-batching serving engine: the colocated, continuous part of
+``repro.runtime.serving``.
+
+- the decode batch is a fixed set of SLOTS; a queued request is admitted
+  into any free slot mid-serve,
+- every row carries its own cursor (``positions``) and an ``active`` mask,
+  so retired slots neither write KV nor pollute the argmax,
+- macro-step decode (``block_size`` = T > 1) runs T greedy micro-steps per
+  host round-trip with on-device halting (``ModelAPI.decode_block``),
+- admission is monolithic (one full-width prefill + slot write) or the
+  chunked-prefill lane (``prefill_chunk`` = C > 0: at most one fixed-(1,C)
+  chunk per block boundary, cursors at the TRUE prompt length),
+- length-aware KV walking: each macro-step uses the smallest KV bucket
+  covering every live cursor + T (``kv_bucket_chunk``).
+
+The host-side ``SlotScheduler`` decides what runs at each block boundary;
+the ``ExecutorBackend`` owns the slot caches and the registered step
+programs; ``ServingEngine`` is the boundary loop between them and counts
+its one host sync per decode round (``host_syncs``).
+
+Knobs of the reference that later slices of the port bring raise
+``ValueError`` here instead of being ignored: drain mode, the WA backend
+and its overlap, split-KV ``a_shards``, preemption, bounded queues,
+priorities and deadlines, fault injection, tiered KV and its byte budget.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.attention import bucket_for, kv_buckets
+from repro_torch.models.registry import DECODE_SLACK, ModelAPI
+from repro_torch.runtime.static_runtime import StaticRuntime
+
+
+class RequestRejected(ValueError):
+    """Enqueue-time rejection of an unrepresentable request, with the
+    request id, the offending length and the limit as fields."""
+
+    def __init__(self, rid: int, reason: str, *, length=None, limit=None,
+                 limit_name: str = ""):
+        self.rid, self.reason = rid, reason
+        self.length, self.limit, self.limit_name = length, limit, limit_name
+        super().__init__(f"request {rid}: {reason}")
+
+
+@dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray                  # (L,) int32 — TRUE length
+    max_new_tokens: int
+    arrival_step: int = 0               # decode step at which it is queued
+    eos_id: int = -1                    # stop id (< 0 -> budget only)
+    generated: List[int] = field(default_factory=list)
+    t_enqueue: float = 0.0
+    t_admitted: float = 0.0
+    t_first_token: float = 0.0
+    t_done: float = 0.0
+    admit_step: int = -1
+    t_last_emit: float = 0.0
+    max_gap: float = 0.0
+    priority: int = 0                   # failure-model slice: must stay 0
+    ttft_deadline_ms: float = 0.0       # failure-model slice: must stay 0
+    tpot_deadline_ms: float = 0.0       # failure-model slice: must stay 0
+    status: str = "pending"
+
+    @property
+    def done(self) -> bool:
+        if self.eos_id >= 0 and self.generated \
+                and self.generated[-1] == self.eos_id:
+            return True
+        return len(self.generated) >= self.max_new_tokens
+
+    def note_emit(self, now: float):
+        if self.t_last_emit > 0.0:
+            self.max_gap = max(self.max_gap, now - self.t_last_emit)
+        self.t_last_emit = now
+
+    def metrics(self) -> Dict[str, Any]:
+        n = len(self.generated)
+        return {
+            "rid": self.rid,
+            "tokens": n,
+            "prompt_tokens": int(len(self.prompt)),
+            "arrival_step": self.arrival_step,
+            "admit_step": self.admit_step,
+            "queue_delay_ms": max(0.0, self.t_admitted - self.t_enqueue) * 1e3,
+            "ttft_ms": max(0.0, self.t_first_token - self.t_enqueue) * 1e3,
+            "tpot_ms": ((self.t_done - self.t_first_token) / (n - 1) * 1e3
+                        if n > 1 else 0.0),
+            "max_gap_ms": self.max_gap * 1e3,
+            "status": self.status,
+        }
+
+
+def pad_row(prompt: np.ndarray, width: int) -> np.ndarray:
+    """Zero-pad a prompt (slice) up to a static width; never truncates."""
+    if len(prompt) > width:
+        raise ValueError(f"prompt slice of {len(prompt)} exceeds width "
+                         f"{width}")
+    row = np.zeros((width,), np.int32)
+    row[:len(prompt)] = prompt
+    return row
+
+
+# ---------------------------------------------------------------------------
+# SlotScheduler — the HOST half
+# ---------------------------------------------------------------------------
+
+class SlotScheduler:
+    """Slot occupancy, arrival pump, per-slot cursors/halt operands and the
+    chunk-lane bookkeeping. Host state only: it never touches a tensor."""
+
+    FREE, PREFILL, DECODE = "free", "prefill", "decode"
+
+    def __init__(self, n_slots: int, requests: List[Request],
+                 queue: List[Request]):
+        self.n = n_slots
+        self.pending = sorted(requests, key=lambda r: r.arrival_step)
+        self.queue = queue
+        self.req: List[Optional[Request]] = [None] * n_slots
+        self.phase = [self.FREE] * n_slots
+        self.filled = [0] * n_slots
+        self.prefill_fifo: List[int] = []
+        self.positions = np.zeros((n_slots,), np.int32)
+        self.last_tok = np.zeros((n_slots,), np.int32)
+        self.remaining = np.zeros((n_slots,), np.int32)
+        self.eos = np.full((n_slots,), -1, np.int32)
+
+    def work_remaining(self) -> bool:
+        return bool(self.pending or self.queue
+                    or any(p != self.FREE for p in self.phase))
+
+    def pump(self, step: int):
+        """Requests whose arrival_step has come move to the queue (stamped
+        here unless ``submit()`` already stamped them)."""
+        while self.pending and self.pending[0].arrival_step <= step:
+            r = self.pending.pop(0)
+            if not r.t_enqueue:
+                r.t_enqueue = time.monotonic()
+            r.status = "queued"
+            self.queue.append(r)
+
+    def occupied(self) -> bool:
+        return any(p != self.FREE for p in self.phase)
+
+    def decode_active(self) -> np.ndarray:
+        return np.array([p == self.DECODE for p in self.phase])
+
+    def usable_free(self) -> Optional[int]:
+        for i in range(self.n):
+            if self.phase[i] == self.FREE:
+                return i
+        return None
+
+    def pop_queue(self) -> Optional[Request]:
+        """FIFO by enqueue stamp, then rid (the reference's order with every
+        priority equal)."""
+        if not self.queue:
+            return None
+        j = min(range(len(self.queue)),
+                key=lambda j: (self.queue[j].t_enqueue, self.queue[j].rid))
+        return self.queue.pop(j)
+
+    def begin_prefill(self, slot: int, r: Request, step: int):
+        r.t_admitted = time.monotonic()
+        r.admit_step = step
+        r.status = "active"
+        self.req[slot] = r
+        self.phase[slot] = self.PREFILL
+        self.filled[slot] = 0
+        self.prefill_fifo.append(slot)
+
+    def next_chunk(self, chunk: int, kv_extent: int
+                   ) -> Optional[Tuple[int, Request, int, int]]:
+        """(slot, request, start, n_valid) of the next fixed-(1,C) chunk, or
+        None. A window that would overrun the KV extent shifts LEFT over
+        already-written positions (recomputing them is bit-identical)."""
+        if not self.prefill_fifo:
+            return None
+        i = self.prefill_fifo[0]
+        r = self.req[i]
+        start = self.filled[i]
+        if start + chunk > kv_extent:
+            start = kv_extent - chunk
+        return i, r, start, min(chunk, len(r.prompt) - start)
+
+    def chunk_done(self, slot: int, start: int, n_valid: int) -> bool:
+        self.filled[slot] = start + n_valid
+        if self.filled[slot] >= len(self.req[slot].prompt):
+            self.prefill_fifo.pop(0)
+            return True
+        return False
+
+    def start_decode(self, slot: int, cursor: int, first_tok: int):
+        r = self.req[slot]
+        self.phase[slot] = self.DECODE
+        self.positions[slot] = cursor
+        self.last_tok[slot] = first_tok
+        self.remaining[slot] = r.max_new_tokens - 1
+        self.eos[slot] = r.eos_id
+
+    def retire(self, slot: int):
+        self.req[slot] = None
+        self.phase[slot] = self.FREE
+        if slot in self.prefill_fifo:
+            self.prefill_fifo.remove(slot)
+
+
+# ---------------------------------------------------------------------------
+# ExecutorBackend — the DEVICE half
+# ---------------------------------------------------------------------------
+
+class ExecutorBackend:
+    """Owns the slot caches and every registered step program. The
+    boundary loop calls only this contract:
+
+      fresh()                                fresh slot caches for a run
+      admit_full(params, row, slot)          monolithic admission
+      run_chunk(params, row, slot, start, valid)   one (1,C) prefill chunk
+      decode_step(params, tok, pos, act)     one slotted step (T == 1)
+      decode_block(params, bucket, ...)      one T-micro-step block
+      reset(slot) / has_reset                debug slot zeroing
+
+    Programs registered per mode (one each, ``compiles`` == 1):
+
+      chunked admission     serve_prefill_chunk
+      monolithic admission  serve_prefill1 + serve_admit
+      T == 1                serve_decode
+      T > 1                 serve_decode_block[_s{N}] per KV bucket
+      debug_reset_slots     serve_reset
+    """
+
+    def __init__(self, api: ModelAPI, rt: StaticRuntime, *, slots: int,
+                 prompt_len: int, max_new_cap: int, block_size: int,
+                 kv_bucket_chunk: int, prefill_chunk: int,
+                 debug_reset_slots: bool):
+        self.api, self.rt = api, rt
+        self.device = api.device
+        self.slots, self.prompt_len = slots, prompt_len
+        self.max_new_cap = max_new_cap
+        self.block_size = block_size
+        self.prefill_chunk = prefill_chunk
+        self.caches = None
+        self.buckets: Tuple[int, ...] = ()
+        self._decode_blocks: Dict[int, Any] = {}
+        self._reset = None
+        self._build_continuous(kv_bucket_chunk, prefill_chunk,
+                               debug_reset_slots)
+
+    def _bucket_set(self, kv_bucket_chunk) -> Tuple[int, ...]:
+        s_max = self.prompt_len + self.max_new_cap
+        return kv_buckets(s_max, kv_bucket_chunk) if kv_bucket_chunk > 0 \
+            else (0,)
+
+    def _build_reset(self, debug_reset_slots):
+        if debug_reset_slots:
+            self._reset = self.rt.compile_step("serve_reset",
+                                               self.api.reset_slot)
+
+    @staticmethod
+    def _postprocess(logits, positions, active):
+        nxt = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
+        return torch.where(active, nxt, torch.zeros_like(nxt)), \
+            positions + active.to(torch.int32)
+
+    def _build_decode_programs(self, kv_bucket_chunk, prefix, slotted_fn,
+                               block_fn):
+        """One ``{prefix}decode_block[_s{N}]`` per KV bucket for T > 1,
+        else the single ``{prefix}decode`` step program."""
+        if self.block_size > 1:
+            self.buckets = self._bucket_set(kv_bucket_chunk)
+            for sb in self.buckets:
+                name = f"{prefix}decode_block" if len(self.buckets) == 1 \
+                    else f"{prefix}decode_block_s{sb}"
+
+                def block_step(p, caches, tok, pos, act, rem, eos, _sb=sb):
+                    return block_fn(p, caches, tok, pos, act, rem, eos, _sb)
+
+                self._decode_blocks[sb] = self.rt.compile_step(name,
+                                                               block_step)
+            return
+
+        def decode_fn(p, caches, tokens, positions, active):
+            caches, logits = slotted_fn(p, caches, tokens, positions, active)
+            return (caches,) + self._postprocess(logits, positions, active)
+
+        self._decode = self.rt.compile_step(f"{prefix}decode", decode_fn)
+
+    def _build_continuous(self, kv_bucket_chunk, prefill_chunk,
+                          debug_reset_slots):
+        raise NotImplementedError
+
+    @property
+    def has_reset(self) -> bool:
+        return self._reset is not None
+
+    def _to_device(self, *rows: np.ndarray) -> List[torch.Tensor]:
+        """Host operands in ONE host-to-device copy, unpacked on device."""
+        packed = torch.from_numpy(np.stack([np.asarray(r, np.int32)
+                                            for r in rows]))
+        return list(packed.to(self.device).unbind(0))
+
+    def fresh(self):
+        self.caches = self.api.init_caches(self.slots,
+                                           self.prompt_len + self.max_new_cap)
+
+    def admit_full(self, params, row: np.ndarray, slot: int):
+        raise NotImplementedError
+
+    def run_chunk(self, params, row: np.ndarray, slot: int, start: int,
+                  valid: int):
+        """One fixed-(1,C) chunk at the slot's offset; returns the device
+        tensor holding the chunk's last-valid-position argmax."""
+        toks = torch.from_numpy(row[None]).to(self.device)
+        self.caches, tok = self._chunk(params, self.caches, toks, slot,
+                                       start, valid)
+        return tok
+
+    def decode_step(self, params, last_tok, positions, active):
+        tok, pos, act = self._to_device(last_tok, positions, active)
+        self.caches, nxt, new_pos = self._decode(params, self.caches, tok,
+                                                 pos, act.bool())
+        return nxt, new_pos
+
+    def decode_block(self, params, bucket, last_tok, positions, active,
+                     remaining, eos):
+        tok, pos, act, rem, eos_d = self._to_device(
+            last_tok, positions, active, remaining, eos)
+        self.caches, toks, emitted, last_d, pos_d, act_d, rem_d = \
+            self._decode_blocks[bucket](params, self.caches, tok, pos,
+                                        act.bool(), rem, eos_d)
+        return toks, emitted, last_d, pos_d, act_d, rem_d
+
+    def reset(self, slot: int):
+        self.caches = self._reset(self.caches, slot)
+
+
+class ColocatedBackend(ExecutorBackend):
+    """Single-device executor running the family's own slotted programs."""
+
+    def _build_continuous(self, kv_bucket_chunk, prefill_chunk,
+                          debug_reset_slots):
+        api, T = self.api, self.block_size
+        self._prefill1 = None
+        if prefill_chunk:
+            def chunk_fn(p, caches, toks, slot, start, valid):
+                caches, logits = api.prefill_chunk(p, caches, toks, slot,
+                                                   start, valid)
+                return caches, torch.argmax(logits[:, -1], dim=-1)
+
+            self._chunk = self.rt.compile_step("serve_prefill_chunk",
+                                               chunk_fn)
+        else:
+            def prefill1_fn(p, toks):
+                caches, logits = api.prefill(p, toks)
+                return caches, torch.argmax(logits[:, -1], dim=-1)
+
+            self._prefill1 = self.rt.compile_step("serve_prefill1",
+                                                  prefill1_fn)
+            self._admit = self.rt.compile_step("serve_admit", api.write_slot)
+        self._build_reset(debug_reset_slots)
+        self._build_decode_programs(
+            kv_bucket_chunk, "serve_",
+            lambda p, c, t, pos, act: api.decode_slotted(p, c, t, pos, act),
+            lambda p, c, t, pos, act, rem, eos, sb: api.decode_block(
+                p, c, t, pos, act, rem, eos, block_size=T, kv_bucket=sb))
+
+    def admit_full(self, params, row: np.ndarray, slot: int):
+        """Monolithic admission: batch-1 full-width prefill + slot write.
+        Returns the device tensor holding the first token."""
+        single, first = self._prefill1(
+            params, torch.from_numpy(row[None]).to(self.device))
+        self.caches = self._admit(self.caches, single, slot)
+        return first
+
+
+BACKENDS = {"colocated": ColocatedBackend}
+
+
+# ---------------------------------------------------------------------------
+# ServingEngine — the boundary loop
+# ---------------------------------------------------------------------------
+
+def _later(knob: str, slice_name: str) -> ValueError:
+    return ValueError(f"{knob} is not ported to repro_torch yet; it arrives "
+                      f"with the {slice_name} slice of the port")
+
+
+class ServingEngine:
+    """Greedy decoding over fixed batch slots with per-slot admission.
+
+    ``block_size`` (T): decode micro-steps per host round-trip (1 = one
+    ``serve_decode`` program and one host sync per token).
+    ``prefill_chunk`` (C): chunked-prefill lane; 0 = monolithic admission
+    (prompts longer than ``prompt_len`` are rejected at submit, never cut).
+    ``kv_bucket_chunk``: > 0 registers one decode-block program per KV
+    bucket and picks the smallest covering bucket per macro-step.
+    ``debug_reset_slots``: zero a slot's cache when its request retires.
+    ``device``: must be the api's device; ``None`` means ``cuda`` (raises
+    without a GPU unless ``device="cpu"`` is passed).
+
+    A ``run()`` may be repeated: per-run accumulators reset and the slot
+    caches are allocated fresh, while the registered programs persist.
+    """
+
+    def __init__(self, api: ModelAPI, batch_slots: int, prompt_len: int,
+                 runtime: Optional[StaticRuntime] = None,
+                 mode: str = "continuous",
+                 max_new_cap: int = DECODE_SLACK, block_size: int = 1,
+                 kv_bucket_chunk: int = 0, prefill_chunk: int = 0,
+                 debug_reset_slots: bool = False,
+                 backend: str = "colocated", a_shards: int = 1,
+                 overlap: int = 1, preemptible: bool = False,
+                 max_queue: int = 0, fault_injector: Optional[Any] = None,
+                 kv_budget_bytes: int = 0, device: DeviceLike = None):
+        dev = resolve_device(device)
+        if dev != api.device:
+            raise ValueError(f"engine device {dev} differs from the model's "
+                             f"{api.device}; build both on one device")
+        if mode == "drain":
+            raise _later("mode='drain'", "drain-mode")
+        if mode not in ("auto", "continuous"):
+            raise ValueError(mode)
+        if backend == "wa":
+            raise _later("backend='wa'", "WA-backend + overlap")
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}; choose from "
+                             f"{sorted(BACKENDS)}")
+        if a_shards != 1:
+            raise _later(f"a_shards={a_shards}", "split-KV")
+        if overlap != 1:
+            raise _later(f"overlap={overlap}", "WA-backend + overlap")
+        if preemptible:
+            raise _later("preemptible=True", "failure-model")
+        if max_queue:
+            raise _later(f"max_queue={max_queue}", "failure-model")
+        if fault_injector is not None:
+            raise _later("fault_injector", "failure-model")
+        if kv_budget_bytes:
+            raise _later(f"kv_budget_bytes={kv_budget_bytes}", "tiered-KV")
+        if api.config.hot_window:
+            raise _later("hot_window > 0", "tiered-KV")
+        if block_size < 1:
+            raise ValueError(f"block_size must be >= 1, got {block_size}")
+        if prefill_chunk < 0:
+            raise ValueError(f"prefill_chunk must be >= 0, got {prefill_chunk}")
+        self.api = api
+        self.slots = batch_slots
+        self.prompt_len = prompt_len
+        self.max_new_cap = min(max_new_cap, DECODE_SLACK)
+        self.mode = "continuous"
+        self.backend = backend
+        self.block_size = block_size
+        self.kv_bucket_chunk = kv_bucket_chunk
+        self.prefill_chunk = prefill_chunk
+        self.debug_reset_slots = debug_reset_slots
+        self._kv_extent = prompt_len + self.max_new_cap
+        if prefill_chunk > self._kv_extent:
+            raise ValueError(
+                f"prefill_chunk={prefill_chunk} exceeds the KV extent "
+                f"{self._kv_extent}; the fixed (1,C) window must fit the "
+                "cache")
+        self.rt = runtime or StaticRuntime()
+        self.queue: List[Request] = []
+        self._ex: Optional[ExecutorBackend] = None
+        self._reset_per_run()
+
+    def _reset_per_run(self):
+        self.tpot_samples: List[float] = []
+        self.host_syncs = 0
+        self._decode_tokens = 0
+        self._decode_time = 0.0
+        self._prefill_time = 0.0
+        self._prefill_chunks = 0
+        self._block_tokens: List[int] = []
+        self._macro_steps = 0
+        self.queue = []
+
+    def _emit_token(self, r: Request, tok: int):
+        r.generated.append(int(tok))
+
+    def _finish(self, r: Request, now: float):
+        r.status = "completed"
+        r.t_done = now
+
+    def _host_sync(self, *tensors: torch.Tensor):
+        """THE counted device-to-host round-trip of the decode loop: all
+        operands travel in one packed int32 copy (one synchronisation) and
+        come back as numpy arrays of their own shapes."""
+        self.host_syncs += 1
+        flat = torch.cat([t.reshape(-1).to(torch.int32) for t in tensors])
+        host = flat.cpu().numpy()
+        out, o = [], 0
+        for t in tensors:
+            a = host[o:o + t.numel()].reshape(tuple(t.shape))
+            out.append(a.astype(bool) if t.dtype == torch.bool else a)
+            o += t.numel()
+        return tuple(out) if len(out) > 1 else out[0]
+
+    def _validate_request(self, r: Request):
+        """Admission-time length contract: a prompt the engine cannot
+        represent is rejected, never cut."""
+        if r.priority or r.ttft_deadline_ms or r.tpot_deadline_ms:
+            raise _later("request priorities and deadlines",
+                         "failure-model")
+        L = len(r.prompt)
+        if L == 0:
+            raise RequestRejected(r.rid, "empty prompt", length=0, limit=1,
+                                  limit_name="min prompt length")
+        if r.max_new_tokens < 1:
+            raise RequestRejected(
+                r.rid, f"max_new_tokens={r.max_new_tokens} must be >= 1",
+                length=r.max_new_tokens, limit=1,
+                limit_name="min max_new_tokens")
+        if r.max_new_tokens > self.max_new_cap:
+            raise RequestRejected(
+                r.rid, f"max_new_tokens={r.max_new_tokens} exceeds cache "
+                f"slack {self.max_new_cap} (raise max_new_cap)",
+                length=r.max_new_tokens, limit=self.max_new_cap,
+                limit_name="max_new_cap")
+        if not self.prefill_chunk:
+            if L > self.prompt_len:
+                raise RequestRejected(
+                    r.rid, f"prompt length {L} exceeds the static prompt "
+                    f"width {self.prompt_len} (monolithic admission); raise "
+                    "prompt_len or enable prefill_chunk > 0",
+                    length=L, limit=self.prompt_len, limit_name="prompt_len")
+        elif L + r.max_new_tokens > self._kv_extent:
+            raise RequestRejected(
+                r.rid, f"prompt length {L} + max_new_tokens="
+                f"{r.max_new_tokens} exceeds the KV extent "
+                f"{self._kv_extent} (chunked admission)",
+                length=L + r.max_new_tokens, limit=self._kv_extent,
+                limit_name="kv_extent")
+
+    def submit(self, req: Request):
+        self._validate_request(req)
+        req.t_enqueue = time.monotonic()
+        req.status = "queued"
+        self.queue.append(req)
+
+    def _prepare(self):
+        if self._ex is None:
+            self._ex = BACKENDS[self.backend](
+                self.api, self.rt, slots=self.slots,
+                prompt_len=self.prompt_len, max_new_cap=self.max_new_cap,
+                block_size=self.block_size,
+                kv_bucket_chunk=self.kv_bucket_chunk,
+                prefill_chunk=self.prefill_chunk,
+                debug_reset_slots=self.debug_reset_slots)
+
+    @torch.inference_mode()
+    def run(self, params, requests: List[Request],
+            max_steps: int = 10_000) -> Dict[str, Any]:
+        """Serve all requests (and any ``submit()``-ted before) to
+        completion; returns latency stats."""
+        pre = list(self.queue)
+        seen = {id(r) for r in pre}
+        requests = pre + [r for r in requests if id(r) not in seen]
+        for r in requests:
+            self._validate_request(r)
+        self._prepare()
+        self._reset_per_run()
+        return self._run_continuous(params, requests, max_steps)
+
+    def _run_continuous(self, params, requests, max_steps):
+        T = self.block_size
+        ex = self._ex
+        ex.fresh()
+        sched = SlotScheduler(self.slots, requests, self.queue)
+        done: List[Request] = []
+        steps = admissions = overlapped = 0
+        while sched.work_remaining():
+            if steps >= max_steps:
+                break
+            sched.pump(steps)
+            batch_live = sched.occupied()
+            while True:
+                n_adm, n_ovl, fin = self._admission_phase(params, sched,
+                                                          steps, batch_live)
+                admissions += n_adm
+                overlapped += n_ovl
+                done.extend(fin)
+                if not self.prefill_chunk:
+                    break
+                done.extend(self._advance_chunk_lane(params, sched))
+                # one chunk per boundary protects LIVE decoders; with none
+                # live keep chunking so a cold start does not serialize
+                if sched.decode_active().any() or not sched.prefill_fifo:
+                    break
+            active = sched.decode_active()
+            if not active.any():
+                steps += 1                       # idle/prefill-only boundary
+                continue
+            done.extend(self._decode_round(params, sched, active))
+            steps += T
+        self._caches = ex.caches
+        return self._stats(done, steps, admissions, overlapped)
+
+    # -- admission ------------------------------------------------------
+    def _admission_phase(self, params, sched: SlotScheduler, steps: int,
+                         batch_live: bool):
+        admissions = overlapped = 0
+        finished: List[Request] = []
+        while True:
+            slot = sched.usable_free()
+            if slot is None:
+                break
+            r = sched.pop_queue()
+            if r is None:
+                break
+            admissions += 1
+            overlapped += int(batch_live)
+            if self.prefill_chunk:
+                sched.begin_prefill(slot, r, steps)
+            else:
+                finished.extend(self._admit_one_monolithic(
+                    params, sched, slot, r, steps))
+        return admissions, overlapped, finished
+
+    def _admit_one_monolithic(self, params, sched: SlotScheduler, slot: int,
+                              r: Request, steps: int) -> List[Request]:
+        """Full-width batch-1 prefill + slot write; the prompt is zero-padded
+        to ``prompt_len`` and the cursor starts at the padded width."""
+        r.t_admitted = time.monotonic()
+        r.admit_step = steps
+        r.status = "active"
+        sched.req[slot] = r
+        t0 = time.monotonic()
+        first = self._ex.admit_full(params, pad_row(r.prompt, self.prompt_len),
+                                    slot)
+        first_tok = int(first[0])                 # blocks: admission time
+        now = time.monotonic()
+        self._prefill_time += now - t0
+        r.t_first_token = now
+        r.note_emit(now)
+        self._emit_token(r, first_tok)
+        if r.done:
+            self._finish(r, now)
+            sched.req[slot] = None
+            self._safe_reset(slot)
+            return [r]
+        sched.start_decode(slot, self.prompt_len, r.generated[-1])
+        return []
+
+    def _safe_reset(self, slot: int):
+        if self._ex.has_reset:
+            self._ex.reset(slot)
+
+    def _advance_chunk_lane(self, params, sched: SlotScheduler):
+        """Run at most one fixed-shape prefill chunk this boundary; the
+        final chunk's logits give the first token and flip the slot to
+        decode with its cursor at the TRUE prompt length."""
+        job = sched.next_chunk(self.prefill_chunk, self._kv_extent)
+        if job is None:
+            return []
+        slot, r, start, n_valid = job
+        row = pad_row(r.prompt[start:start + n_valid], self.prefill_chunk)
+        t0 = time.monotonic()
+        tok = self._ex.run_chunk(params, row, slot, start, n_valid)
+        first_tok = int(tok[0])                   # blocks: chunk time
+        now = time.monotonic()
+        self._prefill_time += now - t0
+        self._prefill_chunks += 1
+        finished: List[Request] = []
+        if sched.chunk_done(slot, start, n_valid):
+            r.t_first_token = now
+            r.note_emit(now)
+            self._emit_token(r, first_tok)
+            if r.done:
+                self._finish(r, now)
+                finished.append(r)
+                sched.retire(slot)
+                self._safe_reset(slot)
+            else:
+                sched.start_decode(slot, len(r.prompt), r.generated[-1])
+        return finished
+
+    # -- decode round ---------------------------------------------------
+    def _decode_round(self, params, sched: SlotScheduler, active):
+        """One decode dispatch + ONE counted host sync: a slotted step
+        (T == 1) or a T-micro-step block with on-device halting."""
+        T = self.block_size
+        ex = self._ex
+        finished: List[Request] = []
+        t0 = time.monotonic()
+        if T == 1:
+            nxt, new_pos = ex.decode_step(params, sched.last_tok,
+                                          sched.positions, active)
+            nxt, new_pos = self._host_sync(nxt, new_pos)
+            dt = time.monotonic() - t0
+            self.tpot_samples.append(dt)
+            self._decode_time += dt
+            n_tok = int(active.sum())
+            sched.positions = new_pos.copy()
+            sched.last_tok = nxt.copy()
+            now = time.monotonic()
+            for i, r in enumerate(sched.req):
+                if r is None or sched.phase[i] != sched.DECODE:
+                    continue
+                self._emit_token(r, nxt[i])
+                sched.remaining[i] -= 1
+                r.note_emit(now)
+                if r.done:
+                    self._finish(r, now)
+                    finished.append(r)
+                    sched.retire(i)
+                    self._safe_reset(i)
+        else:
+            if len(ex.buckets) > 1:
+                needed = int(sched.positions[active].max()) + T
+                sb = bucket_for(min(needed, self._kv_extent), ex.buckets)
+            else:
+                sb = ex.buckets[0]
+            out = ex.decode_block(params, sb, sched.last_tok,
+                                  sched.positions, active, sched.remaining,
+                                  sched.eos)
+            toks, emitted, last_d, pos_d, act_np, rem_d = \
+                self._host_sync(*out)
+            dt = time.monotonic() - t0
+            self.tpot_samples.append(dt / T)
+            self._decode_time += dt
+            sched.last_tok = last_d.copy()
+            sched.positions = pos_d.copy()
+            sched.remaining = rem_d.copy()
+            n_tok = int(emitted.sum())
+            now = time.monotonic()
+            for i, r in enumerate(sched.req):
+                if r is None or sched.phase[i] != sched.DECODE:
+                    continue
+                emitted_any = False
+                for t in range(T):
+                    if emitted[t, i]:
+                        self._emit_token(r, toks[t, i])
+                        emitted_any = True
+                if emitted_any:
+                    r.note_emit(now)
+                if not act_np[i]:                # budget/EOS halt on device
+                    self._finish(r, now)
+                    finished.append(r)
+                    sched.retire(i)
+                    self._safe_reset(i)
+        self._decode_tokens += n_tok
+        self._block_tokens.append(n_tok)
+        self._macro_steps += 1
+        return finished
+
+    # ------------------------------------------------------------------
+    def _stats(self, done, steps, admissions, overlapped) -> Dict[str, Any]:
+        tp = np.array(self.tpot_samples[1:] or [0.0])
+        per_req = [r.metrics() for r in sorted(done, key=lambda r: r.rid)]
+        ttfts = np.array([m["ttft_ms"] for m in per_req] or [0.0])
+        qd = np.array([m["queue_delay_ms"] for m in per_req] or [0.0])
+        gaps = np.array([m["max_gap_ms"] for m in per_req] or [0.0])
+        blk = np.array(self._block_tokens or [0.0])
+        n_dec = self._decode_tokens
+        dev = self.api.device
+        return {
+            "mode": self.mode,
+            "backend": self.backend,
+            "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                       else "cpu"),
+            "block_size": self.block_size,
+            "prefill_mode": ("chunked" if self.prefill_chunk
+                             else "monolithic"),
+            "prefill_chunk": self.prefill_chunk,
+            "completed": len(done),
+            "decode_steps": steps,
+            "macro_steps": self._macro_steps,
+            "admissions": admissions,
+            "overlapped_admissions": overlapped,
+            "tpot_mean_ms": float(tp.mean() * 1e3),
+            "tpot_p50_ms": float(np.percentile(tp, 50) * 1e3),
+            "tpot_p99_ms": float(np.percentile(tp, 99) * 1e3),
+            "ttft_mean_ms": float(ttfts.mean()),
+            "ttft_p99_ms": float(np.percentile(ttfts, 99)),
+            "queue_delay_mean_ms": float(qd.mean()),
+            "max_inter_token_gap_ms": float(gaps.max()),
+            "decode_tokens": n_dec,
+            "throughput_tok_s": float(n_dec / max(self._decode_time, 1e-9)),
+            "prefill_time_ms": float(self._prefill_time * 1e3),
+            "prefill_chunks": self._prefill_chunks,
+            "host_syncs": self.host_syncs,
+            "syncs_per_token": float(self.host_syncs / max(n_dec, 1)),
+            "tokens_per_macro_step_mean": float(blk.mean()),
+            "per_request": per_req,
+            "runtime": self.rt.stats(),
+        }

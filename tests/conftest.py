@@ -23,3 +23,8 @@ def make_batch(cfg, B=2, S=32, key=0):
         batch["vision_embeds"] = jax.random.normal(
             jax.random.key(key + 2), (B, cfg.n_vision_tokens, cfg.d_model))
     return batch
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skips without one")
