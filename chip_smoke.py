@@ -8,8 +8,9 @@ phases; any failure exits non-zero before the result line:
 1. build the three CUDA kernels from ``src/repro_torch/kernels/*/csrc``
    with nvcc for sm_90a (one nvcc per source, all at once);
 2. hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes (K1 flash decode, K3 fused FFN, K4 int8 GEMV — K4
-   must be bit-exact);
+   main path's shapes and across the kernels' tiling boundaries (K1 flash
+   decode, K3 fused FFN, K4 int8 GEMV — K4 must be bit-exact; K3 and K4
+   must give the same bits on a second call);
 3. model parity at full qwen2-0.5b width, depth cut to 2 layers, float32:
    the same seeded weights on the CPU (plain versions) and on CUDA
    (kernels) give equal tokens and logits within 1e-3 of max|logit|;
@@ -18,8 +19,11 @@ phases; any failure exits non-zero before the result line:
    buckets, (b) int8 weights and int8 KV with monolithic admission,
    (c) per-token decode; every request must complete and every kernel of
    each run must have been launched (counts reset just before the run);
-5. time each kernel at the phase-2 shapes against its bound, its plain
-   version and one PyTorch call for the same function.
+   one decode block of (a) and of (b) is traced with torch.profiler;
+5. time each kernel at the main path's shapes (K3 at 8, 32 and 128 rows,
+   K4 at 8 and 128 rows for the four projection shapes) against its bound,
+   its plain version and PyTorch calls for the same function (K4: a bf16
+   matmul on dequantized weights and ``torch._int_mm``).
 
 It then prints the card (nvidia-smi name, power limit), a ``kernels`` JSON
 line, and last the JSON result line. Without a GPU, or without the rest of
@@ -99,12 +103,11 @@ def k1_inputs(dev, S, kv, partial=False, seed=0, full=True):
     return (q, k, v, mask, ks, vs, lim), dict(partial_stats=partial)
 
 
-def k3_inputs(dev, R, seed=0):
+def k3_inputs(dev, R, seed=0, D=896, F=4864, dtype=torch.bfloat16):
     g = torch.Generator(device=dev).manual_seed(seed)
-    D, F = 896, 4864
-    x = torch.randn(R, D, device=dev, generator=g).to(torch.bfloat16)
+    x = torch.randn(R, D, device=dev, generator=g).to(dtype)
     ws = [(torch.randn(s, device=dev, generator=g) / math.sqrt(s[0]))
-          .to(torch.bfloat16) for s in ((D, F), (D, F), (F, D))]
+          .to(dtype) for s in ((D, F), (D, F), (F, D))]
     return (x, *ws), dict(act="silu")
 
 
@@ -150,27 +153,40 @@ def phase_compare(dev):
                     log(f"  K1 S={S} kv={kv} partial={partial} "
                         f"full={full}: max|d|={e:.3g} (tol {tol:.3g})")
                     require(e <= tol, f"K1 disagrees at S={S} {kv}")
-    # K3: f32 through the intermediate in both; different summation order
-    for R in (8, 32, 128):
-        args, kw = k3_inputs(dev, R, seed=R)
-        for act in ("silu", "gelu"):
-            got, want = fused_ffn(*args, act=act), fused_ffn_ref(*args,
-                                                                 act=act)
-            e, tol = max_err(got, want), 1e-4 * max(1, max_abs(want))
-            errs["fused_ffn"] = max(errs["fused_ffn"], e)
-            log(f"  K3 rows={R} act={act}: max|d|={e:.3g} (tol {tol:.3g})")
-            require(e <= tol, f"K3 disagrees at rows={R} {act}")
-    # K4: int32-exact accumulation, same f32 epilogue order: bit-exact
-    for K in (896, 4864):
-        for N in (128, 896, 4864):
-            for R in (8, 128):
+    # K3: f32 through the intermediate in both; different summation order.
+    # Rows across the 16/32/64-row tiles; D=200 F=700 divides no tile.
+    for D, F in ((896, 4864), (200, 700)):
+        for dtype in (torch.bfloat16, torch.float32):
+            for R in (1, 8, 16, 17, 32, 128):
+                args, _ = k3_inputs(dev, R, seed=R + D, D=D, F=F,
+                                    dtype=dtype)
+                for act in ("silu", "gelu"):
+                    got = fused_ffn(*args, act=act)
+                    want = fused_ffn_ref(*args, act=act)
+                    e, tol = max_err(got, want), 1e-4 * max(1, max_abs(want))
+                    same = torch.equal(fused_ffn(*args, act=act), got)
+                    errs["fused_ffn"] = max(errs["fused_ffn"], e)
+                    log(f"  K3 D={D} F={F} {str(dtype)[6:]} rows={R} "
+                        f"act={act}: max|d|={e:.3g} (tol {tol:.3g}), "
+                        f"repeat identical={same}")
+                    require(e <= tol, f"K3 disagrees at D={D} rows={R} "
+                            f"{dtype} {act}")
+                    require(same, f"K3 not deterministic at D={D} rows={R}")
+    # K4: int32-exact accumulation, same f32 epilogue order: bit-exact.
+    # K=100 is no multiple of the 16-row K chunk, N=130 none of 16 bytes.
+    for K in (100, 896, 4864):
+        for N in (128, 130, 896, 4864):
+            for R in (1, 8, 9, 17, 128):
                 args, _ = k4_inputs(dev, R, K, N, seed=K + N + R)
                 got, want = gemv_int8_q(*args), gemv_int8_ref(*args)
                 e = max_err(got, want)
+                exact = torch.equal(got, want)
+                same = torch.equal(gemv_int8_q(*args), got)
                 errs["gemv_int8"] = max(errs["gemv_int8"], e)
                 log(f"  K4 K={K} N={N} rows={R}: max|d|={e:.3g} (tol 0, "
-                    f"exact={torch.equal(got, want)})")
-                require(torch.equal(got, want), f"K4 not exact at {K}x{N}")
+                    f"exact={exact}, repeat identical={same})")
+                require(exact, f"K4 not exact at {K}x{N} rows={R}")
+                require(same, f"K4 not deterministic at {K}x{N} rows={R}")
     torch.cuda.synchronize()
     return errs
 
@@ -299,6 +315,16 @@ def trace_decode_block(api, params, kw):
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"      {e.key[:64]:64s} {e.self_device_time_total / 1e3:8.3f} "
             f"ms, {e.count} launches")
+    port = {}
+    for e in kern:
+        for tag in ("flash_decode", "gate_up_kernel", "down_kernel",
+                    "gemv_int8"):
+            if tag in e.key:
+                us, n = port.get(tag, (0.0, 0))
+                port[tag] = (us + e.self_device_time_total, n + e.count)
+    log("      port kernels: " + ", ".join(
+        f"{k} {us / 1e3:.3f} ms in {n} launches"
+        for k, (us, n) in port.items()))
 
 
 def phase_engine(totals):
@@ -343,7 +369,7 @@ def phase_engine(totals):
         require(len(per_req) == n_req, f"{name}: per-request stats missing")
         for k in needed:
             require(counts[k] > 0, f"{name}: kernel {k} never launched")
-        if name.startswith("a_"):
+        if name.startswith("a_") or name.startswith("b_"):
             trace_decode_block(api, params, kw)
         # launches of one decode step (T = 1)
         if name.startswith("a_") or name.startswith("b_"):
@@ -445,12 +471,13 @@ def phase_timing(dev, launches, per_step, errs):
             vd = v_ if vs_ is None else (v_.float() * vs_).to(torch.bfloat16)
             sd.append(((q_[:, :, None], kd, vd),
                        dict(attn_mask=m_[:, None, None, :], enable_gqa=True)))
-        lib = time_ms(F.scaled_dot_product_attention, sd, 400)
+        lib = {"sdpa(enable_gqa) on dequantized bf16 K/V":
+               time_ms(F.scaled_dot_product_attention, sd, 400)}
         rows.append(("flash_decode", f"B=8 Hq=14 n_kv=2 hd=64 S={S} kv={kv}",
-                     ms, plain, b_ms, b_by, lib,
-                     "sdpa(enable_gqa) on dequantized bf16 K/V"))
-    # K3 at decode (8 rows) and chunk (32 rows) widths
-    for R in (8, 32):
+                     ms, plain, b_ms, b_by, lib))
+    # K3 at decode (8 rows), chunk (32 rows) and monolithic-prefill (128
+    # rows) widths
+    for R in (8, 32, 128):
         (x, wg, wu, wd), kw = k3_inputs(dev, R)
         D, F_ = wg.shape
         nb = nbytes(x, wg, wu, wd) + R * D * 4
@@ -463,35 +490,49 @@ def phase_timing(dev, launches, per_step, errs):
         def lib_ffn(x, wg, wu, wd, act="silu"):
             return torch.matmul(F.silu(torch.matmul(x, wg))
                                 * torch.matmul(x, wu), wd)
-        lib = time_ms(lib_ffn, var, 200)
+        lib = {"3x torch.matmul + silu (bf16)": time_ms(lib_ffn, var, 200)}
         rows.append(("fused_ffn", f"rows={R} D=896 F=4864 bf16", ms, plain,
-                     b_ms, b_by, lib, "3x torch.matmul + silu (bf16)"))
-    # K4 at decode rows for each projection shape of the path
-    for K, N in ((896, 896), (896, 128), (896, 4864), (4864, 896)):
-        R = 8
-        (xq, xs, wq, ws), _ = k4_inputs(dev, R, K, N)
-        nb = nbytes(xq, xs, wq, ws) + R * N * 4
-        ops = 2 * R * K * N
-        b_ms, b_by = bound(nb, ops, torch.int8)
-        var = variants_of(lambda i: k4_inputs(dev, R, K, N, seed=i), nb)
-        ms = time_ms(gemv_int8_q, var, 400)
-        plain = time_ms(gemv_int8_ref, var, 50)
-        # torch._int_mm needs more than 16 rows: at 8 rows the yardstick is
-        # a bf16 matmul on the dequantized weights
-        dq = [((a[0].to(torch.bfloat16),
-                (a[2].float() * a[3]).to(torch.bfloat16)), {})
-              for a, _ in var]
-        lib = time_ms(torch.matmul, dq, 400)
-        rows.append(("gemv_int8", f"rows={R} K={K} N={N}", ms, plain, b_ms,
-                     b_by, lib, "bf16 torch.matmul on dequantized weights"))
-    for name, shape, ms, plain, b_ms, b_by, lib, lib_what in rows:
+                     b_ms, b_by, lib))
+    # K4 at decode (8) and prefill (128) rows for each projection shape
+    for R in (8, 128):
+        for K, N in ((896, 896), (896, 128), (896, 4864), (4864, 896)):
+            (xq, xs, wq, ws), _ = k4_inputs(dev, R, K, N)
+            nb = nbytes(xq, xs, wq, ws) + R * N * 4
+            ops = 2 * R * K * N
+            b_ms, b_by = bound(nb, ops, torch.int8)
+            var = variants_of(lambda i: k4_inputs(dev, R, K, N, seed=i), nb)
+            ms = time_ms(gemv_int8_q, var, 400)
+            plain = time_ms(gemv_int8_ref, var, 50)
+            # yardsticks: a bf16 matmul on the dequantized weights, and the
+            # same integer product by torch._int_mm, which needs more than
+            # 16 rows (padded to 32 at decode rows) and K, N multiples of 8
+            dq = [((a[0].to(torch.bfloat16),
+                    (a[2].float() * a[3]).to(torch.bfloat16)), {})
+                  for a, _ in var]
+            pad = max(R, 32)
+            im = [((torch.cat([a[0], a[0].new_zeros(pad - R, K)]), a[2]), {})
+                  for a, _ in var]
+            lib = {"bf16 torch.matmul on dequantized weights":
+                   time_ms(torch.matmul, dq, 400)}
+            try:
+                lib[f"torch._int_mm, rows padded to {pad}"] = \
+                    time_ms(torch._int_mm, im, 400)
+            except RuntimeError as e:        # a yardstick only: say why
+                log(f"  torch._int_mm refused {K}x{N}: {e}")
+                lib[f"torch._int_mm, rows padded to {pad}"] = None
+            rows.append(("gemv_int8", f"rows={R} K={K} N={N}", ms, plain,
+                         b_ms, b_by, lib))
+    for name, shape, ms, plain, b_ms, b_by, lib in rows:
+        libs = ", ".join(("not measured" if v is None else
+                          f"{v * 1e3:.2f} us") + f" ({k})"
+                         for k, v in lib.items())
         log(f"  {name} [{shape}]: {ms * 1e3:.2f} us, bound {b_ms * 1e3:.2f} "
-            f"us ({b_by}), plain {plain * 1e3:.2f} us, library "
-            f"{lib * 1e3:.2f} us ({lib_what}); launches per decode step "
-            f"{per_step.get(name, 0)}")
+            f"us ({b_by}), plain {plain * 1e3:.2f} us, library {libs}; "
+            f"launches per decode step {per_step.get(name, 0)}")
     out = []
     for name in REPLACES:
-        first = next(r for r in rows if r[0] == name)
+        mine = [r for r in rows if r[0] == name]
+        first = mine[0]
         src = {"flash_decode": "flash_decode/csrc/flash_decode.cu",
                "fused_ffn": "fused_ffn/csrc/fused_ffn.cu",
                "gemv_int8": "gemv/csrc/gemv_int8.cu"}[name]
@@ -502,7 +543,10 @@ def phase_timing(dev, launches, per_step, errs):
                     "max_abs_err": errs[name],
                     "ms": first[2], "plain_ms": first[3],
                     "bound_ms": first[4], "bound_by": first[5],
-                    "library_ms": first[6]})
+                    "library_ms": next(iter(first[6].values())),
+                    "shapes": [{"shape": r[1], "ms": r[2], "plain_ms": r[3],
+                                "bound_ms": r[4], "bound_by": r[5],
+                                "library_ms": r[6]} for r in mine]})
     return out
 
 

@@ -4,11 +4,43 @@ Each kernel lives in ``<name>/``: ``csrc/*.cu`` (plain C interface, built
 with ``nvcc`` into ``build/kernels/`` on first use and loaded with
 ``ctypes``), ``ops.py`` (the wrapper, with a launch counter) and ``ref.py``
 (the plain PyTorch version). A wrapper launches its kernel for CUDA tensors
-and runs the plain version only for CPU tensors.
+and runs the plain version only for CPU tensors. Launch plans size their
+grids for an H100 (``SMS``); ``tickets`` serves the kernels that split a
+reduction across CTAs.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
+
+import torch
+
+SMS = 132                   # streaming multiprocessors of an H100 SXM
+CTAS_PER_SM = 2             # launch plans aim at this many CTAs per SM
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
+MIN_TICKETS = 4096
+
+
+def tickets(device: torch.device, n: int) -> torch.Tensor:
+    """A zeroed int32 buffer of at least ``n`` ticket counters for launches
+    on the current stream of ``device``. A kernel that splits a reduction
+    across CTAs lets the last CTA of each output tile add the partials:
+    every CTA takes a ticket with an integer ``atomicInc`` that wraps to
+    zero, so the buffer is zeroed again when the kernel ends and one buffer
+    per (device, stream) serves every such launch on that stream."""
+    stream = torch.cuda.current_stream(device)
+    key = (stream.device_index, stream.cuda_stream)
+    buf = _TICKETS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, MIN_TICKETS), dtype=torch.int32,
+                          device=device)
+        _TICKETS[key] = buf
+    return buf
 
 
 def _wrappers():

@@ -3,8 +3,8 @@ ctypes).
 
 Each kernel source is compiled on first use into
 ``<repo>/build/kernels/lib<name>-<hash>.so`` for ``sm_90a``; the hash of
-the source text names the file, so an edited source rebuilds and an
-unchanged one loads. ``build_all`` starts one ``nvcc`` per source at once
+the source text and of the shared header ``common.cuh`` names the file, so
+an edited source rebuilds and an unchanged one loads. ``build_all`` starts one ``nvcc`` per source at once
 and waits for all of them. A failed build raises: there is no fallback.
 """
 from __future__ import annotations
@@ -24,8 +24,10 @@ SOURCES: Dict[str, Path] = {
     "fused_ffn": KERNELS_DIR / "fused_ffn" / "csrc" / "fused_ffn.cu",
     "gemv_int8": KERNELS_DIR / "gemv" / "csrc" / "gemv_int8.cu",
 }
+HEADERS = [KERNELS_DIR / "common.cuh"]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-I", str(KERNELS_DIR)]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -42,9 +44,9 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = SOURCES[name]
-    digest = hashlib.sha1(src.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    text = b"".join(p.read_bytes() for p in [SOURCES[name], *HEADERS])
+    digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()
+                          ).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

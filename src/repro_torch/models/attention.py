@@ -130,9 +130,10 @@ def qkv_project(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor
     """x: (B,S,D) -> q (B,S,Hq,hd), k/v (B,S,Hkv,hd) with RoPE applied."""
     B, S, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = common.linear(p["wq"], x).reshape(B, S, hq, hd)
-    k = common.linear(p["wk"], x).reshape(B, S, hkv, hd)
-    v = common.linear(p["wv"], x).reshape(B, S, hkv, hd)
+    q, k, v = common.linears([p["wq"], p["wk"], p["wv"]], x)
+    q = q.reshape(B, S, hq, hd)
+    k = k.reshape(B, S, hkv, hd)
+    v = v.reshape(B, S, hkv, hd)
     q = common.apply_rope(q, positions, cfg.rope_theta)
     k = common.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v

@@ -14,7 +14,7 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.gemv.ops import gemv_int8
+from repro_torch.kernels.gemv.ops import gemv_int8_shared
 from repro_torch.quant.int8 import QuantizedTensor, quantize_int8
 
 Params = Dict[str, Any]
@@ -52,15 +52,27 @@ def linear(p: Params, x: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """x: (..., d_in) @ w: (d_in, d_out). An int8 ``QuantizedTensor``
     weight goes through K4 (f32 out, then cast); a float weight is a plain
     matmul with f32 accumulation, as JAX leaves it to XLA."""
-    w = p["w"]
+    return linears([p], x, out_dtype)[0]
+
+
+def linears(ps, x: torch.Tensor, out_dtype=None):
+    """Several linears of one input (q/k/v, gate/up). With int8 weights x
+    is quantized once and each weight runs K4 on the same int8 rows: the
+    reference quantizes the same x once per linear, so the results are
+    bit-identical."""
     out_dtype = out_dtype or x.dtype
-    if isinstance(w, QuantizedTensor):
-        y = gemv_int8(x, w).to(out_dtype)
+    ws = [p["w"] for p in ps]
+    if all(isinstance(w, QuantizedTensor) for w in ws):
+        ys = gemv_int8_shared(x, ws)
     else:
-        y = torch.matmul(x, w).to(out_dtype)
-    if "b" in p:
-        y = y + p["b"].to(y.dtype)
-    return y
+        ys = [torch.matmul(x, w) for w in ws]
+    out = []
+    for p, y in zip(ps, ys):
+        y = y.to(out_dtype)
+        if "b" in p:
+            y = y + p["b"].to(y.dtype)
+        out.append(y)
+    return out
 
 
 # ---------------------------------------------------------------------------

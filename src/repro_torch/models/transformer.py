@@ -65,8 +65,7 @@ def ffn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     the intermediate, cast once at the end). int8 weights: the three
     linears through K4 with the reference's rounding points."""
     if isinstance(p["w_gate"]["w"], QuantizedTensor):
-        up = common.linear(p["w_up"], x)
-        gate = common.linear(p["w_gate"], x)
+        up, gate = common.linears([p["w_up"], p["w_gate"]], x)
         return common.linear(p["w_down"], common.gated_act(cfg.act, up, gate))
     lead = x.shape[:-1]
     out = fused_ffn(x.reshape(-1, x.shape[-1]), p["w_gate"]["w"],

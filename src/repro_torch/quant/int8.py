@@ -55,7 +55,7 @@ def int8_matmul(x: torch.Tensor, w: QuantizedTensor,
     int32-exact accumulation (computed in float64, exact for
     |acc| < 2^53), then ``(acc * x_scale) * w_scale`` in f32 as the
     reference orders it. The model path reaches this through the K4
-    kernel wrapper (``kernels.gemv.ops.gemv_int8``)."""
+    kernel wrapper (``kernels.gemv.ops.gemv_int8_shared``)."""
     xq = quantize_int8(x, axis=-1)
     acc = torch.matmul(xq.values.to(torch.float64),
                        w.values.to(torch.float64)).to(torch.float32)

@@ -61,26 +61,40 @@ def test_flash_decode_kernel_matches_plain(dev, kv, S):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("R", [3, 8, 40])
-def test_fused_ffn_kernel_matches_plain(dev, dtype, R):
-    g = torch.Generator(device=dev).manual_seed(R)
-    D, F = 200, 700                        # no extent divides a tile
+@pytest.mark.parametrize("D,F", [(200, 700), (896, 4864)])
+@pytest.mark.parametrize("R", [1, 3, 8, 16, 17, 32, 40, 128])
+def test_fused_ffn_kernel_matches_plain(dev, dtype, D, F, R):
+    """Row counts across the 16/32/64-row tiles, D=200 F=700 (no extent
+    divides a tile) and the full qwen2-0.5b width. Within 1e-4 (absolute
+    and relative) elementwise and 1e-4 * max(1, max|plain|) overall; a
+    second call on the same inputs gives the same bits."""
+    g = torch.Generator(device=dev).manual_seed(R + D)
     x = torch.randn(R, D, device=dev, generator=g).to(dtype)
     ws = [(torch.randn(s, device=dev, generator=g) / 20).to(dtype)
           for s in ((D, F), (D, F), (F, D))]
     for act in ("silu", "gelu"):
-        torch.testing.assert_close(fused_ffn(x, *ws, act=act),
-                                   fused_ffn_ref(x, *ws, act=act),
-                                   rtol=1e-4, atol=1e-4)
+        got = fused_ffn(x, *ws, act=act)
+        want = fused_ffn_ref(x, *ws, act=act)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        err = float((got - want).abs().max())
+        assert err <= 1e-4 * max(1.0, float(want.abs().max()))
+        assert torch.equal(fused_ffn(x, *ws, act=act), got)
 
 
-@pytest.mark.parametrize("K,N", [(896, 128), (4864, 896), (100, 130)])
-def test_gemv_int8_kernel_bit_exact(dev, K, N):
-    g = torch.Generator(device=dev).manual_seed(K)
-    xq = quantize_int8(torch.randn(9, K, device=dev, generator=g), axis=-1)
+@pytest.mark.parametrize("R", [1, 8, 9, 17, 128])
+@pytest.mark.parametrize("N", [128, 130, 896, 4864])
+@pytest.mark.parametrize("K", [100, 896, 4864])
+def test_gemv_int8_kernel_bit_exact(dev, K, N, R):
+    """Every row tile (8 or 32), column strip (32 or 64, 130 not a multiple
+    of 16) and K split of the plan, K=100 not a multiple of the 16-row
+    chunk: bit-exact, and a second call gives the same bits."""
+    g = torch.Generator(device=dev).manual_seed(K + N + R)
+    xq = quantize_int8(torch.randn(R, K, device=dev, generator=g), axis=-1)
     wq = quantize_int8(torch.randn(K, N, device=dev, generator=g), axis=0)
     args = (xq.values, xq.scale, wq.values, wq.scale.reshape(1, -1))
-    assert torch.equal(gemv_int8_q(*args), gemv_int8_ref(*args))
+    got = gemv_int8_q(*args)
+    assert torch.equal(got, gemv_int8_ref(*args))
+    assert torch.equal(gemv_int8_q(*args), got)
 
 
 @pytest.mark.parametrize("over", [dict(dtype="float32"),

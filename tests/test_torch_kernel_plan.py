@@ -1,0 +1,157 @@
+"""Launch plans of the K3 and K4 CUDA kernels, checked on the CPU.
+
+The host side of each wrapper picks the grid, the split of the reduction
+axis and the scratch size in plain Python (``gemv_plan``, ``ffn_plan``);
+the kernels tile exactly as the plan says. These tests hold the plans to
+covering every row, column and reduction index exactly once, to scratch
+sizes that match the grid, and to the CTA counts chosen for each width:
+K4 at decode rows splits K only past its chunk cap, K3 and prefill-width
+K4 fill the card's 132 SMs.
+"""
+import pytest
+
+pytest.importorskip("torch")
+
+import numpy as np                                           # noqa: E402
+
+from repro_torch.kernels.fused_ffn.ops import (COLS, PAD,     # noqa: E402
+                                               RING, ffn_plan)
+from repro_torch.kernels.gemv.ops import (MAX_K_CHUNK,        # noqa: E402
+                                          gemv_plan)
+
+SMS = 132
+SMEM_BYTES = 227 * 1024
+# qwen2-0.5b's int8 projections: q/o, k/v, gate/up, down (K, N)
+K4_SHAPES = [(896, 896), (896, 128), (896, 4864), (4864, 896)]
+K4_ODD = [(100, 130), (1, 1), (17, 31), (4865, 897), (16, 4096)]
+FFN_SHAPES = [(896, 4864), (200, 700), (1, 1), (64, 8), (1024, 4096)]
+ROWS = [1, 8, 9, 16, 17, 32, 40, 128, 300]
+
+
+def covered_once(extent, tile, count, allow_empty=False):
+    """Tiles [i*tile, (i+1)*tile) clipped to the extent, i < count, hit
+    every index in [0, extent) exactly once; none is empty unless
+    ``allow_empty`` (then only trailing tiles past the extent are)."""
+    hits = np.zeros(extent, np.int64)
+    for i in range(count):
+        lo, hi = i * tile, min((i + 1) * tile, extent)
+        assert lo < hi or (allow_empty and lo >= extent), \
+            f"tile {i} of {count} is empty (extent {extent})"
+        hits[lo:hi] += 1
+    return bool((hits == 1).all())
+
+
+@pytest.mark.parametrize("R", ROWS)
+@pytest.mark.parametrize("K,N", K4_SHAPES + K4_ODD)
+def test_gemv_plan_covers_every_index_once(R, K, N):
+    p = gemv_plan(R, K, N)
+    assert p.grid == (-(-N // p.cols), -(-R // p.rows), p.k_splits)
+    assert covered_once(N, p.cols, p.grid[0])
+    assert covered_once(R, p.rows, p.grid[1])
+    assert covered_once(K, p.k_chunk, p.k_splits)
+    assert p.k_chunk % 16 == 0 and p.rows in (8, 32) and p.cols in (32, 64)
+    # shared memory of one CTA: weight chunk (rows padded by 16 bytes) and
+    # x tile, or the int32 partials of its 256 threads, whichever is larger
+    smem = max(p.k_chunk * (p.cols + 16) + p.rows * p.k_chunk, 256 * 32 * 4)
+    assert smem <= SMEM_BYTES
+
+
+@pytest.mark.parametrize("R", ROWS)
+@pytest.mark.parametrize("K,N", K4_SHAPES + K4_ODD)
+def test_gemv_plan_scratch_matches_grid(R, K, N):
+    p = gemv_plan(R, K, N)
+    assert p.scratch == (p.k_splits * R * N if p.k_splits > 1 else 0)
+    assert p.ctas == p.grid[0] * p.grid[1] * p.grid[2]
+
+
+@pytest.mark.parametrize("K,N", K4_SHAPES)
+def test_gemv_plan_splits_k_only_past_the_chunk_cap_at_decode_rows(K, N):
+    """At 8 rows a CTA takes all of K up to MAX_K_CHUNK rows: measured on
+    an H100 (tools/plan_sweep.py), one K chunk per CTA beats a split over
+    two CTAs per SM at every projection of the path, because a split costs
+    a ticket and a second round trip to L2. K=4864 takes the fewest chunks
+    that fit."""
+    p = gemv_plan(8, K, N)
+    assert p.rows == 8
+    assert p.k_splits == -(-K // MAX_K_CHUNK)
+    assert p.scratch == (0 if K <= MAX_K_CHUNK else p.k_splits * 8 * N)
+
+
+@pytest.mark.parametrize("K,N", K4_SHAPES)
+def test_gemv_plan_fills_the_card_at_prefill_rows(K, N):
+    """At 128 rows (4x the dp4a work per CTA) K is split until the grid
+    holds about two CTAs per SM."""
+    p = gemv_plan(128, K, N)
+    assert SMS <= p.ctas <= 4 * SMS, p
+
+
+@pytest.mark.parametrize("K,N", K4_SHAPES)
+def test_gemv_plan_reads_weights_once_per_32_rows_at_prefill(K, N):
+    assert gemv_plan(128, K, N).grid[1] == 4
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("R", ROWS)
+@pytest.mark.parametrize("D,F", FFN_SHAPES)
+def test_ffn_plan_covers_every_index_once(D, F, R, itemsize):
+    p = ffn_plan(R, D, F, itemsize)
+    tiles = -(-R // p.rows)
+    assert p.grid_gate_up == (-(-F // COLS), tiles, p.d_splits)
+    assert p.grid_down == (-(-D // COLS), tiles, p.f_splits)
+    assert covered_once(F, COLS, p.grid_gate_up[0])
+    assert covered_once(D, COLS, p.grid_down[0])
+    assert covered_once(R, p.rows, tiles)
+    # the D chunks of a strip form one cluster of 1, 2, 4 or 8 CTAs
+    assert p.d_splits in (1, 2, 4, 8)
+    assert covered_once(D, p.d_chunk, p.d_splits, allow_empty=True)
+    assert covered_once(F, p.f_chunk, p.f_splits)
+    assert p.d_chunk % 16 == 0 and p.f_chunk % 16 == 0
+    assert p.rows in (16, 32, 64)
+    # shared memory: gate/up holds a ring of Wg and Wu rows and its x rows, down
+    # its Wd chunk and h rows (f32), padded by PAD elements a row; both
+    # reuse it for their warps' f32 partials (gate/up: two k slices of
+    # 16 rows, else one; down: 128 rows in all)
+    assert p.gate_up_smem == max(
+        itemsize * (2 * RING * COLS + p.rows * (p.d_chunk + PAD)),
+        4 * 2 * COLS * (32 if p.rows == 16 else p.rows))
+    assert p.down_smem == max(
+        p.f_chunk * COLS * itemsize + p.rows * (p.f_chunk + PAD) * 4,
+        4 * 128 * COLS)
+    assert max(p.gate_up_smem, p.down_smem) <= SMEM_BYTES
+
+
+@pytest.mark.parametrize("R,D,itemsize", [(128, 32768, 4), (8, 131072, 2)])
+def test_ffn_plan_refuses_chunks_past_shared_memory(R, D, itemsize):
+    with pytest.raises(ValueError, match="shared memory"):
+        ffn_plan(R, D, 64, itemsize)
+
+
+@pytest.mark.parametrize("R", ROWS)
+@pytest.mark.parametrize("D,F", FFN_SHAPES)
+def test_ffn_plan_scratch_matches_grid(D, F, R):
+    p = ffn_plan(R, D, F)
+    split = p.f_splits * R * D if p.f_splits > 1 else 0
+    assert p.scratch == R * F + split
+    gu, dn = p.ctas
+    assert gu == p.grid_gate_up[0] * p.grid_gate_up[1] * p.grid_gate_up[2]
+    assert dn == p.grid_down[0] * p.grid_down[1] * p.grid_down[2]
+
+
+@pytest.mark.parametrize("R", [1, 8])
+def test_ffn_plan_fills_the_card_at_decode_rows(R):
+    """qwen2-0.5b at decode rows: both passes run at least a CTA per SM;
+    the down partials cost under 10% of the weight bytes."""
+    D, F = 896, 4864
+    p = ffn_plan(R, D, F)
+    assert all(SMS <= n <= 4 * SMS for n in p.ctas), p
+    weight_bytes = 3 * D * F * 2
+    partial_bytes = 2 * 4 * p.f_splits * R * D        # written, read back
+    assert partial_bytes < 0.1 * weight_bytes
+
+
+@pytest.mark.parametrize("R,rows", [(8, 16), (16, 16), (32, 32), (128, 64)])
+def test_ffn_plan_row_tiles(R, rows):
+    """One weight pass serves 16, 32 or 64 rows: at the 128-row prefill
+    the weights are read twice, not 16 times as with an 8-row tile."""
+    p = ffn_plan(R, 896, 4864)
+    assert p.rows == rows and p.grid_gate_up[1] == -(-R // rows)

@@ -30,7 +30,7 @@ from repro_torch.kernels import launch_counts, reset_launch_counts  # noqa
 from repro_torch.kernels.flash_decode.ops import flash_decode  # noqa: E402
 from repro_torch.kernels.flash_decode.ref import NEG_INF     # noqa: E402
 from repro_torch.kernels.fused_ffn.ops import fused_ffn      # noqa: E402
-from repro_torch.kernels.gemv.ops import gemv_int8, gemv_int8_q  # noqa: E402
+from repro_torch.kernels.gemv.ops import gemv_int8_q, gemv_int8_shared  # noqa
 from repro_torch.quant.int8 import QuantizedTensor           # noqa: E402
 
 torch.set_num_threads(2)
@@ -143,7 +143,8 @@ def test_gemv_int8_plain_bit_exact(B, K, N):
                                          interpret=True))
     np.testing.assert_allclose(got.numpy(), pallas, rtol=1e-5, atol=1e-6)
     # the model-path entry quantizes the rows itself, as repro's ops does
-    full = gemv_int8(t(x), QuantizedTensor(t(wq.values), t(wq.scale)))
+    full, = gemv_int8_shared(t(x), [QuantizedTensor(t(wq.values),
+                                                  t(wq.scale))])
     np.testing.assert_array_equal(full.numpy(), want)
 
 

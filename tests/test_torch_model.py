@@ -27,6 +27,7 @@ from repro.models import build_model as jax_build_model      # noqa: E402
 from repro.models.registry import count_params as jax_count_params  # noqa
 import repro.models.common as jax_common                     # noqa: E402
 import repro_torch.kernels.gemv.ops as gemv_ops              # noqa: E402
+import repro_torch.models.common as torch_common             # noqa: E402
 from repro.quant.int8 import QuantizedTensor as JaxQT        # noqa: E402
 from repro.quant.int8 import quantize_int8 as jax_quantize_int8  # noqa
 from repro_torch.configs.registry import get_config          # noqa: E402
@@ -97,23 +98,24 @@ def int8_flips(jc, tc) -> int:
 
 @contextlib.contextmanager
 def recorded_act_quant(monkeypatch):
-    """Record the int8 activation rows every int8-weight linear quantizes,
-    on both sides, in call order (the JAX side then runs eagerly)."""
+    """Record the int8 activation rows every int8-weight linear multiplies,
+    on both sides, in call order (the JAX side then runs eagerly). The port
+    quantizes a shared input once (q/k/v, gate/up), so its rows are
+    recorded per K4 call, where the reference quantizes per linear."""
     rec = {"jax": [], "torch": [], "total": 0}
     jax_mm = jax_common.int8_matmul
-    torch_q = gemv_ops.quantize_int8
+    torch_k4 = gemv_ops.gemv_int8_q
 
     def jax_rec(x, w, out_dtype=jnp.bfloat16):
         rec["jax"].append(np.asarray(jax_quantize_int8(x, axis=-1).values))
         return jax_mm(x, w, out_dtype=out_dtype)
 
-    def torch_rec(x, axis=None):
-        q = torch_q(x, axis=axis)
-        rec["torch"].append(q.values.numpy().copy())
-        return q
+    def torch_rec(xq, x_scale, wq, w_scale):
+        rec["torch"].append(xq.numpy().copy())
+        return torch_k4(xq, x_scale, wq, w_scale)
 
     monkeypatch.setattr(jax_common, "int8_matmul", jax_rec)
-    monkeypatch.setattr(gemv_ops, "quantize_int8", torch_rec)
+    monkeypatch.setattr(gemv_ops, "gemv_int8_q", torch_rec)
     with jax.disable_jit():
         yield rec
 
@@ -317,6 +319,52 @@ def test_kv_cache_from_numpy_roundtrip_and_reads(pair):
     np.testing.assert_array_equal(
         slot_valid_mask(S, 7).numpy(),
         np.asarray(jax_cache.slot_valid_mask(S, 0, jnp.asarray(7))))
+
+
+def test_int8_shared_quantization_bit_identical(monkeypatch):
+    """int8 weights: quantizing the shared input of q/k/v and of gate/up
+    once gives the same bits as quantizing it once per linear (the
+    reference's way), matches the JAX reference, and keeps 7 K4 calls per
+    layer and decode step."""
+    pair = make_pair(**CONFIGS["f32_w8"])
+    jcfg, japi, jparams, tcfg, tapi, tparams = pair
+    prompts = _prompts(jcfg, seed=6)
+    tok = torch.zeros(2, dtype=torch.int32)
+    pos = torch.full((2,), P, dtype=torch.int32)
+    act = torch.ones(2, dtype=torch.bool)
+
+    def run():
+        calls = []
+        k4 = gemv_ops.gemv_int8_q
+        with monkeypatch.context() as m:
+            m.setattr(gemv_ops, "gemv_int8_q",
+                      lambda *a: calls.append(1) or k4(*a))
+            tc = tapi.init_caches(2, S)
+            for slot, row in enumerate(prompts):
+                single, lg = tapi.prefill(tparams, torch.from_numpy(row[None]))
+                tc = tapi.write_slot(tc, single, slot)
+            n0 = len(calls)
+            tc, dlg = tapi.decode_slotted(tparams, tc, tok, pos, act)
+        return lg, dlg, tc, len(calls) - n0
+
+    shared = run()
+
+    shared_linears = torch_common.linears
+
+    def per_linear(ps, x, out_dtype=None):
+        return [shared_linears([p], x, out_dtype)[0] for p in ps]
+
+    with monkeypatch.context() as m:
+        m.setattr(torch_common, "linears", per_linear)
+        ref = run()
+    for a, b in ((shared[0], ref[0]), (shared[1], ref[1]),
+                 (shared[2].k, ref[2].k), (shared[2].v, ref[2].v)):
+        assert torch.equal(a, b)
+    assert shared[3] == ref[3] == 7 * tcfg.n_layers
+    with recorded_act_quant(monkeypatch) as rec:
+        jc, tc, jl, tl = _admit_both(pair, prompts)
+        assert_logits_close(tl, jl, step_rtol(jc, tc, rec))
+    np.testing.assert_array_equal(tl[-1], shared[0][0, -1].numpy())
 
 
 def test_bf16_decode_within_stated_tolerance():
