@@ -9,8 +9,10 @@ phases; any failure exits non-zero before the result line:
    with nvcc for sm_90a (one nvcc per source, all at once);
 2. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes and across the kernels' tiling boundaries (K1 flash
-   decode, K3 fused FFN, K4 int8 GEMV — K4 must be bit-exact; K3 and K4
-   must give the same bits on a second call);
+   decode at S from 1 to 4096, B 1 and 8, the four q/KV dtype pairs,
+   kv_limit at 0, inside a split, on a split edge and at S, normalised and
+   partial, and at G*hd = 1024; K3 fused FFN; K4 int8 GEMV — K4 must be
+   bit-exact; K1, K3 and K4 must give the same bits on a second call);
 3. model parity at full qwen2-0.5b width, depth cut to 2 layers, float32:
    the same seeded weights on the CPU (plain versions) and on CUDA
    (kernels) give equal tokens and logits within 1e-3 of max|logit|;
@@ -20,10 +22,12 @@ phases; any failure exits non-zero before the result line:
    (c) per-token decode; every request must complete and every kernel of
    each run must have been launched (counts reset just before the run);
    one decode block of (a) and of (b) is traced with torch.profiler;
-5. time each kernel at the main path's shapes (K3 at 8, 32 and 128 rows,
-   K4 at 8 and 128 rows for the four projection shapes) against its bound,
-   its plain version and PyTorch calls for the same function (K4: a bf16
-   matmul on dequantized weights and ``torch._int_mm``).
+5. time each kernel at the main path's shapes (K1 at B=8 over S=200 and
+   at a long context of S=4096, bf16 and int8 KV; K3 at 8, 32 and 128
+   rows; K4 at 8 and 128 rows for the four projection shapes) against its
+   bound, its plain version and PyTorch calls for the same function (K1:
+   SDPA with ``enable_gqa``; K4: a bf16 matmul on dequantized weights and
+   ``torch._int_mm``).
 
 It then prints the card (nvidia-smi name, power limit), a ``kernels`` JSON
 line, and last the JSON result line. Without a GPU, or without the rest of
@@ -77,30 +81,69 @@ def require(ok: bool, what: str):
 # phase 2 / 5 inputs at the main path's shapes
 # ---------------------------------------------------------------------------
 
-def k1_inputs(dev, S, kv, partial=False, seed=0, full=True):
-    """Decode attention at B=8, Hq=14, n_kv=2, hd=64 over a bucket of S
-    positions cut from a 200-position cache layer (a strided view, as the
-    engine passes it). ``full``: every row live to the end (kv_limit = S)."""
+K1_PAIRS = (("float32", "float32"), ("float32", "int8"),
+            ("bfloat16", "bfloat16"), ("bfloat16", "int8"))
+
+
+def k1_inputs(dev, B, S, pair=("bfloat16", "bfloat16"), lim=None, Hq=14,
+              n_kv=2, hd=64, seed=0):
+    """Decode attention inputs (q, k, v, mask, k_scale, v_scale, kv_limit)
+    with q and K/V in the dtype ``pair``; K/V a bucket view of S positions
+    of an S + 8 cache layer (strided rows, as the engine passes them).
+    ``lim`` None: every row live to the end (kv_limit = S); else every row
+    attends a position below ``lim`` (when lim > 0) and none at or past
+    it."""
     from repro_torch.quant.int8 import quantize_kv
     g = torch.Generator(device=dev).manual_seed(seed)
-    B, Hq, n_kv, hd, S_cache = 8, 14, 2, 64, 200
-    q = torch.randn(B, Hq, hd, device=dev, generator=g).to(torch.bfloat16)
-    kf = torch.randn(B, n_kv, S_cache, hd, device=dev, generator=g)
-    vf = torch.randn(B, n_kv, S_cache, hd, device=dev, generator=g)
-    if kv == "int8":
+    qdt, kvdt = (getattr(torch, n) for n in pair)
+    q = torch.randn(B, Hq, hd, device=dev, generator=g).to(qdt)
+    kf = torch.randn(B, n_kv, S + 8, hd, device=dev, generator=g)
+    vf = torch.randn(B, n_kv, S + 8, hd, device=dev, generator=g)
+    if kvdt == torch.int8:
         (k, ks), (v, vs) = quantize_kv(kf), quantize_kv(vf)
         ks, vs = ks[:, :, :S], vs[:, :, :S]
     else:
-        k, v = kf.to(torch.bfloat16), vf.to(torch.bfloat16)
-        ks = vs = None
-    k, v = k[:, :, :S], v[:, :, :S]
-    if full:
+        k, v, ks, vs = kf.to(kvdt), vf.to(kvdt), None, None
+    ar = torch.arange(S, device=dev)[None]
+    if lim is None:
+        lim = S
         pos = torch.full((B,), S - 1, device=dev)
     else:
-        pos = torch.randint(0, S, (B,), device=dev, generator=g)
-    mask = torch.arange(S, device=dev)[None] < pos[:, None] + 1
-    lim = (pos.max() + 1).to(torch.int32)
-    return (q, k, v, mask, ks, vs, lim), dict(partial_stats=partial)
+        pos = torch.randint(0, max(1, min(lim, S)), (B,), device=dev,
+                            generator=g)
+    mask = (ar < pos[:, None] + 1) & (ar < lim)
+    return (q, k[:, :, :S], v[:, :, :S], mask, ks, vs,
+            torch.tensor(lim, dtype=torch.int32, device=dev))
+
+
+def check_k1(args, lim):
+    """Kernel against plain for one input set, normalised and partial:
+    returns (max |d|, max |d| / tol, repeat identical). Tolerance 1e-5 *
+    max(1, max|plain|) per output tensor (f32 online softmax in both, in
+    another order); kv_limit <= 0 must give exactly 0 / (0, NEG_INF, 0)."""
+    from repro_torch.kernels.flash_decode.ops import flash_decode
+    from repro_torch.kernels.flash_decode.ref import (NEG_INF,
+                                                      flash_decode_ref)
+    err = ratio = 0.0
+    same = True
+    for partial in (False, True):
+        got = flash_decode(*args, partial_stats=partial)
+        again = flash_decode(*args, partial_stats=partial)
+        want = flash_decode_ref(*args, partial_stats=partial)
+        if not partial:
+            got, again, want = (got,), (again,), (want,)
+        for a, b, w in zip(got, again, want):
+            e = max_err(a, w)
+            err = max(err, e)
+            ratio = max(ratio, e / (1e-5 * max(1.0, max_abs(w))))
+            same = same and torch.equal(a, b)
+        if lim <= 0:
+            require(not got[0].any(), "K1 at kv_limit 0 is not 0")
+            if partial:
+                require(bool((got[1] == NEG_INF).all())
+                        and not got[2].any(),
+                        "K1 at kv_limit 0 is not (0, NEG_INF, 0)")
+    return err, ratio, same
 
 
 def k3_inputs(dev, R, seed=0, D=896, F=4864, dtype=torch.bfloat16):
@@ -132,27 +175,40 @@ def max_abs(t) -> float:
 
 
 def phase_compare(dev):
-    from repro_torch.kernels.flash_decode.ops import flash_decode
-    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
     from repro_torch.kernels.fused_ffn.ops import fused_ffn
     from repro_torch.kernels.fused_ffn.ref import fused_ffn_ref
     from repro_torch.kernels.gemv.ops import gemv_int8_q
     from repro_torch.kernels.gemv.ref import gemv_int8_ref
     errs = {"flash_decode": 0.0, "fused_ffn": 0.0, "gemv_int8": 0.0}
-    # K1: f32 online softmax in both; different summation order
-    for S in (64, 128, 200):                 # 200: not a multiple of the tile
-        for kv in ("bfloat16", "int8"):
-            for partial in (False, True):
-                for full in (True, False):
-                    args, kw = k1_inputs(dev, S, kv, partial, seed=S,
-                                         full=full)
-                    got, want = flash_decode(*args, **kw), \
-                        flash_decode_ref(*args, **kw)
-                    e, tol = max_err(got, want), 1e-5 * max(1, max_abs(want))
-                    errs["flash_decode"] = max(errs["flash_decode"], e)
-                    log(f"  K1 S={S} kv={kv} partial={partial} "
-                        f"full={full}: max|d|={e:.3g} (tol {tol:.3g})")
-                    require(e <= tol, f"K1 disagrees at S={S} {kv}")
+    # K1: f32 online softmax in both, in a different summation order.
+    # Every split count of the plan from one to many, kv_limit at 0, inside
+    # a split, on a split edge and at S, and every row live to the end (as
+    # timed in phase 5); then G*hd = 1024 (G=8, hd=128).
+    from repro_torch.kernels.flash_decode.ops import decode_plan
+    cases = [(S, B, pair, 14, 64)
+             for S in (1, 17, 64, 128, 200, 1000, 4096)
+             for B in (1, 8) for pair in K1_PAIRS]
+    cases += [(S, B, pair, 16, 128) for S in (200, 4096) for B in (1, 8)
+              for pair in K1_PAIRS]
+    for S, B, pair, Hq, hd in cases:
+        isz = torch.empty(0, dtype=getattr(torch, pair[1])).element_size()
+        plan = decode_plan(B, 2, Hq // 2, S, hd, isz)
+        edge = plan.split if plan.splits > 1 else S
+        lims = sorted({0, max(1, plan.split // 2 + 3), edge, S})
+        err = ratio = 0.0
+        same = True
+        for lim in lims + [None]:             # None: every row live to S
+            args = k1_inputs(dev, B, S, pair, lim, Hq=Hq, hd=hd,
+                             seed=S + B + (lim or 0))
+            e, r, sm = check_k1(args, S if lim is None else lim)
+            err, ratio, same = max(err, e), max(ratio, r), same and sm
+        errs["flash_decode"] = max(errs["flash_decode"], err)
+        log(f"  K1 B={B} S={S} G={Hq // 2} hd={hd} q={pair[0]} kv={pair[1]}"
+            f" ({plan.splits} splits of {plan.split}), kv_limit {lims}: "
+            f"max|d|={err:.3g}, max|d|/tol={ratio:.3g}, repeat "
+            f"identical={same}")
+        require(ratio <= 1.0, f"K1 disagrees at B={B} S={S} {pair} hd={hd}")
+        require(same, f"K1 not deterministic at B={B} S={S} {pair}")
     # K3: f32 through the intermediate in both; different summation order.
     # Rows across the 16/32/64-row tiles; D=200 F=700 divides no tile.
     for D, F in ((896, 4864), (200, 700)):
@@ -454,14 +510,16 @@ def phase_timing(dev, launches, per_step, errs):
         t_o = ops / PEAK_OPS[dtype] * 1e3
         return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
-    # K1 at the engine's non-tile-multiple bucket, every tile live
-    S = 200
-    for kv in ("bfloat16", "int8"):
-        (q, k, v, mask, ks, vs, lim), _ = k1_inputs(dev, S, kv)
+    # K1 at the engine's largest bucket (200, no multiple of 16) and at a
+    # long context (4096), every position live
+    for S, kv in ((200, "bfloat16"), (200, "int8"), (4096, "bfloat16"),
+                  (4096, "int8")):
+        q, k, v, mask, ks, vs, lim = k1_inputs(dev, 8, S, ("bfloat16", kv))
         nb = nbytes(q, k, v, mask, ks, vs) + q.numel() * 4
         ops = 2 * 2 * q.shape[0] * q.shape[1] * S * q.shape[2]
         b_ms, b_by = bound(nb, ops, torch.bfloat16)
-        var = variants_of(lambda i: k1_inputs(dev, S, kv, seed=i), nb)
+        var = variants_of(lambda i: (k1_inputs(dev, 8, S, ("bfloat16", kv),
+                                               seed=i), {}), nb)
         ms = time_ms(flash_decode, var, 400)
         plain = time_ms(flash_decode_ref, var, 50)
         # yardstick: SDPA (GQA) on dequantized bf16 K/V of the same bucket
@@ -475,6 +533,7 @@ def phase_timing(dev, launches, per_step, errs):
                time_ms(F.scaled_dot_product_attention, sd, 400)}
         rows.append(("flash_decode", f"B=8 Hq=14 n_kv=2 hd=64 S={S} kv={kv}",
                      ms, plain, b_ms, b_by, lib))
+        log(f"  K1 S={S} kv={kv}: {nb / 1e6:.3f} MB moved")
     # K3 at decode (8 rows), chunk (32 rows) and monolithic-prefill (128
     # rows) widths
     for R in (8, 32, 128):

@@ -1,6 +1,7 @@
 // Device and launch helpers shared by the port's CUDA kernels (sm_90a):
-// 16-byte cp.async copies, programmatic dependent launch, and the sum of a
-// reduction split across CTAs, taken by the last CTA of each output tile.
+// 16- and 4-byte cp.async copies, programmatic dependent launch, and the
+// sum of a reduction split across CTAs, taken by the last CTA of each
+// output tile.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -13,6 +14,13 @@ constexpr int kThreads = 256;            // every kernel runs 8 warps a CTA
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+// A 4-byte copy (cp.async allows sizes under 16 bytes only through L1).
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
                "l"(gmem));
 }
 
@@ -118,12 +126,12 @@ __device__ __forceinline__ void split_sum(const A* __restrict__ part, int R,
   }
 }
 
-// Launch `kern` as a programmatic dependent of the kernel before it on the
-// stream, in clusters of (1, 1, cluster_z) CTAs.
+// Launch `kern` in clusters of (1, 1, cluster_z) CTAs; with `pdl`, as a
+// programmatic dependent of the kernel before it on the stream.
 template <typename... P, typename... Args>
-cudaError_t launch_dependent(void (*kern)(P...), dim3 grid, size_t smem,
-                             cudaStream_t stream, unsigned cluster_z,
-                             Args... args) {
+cudaError_t launch_kernel(void (*kern)(P...), dim3 grid, size_t smem,
+                          cudaStream_t stream, unsigned cluster_z, bool pdl,
+                          Args... args) {
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -135,14 +143,14 @@ cudaError_t launch_dependent(void (*kern)(P...), dim3 grid, size_t smem,
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[2];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  attr[1].id = cudaLaunchAttributeClusterDimension;
-  attr[1].val.clusterDim.x = 1;
-  attr[1].val.clusterDim.y = 1;
-  attr[1].val.clusterDim.z = cluster_z;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = cluster_z;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 2;
+  cfg.numAttrs = pdl ? 2 : 1;
   cudaError_t e = cudaLaunchKernelEx(&cfg, kern, args...);
   return e != cudaSuccess ? e : cudaGetLastError();
 }

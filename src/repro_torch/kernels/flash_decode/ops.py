@@ -1,19 +1,115 @@
 """K1 wrapper: flash decode attention on CUDA (hand-written kernel) or on
-the CPU (plain version). A CUDA tensor launches the kernel or raises."""
+the CPU (plain version). A CUDA tensor launches the kernel or raises.
+``decode_plan`` is the kernel's launch plan (split of S across CTAs, ring
+tiles, scratch, shared memory), kept in Python so that the CPU tests can
+check it."""
 from __future__ import annotations
 
 import ctypes
 import math
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import CTAS_PER_SM, SMS, build, cdiv, tickets
 from repro_torch.kernels.flash_decode.ref import flash_decode_ref
 
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _SUPPORTED = {(0, 0), (0, 2), (1, 1), (1, 2)}
-MAX_GROUP_WIDTH = 128 * 8        # G*hd a CTA accumulates (kThreads*kMaxAcc)
+HEAD_DIMS = (32, 64, 128, 256)   # multiples of the mma's k16, instantiated
+MAX_GROUP = 8                    # query heads per KV head: the mma's n8
+MAX_GROUP_WIDTH = 1024           # G*hd: merge buffers, 4 outputs a thread
+WARPS = 8                        # port::kThreads / 32
+MAX_TILE = 1024                  # positions per tile (4 mask bytes/thread)
+SPLIT_CHUNK = 16                 # splits the last CTA stages per round trip
+MIN_SPLIT = 256                  # positions a split takes at least
+STAGE_BYTES = 96 * 1024          # K, V, scales and flags of one ring stage
+SMEM_BYTES = 227 * 1024          # dynamic shared memory a CTA may use
+PDL = True                       # launch as a programmatic dependent
+
+
+@dataclass(frozen=True)
+class DecodePlan:
+    """How ``flash_decode.cu`` tiles a call: CTA (h, b, z) owns positions
+    [z*split, min((z+1)*split, S)) of KV head h in row b and streams them
+    in tiles of ``tile`` positions through ``stages`` ring stages (one
+    stage holds the whole split). With more than one split the raw
+    (o, m, l) of each split go to an f32 scratch of ``scratch`` elements
+    and the last CTA of each (b, h) merges them."""
+    split: int
+    splits: int
+    tile: int
+    stages: int
+    grid: Tuple[int, int, int]
+    scratch: int                # f32 elements (0: one split)
+    smem: int                   # dynamic shared memory bytes a CTA takes
+
+    @property
+    def ctas(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+
+def _a16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def smem_bytes(tile: int, stages: int, splits: int, G: int, hd: int,
+               kv_itemsize: int) -> int:
+    """Shared memory of one CTA, as ``flash_decode.cu`` lays it out: the
+    ring stages (K and V rows padded by 16 bytes, int8 scales, live flags)
+    or, once they are consumed, the merge buffers (o of 8 warps or of up
+    to SPLIT_CHUNK splits, m and l of max(8, splits) rows), then the 8
+    warps' P tiles (8 heads x 20 floats)."""
+    kv = _a16(tile * (hd * kv_itemsize + 16))
+    sc = _a16(tile * 4) if kv_itemsize == 1 else 0
+    stage = 2 * kv + 2 * sc + _a16(tile)
+    o_rows = max(min(splits, SPLIT_CHUNK), WARPS)
+    merge = _a16(o_rows * G * hd * 4) + \
+        _a16((2 * max(splits, WARPS) * G + 2 * MAX_GROUP) * 4)
+    return max(stages * stage, merge) + WARPS * MAX_GROUP * 20 * 4
+
+
+def decode_plan(B: int, n_kv: int, G: int, S: int, hd: int,
+                kv_itemsize: int, split: Optional[int] = None,
+                tile: Optional[int] = None) -> DecodePlan:
+    """Split S until the grid holds about CTAS_PER_SM CTAs per SM: where
+    B*n_kv CTAs already fill the card there is one split, else each (b, h)
+    takes ceil(CTAS_PER_SM * SMS / (B*n_kv)) splits of a multiple of 16
+    positions, but no split shorter than MIN_SPLIT: a split costs its last
+    CTA a ticket and a second round trip to L2, about 2 us on the H100,
+    more than one CTA takes to stream 256 positions (tools/plan_sweep.py:
+    at B=8, S=200 one split beats 2 to 13; at S=4096, 16 splits of 256
+    beat 8 of 512 and 32 of 128). ``split`` and ``tile`` override the
+    choice (the sweep's variants). A split whose K/V bytes pass STAGE_BYTES
+    streams through two ring stages of half that size."""
+    pairs = B * n_kv
+    if split is None:
+        want = 1 if pairs >= SMS else cdiv(CTAS_PER_SM * SMS, pairs)
+        whole = 16 * cdiv(max(S, 1), 16)
+        split = min(whole, max(MIN_SPLIT, 16 * cdiv(cdiv(max(S, 1), want),
+                                                    16)))
+    if split <= 0 or split % 16:
+        raise ValueError(f"decode_plan: split {split} is no positive "
+                         f"multiple of 16")
+    splits = max(1, cdiv(S, split))
+    row = 2 * (hd * kv_itemsize + 16) + (8 if kv_itemsize == 1 else 0)
+    if tile is None:
+        tile = split if split <= MAX_TILE and split * row <= STAGE_BYTES \
+            else max(16, min(MAX_TILE, STAGE_BYTES // 2 // row // 16 * 16))
+    if tile <= 0 or tile % 16 or tile > MAX_TILE:
+        raise ValueError(f"decode_plan: tile {tile} is no multiple of 16 "
+                         f"in (0, {MAX_TILE}]")
+    tile = min(tile, split)
+    stages = 1 if tile == split else 2
+    smem = smem_bytes(tile, stages, splits, G, hd, kv_itemsize)
+    if smem > SMEM_BYTES:
+        raise ValueError(f"decode_plan: {smem} bytes of shared memory for "
+                         f"split {split} ({splits} splits), G={G} hd={hd}")
+    scratch = pairs * splits * G * (hd + 2) if splits > 1 else 0
+    return DecodePlan(split, splits, tile, stages, (n_kv, B, splits),
+                      scratch, smem)
 
 
 def _lib():
@@ -21,25 +117,25 @@ def _lib():
     fn = lib.flash_decode_launch
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P] * 10 + [I] * 5 + [L] * 5 + [ctypes.c_float] + \
-            [I] * 3 + [P]
+        fn.argtypes = [P] * 12 + [I] * 5 + [L] * 5 + [ctypes.c_float] + \
+            [I] * 10 + [P]
         fn.restype = ctypes.c_int
     return fn
 
 
-def flash_decode(q, k, v, mask, k_scale=None, v_scale=None, kv_limit=None,
-                 scale=None, partial_stats=False):
-    """q: (B,Hq,hd) f32/bf16 contiguous; k/v: (B,n_kv,S,hd) with unit
-    stride on hd and row stride hd (a bucket prefix view of a cache layer
-    is fine); int8 K/V take scales (B,n_kv,S,1) f32; mask: (B,S) bool;
-    kv_limit: 0-d int32 device tensor (or int) — tiles at or past it are
-    skipped. Returns (B,Hq,hd) f32, or ``(o, m, l)`` with
-    ``partial_stats``."""
-    if q.device.type == "cpu":
-        return flash_decode_ref(q, k, v, mask, k_scale, v_scale, kv_limit,
-                                scale, partial_stats)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_decode: unsupported device {q.device}")
+def _aligned16(t: torch.Tensor) -> bool:
+    """Base and the batch/head strides of t are 16-byte aligned (rows are:
+    hd * itemsize is a multiple of 16 for every hd the kernel takes)."""
+    es = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        t.shape[d] <= 1 or t.stride(d) * es % 16 == 0 for d in (0, 1))
+
+
+def launch_plan(plan: DecodePlan, pdl: bool, q, k, v, mask, k_scale=None,
+                v_scale=None, kv_limit=None, scale=None,
+                partial_stats=False):
+    """Check the CUDA inputs and launch the kernel under ``plan`` (counts
+    nothing: ``flash_decode`` is the counted entry)."""
     B, Hq, hd = q.shape
     _, n_kv, S, _ = k.shape
     G = Hq // n_kv
@@ -50,9 +146,11 @@ def flash_decode(q, k, v, mask, k_scale=None, v_scale=None, kv_limit=None,
                         f"k={k.dtype} v={v.dtype}")
     if quantized != (k.dtype == torch.int8):
         raise TypeError("flash_decode: int8 K/V need scales, float K/V none")
-    if Hq % n_kv or G * hd > MAX_GROUP_WIDTH:
+    if Hq % n_kv or hd not in HEAD_DIMS or G > MAX_GROUP \
+            or G * hd > MAX_GROUP_WIDTH:
         raise ValueError(f"flash_decode: Hq={Hq} n_kv={n_kv} hd={hd} "
-                         f"unsupported (G*hd <= {MAX_GROUP_WIDTH})")
+                         f"unsupported (hd in {HEAD_DIMS}, G <= "
+                         f"{MAX_GROUP}, G*hd <= {MAX_GROUP_WIDTH})")
     if not q.is_contiguous():
         raise ValueError("flash_decode: q must be contiguous")
     for t in (k, v):
@@ -81,18 +179,49 @@ def flash_decode(q, k, v, mask, k_scale=None, v_scale=None, kv_limit=None,
         raise ValueError("flash_decode: kv_limit must be a scalar")
     lim = lim.reshape(1).contiguous()
     sc = scale if scale is not None else 1.0 / math.sqrt(hd)
-    o = torch.empty((B, Hq, hd), dtype=torch.float32, device=q.device)
-    m = torch.empty((B, Hq), dtype=torch.float32, device=q.device)
-    l = torch.empty((B, Hq), dtype=torch.float32, device=q.device)
+    dev = q.device
+    o = torch.empty((B, Hq, hd), dtype=torch.float32, device=dev)
+    m = torch.empty((B, Hq), dtype=torch.float32, device=dev)
+    l = torch.empty((B, Hq), dtype=torch.float32, device=dev)
+    if B == 0 or Hq == 0:
+        return o, m, l
+    part = torch.empty((max(plan.scratch, 1),), dtype=torch.float32,
+                       device=dev)
+    tix = tickets(dev, B * n_kv)
+    wide = int(_aligned16(k) and _aligned16(v))
     err = _lib()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         k_scale.data_ptr() if quantized else None,
         v_scale.data_ptr() if quantized else None,
         mask.data_ptr(), lim.data_ptr(), o.data_ptr(), m.data_ptr(),
-        l.data_ptr(), B, n_kv, G, S, hd, k.stride(0), k.stride(1), s_sb,
-        s_sh, mask.stride(0), float(sc), codes[0], codes[1],
-        int(partial_stats), torch.cuda.current_stream(q.device).cuda_stream)
+        l.data_ptr(), part.data_ptr(), tix.data_ptr(), B, n_kv, G, S, hd,
+        k.stride(0), k.stride(1), s_sb, s_sh, mask.stride(0), float(sc),
+        codes[0], codes[1], int(partial_stats), plan.split, plan.splits,
+        plan.tile, plan.stages, plan.smem, wide, int(pdl),
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "flash_decode")
+    return o, m, l
+
+
+def flash_decode(q, k, v, mask, k_scale=None, v_scale=None, kv_limit=None,
+                 scale=None, partial_stats=False):
+    """q: (B,Hq,hd) f32/bf16 contiguous; k/v: (B,n_kv,S,hd) with unit
+    stride on hd and row stride hd (a bucket prefix view of a cache layer
+    is fine); int8 K/V take scales (B,n_kv,S,1) f32; mask: (B,S) bool;
+    kv_limit: 0-d int32 device tensor (or int) — tiles at or past it are
+    skipped. Returns (B,Hq,hd) f32, or ``(o, m, l)`` with
+    ``partial_stats``."""
+    if q.device.type == "cpu":
+        return flash_decode_ref(q, k, v, mask, k_scale, v_scale, kv_limit,
+                                scale, partial_stats)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode: unsupported device {q.device}")
+    B, Hq, hd = q.shape
+    n_kv, S = k.shape[1], k.shape[2]
+    plan = decode_plan(B, n_kv, max(1, Hq // max(n_kv, 1)), S, hd,
+                       k.element_size())
+    o, m, l = launch_plan(plan, PDL, q, k, v, mask, k_scale, v_scale,
+                          kv_limit, scale, partial_stats)
     flash_decode.launches += 1
     return (o, m, l) if partial_stats else o
 

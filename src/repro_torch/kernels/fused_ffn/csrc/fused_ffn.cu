@@ -475,17 +475,17 @@ cudaError_t launch(const void* x, const void* wg, const void* wu,
   float* h = scratch;
   float* part = scratch + (size_t)R * F;
   const int wide_h = F % 4 == 0;
-  cudaError_t e = port::launch_dependent(
+  cudaError_t e = port::launch_kernel(
       gate_up_kernel<T, MT>,
       dim3((F + kCols - 1) / kCols, (R + MT - 1) / MT, DS), smem_a, stream,
-      DS, (const T*)x, (const T*)wg, (const T*)wu, h, R, D, F, DC, act,
+      DS, true, (const T*)x, (const T*)wg, (const T*)wu, h, R, D, F, DC, act,
       wide_gu, wide_x);
   if (e != cudaSuccess) return e;
-  return port::launch_dependent(
+  return port::launch_kernel(
       down_kernel<T, MT>,
       dim3((D + kCols - 1) / kCols, (R + MT - 1) / MT, FS),
-      down_smem(sz, MT, FC), stream, 1, (const float*)h, (const T*)wd, part,
-      out, tickets, R, D, F, FC, wide_d, wide_h);
+      down_smem(sz, MT, FC), stream, 1, true, (const float*)h, (const T*)wd,
+      part, out, tickets, R, D, F, FC, wide_d, wide_h);
 }
 
 template <typename T>

@@ -175,10 +175,10 @@ cudaError_t launch(const void* xq, const void* xs, const void* wq,
                    const void* ws, void* out, void* part, void* tickets,
                    int R, int K, int N, int KC, int k_splits, int wide_w,
                    int wide_x, cudaStream_t stream) {
-  return port::launch_dependent(
+  return port::launch_kernel(
       gemv_int8_kernel<MT, NT>,
       dim3((N + NT - 1) / NT, (R + MT - 1) / MT, k_splits),
-      smem_bytes(MT, NT, KC), stream, 1, (const int8_t*)xq,
+      smem_bytes(MT, NT, KC), stream, 1, true, (const int8_t*)xq,
       (const float*)xs, (const int8_t*)wq, (const float*)ws, (float*)out,
       (int*)part, (unsigned*)tickets, R, K, N, KC, wide_w, wide_x);
 }

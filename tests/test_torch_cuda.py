@@ -13,8 +13,13 @@ import numpy as np                                           # noqa: E402
 from repro_torch.configs.registry import get_config          # noqa: E402
 from repro_torch.interop import to_device                    # noqa: E402
 from repro_torch.kernels import launch_counts, reset_launch_counts  # noqa
-from repro_torch.kernels.flash_decode.ops import flash_decode  # noqa: E402
-from repro_torch.kernels.flash_decode.ref import flash_decode_ref  # noqa
+from repro_torch.kernels.flash_decode import ops as fd_ops  # noqa: E402
+from repro_torch.kernels.flash_decode.combine import (        # noqa: E402
+    combine_partial_stats, merge_partial_stats)
+from repro_torch.kernels.flash_decode.ops import (            # noqa: E402
+    decode_plan, flash_decode)
+from repro_torch.kernels.flash_decode.ref import (            # noqa: E402
+    NEG_INF, flash_decode_ref)
 from repro_torch.kernels.fused_ffn.ops import fused_ffn      # noqa: E402
 from repro_torch.kernels.fused_ffn.ref import fused_ffn_ref  # noqa: E402
 from repro_torch.kernels.gemv.ops import gemv_int8_q         # noqa: E402
@@ -31,6 +36,65 @@ def dev():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
                     "False)")
     return torch.device("cuda")
+
+
+PAIRS = [("float32", "float32"), ("float32", "int8"),
+         ("bfloat16", "bfloat16"), ("bfloat16", "int8")]
+
+
+def _fd_case(dev, B, S, pair, Hq=14, n_kv=2, hd=64, seed=0, lim=None):
+    """Decode attention inputs over a bucket view of S positions cut from a
+    cache of S + 8 (strided rows, as the engine passes them). Every row
+    attends a position below ``lim`` (when lim > 0), the mask is False
+    past it."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qdt, kvdt = (getattr(torch, n) for n in pair)
+    q = torch.randn(B, Hq, hd, device=dev, generator=g).to(qdt)
+    kf = torch.randn(B, n_kv, S + 8, hd, device=dev, generator=g)
+    vf = torch.randn(B, n_kv, S + 8, hd, device=dev, generator=g)
+    if kvdt == torch.int8:
+        (k, ks), (v, vs) = quantize_kv(kf), quantize_kv(vf)
+        ks, vs = ks[:, :, :S], vs[:, :, :S]
+    else:
+        k, v, ks, vs = kf.to(kvdt), vf.to(kvdt), None, None
+    k, v = k[:, :, :S], v[:, :, :S]
+    lim = S if lim is None else lim
+    pos = torch.randint(0, max(1, min(lim, S)), (B,), device=dev,
+                        generator=g)
+    mask = torch.arange(S, device=dev)[None] < pos[:, None] + 1
+    mask &= torch.arange(S, device=dev)[None] < lim
+    return q, k, v, mask, ks, vs
+
+
+def _check_k1(args, lim, partial, plan=None):
+    """Kernel against its plain version within 1e-5 * max(1, max|plain|)
+    per output tensor; a second call gives the same bits; kv_limit <= 0
+    gives exactly 0 or (0, NEG_INF, 0)."""
+    q, k, v, mask, ks, vs = args
+    lim_t = torch.tensor(lim, dtype=torch.int32, device=q.device)
+    if plan is None:
+        got = flash_decode(q, k, v, mask, ks, vs, lim_t,
+                           partial_stats=partial)
+        again = flash_decode(q, k, v, mask, ks, vs, lim_t,
+                             partial_stats=partial)
+    else:
+        got, again = (fd_ops.launch_plan(plan, pdl, q, k, v, mask, ks, vs,
+                                         lim_t, partial_stats=partial)
+                      for pdl in (True, False))
+        if not partial:
+            got, again = got[0], again[0]
+    want = flash_decode_ref(q, k, v, mask, ks, vs, lim_t,
+                            partial_stats=partial)
+    got, again, want = ((x,) if not partial else x
+                        for x in (got, again, want))
+    for a, b, w in zip(got, again, want):
+        tol = 1e-5 * max(1.0, float(w.abs().max()))
+        assert float((a - w).abs().max()) <= tol
+        assert torch.equal(a, b)
+    if lim <= 0:
+        assert not got[0].any()
+        if partial:
+            assert (got[1] == NEG_INF).all() and not got[2].any()
 
 
 @pytest.mark.parametrize("kv", ["bfloat16", "int8", "float32"])
@@ -58,6 +122,105 @@ def test_flash_decode_kernel_matches_plain(dev, kv, S):
         for a, b in zip(got if partial else (got,),
                         want if partial else (want,)):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("pair", PAIRS)
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("S", [1, 17, 64, 200, 1000, 4096])
+def test_flash_decode_kernel_matches_plain_across_splits(dev, S, B, pair):
+    """qwen2-0.5b heads (G=7, hd=64) at every split count the plan gives
+    from one to many: kv_limit at 0, inside a split, on a split edge and at
+    S; normalised and partial statistics."""
+    isz = torch.empty(0, dtype=getattr(torch, pair[1])).element_size()
+    plan = decode_plan(B, 2, 7, S, 64, isz)
+    edge = plan.split if plan.splits > 1 else S
+    for lim in sorted({0, max(1, plan.split // 2 + 3), edge, S}):
+        args = _fd_case(dev, B, S, pair, seed=S + B + lim, lim=lim)
+        for partial in (False, True):
+            _check_k1(args, lim, partial)
+
+
+@pytest.mark.parametrize("pair", PAIRS)
+@pytest.mark.parametrize("hd,G", [(128, 8), (32, 8), (256, 4), (128, 1)])
+@pytest.mark.parametrize("S", [200, 4096])
+def test_flash_decode_kernel_head_shapes(dev, S, hd, G, pair):
+    """G*hd = 1024 (G=8, hd=128; G=4, hd=256), hd=32, and one query head
+    per KV head."""
+    for B in (1, 8):
+        args = _fd_case(dev, B, S, pair, Hq=2 * G, n_kv=2, hd=hd,
+                        seed=S + hd + G + B)
+        for partial in (False, True):
+            _check_k1(args, S, partial)
+
+
+@pytest.mark.parametrize("pair", PAIRS)
+@pytest.mark.parametrize("split", [16, 48, 4096])
+def test_flash_decode_kernel_other_plans(dev, split, pair):
+    """Plans other than the default (the sweep's variants): many small
+    splits, a split that is no power of two, and one whole-S split that
+    streams through the two-stage ring; with and without programmatic
+    dependent launch."""
+    S = 4096
+    isz = torch.empty(0, dtype=getattr(torch, pair[1])).element_size()
+    plan = decode_plan(8, 2, 7, S, 64, isz, split=split)
+    assert (plan.stages == 2) == (split == S)
+    for lim in (S, 1000):
+        args = _fd_case(dev, 8, S, pair, seed=split + lim, lim=lim)
+        for partial in (False, True):
+            _check_k1(args, lim, partial, plan=plan)
+
+
+@pytest.mark.parametrize("pair", PAIRS)
+def test_flash_decode_kernel_unaligned_rows(dev, pair):
+    """A K/V view whose base is not 16-byte aligned takes the element-copy
+    path and gives the same result."""
+    B, Hq, n_kv, hd, S = 8, 14, 2, 64, 200
+    q, k, v, mask, ks, vs = _fd_case(dev, B, S, pair, seed=5)
+    off = []
+    for t in (k, v):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        u = flat[1:].view(B, n_kv, S, hd)
+        u.copy_(t)
+        off.append(u)
+    assert off[0].data_ptr() % 16
+    for partial in (False, True):
+        _check_k1((q, off[0], off[1], mask, ks, vs), S, partial)
+
+
+@pytest.mark.parametrize("pair", PAIRS)
+@pytest.mark.parametrize("S,split", [(200, 32), (4096, 256), (4096, 4096)])
+def test_flash_decode_kernel_dead_rows_follow_the_tile_walk(dev, S, split,
+                                                            pair):
+    """Rows with no live position below kv_limit: the kernel gives what
+    the walk over its tiles gives (plain version per tile, LSE-merged in
+    order), including the uniform average where every tile is dead."""
+    isz = torch.empty(0, dtype=getattr(torch, pair[1])).element_size()
+    plan = decode_plan(8, 2, 7, S, 64, isz, split=split)
+    lim = S - 37
+    q, k, v, mask, ks, vs = _fd_case(dev, 8, S, pair, seed=S + split,
+                                     lim=lim)
+    mask[:3] = False                       # three rows wholly dead
+    lim_t = torch.tensor(lim, dtype=torch.int32, device=dev)
+    parts = []
+    for z in range(plan.splits):
+        for lo in range(z * plan.split, min((z + 1) * plan.split, S),
+                        plan.tile):
+            hi = min(lo + plan.tile, (z + 1) * plan.split, S)
+            sl = (slice(None), slice(None), slice(lo, hi))
+            parts.append(flash_decode_ref(
+                q, k[sl], v[sl], mask[:, lo:hi],
+                None if ks is None else ks[sl],
+                None if vs is None else vs[sl], lim_t - lo,
+                partial_stats=True))
+    o, m, l = (torch.stack(x) for x in zip(*parts))
+    want_p = merge_partial_stats(o, m, l)
+    want = combine_partial_stats(o, m, l)
+    got_p = fd_ops.launch_plan(plan, True, q, k, v, mask, ks, vs, lim_t,
+                               partial_stats=True)
+    got = fd_ops.launch_plan(plan, True, q, k, v, mask, ks, vs, lim_t)[0]
+    for a, w in zip((got, *got_p), (want, *want_p)):
+        tol = 1e-5 * max(1.0, float(w.abs().max()))
+        assert float((a - w).abs().max()) <= tol
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -1,12 +1,14 @@
-"""Launch plans of the K3 and K4 CUDA kernels, checked on the CPU.
+"""Launch plans of the K1, K3 and K4 CUDA kernels, checked on the CPU.
 
 The host side of each wrapper picks the grid, the split of the reduction
-axis and the scratch size in plain Python (``gemv_plan``, ``ffn_plan``);
-the kernels tile exactly as the plan says. These tests hold the plans to
-covering every row, column and reduction index exactly once, to scratch
-sizes that match the grid, and to the CTA counts chosen for each width:
-K4 at decode rows splits K only past its chunk cap, K3 and prefill-width
-K4 fill the card's 132 SMs.
+axis and the scratch size in plain Python (``decode_plan``, ``gemv_plan``,
+``ffn_plan``); the kernels tile exactly as the plan says. These tests hold
+the plans to covering every position, row, column and reduction index
+exactly once, to scratch and shared-memory sizes that match the grid, and
+to the CTA counts chosen for each width: K1 splits S only into splits of
+256 positions or more, up to about two CTAs per SM; K4 at decode rows
+splits K only past its chunk cap, K3 and prefill-width K4 fill the card's
+132 SMs.
 """
 import pytest
 
@@ -14,6 +16,7 @@ pytest.importorskip("torch")
 
 import numpy as np                                           # noqa: E402
 
+from repro_torch.kernels.flash_decode import ops as fd        # noqa: E402
 from repro_torch.kernels.fused_ffn.ops import (COLS, PAD,     # noqa: E402
                                                RING, ffn_plan)
 from repro_torch.kernels.gemv.ops import (MAX_K_CHUNK,        # noqa: E402
@@ -155,3 +158,104 @@ def test_ffn_plan_row_tiles(R, rows):
     the weights are read twice, not 16 times as with an 8-row tile."""
     p = ffn_plan(R, 896, 4864)
     assert p.rows == rows and p.grid_gate_up[1] == -(-R // rows)
+
+
+# K1 at the decode shapes of the JAX package's configs: (G, hd, n_kv)
+DECODE_CONFIGS = {
+    "qwen2-0.5b": (7, 64, 2),
+    "granite-3-2b": (4, 64, 8),
+    "internlm2-1.8b": (2, 128, 8),
+    "llama3.2-3b": (3, 128, 8),
+    "llama2-70b": (8, 128, 8),
+    "reduced": (2, 32, 2),
+}
+DECODE_S = [1, 15, 16, 17, 64, 192, 200, 1000, 4096, 32768]
+DECODE_B = [1, 8, 64]
+
+
+def _a16(x):
+    return -(-x // 16) * 16
+
+
+def _k1_smem(p, G, hd, isz):
+    """K1's shared memory restated from the kernel's layout: ring stages of
+    K and V rows (hd * itemsize + 16 bytes), int8 scales and live flags,
+    or the merge buffers that reuse them, then 8 warps x 8 heads x 20
+    floats of P tiles."""
+    stage = 2 * _a16(p.tile * (hd * isz + 16)) + _a16(p.tile)
+    if isz == 1:
+        stage += 2 * _a16(p.tile * 4)
+    merge = _a16(max(min(p.splits, 16), 8) * G * hd * 4) + \
+        _a16((2 * max(p.splits, 8) * G + 16) * 4)
+    return max(p.stages * stage, merge) + 8 * 8 * 20 * 4
+
+
+@pytest.mark.parametrize("config", list(DECODE_CONFIGS))
+@pytest.mark.parametrize("S", DECODE_S)
+@pytest.mark.parametrize("B", DECODE_B)
+def test_decode_plan_covers_every_position_once(B, S, config):
+    """Splits cover [0, S) once and none is empty; each split's tiles cover
+    it once; split and tile are multiples of 16; scratch, grid and shared
+    memory match, for int8, bf16 and f32 KV."""
+    G, hd, n_kv = DECODE_CONFIGS[config]
+    for isz in (1, 2, 4):
+        p = fd.decode_plan(B, n_kv, G, S, hd, isz)
+        assert p.split % 16 == 0 and p.tile % 16 == 0
+        assert p.grid == (n_kv, B, p.splits) and p.ctas == B * n_kv * p.splits
+        assert covered_once(S, p.split, p.splits)
+        for z in range(p.splits):
+            length = min(p.split, S - z * p.split)
+            assert covered_once(length, p.tile, -(-length // p.tile))
+        assert p.tile <= fd.MAX_TILE
+        assert (p.stages == 1) == (p.tile == p.split) and p.stages in (1, 2)
+        assert p.scratch == (B * n_kv * p.splits * G * (hd + 2)
+                             if p.splits > 1 else 0)
+        assert p.smem == _k1_smem(p, G, hd, isz) <= SMEM_BYTES
+
+
+@pytest.mark.parametrize("config", list(DECODE_CONFIGS))
+@pytest.mark.parametrize("B", DECODE_B)
+def test_decode_plan_cta_policy(B, config):
+    """The policy the sweep settled on (tools/plan_sweep.py): one split,
+    with no scratch and no ticket, where B*n_kv CTAs fill the 132 SMs;
+    else splits of at least 256 positions (or all of S), and no more than
+    about two CTAs per SM."""
+    G, hd, n_kv = DECODE_CONFIGS[config]
+    pairs = B * n_kv
+    for S in DECODE_S:
+        p = fd.decode_plan(B, n_kv, G, S, hd, 2)
+        if pairs >= SMS:
+            assert p.splits == 1 and p.scratch == 0
+            continue
+        assert p.split >= min(fd.MIN_SPLIT, _a16(S))
+        assert p.ctas < 2 * SMS + pairs
+        if S >= fd.MIN_SPLIT * -(-2 * SMS // pairs):
+            assert p.ctas > 2 * SMS - pairs          # the CTA target binds
+
+
+@pytest.mark.parametrize("S,splits", [(64, 1), (128, 1), (192, 1),
+                                      (200, 1), (1000, 4), (4096, 16)])
+def test_decode_plan_at_the_serving_batch(S, splits):
+    """qwen2-0.5b at B=8: every KV bucket of the engine (<= 200 positions)
+    runs one CTA per (row, KV head) over the whole bucket; a long context
+    of 4096 splits into 16 splits of 256 positions, 256 CTAs."""
+    for isz in (1, 2):
+        p = fd.decode_plan(8, 2, 7, S, 64, isz)
+        assert p.splits == splits and p.stages == 1
+        assert p.split == (_a16(S) if splits == 1 else 256)
+
+
+def test_decode_plan_overrides_and_refusals():
+    """The sweep's variants: any multiple of 16 as split or tile; a split
+    longer than a ring stage streams through two stages; other values and
+    plans past shared memory raise."""
+    p = fd.decode_plan(8, 2, 7, 4096, 64, 2, split=4096)
+    assert p.splits == 1 and p.stages == 2 and p.tile < 4096
+    p = fd.decode_plan(8, 2, 7, 4096, 64, 2, split=256, tile=64)
+    assert p.tile == 64 and p.stages == 2
+    for bad in (dict(split=24), dict(split=0), dict(tile=8),
+                dict(tile=2048)):
+        with pytest.raises(ValueError, match="multiple of 16"):
+            fd.decode_plan(8, 2, 7, 4096, 64, 2, **bad)
+    with pytest.raises(ValueError, match="shared memory"):
+        fd.decode_plan(1, 1, 8, 2 ** 20, 128, 4, split=16)

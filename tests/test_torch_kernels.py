@@ -5,8 +5,16 @@ The wrappers run these plain versions for CPU tensors; the CUDA kernels
 themselves are held against them on the card (``tests/test_torch_cuda.py``
 and ``chip_smoke.py``). Shapes divide the Pallas blocks, which assert.
 
+K1's split of S across CTAs is held here in plain form: the port's
+``flash_decode_ref`` partial statistics of every tile of ``decode_plan``,
+merged in order by the port's ``combine.py``, against the Pallas kernel
+(with the kernel's tile as its block) and against the reference's
+``combine_partial_stats``; a ragged S, which Pallas refuses, against the
+reference's jnp oracle.
+
 Tolerances: f32 math on both sides in a different summation order, so
-K1 to 1e-5 and K3 to 1e-4 absolute; K4 bit-exact against the reference
+K1 to 1e-5 (the split walk to 1e-5 * max(1, max|ref|)) and K3 to 1e-4
+absolute; K4 bit-exact against the reference
 oracle (int32 accumulation), and within 1e-5 relative of the Pallas kernel,
 which scales as acc * (x_scale * w_scale) instead of the oracle's
 (acc * x_scale) * w_scale.
@@ -18,17 +26,25 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp                                      # noqa: E402
 import numpy as np                                           # noqa: E402
 
+from repro.kernels.flash_decode.combine import (            # noqa: E402
+    combine_partial_stats as jax_combine, merge_partial_stats as jax_merge)
 from repro.kernels.flash_decode.ops import (flash_decode as jax_fd,  # noqa
                                             flash_decode_partial as jax_fdp)
 from repro.kernels.flash_decode.ref import flash_decode_ref as jax_fd_ref  # noqa
+from repro.kernels.flash_decode.ref import (                 # noqa: E402
+    flash_decode_ref_partial as jax_fd_ref_partial)
 from repro.kernels.fused_ffn.fused_ffn import fused_ffn_pallas  # noqa: E402
 from repro.kernels.fused_ffn.ref import fused_ffn_ref as jax_ffn_ref  # noqa
 from repro.kernels.gemv.gemv import gemv_int8_pallas         # noqa: E402
 from repro.kernels.gemv.ref import gemv_int8_ref as jax_gemv_ref  # noqa
 from repro.quant.int8 import quantize_int8 as jq8, quantize_kv as jqkv  # noqa
 from repro_torch.kernels import launch_counts, reset_launch_counts  # noqa
-from repro_torch.kernels.flash_decode.ops import flash_decode  # noqa: E402
-from repro_torch.kernels.flash_decode.ref import NEG_INF     # noqa: E402
+from repro_torch.kernels.flash_decode.combine import (      # noqa: E402
+    combine_partial_stats, merge_partial_stats)
+from repro_torch.kernels.flash_decode.ops import (          # noqa: E402
+    decode_plan, flash_decode)
+from repro_torch.kernels.flash_decode.ref import (          # noqa: E402
+    NEG_INF, flash_decode_ref)
 from repro_torch.kernels.fused_ffn.ops import fused_ffn      # noqa: E402
 from repro_torch.kernels.gemv.ops import gemv_int8_q, gemv_int8_shared  # noqa
 from repro_torch.quant.int8 import QuantizedTensor           # noqa: E402
@@ -107,6 +123,133 @@ def test_flash_decode_partial_stats(dtype, kv_limit):
         assert (m == NEG_INF).all()
         norm = flash_decode(tq_, tk, tv, tmask, tks, tvs, kv_limit=0)
         assert not norm.any()
+
+
+def _tiles(plan, S):
+    """[lo, hi) of every tile K1 walks under ``plan``, split by split."""
+    for z in range(plan.splits):
+        end = min((z + 1) * plan.split, S)
+        for lo in range(z * plan.split, end, plan.tile):
+            yield lo, min(lo + plan.tile, end)
+
+
+def _split_walk(plan, q, k, v, mask, ks, vs, lim):
+    """K1's split of S in plain form: the port's partial statistics of
+    every tile (kv_limit shifted to the tile, so a tile at or past it is
+    the identity), stacked in split and tile order for the merge."""
+    S = k.shape[2]
+    parts = []
+    for lo, hi in _tiles(plan, S):
+        sl = (slice(None), slice(None), slice(lo, hi))
+        parts.append(flash_decode_ref(
+            q, k[sl], v[sl], mask[:, lo:hi],
+            None if ks is None else ks[sl], None if vs is None else vs[sl],
+            kv_limit=lim - lo, partial_stats=True))
+    return tuple(torch.stack(x) for x in zip(*parts))
+
+
+def _jax_walk(plan, q, k, v, mask, ks, vs, lim):
+    """The same walk through the reference's oracle partial statistics."""
+    kf = k if ks is None else k.astype(jnp.float32) * ks
+    vf = v if vs is None else v.astype(jnp.float32) * vs
+    parts = [jax_fd_ref_partial(q, kf[:, :, lo:hi], vf[:, :, lo:hi],
+                                mask[:, lo:hi], kv_limit=lim - lo)
+             for lo, hi in _tiles(plan, k.shape[2])]
+    return tuple(jnp.stack(x) for x in zip(*parts))
+
+
+def _close(got, want):
+    """Within 1e-5 * max(1, max|want|), per tensor."""
+    want = np.asarray(want)
+    tol = 1e-5 * max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(np.asarray(got), want, rtol=0, atol=tol)
+
+
+_ISZ = {"f32": 4, "bf16": 2, "int8": 1}
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("split,tile", [(64, None), (128, None), (256, 64)])
+@pytest.mark.parametrize("kv_limit", [None, 100, 128, 0, 300])
+def test_flash_decode_split_walk_matches_pallas_and_combine(dtype, split,
+                                                            tile, kv_limit):
+    """S=256 cut by decode_plan into splits of 64 or 128 positions, or one
+    split of 256 streamed in ring tiles of 64; kv_limit inside a split, on
+    a split edge, 0 and past S; row 0 has no live position at all (the
+    walk averages V over the tiles it processed, as the Pallas walk does
+    over its blocks)."""
+    q, k, v, ks, vs, mask = _fd_inputs(dtype, seed=split)
+    mask = mask.at[0].set(False)
+    B, Hq, hd = q.shape
+    n_kv, S = k.shape[1], k.shape[2]
+    plan = decode_plan(B, n_kv, Hq // n_kv, S, hd, _ISZ[dtype], split=split,
+                       tile=tile)
+    lim = S if kv_limit is None else kv_limit
+    jlim = None if kv_limit is None else jnp.asarray(kv_limit)
+    want = jax_fd(q, k, v, mask, ks, vs, interpret=True,
+                  block_s=plan.tile, kv_limit=jlim)
+    want_p = jax_fdp(q, k, v, mask, ks, vs, interpret=True,
+                     block_s=plan.tile, kv_limit=jlim)
+    jo, jm, jl = _jax_walk(plan, q, k, v, mask, ks, vs, lim)
+    tq, tk, tv, tks, tvs, tmask = _to_torch(q, k, v, ks, vs, mask)
+    o, m, l = _split_walk(plan, tq, tk, tv, tmask, tks, tvs, lim)
+    got = combine_partial_stats(o, m, l)
+    _close(got.numpy(), want)
+    _close(got.numpy(), jax_combine(jo, jm, jl))
+    for a, b, c in zip(merge_partial_stats(o, m, l), want_p,
+                       jax_merge(jo, jm, jl)):
+        _close(a.numpy(), b)
+        _close(a.numpy(), c)
+    if lim <= 0:
+        assert not got.any()
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("S,split", [(17, 16), (200, 48), (200, None)])
+@pytest.mark.parametrize("where", ["inside", "edge", "past"])
+def test_flash_decode_split_walk_ragged_matches_oracle(dtype, S, split,
+                                                       where):
+    """A ragged S (no multiple of 16, which Pallas refuses): the walk over
+    decode_plan's splits against the reference's jnp oracle, every row live
+    below kv_limit."""
+    q, k, v, ks, vs, mask = _fd_inputs(dtype, S=S, seed=S)
+    B, Hq, hd = q.shape
+    n_kv = k.shape[1]
+    plan = decode_plan(B, n_kv, Hq // n_kv, S, hd, _ISZ[dtype], split=split)
+    lim = {"inside": plan.split // 2 + 3 if plan.splits > 1 else S // 2,
+           "edge": plan.split if plan.splits > 1 else S,
+           "past": S + 5}[where]
+    kf = k if ks is None else k.astype(jnp.float32) * ks
+    vf = v if vs is None else v.astype(jnp.float32) * vs
+    want = jax_fd_ref(q, kf, vf, mask, kv_limit=jnp.asarray(lim))
+    tq, tk, tv, tks, tvs, tmask = _to_torch(q, k, v, ks, vs, mask)
+    got = combine_partial_stats(*_split_walk(plan, tq, tk, tv, tmask, tks,
+                                             tvs, lim))
+    _close(got.numpy(), want)
+
+
+def test_port_combine_matches_reference_and_identity_merges_exactly():
+    """combine.py against the reference's merge on seeded statistics; a
+    split skipped whole, (0, NEG_INF, 0), leaves the merge bit-identical."""
+    rng = np.random.default_rng(7)
+    o = rng.standard_normal((2, 3, 5, 16)).astype(np.float32)
+    m = rng.standard_normal((2, 3, 5)).astype(np.float32) * 4
+    l = rng.uniform(1, 9, (2, 3, 5)).astype(np.float32)
+    for a, b in zip(merge_partial_stats(t(o), t(m), t(l)),
+                    jax_merge(jnp.asarray(o), jnp.asarray(m),
+                              jnp.asarray(l))):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
+                                   atol=1e-6)
+    np.testing.assert_allclose(
+        combine_partial_stats(t(o), t(m), t(l)).numpy(),
+        np.asarray(jax_combine(jnp.asarray(o), jnp.asarray(m),
+                               jnp.asarray(l))), rtol=1e-6, atol=1e-6)
+    o3 = np.concatenate([o, np.zeros((1, 3, 5, 16), np.float32)])
+    m3 = np.concatenate([m, np.full((1, 3, 5), NEG_INF, np.float32)])
+    l3 = np.concatenate([l, np.zeros((1, 3, 5), np.float32)])
+    for a, b in zip(merge_partial_stats(t(o3), t(m3), t(l3)),
+                    merge_partial_stats(t(o), t(m), t(l))):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("act", ["silu", "gelu"])

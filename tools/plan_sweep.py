@@ -1,14 +1,17 @@
-"""Launch-plan variants of the K3 and K4 kernels, timed on one NVIDIA GPU.
+"""Launch-plan variants of the K1, K3 and K4 kernels, timed on one NVIDIA
+GPU.
 
-    python3 tools/plan_sweep.py
+    python3 tools/plan_sweep.py [k1] [k3] [k4]      (default: all three)
 
-Runs each kernel at the decode path's shapes (8 rows) under other tilings
-than its plan picks (K3: D chunks per gate/up strip and F rows per down
-CTA; K4: columns and K rows per CTA), checks each result against the plain
-version (K4 bit-exact, K3 within 1e-4 * max(1, max|plain|)), and times it
-as ``chip_smoke.py`` does (device time by CUDA events, inputs rotated past
-the L2). The plan's own choice is marked. Prints the card (nvidia-smi name,
-power limit) first.
+Runs each kernel at the decode path's shapes under other tilings than its
+plan picks (K1: positions per split of S, with programmatic dependent
+launch on and off, at B=8 and S=200 and 4096, bf16 and int8 KV; K3: D
+chunks per gate/up strip and F rows per down CTA, 8 rows; K4: columns and
+K rows per CTA, 8 rows), checks each result against the plain version (K4
+bit-exact, K1 within 1e-5 and K3 within 1e-4 * max(1, max|plain|)), and
+times it as ``chip_smoke.py`` does (device time by CUDA events, inputs
+rotated past the L2). The plan's own choice is marked. Prints the card
+(nvidia-smi name, power limit) first.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import build, cdiv, tickets  # noqa: E402
+from repro_torch.kernels.flash_decode import ops as fd  # noqa: E402
 from repro_torch.kernels.fused_ffn import ops as ffn  # noqa: E402
 from repro_torch.kernels.gemv import ops as gemv  # noqa: E402
 
@@ -60,12 +64,49 @@ def k4_run(plan, xq, xs, wq, ws):
     return out
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("plan_sweep: needs an NVIDIA GPU", file=sys.stderr)
-        return 2
-    dev = torch.device("cuda")
-    print(f"card: {cs.nvidia_smi()}")
+def k1_sweep(dev):
+    for S in (200, 4096):
+        for kv in ("bfloat16", "int8"):
+            pair = ("bfloat16", kv)
+            args = cs.k1_inputs(dev, 8, S, pair)
+            q, k = args[0], args[1]
+            B, Hq, hd = q.shape
+            n_kv = k.shape[1]
+            nb = cs.nbytes(*args)
+            var = cs.variants_of(
+                lambda i: (cs.k1_inputs(dev, 8, S, pair, seed=i), {}), nb)
+            want = fd.flash_decode_ref(*var[0][0])
+            base = fd.decode_plan(B, n_kv, Hq // n_kv, S, hd,
+                                  k.element_size())
+            splits = sorted({16, 32, 64, 128, 256, 16 * cdiv(S, 16),
+                             base.split})
+            print(f"K1 B={B} Hq={Hq} n_kv={n_kv} hd={hd} S={S} kv={kv}: "
+                  f"{nb / 1e6:.3f} MB, bound "
+                  f"{nb / cs.HBM_BYTES_PER_S * 1e6:.2f} us", flush=True)
+            variants = [(split, None) for split in splits]
+            if S > 1024:          # ring tiles of the longer splits
+                variants += [(sp, t) for sp in (256, 512) for t in (64, 128)]
+            for split, tile in variants:
+                plan = fd.decode_plan(B, n_kv, Hq // n_kv, S, hd,
+                                      k.element_size(), split=split,
+                                      tile=tile)
+                for pdl in (True, False):
+                    def run(*a, plan=plan, pdl=pdl):
+                        return fd.launch_plan(plan, pdl, *a)[0]
+                    got = run(*var[0][0])
+                    err = float((got - want).abs().max())
+                    tol = 1e-5 * max(1.0, float(want.abs().max()))
+                    cs.require(err <= tol,
+                               f"K1 variant split={split} disagrees")
+                    ms = cs.time_ms(run, var, 400)
+                    mine = plan == base and pdl == fd.PDL
+                    print(f"  split {split} ({plan.splits} splits, {plan.ctas}"
+                          f" CTAs, tile {plan.tile} x {plan.stages} stages, "
+                          f"{plan.smem} B smem), pdl={pdl}: {ms * 1e3:.2f} us"
+                          + ("  <- plan" if mine else ""), flush=True)
+
+
+def k3_sweep(dev):
     var = cs.variants_of(lambda i: cs.k3_inputs(dev, R, seed=i),
                          3 * D * F * 2)
     want = ffn.fused_ffn_ref(*var[0][0])
@@ -88,6 +129,9 @@ def main() -> int:
             print(f"K3 rows={R}: {d_splits} D chunks, {f_chunk} F rows per "
                   f"down CTA, CTAs {plan.ctas}: {ms * 1e3:.2f} us"
                   + ("  <- plan" if mine else ""), flush=True)
+
+
+def k4_sweep(dev):
     for K, N in K4_SHAPES:
         var = cs.variants_of(lambda i: cs.k4_inputs(dev, R, K, N, seed=i),
                              K * N)
@@ -108,6 +152,22 @@ def main() -> int:
                       flush=True)
         print(f"  plan: {base.cols} columns, {base.k_chunk} K rows per CTA, "
               f"{base.ctas} CTAs (its own time is chip_smoke.py's)")
+
+
+def main(argv=None) -> int:
+    which = set(sys.argv[1:] if argv is None else argv) or {"k1", "k3",
+                                                            "k4"}
+    if not torch.cuda.is_available():
+        print("plan_sweep: needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    print(f"card: {cs.nvidia_smi()}")
+    if "k1" in which:
+        k1_sweep(dev)
+    if "k3" in which:
+        k3_sweep(dev)
+    if "k4" in which:
+        k4_sweep(dev)
     return 0
 
 

@@ -1,4 +1,5 @@
-"""Load-only floor of the K3 and K4 weight streams on one NVIDIA GPU.
+"""Load-only floor of the K1 KV stream and the K3 and K4 weight streams on
+one NVIDIA GPU.
 
     python3 tools/stream_floor.py
 
@@ -7,7 +8,10 @@ that only copies a matrix's bytes into shared memory (16-byte cp.async,
 every copy in flight at once, no arithmetic) under the CTA layouts of the
 port's kernels, the same way ``chip_smoke.py`` times them: device time by
 CUDA events, launches queued back to back behind a spin kernel, inputs
-rotated through copies larger than the L2. What a kernel takes beyond this
+rotated through copies larger than the L2. K1's layout is its K and V rows
+at B=8, n_kv=2, hd=64, S=4096 as one stack of rows, each CTA taking the
+rows of one split of its plan (and of smaller splits); the int8 scales
+(0.5 MB) are left out. What a kernel takes beyond this
 floor is its own work; the floor itself is the card's, for that many bytes
 in one launch. Prints the card (nvidia-smi name, power limit) and one line
 per layout.
@@ -28,9 +32,23 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
+from repro_torch.kernels.flash_decode.ops import decode_plan  # noqa: E402
+
+
+def k1_layout(kv_itemsize: int):
+    """K and V of B=8 x n_kv=2 x S=4096 positions of hd=64: rows of 64 *
+    itemsize bytes, 2 * split rows per CTA (the plan's split, 256, 128)."""
+    split = decode_plan(8, 2, 7, 4096, 64, kv_itemsize).split
+    name = {1: "int8", 2: "bf16"}[kv_itemsize]
+    row = 64 * kv_itemsize
+    return (f"K1 K+V rows, B=8 n_kv=2 S=4096 hd=64 {name}", 2 * 8 * 2 * 4096,
+            row, [(row, 2 * s) for s in sorted({split, 256, 128})])
+
 
 # (what, rows K, row bytes N, [(strip bytes CB, rows per CTA KC), ...])
 LAYOUTS = [
+    k1_layout(2),
+    k1_layout(1),
     ("K3 gate/up: Wg and Wu, 896 x 2*4864 bf16", 896, 2 * 2 * 4864,
      [(128, 224), (32, 896), (128, 112), (1024, 56)]),
     ("K3 down: Wd, 4864 x 896 bf16", 4864, 2 * 896,
