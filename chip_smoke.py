@@ -11,22 +11,33 @@ phases; any failure exits non-zero before the result line:
    main path's shapes and across the kernels' tiling boundaries (K1 flash
    decode at S from 1 to 4096, B 1 and 8, the four q/KV dtype pairs,
    kv_limit at 0, inside a split, on a split edge and at S, normalised and
-   partial, and at G*hd = 1024; K3 fused FFN; K4 int8 GEMV — K4 must be
-   bit-exact; K1, K3 and K4 must give the same bits on a second call);
+   partial, and at G*hd = 1024; split-KV attention, one K1 partial launch
+   per shard plus the LSE combine, over buckets 64/128/192/200 x 2 and 4
+   shards x bf16 and int8 KV; K3 fused FFN up to 1,024 rows; K4 int8 GEMV
+   — K4 must be bit-exact; every kernel must give the same bits on a
+   second call);
 3. model parity at full qwen2-0.5b width, depth cut to 2 layers, float32:
    the same seeded weights on the CPU (plain versions) and on CUDA
-   (kernels) give equal tokens and logits within 1e-3 of max|logit|;
-4. the continuous-batching engine at full qwen2-0.5b (24 layers, seeded
-   random bf16 weights): (a) chunked admission + macro-step decode + KV
-   buckets, (b) int8 weights and int8 KV with monolithic admission,
-   (c) per-token decode; every request must complete and every kernel of
-   each run must have been launched (counts reset just before the run);
-   one decode block of (a) and of (b) is traced with torch.profiler;
+   (kernels) give equal tokens and logits within 1e-3 of max|logit|, for
+   slotted decode, the decode block, split-KV decode (4 shards); on CUDA
+   the shared-cursor decode step equals slotted decode at one cursor;
+4. the serving engine at full qwen2-0.5b (24 layers, seeded random bf16
+   weights): (a) chunked admission + macro-step decode + KV buckets,
+   (b) int8 weights and int8 KV with monolithic admission, (c) per-token
+   decode, (d) drain mode (batch prefill of 8 x 128, shared-cursor
+   decode), (e) run (a) with int8 KV and split-KV decode over 4 shards;
+   every request must complete and every kernel of each run must have been
+   launched (counts reset just before the run); drain must admit no
+   request while another decodes; (e) must make as many host syncs as
+   (a); one decode block of (a), (b) and (e) is traced with torch.profiler
+   and counted for synchronising calls;
 5. time each kernel at the main path's shapes (K1 at B=8 over S=200 and
-   at a long context of S=4096, bf16 and int8 KV; K3 at 8, 32 and 128
-   rows; K4 at 8 and 128 rows for the four projection shapes) against its
-   bound, its plain version and PyTorch calls for the same function (K1:
-   SDPA with ``enable_gqa``; K4: a bf16 matmul on dequantized weights and
+   at a long context of S=4096, bf16 and int8 KV, in partial mode at one
+   shard of 48, and the whole split attention of a layer at bucket 192;
+   K3 at 8, 32, 128 and 1,024 rows; K4 at 8 and 128 rows for the four
+   projection shapes) against its bound, its plain version and PyTorch
+   calls for the same function (K1: SDPA with ``enable_gqa``; K3: three
+   matmuls and silu; K4: a bf16 matmul on dequantized weights and
    ``torch._int_mm``).
 
 It then prints the card (nvidia-smi name, power limit), a ``kernels`` JSON
@@ -146,6 +157,60 @@ def check_k1(args, lim):
     return err, ratio, same
 
 
+def split_inputs(dev, bucket, n, kv, ragged=True, B=8, Hq=14, n_kv=2,
+                 hd=64, S=200, seed=0):
+    """Split-KV attention inputs as the engine passes them: a bf16 query,
+    one cache layer of S positions (bf16, or int8 with scales) cut to its
+    first ``bucket`` positions as ``n`` shard views, the (B, bucket) mask,
+    the global kv_limit on the device and the active rows. ``ragged``: live
+    rows end at random positions in the first 5/8 of the bucket (mid-shard;
+    with 4 shards the last one lies wholly past every row) and rows 6 and 7
+    are inactive with cursors past every live row; else every row is live
+    to the end of the bucket."""
+    from repro_torch.kv.cache import batch_valid_mask, shard_view
+    from repro_torch.quant.int8 import quantize_kv
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, Hq, hd, device=dev, generator=g).to(torch.bfloat16)
+    kf = torch.randn(B, n_kv, S, hd, device=dev, generator=g)
+    vf = torch.randn(B, n_kv, S, hd, device=dev, generator=g)
+    if kv == "int8":
+        (k, ks), (v, vs) = quantize_kv(kf), quantize_kv(vf)
+    else:
+        k, v = kf.to(torch.bfloat16), vf.to(torch.bfloat16)
+        ks = vs = None
+    if ragged:
+        pos = torch.randint(0, bucket * 5 // 8, (B,), device=dev,
+                            generator=g)
+        active = torch.arange(B, device=dev) < 6
+        pos = torch.where(active, pos, torch.full_like(pos, bucket - 1))
+    else:
+        pos = torch.full((B,), bucket - 1, device=dev)
+        active = torch.ones(B, dtype=torch.bool, device=dev)
+    mask = batch_valid_mask(bucket, pos)
+    lim = (torch.where(active, pos, -1).max() + 1).to(torch.int32)
+    views = shard_view(k, v, ks, vs, bucket, n)
+    return (q, views[0], views[1], mask, views[2], views[3], lim), active
+
+
+def split_plain(q, k, v, mask, ks, vs, lim):
+    """The plain split attention on the tensors' own device: the plain K1
+    version in partial mode per shard, then the LSE combine (the route
+    ``split_flash_decode`` takes for CPU tensors)."""
+    from repro_torch.kernels.flash_decode.combine import \
+        combine_partial_stats
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+    from repro_torch.kv.cache import shard_kv_limits
+    B, _, n, Sb, _ = k.shape
+    m3 = mask.reshape(B, n, Sb)
+    lims = shard_kv_limits(lim, n, Sb)
+    parts = [flash_decode_ref(q, k[:, :, s], v[:, :, s], m3[:, s],
+                              None if ks is None else ks[:, :, s],
+                              None if vs is None else vs[:, :, s], lims[s],
+                              partial_stats=True) for s in range(n)]
+    o, m, l = (torch.stack(t) for t in zip(*parts))
+    return combine_partial_stats(o, m, l, axis=0).to(q.dtype)
+
+
 def k3_inputs(dev, R, seed=0, D=896, F=4864, dtype=torch.bfloat16):
     g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn(R, D, device=dev, generator=g).to(dtype)
@@ -209,11 +274,49 @@ def phase_compare(dev):
             f"identical={same}")
         require(ratio <= 1.0, f"K1 disagrees at B={B} S={S} {pair} hd={hd}")
         require(same, f"K1 not deterministic at B={B} S={S} {pair}")
+    # Split-KV attention as the engine runs it (B=8, Hq=14, n_kv=2, hd=64):
+    # one K1 launch per shard in partial mode (shard views of the cache,
+    # the mask sliced per shard, kv_limit element s of shard_kv_limits on
+    # the device), merged by the LSE combine, against the same function on
+    # CPU copies (the plain route); f32 before the final cast, active rows
+    # (a shard past kv_limit is skipped by K1 and computed by the plain
+    # einsum, so rows dead in it may differ); Sb = 50 is no multiple of 16.
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.attention import split_flash_decode
+    for bucket in (64, 128, 192, 200):
+        for n in (2, 4):
+            for kv in ("bfloat16", "int8"):
+                args, active = split_inputs(dev, bucket, n, kv,
+                                            seed=bucket + n)
+                reset_launch_counts()
+                got = split_flash_decode(*args[:4], *args[4:6],
+                                         kv_limit=args[6])
+                launched = launch_counts()["flash_decode_partial"]
+                again = split_flash_decode(*args[:4], *args[4:6],
+                                           kv_limit=args[6])
+                cpu = [None if t is None else t.cpu() for t in args]
+                want = split_flash_decode(*cpu[:6], kv_limit=cpu[6])
+                act = active.cpu()
+                e = max_err(got.cpu()[act], want[act])
+                tol = 1e-5 * max(1.0, max_abs(want[act]))
+                same = torch.equal(got, again)
+                errs["flash_decode"] = max(errs["flash_decode"], e)
+                log(f"  split attention bucket={bucket} shards={n} "
+                    f"(Sb={bucket // n}) kv={kv}: {launched} partial "
+                    f"launches, max|d|={e:.3g} (tol {tol:.3g}), repeat "
+                    f"identical={same}")
+                require(launched == n, f"split attention launched "
+                        f"{launched} partial K1 calls for {n} shards")
+                require(e <= tol, f"split attention disagrees at bucket "
+                        f"{bucket} shards {n} kv {kv}")
+                require(same, f"split attention not deterministic at "
+                        f"bucket {bucket} shards {n}")
     # K3: f32 through the intermediate in both; different summation order.
-    # Rows across the 16/32/64-row tiles; D=200 F=700 divides no tile.
+    # Rows across the 16/32/64-row tiles and the drain batch prefill's
+    # 1,024 rows (8 x 128); D=200 F=700 divides no tile.
     for D, F in ((896, 4864), (200, 700)):
         for dtype in (torch.bfloat16, torch.float32):
-            for R in (1, 8, 16, 17, 32, 128):
+            for R in (1, 8, 16, 17, 32, 128, 1024):
                 args, _ = k3_inputs(dev, R, seed=R + D, D=D, F=F,
                                     dtype=dtype)
                 for act in ("silu", "gelu"):
@@ -251,10 +354,19 @@ def phase_compare(dev):
 # phase 3: full-width model, 2 layers, f32, CPU vs CUDA
 # ---------------------------------------------------------------------------
 
+def clone_cache(c):
+    from repro_torch.kv.cache import KVCache
+    return KVCache(*(None if t is None else t.clone()
+                     for t in (c.k, c.v, c.k_scale, c.v_scale, c.length)))
+
+
+def rel_err(a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max())
+
+
 def phase_model_parity():
     from repro_torch.configs.registry import get_config
     from repro_torch.interop import to_device
-    from repro_torch.kv.cache import KVCache
     from repro_torch.models.registry import build_model
     cfg = get_config("qwen2-0.5b").replace(n_layers=2, dtype="float32")
     rng = np.random.default_rng(0)
@@ -275,33 +387,60 @@ def phase_model_parity():
         tok = torch.stack(first).argmax(-1).to(torch.int32)
         pos = torch.full((8,), 16, dtype=torch.int32, device=api.device)
         act = torch.ones(8, dtype=torch.bool, device=api.device)
-        saved = KVCache(caches.k.clone(), caches.v.clone(), None, None,
-                        caches.length.clone())
-        logits, toks = [], []
-        t, p = tok, pos
-        for _ in range(8):
-            caches, lg = api.decode_slotted(params, caches, t, p, act)
-            logits.append(lg[:, 0].float().cpu())
-            t = lg[:, 0].argmax(-1).to(torch.int32)
-            toks.append(t.cpu())
-            p = p + 1
+        saved, split_c, drain_c = (clone_cache(caches) for _ in range(3))
+
+        def steps(step, c):
+            """8 greedy steps of ``step(c, tokens, positions)`` from the
+            admitted state -> (logits (8,B,V) on the CPU, tokens (8,B))."""
+            logits, toks = [], []
+            t, p = tok, pos
+            for _ in range(8):
+                c, lg = step(c, t, p)
+                logits.append(lg[:, 0].float().cpu())
+                t = lg[:, 0].argmax(-1).to(torch.int32)
+                toks.append(t.cpu())
+                p = p + 1
+            return torch.stack(logits), torch.stack(toks)
+
+        slotted = steps(lambda c, t, p: api.decode_slotted(params, c, t, p,
+                                                           act), caches)
         blk = api.decode_block(
             params, saved, tok, pos, act,
             torch.full((8,), 8, dtype=torch.int32, device=api.device),
             torch.full((8,), -1, dtype=torch.int32, device=api.device),
             block_size=8, kv_bucket=32)
-        res[d] = (torch.stack(logits), torch.stack(toks), blk[1].cpu())
+        split = steps(lambda c, t, p: api.decode_slotted(
+            params, c, t, p, act, kv_shards=4), split_c)
+        res[d] = (*slotted, blk[1].cpu(), *split)
+        if d == "cuda":
+            # the drain path's shared-cursor step (cache.length = 16 for
+            # every row) against slotted decode at that one cursor
+            drain = steps(lambda c, t, p: api.decode(params, c, t), drain_c)
+            d_rel = rel_err(drain[0], slotted[0])
+            d_same = torch.equal(drain[1], slotted[1])
     lc, lg = res["cpu"][0], res["cuda"][0]
-    rel = float((lc - lg).abs().max() / lc.abs().max())
+    rel = rel_err(lg, lc)
+    s_rel = rel_err(res["cuda"][3], res["cpu"][3])
     same_steps = torch.equal(res["cpu"][1], res["cuda"][1])
     same_block = torch.equal(res["cpu"][2], res["cuda"][2])
     block_is_steps = torch.equal(res["cuda"][2], res["cuda"][1])
+    same_split = torch.equal(res["cpu"][4], res["cuda"][4])
     log(f"  2-layer full-width f32: max|dlogit|/max|logit| = {rel:.3g} "
         f"(tol 1e-3); tokens equal: slotted={same_steps} "
         f"block={same_block}; block == slotted steps: {block_is_steps}")
+    log(f"  split-KV decode, 4 shards of 12: cpu vs cuda "
+        f"max|dlogit|/max|logit| = {s_rel:.3g} (tol 1e-3), tokens equal="
+        f"{same_split}")
+    log(f"  shared-cursor decode_step vs decode_step_slotted on cuda: "
+        f"max|dlogit|/max|logit| = {d_rel:.3g} (tol 1e-3), tokens equal="
+        f"{d_same}")
     require(np.isfinite(rel) and rel <= 1e-3, "model logits disagree")
     require(same_steps and same_block and block_is_steps,
             "model tokens disagree")
+    require(np.isfinite(s_rel) and s_rel <= 1e-3 and same_split,
+            "split-KV decode disagrees between cpu and cuda")
+    require(np.isfinite(d_rel) and d_rel <= 1e-3 and d_same,
+            "decode_step disagrees with decode_step_slotted")
 
 
 # ---------------------------------------------------------------------------
@@ -319,17 +458,43 @@ RUNS = {
         ("flash_decode", "gemv_int8")),
     "c_bf16_T1": ({}, dict(block_size=1, max_new_cap=72), 2, 16,
                   ("flash_decode", "fused_ffn")),
+    "d_bf16_drain_T1": ({}, dict(mode="drain", max_new_cap=72), 12, 32,
+                        ("flash_decode", "fused_ffn")),
+    "e_int8kv_split4_chunked_T8": (
+        dict(kv_dtype="int8"),
+        dict(block_size=8, kv_bucket_chunk=64, prefill_chunk=32,
+             max_new_cap=72, a_shards=4), 12, 64,
+        ("flash_decode", "flash_decode_partial", "fused_ffn")),
 }
+TRACED = ("a_bf16_chunked_T8", "b_int8w_int8kv_monolithic_T8",
+          "e_int8kv_split4_chunked_T8")
 
 
-def trace_decode_block(api, params, kw):
-    """Profile one steady decode block (T=8, 8 live rows at position 160,
-    bucket 192): device busy time from the profiler's per-kernel sums
-    against the block's wall time; prints the idle share and the ops that
-    take most device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    T, B = kw["block_size"], 8
+def count_syncs(fn) -> int:
+    """Synchronising CUDA calls made while ``fn()`` runs, as PyTorch's sync
+    debug mode reports them: one warning each, logged with the line that
+    made it. Any other warning is logged and not counted (the mode's
+    notice, once a process, that it is a prototype is one)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    n = 0
+    for w in caught:
+        sync = "called a synchronizing CUDA operation" in str(w.message)
+        n += sync
+        log(f"      {'sync' if sync else 'not counted'}: {w.filename}:"
+            f"{w.lineno}: {str(w.message).splitlines()[0][:120]}")
+    return n
+
+
+def decode_block_fn(api, params, T=8, kv_shards=1, B=8):
+    """One steady decode block: T micro-steps, B live rows at position 160
+    of a fresh 200-position cache, KV bucket 192."""
     dev = api.device
 
     def block():
@@ -340,10 +505,72 @@ def trace_decode_block(api, params, kw):
             torch.ones(B, dtype=torch.bool, device=dev),
             torch.full((B,), T, dtype=torch.int32, device=dev),
             torch.full((B,), -1, dtype=torch.int32, device=dev),
-            block_size=T, kv_bucket=192)
+            block_size=T, kv_bucket=192, kv_shards=kv_shards)
+    return block
 
+
+def block_walls():
+    """Wall time (host clock to a synchronise, median of 5) of one decode
+    block at full qwen2-0.5b for bf16 and int8 KV x 1 and 4 shards, in one
+    process: what split-KV and what int8 KV add to a block."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.registry import build_model
+    out = {}
+    for kv in ("bfloat16", "int8"):
+        api = build_model(get_config("qwen2-0.5b").replace(kv_dtype=kv))
+        params = api.init(0)
+        for n in (1, 4):
+            block = decode_block_fn(api, params, kv_shards=n)
+            block()
+            walls = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                block()
+                torch.cuda.synchronize()
+                walls.append((time.monotonic() - t0) * 1e3)
+            out[f"{kv} KV, {n} shard{'s' if n > 1 else ''}"] = \
+                float(np.median(walls))
+        del api, params
+        torch.cuda.empty_cache()
+    log("  one decode block (T=8, 8 rows at 160, bucket 192), untraced "
+        "wall, median of 5: " + ", ".join(f"{k} {v:.2f} ms"
+                                         for k, v in out.items()))
+    return out
+
+
+def drain_groups(reqs):
+    """Admission groups of a drain run (admit step -> rids), checked: each
+    group is admitted only after every request of the one before it has
+    emitted its last token (prefill gives the first token, decode steps
+    admit+0 .. admit+max_new-2 the rest)."""
+    groups = {}
+    for r in reqs:
+        groups.setdefault(r.admit_step, []).append(r)
+    order = sorted(groups)
+    for a, b in zip(order, order[1:]):
+        last = max(a + r.max_new_tokens - 2 for r in groups[a])
+        require(b > last, f"drain admitted requests at step {b} while the "
+                f"batch admitted at {a} decoded until step {last}")
+    return {s: [r.rid for r in groups[s]] for s in order}
+
+
+def trace_decode_block(api, params, kw):
+    """Profile one steady decode block (T=8, 8 live rows at position 160,
+    bucket 192): device busy time from the profiler's per-kernel sums
+    against the block's wall time; prints the idle share, the kernels per
+    token step and the ops that take most device time. Returns the
+    synchronising calls one untraced block makes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    T = kw["block_size"]
+    shards = kw.get("a_shards", 1)
+    block = decode_block_fn(api, params, T, shards)
     block()
     torch.cuda.synchronize()
+    syncs = count_syncs(block)
+    torch.cuda.synchronize()
+    log(f"    synchronising calls inside one decode block: {syncs}")
     t0 = time.monotonic()
     block()
     torch.cuda.synchronize()
@@ -361,11 +588,13 @@ def trace_decode_block(api, params, kw):
     if busy_us <= 0:
         log("    trace: profiler reported no device time (idle share not "
             "measured)")
-        return
-    log(f"    trace of one decode block (T={T}, 8 rows at 160, bucket 192): "
+        return syncs
+    n_kern = sum(e.count for e in kern)
+    log(f"    trace of one decode block (T={T}, 8 rows at 160, bucket 192"
+        f"{', %d shards' % shards if shards > 1 else ''}): "
         f"wall {wall * 1e3:.2f} ms traced / {wall_plain * 1e3:.2f} ms "
         f"untraced, device busy {busy_us / 1e3:.2f} ms in "
-        f"{sum(e.count for e in kern)} kernels, idle share "
+        f"{n_kern} kernels ({n_kern / T:.1f} per token step), idle share "
         f"{1 - busy_us / 1e3 / (wall_plain * 1e3):.3f} of the untraced "
         f"wall")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
@@ -381,15 +610,16 @@ def trace_decode_block(api, params, kw):
     log("      port kernels: " + ", ".join(
         f"{k} {us / 1e3:.3f} ms in {n} launches"
         for k, (us, n) in port.items()))
+    return syncs
 
 
-def phase_engine(totals):
+def phase_engine(totals, runs):
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.serve import make_requests
     from repro_torch.models.registry import build_model
     from repro_torch.runtime.serving import ServingEngine
-    per_step = {}
+    per_step, syncs, host_syncs = {}, {}, {}
     for name, (over, kw, n_req, max_new, needed) in RUNS.items():
         cfg = get_config("qwen2-0.5b").replace(**over)
         api = build_model(cfg)
@@ -405,6 +635,7 @@ def phase_engine(totals):
         stats = eng.run(params, reqs)
         torch.cuda.synchronize()
         counts = launch_counts()
+        runs[name] = counts
         for k, n in counts.items():
             totals[k] += n
         per_req = stats.pop("per_request")
@@ -425,22 +656,32 @@ def phase_engine(totals):
         require(len(per_req) == n_req, f"{name}: per-request stats missing")
         for k in needed:
             require(counts[k] > 0, f"{name}: kernel {k} never launched")
-        if name.startswith("a_") or name.startswith("b_"):
-            trace_decode_block(api, params, kw)
-        # launches of one decode step (T = 1)
-        if name.startswith("a_") or name.startswith("b_"):
+        host_syncs[name] = stats["host_syncs"]
+        if kw.get("mode") == "drain":
+            log(f"    drain admission groups (step: rids): "
+                f"{drain_groups(reqs)}")
+        if name in TRACED:
+            syncs[name] = trace_decode_block(api, params, kw)
+            # launches of one decode step (T = 1)
             caches = api.init_caches(8, 200)
             z = torch.zeros(8, dtype=torch.int32, device=api.device)
             reset_launch_counts()
             api.decode_slotted(params, caches, z, z + 100,
                                torch.ones(8, dtype=torch.bool,
-                                          device=api.device), kv_bucket=128)
+                                          device=api.device), kv_bucket=128,
+                               kv_shards=kw.get("a_shards", 1))
             torch.cuda.synchronize()
-            for k, n in launch_counts().items():
-                if n:
-                    per_step[k] = n
+            per_step[name] = {k: n for k, n in launch_counts().items() if n}
         del params, eng, api
         torch.cuda.empty_cache()
+    a, e = "a_bf16_chunked_T8", "e_int8kv_split4_chunked_T8"
+    log(f"  host syncs: (a) {host_syncs[a]}, (e) {host_syncs[e]}; "
+        f"synchronising calls in one traced decode block: {syncs}")
+    require(host_syncs[e] == host_syncs[a],
+            "split-KV run (e) made another number of host syncs than (a)")
+    require(all(n == 0 for n in syncs.values()),
+            "a traced decode block synchronises with the host")
+    block_walls()
     return per_step
 
 
@@ -490,20 +731,47 @@ def time_ms(fn, variants, iters) -> float:
     raise AssertionError(f"could not queue {fn} ahead of the device")
 
 
+def host_ms(fn, variants, iters=50) -> float:
+    """Host time to enqueue one call of ``fn`` (the wrapper's Python, its
+    checks and its launches), mean over ``iters`` calls queued without a
+    synchronise: what a call adds to the host-bound decode loop."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        args, kw = variants[i % len(variants)]
+        fn(*args, **kw)
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / iters * 1e3
+
+
 def variants_of(make, per_call_bytes):
     n = max(2, min(64, math.ceil(2 * L2_BYTES / max(per_call_bytes, 1))))
     return [make(i) for i in range(n)]
 
 
-def phase_timing(dev, launches, per_step, errs):
+def phase_timing(dev, launches, runs, per_step, errs):
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_decode.ops import flash_decode
+    from repro_torch.kernels.flash_decode.ops import (flash_decode,
+                                                      flash_decode_partial)
     from repro_torch.kernels.flash_decode.ref import flash_decode_ref
     from repro_torch.kernels.fused_ffn.ops import fused_ffn
     from repro_torch.kernels.fused_ffn.ref import fused_ffn_ref
     from repro_torch.kernels.gemv.ops import gemv_int8_q
     from repro_torch.kernels.gemv.ref import gemv_int8_ref
+    from repro_torch.models.attention import decode_attention_split
     rows = []
+
+    def sdpa_args(var):
+        """SDPA (GQA) inputs for K1 input variants: the query as one
+        position, K/V dequantized to bf16, the mask broadcast over heads."""
+        sd = []
+        for (q_, k_, v_, m_, ks_, vs_, _), _ in var:
+            kd = k_ if ks_ is None else (k_.float() * ks_).to(torch.bfloat16)
+            vd = v_ if vs_ is None else (v_.float() * vs_).to(torch.bfloat16)
+            sd.append(((q_[:, :, None], kd, vd),
+                       dict(attn_mask=m_[:, None, None, :], enable_gqa=True)))
+        return sd
 
     def bound(nb, ops, dtype):
         t_b = nb / HBM_BYTES_PER_S * 1e3
@@ -522,21 +790,60 @@ def phase_timing(dev, launches, per_step, errs):
                                                seed=i), {}), nb)
         ms = time_ms(flash_decode, var, 400)
         plain = time_ms(flash_decode_ref, var, 50)
-        # yardstick: SDPA (GQA) on dequantized bf16 K/V of the same bucket
-        sd = []
-        for (q_, k_, v_, m_, ks_, vs_, _), _ in var:
-            kd = k_ if ks_ is None else (k_.float() * ks_).to(torch.bfloat16)
-            vd = v_ if vs_ is None else (v_.float() * vs_).to(torch.bfloat16)
-            sd.append(((q_[:, :, None], kd, vd),
-                       dict(attn_mask=m_[:, None, None, :], enable_gqa=True)))
         lib = {"sdpa(enable_gqa) on dequantized bf16 K/V":
-               time_ms(F.scaled_dot_product_attention, sd, 400)}
+               time_ms(F.scaled_dot_product_attention, sdpa_args(var), 400)}
         rows.append(("flash_decode", f"B=8 Hq=14 n_kv=2 hd=64 S={S} kv={kv}",
-                     ms, plain, b_ms, b_by, lib))
+                     ms, plain, b_ms, b_by, lib, host_ms(flash_decode, var)))
         log(f"  K1 S={S} kv={kv}: {nb / 1e6:.3f} MB moved")
-    # K3 at decode (8 rows), chunk (32 rows) and monolithic-prefill (128
-    # rows) widths
-    for R in (8, 32, 128):
+    # K1 in partial mode at one shard of the split path (bucket 192 over 4
+    # shards: Sb = 48), every position live; no PyTorch call returns the
+    # raw (o, m, l), so SDPA over the same shard (normalised) is the
+    # yardstick
+    for kv in ("bfloat16", "int8"):
+        q, k, v, mask, ks, vs, lim = k1_inputs(dev, 8, 48, ("bfloat16", kv))
+        B, Hq, hd = q.shape
+        nb = nbytes(q, k, v, mask, ks, vs) + B * Hq * (hd + 2) * 4
+        b_ms, b_by = bound(nb, 4 * B * Hq * 48 * hd, torch.bfloat16)
+        var = variants_of(lambda i: (k1_inputs(dev, 8, 48, ("bfloat16", kv),
+                                               seed=i), {}), nb)
+        ms = time_ms(flash_decode_partial, var, 400)
+        plain = time_ms(lambda *a: flash_decode_ref(*a, partial_stats=True),
+                        var, 50)
+        lib = {"sdpa(enable_gqa) on the same shard, normalised":
+               time_ms(F.scaled_dot_product_attention, sdpa_args(var), 400)}
+        rows.append(("flash_decode", f"partial, one shard: B=8 Hq=14 n_kv=2 "
+                     f"hd=64 Sb=48 kv={kv}", ms, plain, b_ms, b_by, lib,
+                     host_ms(flash_decode_partial, var)))
+    # the whole split attention of one layer at bucket 192 over 4 shards (4
+    # partial K1 launches + the LSE combine + the cast), against K1 once
+    # over the same bucket and SDPA over the whole bucket
+    for kv in ("bfloat16", "int8"):
+        (q, k, v, mask, ks, vs, lim), _ = split_inputs(dev, 192, 4, kv,
+                                                       ragged=False)
+        B, Hq, hd = q.shape
+        nb = nbytes(q, k, v, mask, ks, vs) + B * Hq * hd * 2
+        b_ms, b_by = bound(nb, 4 * B * Hq * 192 * hd, torch.bfloat16)
+
+        def make(i):
+            return split_inputs(dev, 192, 4, kv, ragged=False, seed=i)[0], {}
+        var = variants_of(make, nb)
+        ms = time_ms(decode_attention_split, var, 40)
+        plain = time_ms(split_plain, var, 10)
+        whole = [((a[0], a[1].flatten(2, 3), a[2].flatten(2, 3), a[3],
+                   None if a[4] is None else a[4].flatten(2, 3),
+                   None if a[5] is None else a[5].flatten(2, 3), a[6]), {})
+                 for a, _ in var]
+        lib = {"K1 once over the whole bucket": time_ms(flash_decode, whole,
+                                                        400),
+               "sdpa(enable_gqa) on dequantized bf16 K/V of the bucket":
+               time_ms(F.scaled_dot_product_attention, sdpa_args(whole),
+                       400)}
+        rows.append(("flash_decode", f"split attention, 4 shards: B=8 Hq=14 "
+                     f"n_kv=2 hd=64 bucket=192 kv={kv}", ms, plain, b_ms,
+                     b_by, lib, host_ms(decode_attention_split, var)))
+    # K3 at decode (8 rows), chunk (32 rows), monolithic-prefill (128
+    # rows) and drain batch-prefill (1,024 rows) widths
+    for R in (8, 32, 128, 1024):
         (x, wg, wu, wd), kw = k3_inputs(dev, R)
         D, F_ = wg.shape
         nb = nbytes(x, wg, wu, wd) + R * D * 4
@@ -551,7 +858,7 @@ def phase_timing(dev, launches, per_step, errs):
                                 * torch.matmul(x, wu), wd)
         lib = {"3x torch.matmul + silu (bf16)": time_ms(lib_ffn, var, 200)}
         rows.append(("fused_ffn", f"rows={R} D=896 F=4864 bf16", ms, plain,
-                     b_ms, b_by, lib))
+                     b_ms, b_by, lib, host_ms(fused_ffn, var)))
     # K4 at decode (8) and prefill (128) rows for each projection shape
     for R in (8, 128):
         for K, N in ((896, 896), (896, 128), (896, 4864), (4864, 896)):
@@ -580,14 +887,17 @@ def phase_timing(dev, launches, per_step, errs):
                 log(f"  torch._int_mm refused {K}x{N}: {e}")
                 lib[f"torch._int_mm, rows padded to {pad}"] = None
             rows.append(("gemv_int8", f"rows={R} K={K} N={N}", ms, plain,
-                         b_ms, b_by, lib))
-    for name, shape, ms, plain, b_ms, b_by, lib in rows:
+                         b_ms, b_by, lib, host_ms(gemv_int8_q, var)))
+    for name, shape, ms, plain, b_ms, b_by, lib, host in rows:
         libs = ", ".join(("not measured" if v is None else
                           f"{v * 1e3:.2f} us") + f" ({k})"
                          for k, v in lib.items())
+        steps = ", ".join(f"{run[0]} {c.get(name, 0)}"
+                          for run, c in per_step.items())
         log(f"  {name} [{shape}]: {ms * 1e3:.2f} us, bound {b_ms * 1e3:.2f} "
             f"us ({b_by}), plain {plain * 1e3:.2f} us, library {libs}; "
-            f"launches per decode step {per_step.get(name, 0)}")
+            f"host {host * 1e3:.2f} us a call; launches per decode step "
+            f"{steps}")
     out = []
     for name in REPLACES:
         mine = [r for r in rows if r[0] == name]
@@ -599,13 +909,18 @@ def phase_timing(dev, launches, per_step, errs):
                     "source": "src/repro_torch/kernels/" + src,
                     "replaces": REPLACES[name],
                     "launches": launches[name],
+                    "launches_by_run": {run: c.get(name, 0) for run, c in
+                                        runs.items()},
                     "max_abs_err": errs[name],
                     "ms": first[2], "plain_ms": first[3],
                     "bound_ms": first[4], "bound_by": first[5],
                     "library_ms": next(iter(first[6].values())),
                     "shapes": [{"shape": r[1], "ms": r[2], "plain_ms": r[3],
                                 "bound_ms": r[4], "bound_by": r[5],
-                                "library_ms": r[6]} for r in mine]})
+                                "library_ms": r[6], "host_ms": r[7]}
+                               for r in mine]})
+    # K1's launches in partial-statistics mode (split-KV decode, run (e))
+    out[0]["partial_stats_launches"] = launches["flash_decode_partial"]
     return out
 
 
@@ -639,12 +954,14 @@ def main() -> int:
     phase_model_parity()
 
     log("phase 4: engine at full qwen2-0.5b")
-    launches = {"flash_decode": 0, "fused_ffn": 0, "gemv_int8": 0}
-    per_step = phase_engine(launches)
+    launches = {"flash_decode": 0, "flash_decode_partial": 0,
+                "fused_ffn": 0, "gemv_int8": 0}
+    runs = {}
+    per_step = phase_engine(launches, runs)
     log(f"  main-path launches {launches}; per decode step {per_step}")
 
     log("phase 5: kernel timing")
-    kernels = phase_timing(dev, launches, per_step, errs)
+    kernels = phase_timing(dev, launches, runs, per_step, errs)
     log(f"total {time.monotonic() - t_start:.1f}s")
     log(json.dumps({"kernels": kernels}))
     log(card)

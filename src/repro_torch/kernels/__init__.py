@@ -44,15 +44,19 @@ def tickets(device: torch.device, n: int) -> torch.Tensor:
 
 
 def _wrappers():
-    from repro_torch.kernels.flash_decode.ops import flash_decode
+    from repro_torch.kernels.flash_decode.ops import (flash_decode,
+                                                      flash_decode_partial)
     from repro_torch.kernels.fused_ffn.ops import fused_ffn
     from repro_torch.kernels.gemv.ops import gemv_int8_q
-    return {"flash_decode": flash_decode, "fused_ffn": fused_ffn,
-            "gemv_int8": gemv_int8_q}
+    return {"flash_decode": flash_decode,
+            "flash_decode_partial": flash_decode_partial,
+            "fused_ffn": fused_ffn, "gemv_int8": gemv_int8_q}
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches counted by each wrapper since the last reset."""
+    """Kernel launches counted by each wrapper since the last reset.
+    ``flash_decode_partial`` counts the K1 launches made in its partial-
+    statistics mode; ``flash_decode`` counts every K1 launch."""
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 

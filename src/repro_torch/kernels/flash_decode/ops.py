@@ -222,8 +222,25 @@ def flash_decode(q, k, v, mask, k_scale=None, v_scale=None, kv_limit=None,
                        k.element_size())
     o, m, l = launch_plan(plan, PDL, q, k, v, mask, k_scale, v_scale,
                           kv_limit, scale, partial_stats)
-    flash_decode.launches += 1
+    if B and Hq:                        # launch_plan launched the kernel
+        flash_decode.launches += 1
+        if partial_stats:
+            flash_decode_partial.launches += 1
     return (o, m, l) if partial_stats else o
 
 
 flash_decode.launches = 0
+
+
+def flash_decode_partial(q, k, v, mask, k_scale=None, v_scale=None,
+                         kv_limit=None, scale=None):
+    """K1 in partial-statistics mode: the raw ``(o (B,Hq,hd), m (B,Hq),
+    l (B,Hq))`` f32 of one KV block for an LSE merge
+    (``combine.combine_partial_stats``); a block skipped whole
+    (``kv_limit`` <= 0) gives exactly ``(0, NEG_INF, 0)``. ``flash_decode``
+    counts every partial-mode launch under this name too."""
+    return flash_decode(q, k, v, mask, k_scale, v_scale, kv_limit, scale,
+                        partial_stats=True)
+
+
+flash_decode_partial.launches = 0

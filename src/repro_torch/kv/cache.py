@@ -1,11 +1,11 @@
 """KV cache: the contiguous (L, B, n_kv, S_max, head_dim) cache, flat or
 int8 with per-(b, head, position) f32 scales.
 
-Port of the flat and int8 parts of ``repro.kv.cache``. Caches are updated
-IN PLACE: every write below mutates the cache tensors it is given and
-returns them. That is the PyTorch form of the reference's buffer donation
-(each step's cache output aliases its input there), so steady-state decode
-never holds two copies of the KV. Rows a write does not target keep their
+Port of the flat, int8 and split-KV parts of ``repro.kv.cache``. Caches
+are updated IN PLACE: every write below mutates the cache tensors it is
+given and returns them. That is the PyTorch form of the reference's
+buffer donation (each step's cache output aliases its input there), so
+steady-state decode never holds two copies of the KV. Rows a write does not target keep their
 bytes, inactive decode rows stay byte-identical, and chunk positions at or
 past ``valid_len`` keep their previous bytes. Sliding-window (ring) and
 tiered caches belong to families not yet ported.
@@ -87,6 +87,54 @@ def layer_read_bucket(k_l, v_l, k_scale_l, v_scale_l, bucket: int,
     """``layer_read`` over only the first ``bucket`` positions."""
     return layer_read(*bucket_view(k_l, v_l, k_scale_l, v_scale_l, bucket),
                       dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# Split-KV shard-local layout: a READ-time view of the contiguous bucket
+# prefix cut into n equal sequence blocks; writes and cursors stay absolute.
+# ---------------------------------------------------------------------------
+
+def shard_extent(extent: int, n_shards: int) -> int:
+    """Shard-local block length of a (bucketed) extent; the extent must cut
+    into ``n_shards`` equal contiguous blocks."""
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+    if extent % n_shards:
+        raise ValueError(
+            f"KV extent {extent} not divisible by n_shards={n_shards}")
+    return extent // n_shards
+
+
+def shard_kv_limits(kv_limit, n_shards: int, block: int) -> torch.Tensor:
+    """(n_shards,) int32 on the limit's device: shard s owns absolute
+    positions [s*block, (s+1)*block), so its live extent is
+    clamp(kv_limit - s*block, 0, block). No host sync; a shard clamped to
+    0 is skipped whole by the kernel (the merge identity)."""
+    lim = torch.as_tensor(kv_limit, dtype=torch.int32).reshape(())
+    starts = torch.arange(n_shards, dtype=torch.int32,
+                          device=lim.device) * block
+    return torch.clamp(lim - starts, 0, block)
+
+
+def shard_view(k_l, v_l, k_scale_l, v_scale_l, bucket: int, n_shards: int):
+    """``bucket_view``'s prefix of the STORED buffers as shard-major views
+    (B,n_kv,n_shards,Sb,hd) (scales (B,n_kv,n_shards,Sb,1)): no copy, no
+    dequantization. Shard s, ``[:, :, s]``, is positions [s*Sb, (s+1)*Sb)
+    with the cache's own row strides."""
+    views = bucket_view(k_l, v_l, k_scale_l, v_scale_l, bucket)
+    B, n_kv, Se = views[0].shape[:3]
+    Sb = shard_extent(Se, n_shards)
+    return tuple(None if a is None
+                 else a.view(B, n_kv, n_shards, Sb, a.shape[-1])
+                 for a in views)
+
+
+def layer_read_shards(k_l, v_l, k_scale_l, v_scale_l, bucket: int,
+                      n_shards: int, dtype=torch.bfloat16):
+    """Shard-major bucketed read in the compute dtype: ``layer_read_bucket``
+    with the sequence axis cut into (n_shards, Sb)."""
+    return layer_read(*shard_view(k_l, v_l, k_scale_l, v_scale_l, bucket,
+                                  n_shards), dtype=dtype)
 
 
 def layer_read_slot(k_l, v_l, k_scale_l, v_scale_l, slot: int,

@@ -1,15 +1,18 @@
-"""Serving CLI of the port: continuous-batching decode on one device.
+"""Serving CLI of the port: continuous-batching (or drain-mode) decode on
+one device.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
         --full-width --requests 12 --batch 8 --prompt-len 128 --max-new 32 \
         --arrival-every 4 --block-size 8 --kv-bucket-chunk 64 \
-        --prefill-chunk 32
+        --prefill-chunk 32 [--a-shards 4]
 
+``--mode drain`` serves the drain-then-refill baseline instead (no chunk
+lane: ``--prefill-chunk`` is then ignored, as in the reference CLI).
 Runs on ``--device cuda`` by default (raises without a GPU); pass
 ``--device cpu`` for the plain PyTorch versions on the CPU. The config is
 reduced unless ``--full-width`` is given, as in the reference CLI. Weights
-are random, made from a fixed seed. Prints the engine's stats, a per-request
-table and the per-program call counts.
+are random, made from a fixed seed. Prints the engine's stats, a
+per-request table and the per-program call counts.
 """
 from __future__ import annotations
 
@@ -38,10 +41,13 @@ def serve(arch: str, n_requests: int, batch_slots: int, prompt_len: int,
           max_new: int, *, reduced: bool = True, seed: int = 0,
           mode: str = "continuous", arrival_every: int = 0,
           block_size: int = 1, kv_bucket_chunk: int = 0,
-          prefill_chunk: int = 0, device=None):
+          prefill_chunk: int = 0, a_shards: int = 1, device=None):
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
+    if mode == "drain" and prefill_chunk:
+        print("note: --prefill-chunk ignored (drain mode has no chunk lane)")
+        prefill_chunk = 0
     api = build_model(cfg, device)
     params = api.init(seed)
     reqs = make_requests(cfg, n_requests, prompt_len, max_new, seed,
@@ -49,7 +55,8 @@ def serve(arch: str, n_requests: int, batch_slots: int, prompt_len: int,
     eng = ServingEngine(api, batch_slots, prompt_len, mode=mode,
                         block_size=block_size,
                         kv_bucket_chunk=kv_bucket_chunk,
-                        prefill_chunk=prefill_chunk, device=api.device)
+                        prefill_chunk=prefill_chunk, a_shards=a_shards,
+                        device=api.device)
     return eng.run(params, reqs)
 
 
@@ -64,8 +71,7 @@ def main(argv=None):
                     help="serve the published widths (default: reduced)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--mode", default="continuous",
-                    choices=("auto", "continuous", "drain"),
-                    help="drain raises: it arrives in a later slice")
+                    choices=("auto", "continuous", "drain"))
     ap.add_argument("--arrival-every", type=int, default=0,
                     help="stagger: request i arrives at step i*N")
     ap.add_argument("--block-size", type=int, default=1,
@@ -74,12 +80,17 @@ def main(argv=None):
                     help="KV bucket granularity (block mode; 0 = full)")
     ap.add_argument("--prefill-chunk", type=int, default=0,
                     help="chunked-prefill lane width (0 = monolithic)")
+    ap.add_argument("--a-shards", type=int, default=1,
+                    help="split-KV decode: read each KV bucket as N equal "
+                         "sequence shards merged by the LSE combine")
     args = ap.parse_args(argv)
     stats = serve(args.arch, args.requests, args.batch, args.prompt_len,
-                  args.max_new, reduced=not args.full_width, mode=args.mode, arrival_every=args.arrival_every,
+                  args.max_new, reduced=not args.full_width, mode=args.mode,
+                  arrival_every=args.arrival_every,
                   block_size=args.block_size,
                   kv_bucket_chunk=args.kv_bucket_chunk,
-                  prefill_chunk=args.prefill_chunk, device=args.device)
+                  prefill_chunk=args.prefill_chunk, a_shards=args.a_shards,
+                  device=args.device)
     per_req = stats.pop("per_request")
     rt = stats.pop("runtime")
     print("serve stats:", stats)

@@ -4,7 +4,9 @@ attention and the causal attention of monolithic prefill.
 Port of ``repro.models.attention``. ``decode_attention`` routes through the
 flash-decode wrapper: the hand-written kernel on CUDA, its plain version on
 the CPU, both in f32 (the reference rounds the softmax weights to the value
-dtype before the PV product; the kernel keeps them in f32). The prefill
+dtype before the PV product; the kernel keeps them in f32). Split-KV decode
+(``decode_attention_split``) makes one such call per shard in the kernel's
+partial-statistics mode and merges the shards with the LSE combine. The prefill
 forms are plain PyTorch, as the reference's are jnp: bf16 operands enter
 the products exactly (upcast to f32) with f32 accumulation.
 """
@@ -15,7 +17,10 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.flash_decode.ops import flash_decode
+from repro_torch.kernels.flash_decode.combine import combine_partial_stats
+from repro_torch.kernels.flash_decode.ops import (flash_decode,
+                                                  flash_decode_partial)
+from repro_torch.kv.cache import shard_kv_limits, shard_view
 from repro_torch.models import common
 
 NEG_INF = -1e30
@@ -71,6 +76,65 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.to(q.dtype)
 
 
+def split_flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       mask: torch.Tensor, k_scale=None, v_scale=None,
+                       kv_limit=None, scale=None) -> torch.Tensor:
+    """The f32 body of ``decode_attention_split`` (its result before the
+    one final cast), as ``flash_decode`` is of ``decode_attention``.
+
+    Shard s owns absolute positions [s*Sb, (s+1)*Sb). Each shard is one K1
+    call in partial-statistics mode (the plain version on the CPU) over its
+    own view, mask slice and clamped limit ``shard_kv_limits(...)[s]``,
+    which stays on the device; the per-shard (o, m, l) are merged by the
+    LSE combine in f32. A shard wholly past the limit is skipped by the
+    kernel and merges as the exact identity."""
+    B, n_kv, n, Sb, _ = k.shape
+    mask = mask.reshape(B, n, Sb)
+    limits = shard_kv_limits(
+        torch.as_tensor(Sb * n if kv_limit is None else kv_limit,
+                        dtype=torch.int32, device=q.device), n, Sb)
+    q = q.contiguous()
+    parts = [flash_decode_partial(
+        q, k[:, :, s], v[:, :, s], mask[:, s],
+        None if k_scale is None else k_scale[:, :, s],
+        None if v_scale is None else v_scale[:, :, s],
+        kv_limit=limits[s], scale=scale) for s in range(n)]
+    o, m, l = (torch.stack(t) for t in zip(*parts))
+    return combine_partial_stats(o, m, l, axis=0)
+
+
+def decode_attention_split(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, mask: torch.Tensor,
+                           k_scale=None, v_scale=None, kv_limit=None,
+                           scale=None) -> torch.Tensor:
+    """Split-KV decode attention. q: (B,Hq,hd); k/v SHARD-MAJOR
+    (B,n_kv,n,Sb,hd) as STORED (int8 with scales (B,n_kv,n,Sb,1), or
+    float; ``kv/cache.py::shard_view``); mask: (B,n*Sb) or (B,n,Sb) bool;
+    kv_limit: GLOBAL device int32 limit (None: every position).
+    -> (B,Hq,hd) in q's dtype (``split_flash_decode``, then one cast)."""
+    return split_flash_decode(q, k, v, mask, k_scale, v_scale, kv_limit,
+                              scale).to(q.dtype)
+
+
+def decode_attention_split_bucketed(q, k, v, mask, n_shards: int,
+                                    kv_bucket: int = 0, k_scale=None,
+                                    v_scale=None, kv_limit=None,
+                                    scale=None) -> torch.Tensor:
+    """The bucketed split read for callers holding 4-D (B,n_kv,S,hd) K/V:
+    the first ``kv_bucket`` positions (0: all), cut into ``n_shards``
+    shard-major views, then ``decode_attention_split``. mask: (S,) or
+    (B,S) bool."""
+    S = k.shape[2]
+    if kv_bucket and kv_bucket < S:
+        mask = mask[..., :kv_bucket]
+    k, v, k_scale, v_scale = shard_view(k, v, k_scale, v_scale, kv_bucket,
+                                        n_shards)
+    if mask.ndim == 1:
+        mask = mask[None]
+    return decode_attention_split(q, k, v, mask, k_scale, v_scale,
+                                  kv_limit, scale)
+
+
 def chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask: torch.Tensor) -> torch.Tensor:
     """q: (B,C,Hq,hd); k/v: (B,n_kv,S,hd); mask: (C,S) or (B,C,S) bool ->
@@ -90,11 +154,21 @@ def chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # Length buckets for the decode KV walk
 # ---------------------------------------------------------------------------
 
-def kv_buckets(s_max: int, chunk: int) -> Tuple[int, ...]:
+def kv_buckets(s_max: int, chunk: int, shards: int = 1) -> Tuple[int, ...]:
     """Static bucket set for a cache of extent ``s_max``: chunk multiples
-    with ``s_max`` always last. ``chunk <= 0`` disables bucketing."""
+    with ``s_max`` always last. ``chunk <= 0`` disables bucketing.
+    ``shards > 1`` (split-KV decode): every bucket must cut into ``shards``
+    equal blocks, so the chunk is rounded UP to a shard multiple and
+    ``s_max`` itself must divide."""
+    if shards > 1 and s_max % shards:
+        raise ValueError(
+            f"KV extent {s_max} not divisible by shards={shards}")
     if chunk <= 0 or chunk >= s_max:
         return (s_max,)
+    if shards > 1:
+        chunk = -(-chunk // shards) * shards
+        if chunk >= s_max:
+            return (s_max,)
     return tuple(range(chunk, s_max, chunk)) + (s_max,)
 
 

@@ -1,7 +1,8 @@
 """Model API of the port: ``build_model(cfg, device)`` -> ModelAPI.
 
 Port of ``repro.models.registry`` for the dense family: the fields the
-continuous serving engine uses, ``make_decode_block`` and ``count_params``.
+serving engine uses (continuous and drain), ``make_decode_block`` and
+``count_params``.
 Sharding contexts are gone (one device per engine in this slice).
 """
 from __future__ import annotations
@@ -25,17 +26,22 @@ class ModelAPI(NamedTuple):
     # prefill(params, tokens (B,S)) -> (caches sized S + DECODE_SLACK,
     #   last logits (B,1,V))
     prefill: Callable
+    # decode(params, caches, tokens) -> (caches, logits (B,1,V)): one
+    #   shared-cursor step at caches.length (drain serving), in place
+    decode: Callable
     # init_caches(batch, max_len) -> caches on ``device``
     init_caches: Callable
-    # decode_slotted(params, caches, tokens, positions, active, kv_bucket=0)
-    #   -> (caches, logits (B,1,V)); per-row cursors, caches in place
+    # decode_slotted(params, caches, tokens, positions, active, kv_bucket=0,
+    #                kv_shards=1) -> (caches, logits (B,1,V)); per-row
+    #   cursors, caches in place; kv_shards > 1 is split-KV decode
     decode_slotted: Callable
     # write_slot(caches, single, slot) -> caches: admit a batch-1 prefill
     write_slot: Callable
     # reset_slot(caches, slot) -> caches: zero a retired slot
     reset_slot: Callable
     # decode_block(params, caches, tokens, positions, active, remaining,
-    #              eos_ids, *, block_size, kv_bucket=0) -> 7-tuple
+    #              eos_ids, *, block_size, kv_bucket=0, kv_shards=1)
+    #   -> 7-tuple
     decode_block: Callable
     # prefill_chunk(params, caches, tokens (1,C), slot, start, valid_len)
     #   -> (caches, logits (1,1,V))
@@ -52,12 +58,14 @@ def make_decode_block(decode_slotted: Callable) -> Callable:
     positions, active, remaining)``."""
 
     def decode_block(params, caches, tokens, positions, active, remaining,
-                     eos_ids, *, block_size: int, kv_bucket: int = 0):
+                     eos_ids, *, block_size: int, kv_bucket: int = 0,
+                     kv_shards: int = 1):
         tok, pos, act, rem = tokens, positions, active, remaining
         toks, emits = [], []
         for _ in range(block_size):
             caches, logits = decode_slotted(params, caches, tok, pos, act,
-                                            kv_bucket=kv_bucket)
+                                            kv_bucket=kv_bucket,
+                                            kv_shards=kv_shards)
             nxt = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
             nxt = torch.where(act, nxt, torch.zeros_like(nxt))
             emits.append(act)
@@ -87,19 +95,24 @@ def _build_transformer(cfg: ModelConfig, device: torch.device) -> ModelAPI:
                              tokens.shape[1] + DECODE_SLACK, device)
         return T.prefill(params, tokens, cfg, cache)
 
+    def decode(params, caches, tokens):
+        return T.decode_step(params, caches, tokens, cfg)
+
     def init_caches(batch, max_len):
         return T.make_cache(cfg, batch, max_len, device)
 
     def decode_slotted(params, caches, tokens, positions, active,
-                       kv_bucket: int = 0):
+                       kv_bucket: int = 0, kv_shards: int = 1):
         return T.decode_step_slotted(params, caches, tokens, positions,
-                                     active, cfg, kv_bucket=kv_bucket)
+                                     active, cfg, kv_bucket=kv_bucket,
+                                     kv_shards=kv_shards)
 
     def prefill_chunk(params, caches, tokens, slot, start, valid_len):
         return T.prefill_chunk(params, caches, tokens, slot, start,
                                valid_len, cfg)
 
-    return ModelAPI(cfg, device, init, prefill, init_caches, decode_slotted,
+    return ModelAPI(cfg, device, init, prefill, decode, init_caches,
+                    decode_slotted,
                     write_slot_kv, reset_slot,
                     make_decode_block(decode_slotted), prefill_chunk)
 

@@ -1,5 +1,5 @@
-"""Decoder-only dense transformer: parameters, prefill, slotted decode and
-chunked prefill.
+"""Decoder-only dense transformer: parameters, prefill, shared-cursor and
+slotted decode (sequential or split-KV) and chunked prefill.
 
 Port of the dense, inference part of ``repro.models.transformer``. The
 reference's layer ``lax.scan`` over stacked parameters becomes a Python
@@ -19,9 +19,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.fused_ffn.ops import fused_ffn
 from repro_torch.kv.cache import (KVCache, batch_valid_mask, bucket_view,
                                   init_kv_cache, layer_append_slotted,
-                                  layer_read_slot, layer_write_chunk)
+                                  layer_read_slot, layer_write_chunk,
+                                  shard_view)
 from repro_torch.models import common
 from repro_torch.models.attention import (chunk_attention, decode_attention,
+                                          decode_attention_split,
                                           flash_attention, make_attn_params,
                                           qkv_project)
 from repro_torch.quant.int8 import (QuantizedTensor, dequantize_kv,
@@ -113,20 +115,31 @@ def block_full_seq(p: dict, x: torch.Tensor, cfg: ModelConfig,
 def block_decode_slotted(p: dict, x: torch.Tensor, cfg: ModelConfig,
                          kv_slices: Tuple, positions: torch.Tensor,
                          active: torch.Tensor, kv_bucket: int = 0,
-                         kv_limit=None) -> torch.Tensor:
+                         kv_limit=None, kv_shards: int = 1) -> torch.Tensor:
     """One decode layer with per-row cursors. x: (B,1,D). Row b appends at
     ``positions[b]`` (inactive rows write nothing) and attends its own
     prefix over the first ``kv_bucket`` positions (0 = full extent); the
     cache slices in ``kv_slices`` are updated in place. ``kv_limit``
-    (device int32) lets the kernel skip tiles past every live cursor."""
+    (device int32) lets the kernel skip tiles past every live cursor.
+    ``kv_shards`` > 1: split-KV decode, the bucket prefix read as that many
+    equal shards (``decode_attention_split``); the caller guarantees the
+    bucket divides."""
     B = x.shape[0]
     h = common.apply_norm(p["ln1"], x, cfg.norm_eps)
     q, k, v = qkv_project(p["attn"], h, cfg, positions[:, None])
     k_l, v_l, ks_l, vs_l = layer_append_slotted(*kv_slices, k[:, 0], v[:, 0],
                                                 positions, active)
-    kc, vc, ksc, vsc = bucket_view(k_l, v_l, ks_l, vs_l, kv_bucket)
-    mask = batch_valid_mask(kc.shape[2], positions)
-    o = decode_attention(q[:, 0], kc, vc, mask, ksc, vsc, kv_limit=kv_limit)
+    if kv_shards > 1:
+        kc, vc, ksc, vsc = shard_view(k_l, v_l, ks_l, vs_l, kv_bucket,
+                                      kv_shards)
+        mask = batch_valid_mask(kc.shape[2] * kc.shape[3], positions)
+        o = decode_attention_split(q[:, 0], kc, vc, mask, ksc, vsc,
+                                   kv_limit=kv_limit)
+    else:
+        kc, vc, ksc, vsc = bucket_view(k_l, v_l, ks_l, vs_l, kv_bucket)
+        mask = batch_valid_mask(kc.shape[2], positions)
+        o = decode_attention(q[:, 0], kc, vc, mask, ksc, vsc,
+                             kv_limit=kv_limit)
     o = common.linear(p["attn"]["wo"], o.reshape(B, 1, -1))
     return _ffn_half(p, x + o, cfg)
 
@@ -237,25 +250,39 @@ def write_prefill(cache: KVCache, k_all, v_all, S: int) -> KVCache:
 
 
 # ---------------------------------------------------------------------------
-# Slotted decode and chunked prefill
+# Decode (shared cursor, slotted) and chunked prefill
 # ---------------------------------------------------------------------------
+
+def decode_step(params, cache: KVCache, tokens: torch.Tensor,
+                cfg: ModelConfig) -> Tuple[KVCache, torch.Tensor]:
+    """Shared-cursor decode step (drain serving). tokens: (B,) last emitted
+    ids; every row appends at ``cache.length`` and attends the whole
+    extent up to it; the length is bumped. Returns (cache, logits (B,1,V)
+    f32). The slotted step with every row live at the one cursor, so no
+    host sync: the cursor stays on the device."""
+    B = tokens.shape[0]
+    return decode_step_slotted(
+        params, cache, tokens, cache.length.expand(B),
+        torch.ones(B, dtype=torch.bool, device=tokens.device), cfg)
+
 
 def decode_step_slotted(params, cache: KVCache, tokens: torch.Tensor,
                         positions: torch.Tensor, active: torch.Tensor,
-                        cfg: ModelConfig, kv_bucket: int = 0
+                        cfg: ModelConfig, kv_bucket: int = 0,
+                        kv_shards: int = 1
                         ) -> Tuple[KVCache, torch.Tensor]:
     """Continuous-batching decode step. tokens/positions/active: (B,)
     device tensors. Row b appends at positions[b] and attends
     0..positions[b]. Returns (cache, logits (B,1,V) f32). Makes no host
     sync: the kernel's tile limit ``max(positions[active]) + 1`` stays on
-    the device."""
+    the device. ``kv_shards`` > 1: split-KV decode (block_decode_slotted)."""
     x = common.embed(params["embed"], tokens[:, None])
     live = torch.where(active, positions, torch.full_like(positions, -1))
     kv_limit = (live.max() + 1).to(torch.int32)
     for i, lp in enumerate(params["blocks"]):
         x = block_decode_slotted(lp, x, cfg, cache.layer(i), positions,
                                  active, kv_bucket=kv_bucket,
-                                 kv_limit=kv_limit)
+                                 kv_limit=kv_limit, kv_shards=kv_shards)
     cache.length = torch.maximum(
         cache.length, (torch.where(active, positions, 0).max() + 1)
         .to(torch.int32))

@@ -1,5 +1,5 @@
-"""Continuous-batching serving engine: the colocated, continuous part of
-``repro.runtime.serving``.
+"""Serving engine: the colocated part of ``repro.runtime.serving``, in
+continuous-batching and drain mode.
 
 - the decode batch is a fixed set of SLOTS; a queued request is admitted
   into any free slot mid-serve,
@@ -11,7 +11,12 @@
   chunked-prefill lane (``prefill_chunk`` = C > 0: at most one fixed-(1,C)
   chunk per block boundary, cursors at the TRUE prompt length),
 - length-aware KV walking: each macro-step uses the smallest KV bucket
-  covering every live cursor + T (``kv_bucket_chunk``).
+  covering every live cursor + T (``kv_bucket_chunk``),
+- split-KV decode (``a_shards`` = n > 1): every bucket is read as n equal
+  sequence shards whose partial softmax statistics are LSE-merged,
+- ``mode="drain"``: the drain-then-refill baseline. The whole batch is
+  prefilled at once and decodes with one shared cursor until every slot
+  has finished; only then are queued requests admitted.
 
 The host-side ``SlotScheduler`` decides what runs at each block boundary;
 the ``ExecutorBackend`` owns the slot caches and the registered step
@@ -19,9 +24,9 @@ programs; ``ServingEngine`` is the boundary loop between them and counts
 its one host sync per decode round (``host_syncs``).
 
 Knobs of the reference that later slices of the port bring raise
-``ValueError`` here instead of being ignored: drain mode, the WA backend
-and its overlap, split-KV ``a_shards``, preemption, bounded queues,
-priorities and deadlines, fault injection, tiered KV and its byte budget.
+``ValueError`` here instead of being ignored: the WA backend and its
+overlap, preemption, bounded queues, priorities and deadlines, fault
+injection, tiered KV and its byte budget.
 """
 from __future__ import annotations
 
@@ -234,29 +239,37 @@ class ExecutorBackend:
       T == 1                serve_decode
       T > 1                 serve_decode_block[_s{N}] per KV bucket
       debug_reset_slots     serve_reset
+      drain mode            serve_prefill_batch + serve_decode_drain
     """
 
-    def __init__(self, api: ModelAPI, rt: StaticRuntime, *, slots: int,
-                 prompt_len: int, max_new_cap: int, block_size: int,
-                 kv_bucket_chunk: int, prefill_chunk: int,
-                 debug_reset_slots: bool):
+    def __init__(self, api: ModelAPI, rt: StaticRuntime, *, mode: str,
+                 slots: int, prompt_len: int, max_new_cap: int,
+                 block_size: int, kv_bucket_chunk: int, prefill_chunk: int,
+                 debug_reset_slots: bool, a_shards: int):
         self.api, self.rt = api, rt
         self.device = api.device
         self.slots, self.prompt_len = slots, prompt_len
         self.max_new_cap = max_new_cap
         self.block_size = block_size
         self.prefill_chunk = prefill_chunk
+        self.a_shards = a_shards
         self.caches = None
         self.buckets: Tuple[int, ...] = ()
         self._decode_blocks: Dict[int, Any] = {}
         self._reset = None
-        self._build_continuous(kv_bucket_chunk, prefill_chunk,
-                               debug_reset_slots)
+        if mode == "continuous":
+            self._build_continuous(kv_bucket_chunk, prefill_chunk,
+                                   debug_reset_slots)
+        else:
+            self._build_drain()
 
     def _bucket_set(self, kv_bucket_chunk) -> Tuple[int, ...]:
+        """Static KV bucket set of the block programs; with a_shards > 1
+        every bucket splits into equal shard blocks (kv_buckets rounds the
+        chunk up; the engine validated the extent)."""
         s_max = self.prompt_len + self.max_new_cap
-        return kv_buckets(s_max, kv_bucket_chunk) if kv_bucket_chunk > 0 \
-            else (0,)
+        return kv_buckets(s_max, kv_bucket_chunk, self.a_shards) \
+            if kv_bucket_chunk > 0 else (0,)
 
     def _build_reset(self, debug_reset_slots):
         if debug_reset_slots:
@@ -294,6 +307,9 @@ class ExecutorBackend:
 
     def _build_continuous(self, kv_bucket_chunk, prefill_chunk,
                           debug_reset_slots):
+        raise NotImplementedError
+
+    def _build_drain(self):
         raise NotImplementedError
 
     @property
@@ -365,11 +381,32 @@ class ColocatedBackend(ExecutorBackend):
                                                   prefill1_fn)
             self._admit = self.rt.compile_step("serve_admit", api.write_slot)
         self._build_reset(debug_reset_slots)
+        n = self.a_shards
         self._build_decode_programs(
             kv_bucket_chunk, "serve_",
-            lambda p, c, t, pos, act: api.decode_slotted(p, c, t, pos, act),
+            lambda p, c, t, pos, act: api.decode_slotted(p, c, t, pos, act,
+                                                         kv_shards=n),
             lambda p, c, t, pos, act, rem, eos, sb: api.decode_block(
-                p, c, t, pos, act, rem, eos, block_size=T, kv_bucket=sb))
+                p, c, t, pos, act, rem, eos, block_size=T, kv_bucket=sb,
+                kv_shards=n))
+
+    def _build_drain(self):
+        api = self.api
+
+        def prefill_fn(p, toks):
+            caches, logits = api.prefill(p, toks)
+            return caches, torch.argmax(logits[:, -1], dim=-1).to(
+                torch.int32)
+
+        def decode_fn(p, caches, tokens):
+            caches, logits = api.decode(p, caches, tokens)
+            return caches, torch.argmax(logits[:, 0], dim=-1).to(
+                torch.int32)
+
+        self._prefill_b = self.rt.compile_step("serve_prefill_batch",
+                                               prefill_fn)
+        self._decode_b = self.rt.compile_step("serve_decode_drain",
+                                              decode_fn)
 
     def admit_full(self, params, row: np.ndarray, slot: int):
         """Monolithic admission: batch-1 full-width prefill + slot write.
@@ -378,6 +415,14 @@ class ColocatedBackend(ExecutorBackend):
             params, torch.from_numpy(row[None]).to(self.device))
         self.caches = self._admit(self.caches, single, slot)
         return first
+
+    def drain_prefill(self, params, toks: np.ndarray):
+        """Full-batch prefill of the (slots, prompt_len) prompt rows: fresh
+        caches sized prompt_len + DECODE_SLACK and the first tokens."""
+        return self._prefill_b(params, torch.from_numpy(toks).to(self.device))
+
+    def drain_decode(self, params, caches, last):
+        return self._decode_b(params, caches, last)
 
 
 BACKENDS = {"colocated": ColocatedBackend}
@@ -402,6 +447,11 @@ class ServingEngine:
     ``kv_bucket_chunk``: > 0 registers one decode-block program per KV
     bucket and picks the smallest covering bucket per macro-step.
     ``debug_reset_slots``: zero a slot's cache when its request retires.
+    ``mode``: ``continuous`` (slot admission), ``drain`` (the
+    drain-then-refill baseline) or ``auto`` (continuous: every family the
+    port serves has slotted decode).
+    ``a_shards`` (n): split-KV decode, each KV bucket read as n equal
+    shards; the KV extent prompt_len + max_new_cap must divide by n.
     ``device``: must be the api's device; ``None`` means ``cuda`` (raises
     without a GPU unless ``device="cpu"`` is passed).
 
@@ -423,17 +473,15 @@ class ServingEngine:
         if dev != api.device:
             raise ValueError(f"engine device {dev} differs from the model's "
                              f"{api.device}; build both on one device")
-        if mode == "drain":
-            raise _later("mode='drain'", "drain-mode")
-        if mode not in ("auto", "continuous"):
+        if mode not in ("auto", "continuous", "drain"):
             raise ValueError(mode)
+        if a_shards < 1:
+            raise ValueError(f"a_shards must be >= 1, got {a_shards}")
         if backend == "wa":
             raise _later("backend='wa'", "WA-backend + overlap")
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; choose from "
                              f"{sorted(BACKENDS)}")
-        if a_shards != 1:
-            raise _later(f"a_shards={a_shards}", "split-KV")
         if overlap != 1:
             raise _later(f"overlap={overlap}", "WA-backend + overlap")
         if preemptible:
@@ -450,17 +498,33 @@ class ServingEngine:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
         if prefill_chunk < 0:
             raise ValueError(f"prefill_chunk must be >= 0, got {prefill_chunk}")
+        if mode == "drain" and prefill_chunk > 0:
+            raise ValueError("chunked prefill requires the continuous "
+                             "scheduler (drain prefills the whole batch)")
         self.api = api
         self.slots = batch_slots
         self.prompt_len = prompt_len
         self.max_new_cap = min(max_new_cap, DECODE_SLACK)
-        self.mode = "continuous"
+        # the reference resolves "auto" to continuous for a family with
+        # slotted decode and admission, which every family of the port has
+        self.mode = "continuous" if mode == "auto" else mode
         self.backend = backend
         self.block_size = block_size
         self.kv_bucket_chunk = kv_bucket_chunk
         self.prefill_chunk = prefill_chunk
+        self.a_shards = a_shards
         self.debug_reset_slots = debug_reset_slots
         self._kv_extent = prompt_len + self.max_new_cap
+        if a_shards > 1:
+            if self.mode == "drain":
+                raise ValueError("split-KV decode (a_shards > 1) runs "
+                                 "through the slotted decode programs; "
+                                 "drain mode has none")
+            if self._kv_extent % a_shards:
+                raise ValueError(
+                    f"KV extent {self._kv_extent} (prompt_len + "
+                    f"max_new_cap) not divisible by a_shards={a_shards}; "
+                    "every shard must own an equal contiguous block")
         if prefill_chunk > self._kv_extent:
             raise ValueError(
                 f"prefill_chunk={prefill_chunk} exceeds the KV extent "
@@ -548,12 +612,13 @@ class ServingEngine:
     def _prepare(self):
         if self._ex is None:
             self._ex = BACKENDS[self.backend](
-                self.api, self.rt, slots=self.slots,
+                self.api, self.rt, mode=self.mode, slots=self.slots,
                 prompt_len=self.prompt_len, max_new_cap=self.max_new_cap,
                 block_size=self.block_size,
                 kv_bucket_chunk=self.kv_bucket_chunk,
                 prefill_chunk=self.prefill_chunk,
-                debug_reset_slots=self.debug_reset_slots)
+                debug_reset_slots=self.debug_reset_slots,
+                a_shards=self.a_shards)
 
     @torch.inference_mode()
     def run(self, params, requests: List[Request],
@@ -567,7 +632,9 @@ class ServingEngine:
             self._validate_request(r)
         self._prepare()
         self._reset_per_run()
-        return self._run_continuous(params, requests, max_steps)
+        if self.mode == "continuous":
+            return self._run_continuous(params, requests, max_steps)
+        return self._run_drain(params, requests, max_steps)
 
     def _run_continuous(self, params, requests, max_steps):
         T = self.block_size
@@ -751,6 +818,83 @@ class ServingEngine:
         self._macro_steps += 1
         return finished
 
+    # -- drain mode -----------------------------------------------------
+    def _run_drain(self, params, requests, max_steps):
+        """The drain-then-refill baseline: the whole batch is prefilled
+        only once every slot has drained, so one long request holds every
+        queued request back. One decode step per boundary, one counted
+        host sync per step."""
+        ex = self._ex
+        pending = sorted(requests, key=lambda r: r.arrival_step)
+        active_req: List[Optional[Request]] = [None] * self.slots
+        caches = last = None
+        done: List[Request] = []
+        steps = admissions = 0
+        while pending or self.queue or any(r is not None for r in active_req):
+            if steps >= max_steps:
+                break
+            while pending and pending[0].arrival_step <= steps:
+                r = pending.pop(0)
+                if not r.t_enqueue:           # keep a submit() stamp
+                    r.t_enqueue = time.monotonic()
+                r.status = "queued"
+                self.queue.append(r)
+            if caches is None:
+                toks = np.zeros((self.slots, self.prompt_len), np.int32)
+                for i in range(self.slots):
+                    if active_req[i] is None and self.queue:
+                        r = self.queue.pop(0)
+                        r.t_admitted = time.monotonic()
+                        r.admit_step = steps
+                        r.status = "active"
+                        active_req[i] = r
+                        admissions += 1
+                    if active_req[i] is not None:
+                        toks[i] = pad_row(active_req[i].prompt,
+                                          self.prompt_len)
+                if not any(r is not None for r in active_req):
+                    steps += 1                   # idle tick: await arrivals
+                    continue
+                t0 = time.monotonic()
+                caches, last = ex.drain_prefill(params, toks)
+                first = last.cpu().numpy()       # blocks: prefill time
+                now = time.monotonic()
+                self._prefill_time += now - t0
+                for i, r in enumerate(active_req):
+                    if r is not None and not r.generated:
+                        r.t_first_token = now
+                        r.note_emit(now)
+                        self._emit_token(r, first[i])
+                        if r.done:
+                            self._finish(r, now)
+            t0 = time.monotonic()
+            caches, last = ex.drain_decode(params, caches, last)
+            nxt = self._host_sync(last)
+            dt = time.monotonic() - t0
+            self.tpot_samples.append(dt)
+            self._decode_time += dt
+            self._macro_steps += 1
+            steps += 1
+            now = time.monotonic()
+            n_tok = 0
+            for i, r in enumerate(active_req):
+                if r is None or r.done:
+                    continue
+                self._emit_token(r, nxt[i])
+                r.note_emit(now)
+                n_tok += 1
+                if r.done:
+                    self._finish(r, now)
+            self._decode_tokens += n_tok
+            self._block_tokens.append(n_tok)
+            for i, r in enumerate(active_req):
+                if r is not None and r.done:
+                    done.append(r)
+                    active_req[i] = None
+            if all(r is None for r in active_req):
+                caches = None                    # drained: allow re-prefill
+        return self._stats(done, steps, admissions, 0)
+
     # ------------------------------------------------------------------
     def _stats(self, done, steps, admissions, overlapped) -> Dict[str, Any]:
         tp = np.array(self.tpot_samples[1:] or [0.0])
@@ -767,6 +911,7 @@ class ServingEngine:
             "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                        else "cpu"),
             "block_size": self.block_size,
+            "a_shards": self.a_shards,
             "prefill_mode": ("chunked" if self.prefill_chunk
                              else "monolithic"),
             "prefill_chunk": self.prefill_chunk,

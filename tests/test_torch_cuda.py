@@ -24,6 +24,9 @@ from repro_torch.kernels.fused_ffn.ops import fused_ffn      # noqa: E402
 from repro_torch.kernels.fused_ffn.ref import fused_ffn_ref  # noqa: E402
 from repro_torch.kernels.gemv.ops import gemv_int8_q         # noqa: E402
 from repro_torch.kernels.gemv.ref import gemv_int8_ref       # noqa: E402
+from repro_torch.kv.cache import (KVCache, batch_valid_mask,  # noqa: E402
+                                  shard_view)
+from repro_torch.models.attention import split_flash_decode  # noqa: E402
 from repro_torch.models.registry import build_model          # noqa: E402
 from repro_torch.quant.int8 import quantize_int8, quantize_kv  # noqa: E402
 
@@ -225,10 +228,11 @@ def test_flash_decode_kernel_dead_rows_follow_the_tile_walk(dev, S, split,
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("D,F", [(200, 700), (896, 4864)])
-@pytest.mark.parametrize("R", [1, 3, 8, 16, 17, 32, 40, 128])
+@pytest.mark.parametrize("R", [1, 3, 8, 16, 17, 32, 40, 128, 1024])
 def test_fused_ffn_kernel_matches_plain(dev, dtype, D, F, R):
-    """Row counts across the 16/32/64-row tiles, D=200 F=700 (no extent
-    divides a tile) and the full qwen2-0.5b width. Within 1e-4 (absolute
+    """Row counts across the 16/32/64-row tiles (1,024: a drain batch
+    prefill of 8 x 128), D=200 F=700 (no extent divides a tile) and the
+    full qwen2-0.5b width. Within 1e-4 (absolute
     and relative) elementwise and 1e-4 * max(1, max|plain|) overall; a
     second call on the same inputs gives the same bits."""
     g = torch.Generator(device=dev).manual_seed(R + D)
@@ -295,3 +299,101 @@ def test_decode_block_cuda_matches_cpu(dev, over):
     assert (counts["gemv_int8"] if over.get("weight_int8")
             else counts["fused_ffn"]) > 0
 
+
+
+def _split_case(dev, bucket, n, kv, S=200, B=8, Hq=14, n_kv=2, hd=64,
+                seed=0):
+    """Split attention inputs at the engine's shapes: a bf16 query, one
+    cache layer of S positions (bf16, or int8 with scales), its first
+    ``bucket`` positions cut into ``n`` shard views; live rows end at
+    random positions in the first 5/8 of the bucket (mid-shard, and with
+    n=4 the last shard wholly past every row), rows 6 and 7 inactive with
+    cursors past every live row."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, Hq, hd, device=dev, generator=g).to(torch.bfloat16)
+    kf = torch.randn(B, n_kv, S, hd, device=dev, generator=g)
+    vf = torch.randn(B, n_kv, S, hd, device=dev, generator=g)
+    if kv == "int8":
+        (k, ks), (v, vs) = quantize_kv(kf), quantize_kv(vf)
+    else:
+        k, v, ks, vs = kf.to(torch.bfloat16), vf.to(torch.bfloat16), None, \
+            None
+    pos = torch.randint(0, bucket * 5 // 8, (B,), device=dev, generator=g)
+    active = torch.arange(B, device=dev) < 6
+    pos = torch.where(active, pos, torch.full_like(pos, bucket - 1))
+    mask = batch_valid_mask(bucket, pos)
+    lim = (torch.where(active, pos, -1).max() + 1).to(torch.int32)
+    return (q, *shard_view(k, v, ks, vs, bucket, n)), mask, lim, active
+
+
+@pytest.mark.parametrize("kv", ["bfloat16", "int8"])
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("bucket", [64, 128, 192, 200])
+def test_split_attention_kernel_matches_plain(dev, bucket, n, kv):
+    """One K1 launch per shard in partial mode plus the LSE combine,
+    against the plain route (the same function on CPU copies) within K1's
+    tolerance on active rows; inactive rows may differ (a shard the
+    kernel skips merges as the identity, the plain einsum computes it);
+    a second call gives the same bits; no host sync."""
+    (q, k, v, ks, vs), mask, lim, active = _split_case(dev, bucket, n, kv,
+                                                      seed=bucket + n)
+    reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = split_flash_decode(q, k, v, mask, ks, vs, kv_limit=lim)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert launch_counts()["flash_decode_partial"] == n
+    again = split_flash_decode(q, k, v, mask, ks, vs, kv_limit=lim)
+    cpu = [None if t is None else t.cpu() for t in (q, k, v, mask, ks, vs,
+                                                     lim)]
+    want = split_flash_decode(*cpu[:4], cpu[4], cpu[5], kv_limit=cpu[6])
+    act = active.cpu()
+    err = float((got.cpu()[act] - want[act]).abs().max())
+    assert err <= 1e-5 * max(1.0, float(want[act].abs().max()))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("over", [dict(dtype="float32"),
+                                  dict(dtype="float32", kv_dtype="int8")])
+def test_drain_decode_and_split_block_cuda_match_cpu(dev, over):
+    """The shared-cursor decode step (the drain path: every row at
+    cache.length over the whole extent) and a split-KV decode block
+    (a_shards=4) on CUDA against the CPU: equal tokens, every kernel of the
+    path launched."""
+    cfg = get_config("qwen2-0.5b").reduced().replace(**over)
+    out = {}
+    for d in ("cpu", "cuda"):
+        api = build_model(cfg, device=d)
+        params = to_device(build_model(cfg, device="cpu").init(0),
+                           api.device)
+        prompts = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (2, 8), dtype=np.int64)).to(api.device)
+        cache, lg = api.prefill(params, prompts)
+        twin = KVCache(*(None if t is None else t.clone()
+                         for t in (cache.k, cache.v, cache.k_scale,
+                                   cache.v_scale, cache.length)))
+        tok = first = lg[:, -1].argmax(-1).to(torch.int32)
+        reset_launch_counts()
+        steps = []
+        for _ in range(6):
+            cache, lg = api.decode(params, cache, tok)
+            tok = lg[:, 0].argmax(-1).to(torch.int32)
+            steps.append(tok.cpu())
+        drain_counts = launch_counts()
+        reset_launch_counts()
+        res = api.decode_block(
+            params, twin, first,
+            torch.full((2,), 8, dtype=torch.int32, device=api.device),
+            torch.tensor([True, False], device=api.device),
+            torch.full((2,), 6, dtype=torch.int32, device=api.device),
+            torch.full((2,), -1, dtype=torch.int32, device=api.device),
+            block_size=6, kv_bucket=32, kv_shards=4)
+        out[d] = (torch.stack(steps), res[1].cpu(), drain_counts,
+                  launch_counts())
+    assert torch.equal(out["cpu"][0], out["cuda"][0])
+    assert torch.equal(out["cpu"][1], out["cuda"][1])
+    drain, split = out["cuda"][2], out["cuda"][3]
+    assert drain["flash_decode"] == 6 * cfg.n_layers
+    assert drain["flash_decode_partial"] == 0 and drain["fused_ffn"] > 0
+    assert split["flash_decode_partial"] == 6 * cfg.n_layers * 4

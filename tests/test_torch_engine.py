@@ -151,9 +151,7 @@ def test_length_contract_rejects_not_truncates(models):
 
 
 UNPORTED = {
-    "mode=drain": dict(mode="drain"),
     "backend=wa": dict(backend="wa"),
-    "a_shards=2": dict(a_shards=2),
     "overlap=2": dict(overlap=2),
     "preemptible": dict(preemptible=True),
     "max_queue": dict(max_queue=4),

@@ -42,7 +42,7 @@ from repro_torch.kernels import launch_counts, reset_launch_counts  # noqa
 from repro_torch.kernels.flash_decode.combine import (      # noqa: E402
     combine_partial_stats, merge_partial_stats)
 from repro_torch.kernels.flash_decode.ops import (          # noqa: E402
-    decode_plan, flash_decode)
+    decode_plan, flash_decode, flash_decode_partial)
 from repro_torch.kernels.flash_decode.ref import (          # noqa: E402
     NEG_INF, flash_decode_ref)
 from repro_torch.kernels.fused_ffn.ops import fused_ffn      # noqa: E402
@@ -295,12 +295,13 @@ def test_wrappers_on_cpu_run_plain_versions_and_count_nothing():
     reset_launch_counts()
     q, k, v, ks, vs, mask = _to_torch(*_fd_inputs("f32"))
     flash_decode(q, k, v, mask)
+    flash_decode_partial(q, k, v, mask)
     fused_ffn(torch.ones(2, 8), torch.ones(8, 16), torch.ones(8, 16),
               torch.ones(16, 8))
     gemv_int8_q(torch.ones(2, 8, dtype=torch.int8), torch.ones(2, 1),
                 torch.ones(8, 4, dtype=torch.int8), torch.ones(1, 4))
-    assert launch_counts() == {"flash_decode": 0, "fused_ffn": 0,
-                               "gemv_int8": 0}
+    assert launch_counts() == {"flash_decode": 0, "flash_decode_partial": 0,
+                               "fused_ffn": 0, "gemv_int8": 0}
 
 
 def test_wrappers_refuse_other_devices():
