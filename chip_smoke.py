@@ -20,7 +20,9 @@ phases; any failure exits non-zero before the result line:
    the same seeded weights on the CPU (plain versions) and on CUDA
    (kernels) give equal tokens and logits within 1e-3 of max|logit|, for
    slotted decode, the decode block, split-KV decode (4 shards); on CUDA
-   the shared-cursor decode step equals slotted decode at one cursor;
+   the shared-cursor decode step equals slotted decode at one cursor; the
+   preemption swap pair (export, then import at valid_len 1, 37, 200, and
+   its 4-shard views) gives the CPU's bytes for float32 and int8 KV;
 4. the serving engine at full qwen2-0.5b (24 layers, seeded random bf16
    weights): (a) chunked admission + macro-step decode + KV buckets,
    (b) int8 weights and int8 KV with monolithic admission, (c) per-token
@@ -30,7 +32,12 @@ phases; any failure exits non-zero before the result line:
    launched (counts reset just before the run); drain must admit no
    request while another decodes; (e) must make as many host syncs as
    (a); one decode block of (a), (b) and (e) is traced with torch.profiler
-   and counted for synchronising calls;
+   and counted for synchronising calls; (f) the failure model: a seeded
+   chaos schedule (``run_chaos``: a clean run, then injected dispatch
+   failures, KV pressure and a high-priority arrival) over 4 slots with
+   int8 KV, preemptible, a bounded queue and strict invariants, which must
+   audit clean, finish with the clean run's tokens, preempt and restore,
+   and launch K1 and K3 in both runs;
 5. time each kernel at the main path's shapes (K1 at B=8 over S=200 and
    at a long context of S=4096, bf16 and int8 KV, in partial mode at one
    shard of 48, and the whole split attention of a layer at bucket 192;
@@ -443,6 +450,59 @@ def phase_model_parity():
             "decode_step disagrees with decode_step_slotted")
 
 
+def phase_swap_pair():
+    """The preemption swap pair on the card against the CPU, on one cache
+    of the 2-layer full-width model (8 slots, extent 200) filled with the
+    same seeded bytes, float32 and int8 KV: the export image of slot 1,
+    then the cache after importing it into slot 5 at valid_len 1, 37 and
+    200, must equal the CPU's bit for bit; slot 5 keeps its own bytes at
+    and past valid_len; and the 4-shard views of the restored layer (the
+    split-KV read, shards of 50) equal the CPU's."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kv.cache import (export_slot_kv, import_slot_kv,
+                                      shard_view)
+    from repro_torch.models.registry import build_model
+    names = ("k", "v", "k_scale", "v_scale")
+    for kv in ("float32", "int8"):
+        cfg = get_config("qwen2-0.5b").replace(n_layers=2, dtype="float32",
+                                               kv_dtype=kv)
+        g = torch.Generator().manual_seed(0)
+        base = build_model(cfg, device="cpu").init_caches(8, 200)
+        for n in names:
+            t = getattr(base, n)
+            if t is None:
+                continue
+            t.copy_(torch.randint(-127, 127, t.shape, generator=g)
+                    if t.dtype == torch.int8
+                    else torch.rand(t.shape, generator=g) + 0.01)
+        for valid in (1, 37, 200):
+            res = {}
+            for d in ("cpu", "cuda"):
+                c = build_model(cfg, device=d).init_caches(8, 200)
+                for n in names:
+                    if getattr(c, n) is not None:
+                        getattr(c, n).copy_(getattr(base, n))
+                image = tuple(None if a is None else a.cpu()
+                              for a in export_slot_kv(c, 1))
+                c = import_slot_kv(c, image, 5, valid)
+                views = shard_view(*c.layer(1), 200, 4)
+                res[d] = [t.cpu() for t in image[:4] + tuple(
+                    getattr(c, n) for n in names) + views
+                          if t is not None]
+                if d == "cuda":
+                    k = c.k.cpu()
+            same = all(torch.equal(a, b)
+                       for a, b in zip(res["cpu"], res["cuda"]))
+            kept = torch.equal(k[:, 5, :, valid:], base.k[:, 5, :, valid:])
+            moved = torch.equal(k[:, 5, :, :valid], base.k[:, 1, :, :valid])
+            log(f"  swap pair, kv={kv}, slot 1 -> 5 at valid_len {valid}: "
+                f"cuda == cpu bit for bit (image, cache, 4-shard views): "
+                f"{same}; positions < valid_len restored: {moved}; "
+                f">= valid_len kept: {kept}")
+            require(same and kept and moved,
+                    f"swap pair disagrees at kv={kv} valid_len={valid}")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the engine at full qwen2-0.5b
 # ---------------------------------------------------------------------------
@@ -613,6 +673,112 @@ def trace_decode_block(api, params, kw):
     return syncs
 
 
+# run (f): the failure model at full width and depth. The plan and its
+# faults come from FaultPlan.generate(F_SEED); injected stalls and TTFT
+# deadlines are cleared (they depend on wall time, which the card's runs
+# do not share), and one scripted priority-3 arrival (F_SCRIPTED: prompt,
+# tokens, arrival step) lands while every slot is busy, so the run
+# preempts and restores. With no stop ids and no clock in any decision,
+# the schedule is the same on every run.
+F_SEED = 4
+F_SCRIPTED = (24, 16, 8)
+F_ENGINE = dict(block_size=8, kv_bucket_chunk=64, prefill_chunk=32,
+                max_new_cap=72, preemptible=True, max_queue=6,
+                max_retries=2, strict_invariants=True)
+
+
+def run_failure(totals, runs, card):
+    """Run (f): ``run_chaos`` (a clean run, then the chaos run with the
+    plan's injector) through the colocated engine at full qwen2-0.5b (24
+    layers, seeded random bf16 weights, int8 KV), 4 slots. Requires no
+    invariant violation, completed streams equal to the clean run's, at
+    least one injected failure, preemption and restore, K1 and K3 launched
+    in both runs, and the swap pair registered once each."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.registry import build_model
+    from repro_torch.runtime import faults
+    from repro_torch.runtime.serving import Request, ServingEngine
+    cfg = get_config("qwen2-0.5b").replace(kv_dtype="int8")
+    api = build_model(cfg)
+    params = api.init(0)
+    plan = dataclasses.replace(faults.FaultPlan.generate(F_SEED,
+                                                         n_requests=10),
+                               slow_s=0.0, deadline_frac=0.0)
+    reqs = plan.requests(cfg.vocab_size, prompt_lo=16, prompt_hi=128)
+    plen, new, arrival = F_SCRIPTED
+    reqs.append(Request(rid=len(reqs), prompt=np.random.default_rng(
+        F_SEED).integers(0, cfg.vocab_size, plen, dtype=np.int32),
+        max_new_tokens=new, arrival_step=arrival, priority=3))
+    eng = ServingEngine(api, 4, 128, **F_ENGINE)
+    per_run, swap_ms = [], {"out": [], "in": []}
+    inner_run = eng.run
+
+    def counted_run(p, rs, **kw):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        stats = inner_run(p, rs, **kw)
+        torch.cuda.synchronize()
+        per_run.append((stats, launch_counts()))
+        return stats
+
+    def timed(fn, key):
+        def wrapper(*a):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            swap_ms[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return wrapper
+
+    eng.run = counted_run
+    eng._preempt_slot = timed(eng._preempt_slot, "out")
+    eng._restore = timed(eng._restore, "in")
+    rep = faults.run_chaos(eng, params, plan, reqs)
+    (clean, clean_n), (chaos, chaos_n) = per_run
+    for name, counts in (("f_chaos_clean", clean_n), ("f_chaos", chaos_n)):
+        runs[name] = counts
+        for k, n in counts.items():
+            totals[k] += n
+    log(f"  run f_failure_model (seed {F_SEED}, {len(reqs)} requests, 4 "
+        f"slots, int8 KV): report {json.dumps(rep)}")
+    keys = ("completed", "preemptions", "restores", "retries",
+            "watchdog_timeouts", "quarantined_slots", "rejections",
+            "deadline_misses", "host_syncs", "tpot_mean_ms",
+            "swap_time_ms")
+    for tag, st, n in (("clean", clean, clean_n), ("chaos", chaos, chaos_n)):
+        log(f"    {tag} run: " + json.dumps({k: st[k] for k in keys})
+            + f", launches {n} [{card}]")
+    mean = {k: float(np.mean(v)) if v else float("nan")
+            for k, v in swap_ms.items()}
+    log(f"    host time a swap-out (export + copy to the host) "
+        f"{mean['out']:.3f} ms over {len(swap_ms['out'])}, a swap-in "
+        f"(copy back + masked write) {mean['in']:.3f} ms over "
+        f"{len(swap_ms['in'])} [{card}]")
+    log(f"    decode TPOT mean: clean {clean['tpot_mean_ms']:.3f} ms, chaos "
+        f"{chaos['tpot_mean_ms']:.3f} ms [{card}]")
+    require(rep["violations"] == [], f"run (f) invariant violations: "
+            f"{rep['violations']}")
+    require(clean["completed"] == len(reqs), "run (f): clean run incomplete")
+    require(rep["completed"] + rep["rejections"] + rep["deadline_misses"]
+            == len(reqs), "run (f): a request was not terminally accounted")
+    require(rep["injected"]["injected_failures"] >= 1,
+            "run (f): no dispatch failure was injected")
+    require(chaos["preemptions"] >= 1 and chaos["restores"] >= 1,
+            "run (f): no preemption and restore")
+    for tag, n in (("clean", clean_n), ("chaos", chaos_n)):
+        for k in ("flash_decode", "fused_ffn"):
+            require(n[k] > 0, f"run (f) {tag}: kernel {k} never launched")
+    rt = chaos["runtime"]
+    require(all(rt[p]["compiles"] == 1 and rt[p]["calls"] >= 1
+                for p in ("serve_swap_out", "serve_swap_in")),
+            "run (f): the swap pair is not registered once and called")
+    del params, eng, api
+    torch.cuda.empty_cache()
+    return {"swap_out_ms": mean["out"], "swap_in_ms": mean["in"],
+            "tpot_mean_ms": chaos["tpot_mean_ms"]}
+
+
 def phase_engine(totals, runs):
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -681,6 +847,7 @@ def phase_engine(totals, runs):
             "split-KV run (e) made another number of host syncs than (a)")
     require(all(n == 0 for n in syncs.values()),
             "a traced decode block synchronises with the host")
+    run_failure(totals, runs, nvidia_smi())
     block_walls()
     return per_step
 
@@ -952,6 +1119,7 @@ def main() -> int:
 
     log("phase 3: model parity, full width, 2 layers, f32, cpu vs cuda")
     phase_model_parity()
+    phase_swap_pair()
 
     log("phase 4: engine at full qwen2-0.5b")
     launches = {"flash_decode": 0, "flash_decode_partial": 0,

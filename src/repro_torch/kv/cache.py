@@ -1,14 +1,15 @@
 """KV cache: the contiguous (L, B, n_kv, S_max, head_dim) cache, flat or
 int8 with per-(b, head, position) f32 scales.
 
-Port of the flat, int8 and split-KV parts of ``repro.kv.cache``. Caches
-are updated IN PLACE: every write below mutates the cache tensors it is
-given and returns them. That is the PyTorch form of the reference's
-buffer donation (each step's cache output aliases its input there), so
-steady-state decode never holds two copies of the KV. Rows a write does not target keep their
-bytes, inactive decode rows stay byte-identical, and chunk positions at or
-past ``valid_len`` keep their previous bytes. Sliding-window (ring) and
-tiered caches belong to families not yet ported.
+Port of the flat, int8, split-KV and preemption swap-pair parts of
+``repro.kv.cache``. Caches are updated IN PLACE: every write below
+mutates the cache tensors it is given and returns them. That is the
+PyTorch form of the reference's buffer donation (each step's cache output
+aliases its input there), so steady-state decode never holds two copies
+of the KV. Rows a write does not target keep their bytes, inactive decode
+rows stay byte-identical, and chunk positions at or past ``valid_len``
+keep their previous bytes. Sliding-window (ring) and tiered caches belong
+to families not yet ported.
 """
 from __future__ import annotations
 
@@ -228,6 +229,42 @@ def reset_slot(cache: KVCache, slot: int) -> KVCache:
     for d in (cache.k, cache.v, cache.k_scale, cache.v_scale):
         if d is not None:
             d[:, slot].zero_()
+    return cache
+
+
+def export_slot_kv(cache: KVCache, slot: int):
+    """Preemption swap-out: one batch slot's full-extent STORED K/V as the
+    reference's ``(k, v, k_scale, v_scale, hot_k, hot_v)`` tuple of
+    (L,1,n_kv,S,hd) tensors (scales (L,1,n_kv,S,1)); ``None`` for what the
+    cache lacks (scales of a float cache; the hot ring of the tiered
+    cache, not ported yet). int8 caches export the quantized values and
+    their scales verbatim, never a dequantized image. Read-only, and the
+    tensors are COPIES: the slot is reused while the image is held."""
+    def take(a):
+        return None if a is None else a[:, slot:slot + 1].clone()
+
+    return (take(cache.k), take(cache.v), take(cache.k_scale),
+            take(cache.v_scale), None, None)
+
+
+def import_slot_kv(cache: KVCache, saved, slot: int,
+                   valid_len: int) -> KVCache:
+    """Preemption restore, in place: write an ``export_slot_kv`` tuple back
+    into ``slot`` at positions < ``valid_len`` (the sequence's TRUE length);
+    positions at or past it keep the bytes already in the cache, as
+    ``layer_write_chunk`` keeps them past its valid length. The image may
+    lie on another device (the engine hosts it); the stored bytes land
+    verbatim. ``length`` rises to max(length, valid_len)."""
+    k_s, v_s, ks_s, vs_s, hk_s, hv_s = saved
+    if hk_s is not None or hv_s is not None:
+        raise ValueError("a swap image with a hot ring needs the tiered "
+                         "cache, which is not ported yet")
+    n = max(0, min(int(valid_len), cache.k.shape[3]))
+    for dst, src in ((cache.k, k_s), (cache.v, v_s),
+                     (cache.k_scale, ks_s), (cache.v_scale, vs_s)):
+        if dst is not None:
+            dst[:, slot:slot + 1, :, :n].copy_(src[:, :, :, :n])
+    cache.length = torch.clamp(cache.length, min=int(valid_len))
     return cache
 
 

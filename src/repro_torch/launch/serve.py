@@ -4,7 +4,7 @@ one device.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
         --full-width --requests 12 --batch 8 --prompt-len 128 --max-new 32 \
         --arrival-every 4 --block-size 8 --kv-bucket-chunk 64 \
-        --prefill-chunk 32 [--a-shards 4]
+        --prefill-chunk 32 [--a-shards 4] [--preemptible] [--max-queue 6]
 
 ``--mode drain`` serves the drain-then-refill baseline instead (no chunk
 lane: ``--prefill-chunk`` is then ignored, as in the reference CLI).
@@ -41,7 +41,8 @@ def serve(arch: str, n_requests: int, batch_slots: int, prompt_len: int,
           max_new: int, *, reduced: bool = True, seed: int = 0,
           mode: str = "continuous", arrival_every: int = 0,
           block_size: int = 1, kv_bucket_chunk: int = 0,
-          prefill_chunk: int = 0, a_shards: int = 1, device=None):
+          prefill_chunk: int = 0, a_shards: int = 1,
+          preemptible: bool = False, max_queue: int = 0, device=None):
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
@@ -56,6 +57,7 @@ def serve(arch: str, n_requests: int, batch_slots: int, prompt_len: int,
                         block_size=block_size,
                         kv_bucket_chunk=kv_bucket_chunk,
                         prefill_chunk=prefill_chunk, a_shards=a_shards,
+                        preemptible=preemptible, max_queue=max_queue,
                         device=api.device)
     return eng.run(params, reqs)
 
@@ -83,6 +85,13 @@ def main(argv=None):
     ap.add_argument("--a-shards", type=int, default=1,
                     help="split-KV decode: read each KV bucket as N equal "
                          "sequence shards merged by the LSE combine")
+    ap.add_argument("--preemptible", action="store_true",
+                    help="register the token-exact KV swap pair and allow "
+                         "priority/pressure preemption at block boundaries")
+    ap.add_argument("--max-queue", type=int, default=0,
+                    help="bounded queue: shed the lowest-priority queued "
+                         "work beyond N as structured rejections "
+                         "(0 = unbounded)")
     args = ap.parse_args(argv)
     stats = serve(args.arch, args.requests, args.batch, args.prompt_len,
                   args.max_new, reduced=not args.full_width, mode=args.mode,
@@ -90,15 +99,29 @@ def main(argv=None):
                   block_size=args.block_size,
                   kv_bucket_chunk=args.kv_bucket_chunk,
                   prefill_chunk=args.prefill_chunk, a_shards=args.a_shards,
+                  preemptible=args.preemptible, max_queue=args.max_queue,
                   device=args.device)
     per_req = stats.pop("per_request")
     rt = stats.pop("runtime")
+    rejected = stats.pop("rejected")
     print("serve stats:", stats)
+    # every submitted request ends completed, rejected or deadline-missed
+    print(f"pressure: preemptions={stats['preemptions']} "
+          f"restores={stats['restores']} rejections={stats['rejections']} "
+          f"deadline_misses={stats['deadline_misses']} "
+          f"retries={stats['retries']} "
+          f"watchdog_timeouts={stats['watchdog_timeouts']} "
+          f"quarantined={stats['quarantined_slots']} "
+          f"swap_time_ms={stats['swap_time_ms']:.2f}")
+    for e in rejected:
+        print(f"  shed rid={e['rid']:3d} [{e['status']}] "
+              f"priority={e['priority']} reason={e['reason']}")
     print("per-request:")
     for m in per_req:
         print(f"  rid={m['rid']:3d} admit@{m['admit_step']:4d} "
               f"queue={m['queue_delay_ms']:8.1f}ms "
-              f"ttft={m['ttft_ms']:8.1f}ms tpot={m['tpot_ms']:6.2f}ms")
+              f"ttft={m['ttft_ms']:8.1f}ms tpot={m['tpot_ms']:6.2f}ms "
+              f"preempts={m['preemptions']}")
     print("runtime:", rt)
 
 

@@ -1,5 +1,5 @@
 """Serving engine: the colocated part of ``repro.runtime.serving``, in
-continuous-batching and drain mode.
+continuous-batching and drain mode, with the reference's failure model.
 
 - the decode batch is a fixed set of SLOTS; a queued request is admitted
   into any free slot mid-serve,
@@ -18,6 +18,19 @@ continuous-batching and drain mode.
   prefilled at once and decodes with one shared cursor until every slot
   has finished; only then are queued requests admitted.
 
+Serving under pressure (the failure model): requests carry a ``priority``
+and TTFT/TPOT deadlines; admission drains the queue in priority order, a
+bounded queue (``max_queue``) sheds the lowest-priority work as structured
+rejections, and queued requests past their TTFT deadline are shed as
+deadline misses. With ``preemptible=True`` a block boundary may swap a
+victim slot's stored KV out to the host (``serve_swap_out``, int8 scales
+included) and restore it later with its cursors (``serve_swap_in``), token
+for token as if never preempted. Every program dispatch retries on
+``DispatchError`` with backoff, counts watchdog overruns, and demotes a
+request whose dispatch keeps failing to a structured rejection (quarantining
+the slot whose bytes are suspect); any other exception propagates. Every
+request ends completed, rejected or deadline_missed.
+
 The host-side ``SlotScheduler`` decides what runs at each block boundary;
 the ``ExecutorBackend`` owns the slot caches and the registered step
 programs; ``ServingEngine`` is the boundary loop between them and counts
@@ -25,8 +38,8 @@ its one host sync per decode round (``host_syncs``).
 
 Knobs of the reference that later slices of the port bring raise
 ``ValueError`` here instead of being ignored: the WA backend and its
-overlap, preemption, bounded queues, priorities and deadlines, fault
-injection, tiered KV and its byte budget.
+overlap, and tiered KV (``hot_window``) with its byte budget
+(``kv_budget_bytes``).
 """
 from __future__ import annotations
 
@@ -38,9 +51,10 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kv.cache import export_slot_kv, import_slot_kv
 from repro_torch.models.attention import bucket_for, kv_buckets
 from repro_torch.models.registry import DECODE_SLACK, ModelAPI
-from repro_torch.runtime.static_runtime import StaticRuntime
+from repro_torch.runtime.static_runtime import DispatchError, StaticRuntime
 
 
 class RequestRejected(ValueError):
@@ -52,6 +66,30 @@ class RequestRejected(ValueError):
         self.rid, self.reason = rid, reason
         self.length, self.limit, self.limit_name = length, limit, limit_name
         super().__init__(f"request {rid}: {reason}")
+
+
+class DispatchFailure(RuntimeError):
+    """A program dispatch kept raising ``DispatchError`` past the bounded
+    retry budget. The boundary loop demotes it to a structured rejection
+    of the responsible request (and quarantines the slot whose cache bytes
+    are suspect), never a hung engine."""
+
+    def __init__(self, name: str, attempts: int, cause: Exception):
+        self.name, self.attempts, self.cause = name, attempts, cause
+        super().__init__(f"dispatch of {name!r} failed after {attempts} "
+                         f"attempt(s): {cause}")
+
+
+@dataclass
+class SwapState:
+    """Host-side image of a preempted slot: the full-extent STORED bytes
+    (the ``export_slot_kv`` tuple on the CPU, int8 values and scales
+    verbatim) plus the cursor triple that makes the restore token-exact.
+    The true KV length travels here, not in the buffer."""
+    saved: Tuple                     # export_slot_kv tuple, host tensors
+    kv_len: int                      # TRUE length: the cursor at swap-out
+    last_tok: int                    # last emitted token (KV not written)
+    remaining: int                   # decode budget left
 
 
 @dataclass
@@ -69,10 +107,16 @@ class Request:
     admit_step: int = -1
     t_last_emit: float = 0.0
     max_gap: float = 0.0
-    priority: int = 0                   # failure-model slice: must stay 0
-    ttft_deadline_ms: float = 0.0       # failure-model slice: must stay 0
-    tpot_deadline_ms: float = 0.0       # failure-model slice: must stay 0
-    status: str = "pending"
+    priority: int = 0                   # higher wins admission and
+                                        # survives preemption/shedding
+    ttft_deadline_ms: float = 0.0       # 0: none; queued past it: shed
+    tpot_deadline_ms: float = 0.0       # target (recorded, never sheds)
+    status: str = "pending"             # pending/queued/active, then
+                                        # completed|rejected|deadline_missed
+    reject_reason: Optional[str] = None
+    preemptions: int = 0                # times swapped out of a slot
+    swap: Optional[SwapState] = None    # host KV image while preempted
+    kv_base: int = 0                    # cursor at start_decode
 
     @property
     def done(self) -> bool:
@@ -88,6 +132,9 @@ class Request:
 
     def metrics(self) -> Dict[str, Any]:
         n = len(self.generated)
+        ttft = max(0.0, self.t_first_token - self.t_enqueue) * 1e3
+        tpot = ((self.t_done - self.t_first_token) / (n - 1) * 1e3
+                if n > 1 else 0.0)
         return {
             "rid": self.rid,
             "tokens": n,
@@ -95,11 +142,16 @@ class Request:
             "arrival_step": self.arrival_step,
             "admit_step": self.admit_step,
             "queue_delay_ms": max(0.0, self.t_admitted - self.t_enqueue) * 1e3,
-            "ttft_ms": max(0.0, self.t_first_token - self.t_enqueue) * 1e3,
-            "tpot_ms": ((self.t_done - self.t_first_token) / (n - 1) * 1e3
-                        if n > 1 else 0.0),
+            "ttft_ms": ttft,
+            "tpot_ms": tpot,
             "max_gap_ms": self.max_gap * 1e3,
+            "priority": self.priority,
             "status": self.status,
+            "preemptions": self.preemptions,
+            "ttft_deadline_met": bool(self.ttft_deadline_ms <= 0
+                                      or ttft <= self.ttft_deadline_ms),
+            "tpot_deadline_met": bool(self.tpot_deadline_ms <= 0
+                                      or tpot <= self.tpot_deadline_ms),
         }
 
 
@@ -136,6 +188,7 @@ class SlotScheduler:
         self.last_tok = np.zeros((n_slots,), np.int32)
         self.remaining = np.zeros((n_slots,), np.int32)
         self.eos = np.full((n_slots,), -1, np.int32)
+        self.quarantined: set = set()            # poisoned, never reused
 
     def work_remaining(self) -> bool:
         return bool(self.pending or self.queue
@@ -158,19 +211,32 @@ class SlotScheduler:
         return np.array([p == self.DECODE for p in self.phase])
 
     def usable_free(self) -> Optional[int]:
+        """Lowest-index FREE slot that is not quarantined, or None."""
         for i in range(self.n):
-            if self.phase[i] == self.FREE:
+            if self.phase[i] == self.FREE and i not in self.quarantined:
                 return i
         return None
 
+    def usable_capacity(self) -> int:
+        return self.n - len(self.quarantined)
+
     def pop_queue(self) -> Optional[Request]:
-        """FIFO by enqueue stamp, then rid (the reference's order with every
-        priority equal)."""
+        """Highest-priority queued request; FIFO (enqueue stamp, then rid)
+        within a priority class. A preempted request keeps its ORIGINAL
+        enqueue stamp, so it re-admits ahead of later arrivals of its
+        class."""
         if not self.queue:
             return None
         j = min(range(len(self.queue)),
-                key=lambda j: (self.queue[j].t_enqueue, self.queue[j].rid))
+                key=lambda j: (-self.queue[j].priority,
+                               self.queue[j].t_enqueue, self.queue[j].rid))
         return self.queue.pop(j)
+
+    def top_priority(self) -> Optional[int]:
+        return max((r.priority for r in self.queue), default=None)
+
+    def decode_slots(self) -> List[int]:
+        return [i for i in range(self.n) if self.phase[i] == self.DECODE]
 
     def begin_prefill(self, slot: int, r: Request, step: int):
         r.t_admitted = time.monotonic()
@@ -204,10 +270,36 @@ class SlotScheduler:
 
     def start_decode(self, slot: int, cursor: int, first_tok: int):
         r = self.req[slot]
+        r.kv_base = cursor
         self.phase[slot] = self.DECODE
         self.positions[slot] = cursor
         self.last_tok[slot] = first_tok
         self.remaining[slot] = r.max_new_tokens - 1
+        self.eos[slot] = r.eos_id
+
+    def preempt(self, slot: int) -> Request:
+        """Release a DECODE slot whose KV the caller has already swapped
+        out; the request goes back to the queue carrying its SwapState."""
+        if self.phase[slot] != self.DECODE:
+            raise RuntimeError(f"preempting slot {slot} in phase "
+                               f"{self.phase[slot]}")
+        r = self.req[slot]
+        self.req[slot] = None
+        self.phase[slot] = self.FREE
+        r.status = "queued"
+        self.queue.append(r)
+        return r
+
+    def resume_decode(self, slot: int, r: Request, state: SwapState):
+        """Re-enter DECODE from a restored swap image: the cursors resume
+        where the preemption cut them, and the next decode step appends
+        ``last_tok``'s KV at ``kv_len`` as an uninterrupted serve would."""
+        r.status = "active"
+        self.req[slot] = r
+        self.phase[slot] = self.DECODE
+        self.positions[slot] = state.kv_len
+        self.last_tok[slot] = state.last_tok
+        self.remaining[slot] = state.remaining
         self.eos[slot] = r.eos_id
 
     def retire(self, slot: int):
@@ -215,6 +307,47 @@ class SlotScheduler:
         self.phase[slot] = self.FREE
         if slot in self.prefill_fifo:
             self.prefill_fifo.remove(slot)
+
+    def invariant_violations(self) -> List[str]:
+        """Occupancy/cursor consistency at a block boundary: FREE iff no
+        request, quarantined implies FREE, no rid in two slots, the prefill
+        FIFO holds exactly PREFILL slots, and every DECODE slot's cursor and
+        budget match its request's emission count."""
+        bad: List[str] = []
+        seen: Dict[int, int] = {}
+        for i in range(self.n):
+            r, ph = self.req[i], self.phase[i]
+            if ph == self.FREE and r is not None:
+                bad.append(f"slot {i}: FREE but holds rid {r.rid}")
+            if ph != self.FREE and r is None:
+                bad.append(f"slot {i}: {ph} with no request")
+            if ph != self.FREE and i in self.quarantined:
+                bad.append(f"slot {i}: quarantined but {ph}")
+            if r is not None:
+                if r.rid in seen:
+                    bad.append(f"rid {r.rid} in slots {seen[r.rid]} and {i}")
+                seen[r.rid] = i
+            if ph == self.DECODE:
+                want_pos = r.kv_base + len(r.generated) - 1
+                if int(self.positions[i]) != want_pos:
+                    bad.append(
+                        f"slot {i} rid {r.rid}: cursor {self.positions[i]} "
+                        f"!= kv_base {r.kv_base} + emitted "
+                        f"{len(r.generated)} - 1")
+                if int(self.remaining[i]) != r.max_new_tokens \
+                        - len(r.generated):
+                    bad.append(
+                        f"slot {i} rid {r.rid}: remaining "
+                        f"{self.remaining[i]} != budget "
+                        f"{r.max_new_tokens} - emitted {len(r.generated)}")
+                if int(self.remaining[i]) < 0:
+                    bad.append(f"slot {i} rid {r.rid}: negative remaining")
+        if len(set(self.prefill_fifo)) != len(self.prefill_fifo):
+            bad.append(f"duplicate slots in prefill FIFO {self.prefill_fifo}")
+        for i in self.prefill_fifo:
+            if self.phase[i] != self.PREFILL:
+                bad.append(f"slot {i} in prefill FIFO but {self.phase[i]}")
+        return bad
 
 
 # ---------------------------------------------------------------------------
@@ -231,6 +364,7 @@ class ExecutorBackend:
       decode_step(params, tok, pos, act)     one slotted step (T == 1)
       decode_block(params, bucket, ...)      one T-micro-step block
       reset(slot) / has_reset                debug slot zeroing
+      swap_out(slot) / swap_in(saved, slot, valid_len)   preemption pair
 
     Programs registered per mode (one each, ``compiles`` == 1):
 
@@ -239,13 +373,15 @@ class ExecutorBackend:
       T == 1                serve_decode
       T > 1                 serve_decode_block[_s{N}] per KV bucket
       debug_reset_slots     serve_reset
+      preemptible           serve_swap_out + serve_swap_in
       drain mode            serve_prefill_batch + serve_decode_drain
     """
 
     def __init__(self, api: ModelAPI, rt: StaticRuntime, *, mode: str,
                  slots: int, prompt_len: int, max_new_cap: int,
                  block_size: int, kv_bucket_chunk: int, prefill_chunk: int,
-                 debug_reset_slots: bool, a_shards: int):
+                 debug_reset_slots: bool, a_shards: int,
+                 preemptible: bool):
         self.api, self.rt = api, rt
         self.device = api.device
         self.slots, self.prompt_len = slots, prompt_len
@@ -257,9 +393,12 @@ class ExecutorBackend:
         self.buckets: Tuple[int, ...] = ()
         self._decode_blocks: Dict[int, Any] = {}
         self._reset = None
+        self._swap_out_p = self._swap_in_p = None
         if mode == "continuous":
             self._build_continuous(kv_bucket_chunk, prefill_chunk,
                                    debug_reset_slots)
+            if preemptible:
+                self._build_swap()
         else:
             self._build_drain()
 
@@ -275,6 +414,17 @@ class ExecutorBackend:
         if debug_reset_slots:
             self._reset = self.rt.compile_step("serve_reset",
                                                self.api.reset_slot)
+
+    def _build_swap(self):
+        """The token-exact preemption pair, one program each for every slot
+        and length. ``swap_out`` is read-only (it returns copies of the
+        slot's slices), so a failed or retried dispatch cannot touch the
+        resident cache; ``swap_in`` writes positions below the true length
+        in place."""
+        self._swap_out_p = self.rt.compile_step("serve_swap_out",
+                                                export_slot_kv)
+        self._swap_in_p = self.rt.compile_step("serve_swap_in",
+                                               import_slot_kv)
 
     @staticmethod
     def _postprocess(logits, positions, active):
@@ -355,6 +505,15 @@ class ExecutorBackend:
 
     def reset(self, slot: int):
         self.caches = self._reset(self.caches, slot)
+
+    def swap_out(self, slot: int):
+        """Export one slot's stored KV (device tensors; the caller hosts
+        them). The resident caches are not modified."""
+        return self._swap_out_p(self.caches, slot)
+
+    def swap_in(self, saved, slot: int, valid_len: int):
+        """Restore an exported slot image below its true length."""
+        self.caches = self._swap_in_p(self.caches, saved, slot, valid_len)
 
 
 class ColocatedBackend(ExecutorBackend):
@@ -452,6 +611,35 @@ class ServingEngine:
     port serves has slotted decode).
     ``a_shards`` (n): split-KV decode, each KV bucket read as n equal
     shards; the KV extent prompt_len + max_new_cap must divide by n.
+
+    ``preemptible``: register the swap pair (``serve_swap_out`` /
+    ``serve_swap_in``) and let a block boundary preempt a decoding slot:
+    its stored KV goes to a host-side image, the slot serves higher-
+    priority work (or yields to injected KV pressure), and the request is
+    restored later with its cursors, token for token as if never
+    preempted. Continuous mode only.
+    ``max_queue``: > 0 sheds the lowest-priority (then most recently
+    enqueued) queued request as a structured rejection whenever the queue
+    exceeds the bound.
+    ``max_retries`` / ``retry_backoff_s`` / ``watchdog_s``: every program
+    dispatch retries up to ``max_retries`` times on ``DispatchError`` (with
+    exponential backoff when ``retry_backoff_s`` > 0); a dispatch that
+    exhausts the budget demotes the responsible request to a structured
+    rejection and quarantines the slot whose cache bytes are suspect. A
+    dispatch taking longer than ``watchdog_s`` bumps the watchdog counter.
+    The watchdog times the HOST side of a dispatch, as the reference does
+    (JAX dispatch is asynchronous too): PyTorch enqueues CUDA work and
+    returns, and the engine does not synchronise the device to time it,
+    so on the card it sees host stalls (an injected sleep, a slow launch
+    path), not device time.
+    ``strict_invariants``: check the scheduler's occupancy/cursor
+    invariants at every block boundary; a violation raises
+    ``AssertionError``.
+    ``fault_injector``: a chaos hook (``repro_torch.runtime.faults.
+    FaultInjector`` or compatible): its ``on_dispatch(name)`` is installed
+    as the dispatch interceptor for the run, and its ``slots_held(step)``
+    withholds that many slots at each boundary (KV pressure, answered by
+    preemption when preemptible).
     ``device``: must be the api's device; ``None`` means ``cuda`` (raises
     without a GPU unless ``device="cpu"`` is passed).
 
@@ -467,7 +655,10 @@ class ServingEngine:
                  debug_reset_slots: bool = False,
                  backend: str = "colocated", a_shards: int = 1,
                  overlap: int = 1, preemptible: bool = False,
-                 max_queue: int = 0, fault_injector: Optional[Any] = None,
+                 max_queue: int = 0, max_retries: int = 2,
+                 retry_backoff_s: float = 0.0, watchdog_s: float = 0.0,
+                 strict_invariants: bool = False,
+                 fault_injector: Optional[Any] = None,
                  kv_budget_bytes: int = 0, device: DeviceLike = None):
         dev = resolve_device(device)
         if dev != api.device:
@@ -484,12 +675,6 @@ class ServingEngine:
                              f"{sorted(BACKENDS)}")
         if overlap != 1:
             raise _later(f"overlap={overlap}", "WA-backend + overlap")
-        if preemptible:
-            raise _later("preemptible=True", "failure-model")
-        if max_queue:
-            raise _later(f"max_queue={max_queue}", "failure-model")
-        if fault_injector is not None:
-            raise _later("fault_injector", "failure-model")
         if kv_budget_bytes:
             raise _later(f"kv_budget_bytes={kv_budget_bytes}", "tiered-KV")
         if api.config.hot_window:
@@ -501,6 +686,8 @@ class ServingEngine:
         if mode == "drain" and prefill_chunk > 0:
             raise ValueError("chunked prefill requires the continuous "
                              "scheduler (drain prefills the whole batch)")
+        if max_retries < 0:
+            raise ValueError(f"max_retries must be >= 0, got {max_retries}")
         self.api = api
         self.slots = batch_slots
         self.prompt_len = prompt_len
@@ -514,6 +701,13 @@ class ServingEngine:
         self.prefill_chunk = prefill_chunk
         self.a_shards = a_shards
         self.debug_reset_slots = debug_reset_slots
+        self.preemptible = preemptible
+        self.max_queue = max_queue
+        self.max_retries = max_retries
+        self.retry_backoff_s = retry_backoff_s
+        self.watchdog_s = watchdog_s
+        self.strict_invariants = strict_invariants
+        self.fault_injector = fault_injector
         self._kv_extent = prompt_len + self.max_new_cap
         if a_shards > 1:
             if self.mode == "drain":
@@ -530,6 +724,9 @@ class ServingEngine:
                 f"prefill_chunk={prefill_chunk} exceeds the KV extent "
                 f"{self._kv_extent}; the fixed (1,C) window must fit the "
                 "cache")
+        if preemptible and self.mode != "continuous":
+            raise ValueError("preemptible serving requires the continuous "
+                             "scheduler (drain has no slots to swap)")
         self.rt = runtime or StaticRuntime()
         self.queue: List[Request] = []
         self._ex: Optional[ExecutorBackend] = None
@@ -545,13 +742,73 @@ class ServingEngine:
         self._block_tokens: List[int] = []
         self._macro_steps = 0
         self.queue = []
+        # failure-model accounting
+        self._rejected: List[Request] = []
+        self._deadline_missed: List[Request] = []
+        self._preemptions = 0
+        self._restores = 0
+        self._retries = 0
+        self._watchdog_timeouts = 0
+        self._swap_time = 0.0
+        self._quarantined: set = set()
+        # (rid, token index) in host-visible order: the chaos checker
+        # proves from it that no token was duplicated, lost or reordered
+        self._emit_log: List[Tuple[int, int]] = []
+        self._cursor_watermark: Dict[int, int] = {}
+        self._slot_cap = self.slots
 
     def _emit_token(self, r: Request, tok: int):
         r.generated.append(int(tok))
+        self._emit_log.append((r.rid, len(r.generated) - 1))
 
     def _finish(self, r: Request, now: float):
         r.status = "completed"
         r.t_done = now
+
+    def _reject(self, r: Request, reason: str):
+        r.status = "rejected"
+        r.reject_reason = reason
+        r.t_done = time.monotonic()
+        r.swap = None                    # drop any held KV image
+        self._rejected.append(r)
+
+    def _miss_deadline(self, r: Request, reason: str):
+        r.status = "deadline_missed"
+        r.reject_reason = reason
+        r.t_done = time.monotonic()
+        r.swap = None
+        self._deadline_missed.append(r)
+
+    # -- hardened dispatch ---------------------------------------------
+    def _dispatch(self, name: str, fn, *args):
+        """Bounded retry-with-backoff around one program dispatch.
+        ``DispatchError`` comes from the interceptor BEFORE the step
+        touches its operands, so the dispatch retries verbatim; exhausting
+        the budget raises ``DispatchFailure`` for the boundary loop to
+        demote. Any other exception (a CUDA error, a failed kernel build or
+        launch) is a real fault and propagates: it is never retried,
+        demoted or quarantined. A dispatch whose host side takes longer
+        than ``watchdog_s`` bumps the watchdog counter (the work did run)."""
+        attempt = 0
+        while True:
+            t0 = time.monotonic()
+            try:
+                out = fn(*args)
+            except DispatchError as e:
+                if attempt >= self.max_retries:
+                    raise DispatchFailure(name, attempt + 1, e) from e
+                attempt += 1
+                self._retries += 1
+                if self.retry_backoff_s:
+                    time.sleep(self.retry_backoff_s * (2 ** (attempt - 1)))
+                continue
+            if self.watchdog_s and time.monotonic() - t0 > self.watchdog_s:
+                self._watchdog_timeouts += 1
+            return out
+
+    def _quarantine_slot(self, sched: SlotScheduler, slot: int):
+        sched.quarantined.add(slot)
+        self._quarantined.add(slot)
 
     def _host_sync(self, *tensors: torch.Tensor):
         """THE counted device-to-host round-trip of the decode loop: all
@@ -570,9 +827,6 @@ class ServingEngine:
     def _validate_request(self, r: Request):
         """Admission-time length contract: a prompt the engine cannot
         represent is rejected, never cut."""
-        if r.priority or r.ttft_deadline_ms or r.tpot_deadline_ms:
-            raise _later("request priorities and deadlines",
-                         "failure-model")
         L = len(r.prompt)
         if L == 0:
             raise RequestRejected(r.rid, "empty prompt", length=0, limit=1,
@@ -618,7 +872,7 @@ class ServingEngine:
                 kv_bucket_chunk=self.kv_bucket_chunk,
                 prefill_chunk=self.prefill_chunk,
                 debug_reset_slots=self.debug_reset_slots,
-                a_shards=self.a_shards)
+                a_shards=self.a_shards, preemptible=self.preemptible)
 
     @torch.inference_mode()
     def run(self, params, requests: List[Request],
@@ -632,6 +886,11 @@ class ServingEngine:
             self._validate_request(r)
         self._prepare()
         self._reset_per_run()
+        # installed (or cleared) per run, so a clean run on the same engine
+        # sees no injected fault
+        self.rt.set_interceptor(
+            getattr(self.fault_injector, "on_dispatch", None)
+            if self.fault_injector is not None else None)
         if self.mode == "continuous":
             return self._run_continuous(params, requests, max_steps)
         return self._run_drain(params, requests, max_steps)
@@ -641,12 +900,25 @@ class ServingEngine:
         ex = self._ex
         ex.fresh()
         sched = SlotScheduler(self.slots, requests, self.queue)
+        self._sched = sched
         done: List[Request] = []
         steps = admissions = overlapped = 0
         while sched.work_remaining():
             if steps >= max_steps:
                 break
             sched.pump(steps)
+            if sched.usable_capacity() == 0:
+                # every slot quarantined: nothing can be admitted again, so
+                # the remaining work is rejected instead of spinning
+                for r in sched.pending + sched.queue:
+                    self._reject(r, "no usable slots (all quarantined)")
+                sched.pending.clear()
+                sched.queue.clear()
+                break
+            self._shed_deadlines(sched)
+            self._bound_queue(sched)
+            self._apply_pressure(sched, steps)
+            self._priority_preempt(sched)
             batch_live = sched.occupied()
             while True:
                 n_adm, n_ovl, fin = self._admission_phase(params, sched,
@@ -661,6 +933,8 @@ class ServingEngine:
                 # live keep chunking so a cold start does not serialize
                 if sched.decode_active().any() or not sched.prefill_fifo:
                     break
+            if self.strict_invariants:
+                self._assert_invariants(sched)
             active = sched.decode_active()
             if not active.any():
                 steps += 1                       # idle/prefill-only boundary
@@ -670,18 +944,146 @@ class ServingEngine:
         self._caches = ex.caches
         return self._stats(done, steps, admissions, overlapped)
 
+    # -- pressure / deadline policies -------------------------------------
+    def _shed_deadlines(self, sched: SlotScheduler):
+        """A queued request whose TTFT deadline has passed can only miss:
+        shed it now as deadline_missed. A preempted request already has its
+        first token and is never TTFT-shed."""
+        now = time.monotonic()
+        for r in list(sched.queue):
+            if r.ttft_deadline_ms > 0 and not r.generated \
+                    and (now - r.t_enqueue) * 1e3 > r.ttft_deadline_ms:
+                sched.queue.remove(r)
+                self._miss_deadline(
+                    r, f"ttft_deadline_ms={r.ttft_deadline_ms:g} expired "
+                       "in queue")
+
+    def _bound_queue(self, sched: SlotScheduler):
+        """Shed the lowest-priority (then most recently enqueued) request
+        while the queue exceeds ``max_queue``; a preempted request (holding
+        a swap image and emitted tokens) only when nothing else is left."""
+        if not self.max_queue:
+            return
+        while len(sched.queue) > self.max_queue:
+            pool = [r for r in sched.queue if r.swap is None] \
+                or list(sched.queue)
+            v = min(pool, key=lambda r: (r.priority, -r.t_enqueue, -r.rid))
+            sched.queue.remove(v)
+            self._reject(v, f"queue_full (max_queue={self.max_queue})")
+
+    def _pick_victim(self, sched: SlotScheduler) -> Optional[int]:
+        """Lowest-priority decoding slot; the most recently admitted within
+        a priority class."""
+        victims = sched.decode_slots()
+        if not victims:
+            return None
+        return min(victims, key=lambda i: (sched.req[i].priority,
+                                           -sched.req[i].t_admitted))
+
+    def _apply_pressure(self, sched: SlotScheduler, steps: int):
+        """KV pressure from the fault injector: ``slots_held`` slots are
+        withheld this boundary. Decoding victims are preempted until the
+        occupancy fits, and admissions are held to the same cap."""
+        self._slot_cap = self.slots
+        inj = self.fault_injector
+        if inj is None or not self.preemptible:
+            return
+        held_fn = getattr(inj, "slots_held", None)
+        if held_fn is None:
+            return
+        cap = max(0, self.slots - int(held_fn(steps)))
+        self._slot_cap = cap
+        for _ in range(self.slots):
+            busy = sum(1 for p in sched.phase if p != sched.FREE)
+            if busy <= cap:
+                break
+            v = self._pick_victim(sched)
+            if v is None or not self._preempt_slot(sched, v):
+                break
+
+    def _priority_preempt(self, sched: SlotScheduler):
+        """While the queue's best request outranks the lowest-priority
+        decoding slot and no usable slot is free, swap the victim out. A
+        block boundary is the only preemption point."""
+        if not self.preemptible:
+            return
+        for _ in range(self.slots):
+            if not sched.queue or sched.usable_free() is not None:
+                break
+            head = sched.top_priority()
+            v = self._pick_victim(sched)
+            if v is None or sched.req[v].priority >= head:
+                break
+            if not self._preempt_slot(sched, v):
+                break
+
+    def _preempt_slot(self, sched: SlotScheduler, slot: int) -> bool:
+        """Swap one decoding slot out: export its stored bytes (read-only,
+        so a failed dispatch leaves the victim decoding), host the image
+        and the cursor triple on the request, free the slot and requeue.
+        False if the swap-out dispatch failed."""
+        ex = self._ex
+        r = sched.req[slot]
+        t0 = time.monotonic()
+        try:
+            saved = self._dispatch("serve_swap_out", ex.swap_out, slot)
+        except DispatchFailure:
+            return False                 # the victim keeps its slot
+        # to the host, as the reference's np.asarray (not a counted sync)
+        saved = tuple(None if a is None else a.cpu() for a in saved)
+        self._swap_time += time.monotonic() - t0
+        r.swap = SwapState(saved=saved,
+                           kv_len=int(sched.positions[slot]),
+                           last_tok=int(sched.last_tok[slot]),
+                           remaining=int(sched.remaining[slot]))
+        r.preemptions += 1
+        self._preemptions += 1
+        sched.preempt(slot)
+        return True
+
+    def _restore(self, params, sched: SlotScheduler, slot: int,
+                 r: Request) -> bool:
+        """Swap a preempted request back in below its true length and
+        resume decode with the saved cursor triple."""
+        ex = self._ex
+        st = r.swap
+        t0 = time.monotonic()
+        try:
+            self._dispatch("serve_swap_in", ex.swap_in, st.saved, slot,
+                           st.kv_len)
+        except DispatchFailure as e:
+            # the restore never ran (DispatchError fires before the body):
+            # the slot stays clean and FREE, the request is rejected
+            self._reject(r, f"dispatch_failed:{e.name}")
+            return False
+        self._swap_time += time.monotonic() - t0
+        r.swap = None
+        sched.resume_decode(slot, r, st)
+        self._restores += 1
+        return True
+
     # -- admission ------------------------------------------------------
     def _admission_phase(self, params, sched: SlotScheduler, steps: int,
                          batch_live: bool):
+        """Drain the queue into usable free slots in priority order. A
+        preempted request re-enters DECODE through the swap-in program; a
+        fresh one enters the chunk lane or admits monolithically. Returns
+        (fresh admissions, overlapped, finished)."""
         admissions = overlapped = 0
         finished: List[Request] = []
         while True:
+            busy = sum(1 for p in sched.phase if p != sched.FREE)
+            if busy >= self._slot_cap:
+                break                    # injected KV pressure holds slots
             slot = sched.usable_free()
             if slot is None:
                 break
             r = sched.pop_queue()
             if r is None:
                 break
+            if r.swap is not None:
+                self._restore(params, sched, slot, r)
+                continue
             admissions += 1
             overlapped += int(batch_live)
             if self.prefill_chunk:
@@ -695,13 +1097,18 @@ class ServingEngine:
                               r: Request, steps: int) -> List[Request]:
         """Full-width batch-1 prefill + slot write; the prompt is zero-padded
         to ``prompt_len`` and the cursor starts at the padded width."""
+        ex = self._ex
         r.t_admitted = time.monotonic()
         r.admit_step = steps
         r.status = "active"
         sched.req[slot] = r
         t0 = time.monotonic()
-        first = self._ex.admit_full(params, pad_row(r.prompt, self.prompt_len),
-                                    slot)
+        try:
+            first = self._dispatch("serve_admit", ex.admit_full, params,
+                                   pad_row(r.prompt, self.prompt_len), slot)
+        except DispatchFailure as e:
+            self._demote_admission(sched, slot, r, e)
+            return []
         first_tok = int(first[0])                 # blocks: admission time
         now = time.monotonic()
         self._prefill_time += now - t0
@@ -711,26 +1118,68 @@ class ServingEngine:
         if r.done:
             self._finish(r, now)
             sched.req[slot] = None
-            self._safe_reset(slot)
+            self._safe_reset(sched, slot)
             return [r]
         sched.start_decode(slot, self.prompt_len, r.generated[-1])
         return []
 
-    def _safe_reset(self, slot: int):
-        if self._ex.has_reset:
-            self._ex.reset(slot)
+    def _demote_admission(self, sched: SlotScheduler, slot: int, r: Request,
+                          exc: DispatchFailure):
+        """An admission dispatch exhausted its retries: the slot may hold a
+        partly written prompt, so the request is rejected and the slot
+        quarantined (one poisoned request costs one slot, not the
+        engine)."""
+        self._reject(r, f"dispatch_failed:{exc.name}")
+        sched.req[slot] = None
+        sched.phase[slot] = sched.FREE
+        if slot in sched.prefill_fifo:
+            sched.prefill_fifo.remove(slot)
+        self._quarantine_slot(sched, slot)
+
+    def _safe_reset(self, sched: SlotScheduler, slot: int):
+        """Debug slot zeroing; a reset that keeps failing quarantines the
+        slot (its bytes are unknown) instead of ending the serve."""
+        if not self._ex.has_reset:
+            return
+        try:
+            self._dispatch("serve_reset", self._ex.reset, slot)
+        except DispatchFailure:
+            self._quarantine_slot(sched, slot)
+
+    def _assert_invariants(self, sched: SlotScheduler):
+        bad = sched.invariant_violations()
+        for i in range(sched.n):
+            r = sched.req[i]
+            if r is None or sched.phase[i] != sched.DECODE:
+                continue
+            wm = self._cursor_watermark.get(r.rid, -1)
+            pos = int(sched.positions[i])
+            if pos < wm:
+                bad.append(f"rid {r.rid}: cursor moved backwards "
+                           f"{wm} -> {pos}")
+            self._cursor_watermark[r.rid] = pos
+        if bad:
+            raise AssertionError("scheduler invariant violation(s): "
+                                 + "; ".join(bad))
 
     def _advance_chunk_lane(self, params, sched: SlotScheduler):
         """Run at most one fixed-shape prefill chunk this boundary; the
         final chunk's logits give the first token and flip the slot to
         decode with its cursor at the TRUE prompt length."""
+        ex = self._ex
         job = sched.next_chunk(self.prefill_chunk, self._kv_extent)
         if job is None:
             return []
         slot, r, start, n_valid = job
         row = pad_row(r.prompt[start:start + n_valid], self.prefill_chunk)
         t0 = time.monotonic()
-        tok = self._ex.run_chunk(params, row, slot, start, n_valid)
+        try:
+            tok = self._dispatch("serve_prefill_chunk", ex.run_chunk, params,
+                                 row, slot, start, n_valid)
+        except DispatchFailure as e:
+            # the slot may hold a partly written prompt: reject, quarantine
+            self._demote_admission(sched, slot, r, e)
+            return []
         first_tok = int(tok[0])                   # blocks: chunk time
         now = time.monotonic()
         self._prefill_time += now - t0
@@ -744,22 +1193,47 @@ class ServingEngine:
                 self._finish(r, now)
                 finished.append(r)
                 sched.retire(slot)
-                self._safe_reset(slot)
+                self._safe_reset(sched, slot)
             else:
                 sched.start_decode(slot, len(r.prompt), r.generated[-1])
         return finished
 
     # -- decode round ---------------------------------------------------
+    def _demote_decode(self, sched: SlotScheduler,
+                       exc: DispatchFailure) -> np.ndarray:
+        """A decode dispatch exhausted its retries. The fault is the
+        dispatch, not one request: reject the lowest-priority decoder,
+        quarantine its slot and return the smaller active mask, so the
+        caller retries the round for the survivors (their KV is intact:
+        the failed dispatch never ran)."""
+        v = self._pick_victim(sched)
+        if v is not None:
+            self._reject(sched.req[v], f"dispatch_failed:{exc.name}")
+            sched.retire(v)
+            self._quarantine_slot(sched, v)
+        return sched.decode_active()
+
     def _decode_round(self, params, sched: SlotScheduler, active):
         """One decode dispatch + ONE counted host sync: a slotted step
-        (T == 1) or a T-micro-step block with on-device halting."""
+        (T == 1) or a T-micro-step block with on-device halting. A dispatch
+        that exhausts its retries sheds one victim and retries for the
+        survivors."""
         T = self.block_size
         ex = self._ex
         finished: List[Request] = []
-        t0 = time.monotonic()
         if T == 1:
-            nxt, new_pos = ex.decode_step(params, sched.last_tok,
-                                          sched.positions, active)
+            while True:
+                t0 = time.monotonic()
+                try:
+                    nxt, new_pos = self._dispatch(
+                        "serve_decode", ex.decode_step,
+                        params, sched.last_tok, sched.positions, active)
+                except DispatchFailure as e:
+                    active = self._demote_decode(sched, e)
+                    if not active.any():
+                        return finished
+                    continue
+                break
             nxt, new_pos = self._host_sync(nxt, new_pos)
             dt = time.monotonic() - t0
             self.tpot_samples.append(dt)
@@ -772,22 +1246,36 @@ class ServingEngine:
                 if r is None or sched.phase[i] != sched.DECODE:
                     continue
                 self._emit_token(r, nxt[i])
+                # host mirror of the budget (the device keeps it only in
+                # block mode): swap images and invariants see one form
                 sched.remaining[i] -= 1
                 r.note_emit(now)
                 if r.done:
                     self._finish(r, now)
                     finished.append(r)
                     sched.retire(i)
-                    self._safe_reset(i)
+                    self._safe_reset(sched, i)
         else:
-            if len(ex.buckets) > 1:
-                needed = int(sched.positions[active].max()) + T
-                sb = bucket_for(min(needed, self._kv_extent), ex.buckets)
-            else:
-                sb = ex.buckets[0]
-            out = ex.decode_block(params, sb, sched.last_tok,
-                                  sched.positions, active, sched.remaining,
-                                  sched.eos)
+            while True:
+                # smallest bucket covering every live cursor for the whole
+                # block; recomputed when a shed victim shrank the mask
+                if len(ex.buckets) > 1:
+                    needed = int(sched.positions[active].max()) + T
+                    sb = bucket_for(min(needed, self._kv_extent), ex.buckets)
+                else:
+                    sb = ex.buckets[0]
+                t0 = time.monotonic()
+                try:
+                    out = self._dispatch(
+                        "serve_decode_block", ex.decode_block,
+                        params, sb, sched.last_tok, sched.positions, active,
+                        sched.remaining, sched.eos)
+                except DispatchFailure as e:
+                    active = self._demote_decode(sched, e)
+                    if not active.any():
+                        return finished
+                    continue
+                break
             toks, emitted, last_d, pos_d, act_np, rem_d = \
                 self._host_sync(*out)
             dt = time.monotonic() - t0
@@ -812,7 +1300,7 @@ class ServingEngine:
                     self._finish(r, now)
                     finished.append(r)
                     sched.retire(i)
-                    self._safe_reset(i)
+                    self._safe_reset(sched, i)
         self._decode_tokens += n_tok
         self._block_tokens.append(n_tok)
         self._macro_steps += 1
@@ -936,4 +1424,19 @@ class ServingEngine:
             "tokens_per_macro_step_mean": float(blk.mean()),
             "per_request": per_req,
             "runtime": self.rt.stats(),
+            # failure-model counters: every submitted request ends in
+            # exactly one of completed / rejected / deadline_missed
+            "preemptions": self._preemptions,
+            "restores": self._restores,
+            "rejections": len(self._rejected),
+            "deadline_misses": len(self._deadline_missed),
+            "retries": self._retries,
+            "watchdog_timeouts": self._watchdog_timeouts,
+            "quarantined_slots": sorted(self._quarantined),
+            "swap_time_ms": float(self._swap_time * 1e3),
+            "rejected": [
+                {"rid": r.rid, "status": r.status, "priority": r.priority,
+                 "reason": r.reject_reason}
+                for r in sorted(self._rejected + self._deadline_missed,
+                                key=lambda r: r.rid)],
         }

@@ -5,11 +5,24 @@ dispatches. PyTorch runs eagerly, so here a "program" is a registered
 callable: ``compiles`` counts registrations (1 per name, the reference's
 zero-retracing invariant) and ``calls`` counts dispatches. ``stats()`` has
 the reference's shape. CUDA-graph capture per program is later work.
+
+Every step runs through an optional dispatch interceptor (fault injection,
+``set_interceptor``) before its body, as in the reference.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
+
+
+class DispatchError(RuntimeError):
+    """A program dispatch failed before its body ran (a transient launch
+    hiccup, an injected fault). Raised by a dispatch interceptor BEFORE the
+    step touches its operands, so the caches it would update in place are
+    intact and the caller may retry the dispatch verbatim. The serving
+    engine's retry/quarantine path catches exactly this type; any other
+    exception (a CUDA error, a failed kernel build or launch) is a real
+    fault and propagates."""
 
 
 @dataclass
@@ -17,8 +30,14 @@ class CompiledStep:
     name: str
     fn: Callable
     calls: int = 0
+    # runs before the body with the program name; raising DispatchError
+    # models a dispatch that never reached the device (operands untouched,
+    # retry-safe). Installed on every step by StaticRuntime.set_interceptor.
+    interceptor: Optional[Callable[[str], None]] = None
 
     def __call__(self, *args, **kw):
+        if self.interceptor is not None:
+            self.interceptor(self.name)
         self.calls += 1
         return self.fn(*args, **kw)
 
@@ -28,13 +47,25 @@ class StaticRuntime:
 
     def __init__(self):
         self._steps: Dict[str, CompiledStep] = {}
+        self._interceptor: Optional[Callable[[str], None]] = None
+
+    def set_interceptor(self, fn: Optional[Callable[[str], None]]):
+        """Install (or clear, with None) a dispatch interceptor on every
+        step, existing and future. It runs at the top of each dispatch with
+        the program name: raising ``DispatchError`` models a failed
+        dispatch, sleeping a stalled one (the chaos harness,
+        ``repro_torch.runtime.faults``, injects through here)."""
+        self._interceptor = fn
+        for step in self._steps.values():
+            step.interceptor = fn
 
     def compile_step(self, name: str, fn: Callable) -> CompiledStep:
         """Register ``fn`` under ``name`` once; a second registration of
         the same name returns the first step (programs persist across
         engine runs)."""
         if name not in self._steps:
-            self._steps[name] = CompiledStep(name, fn)
+            self._steps[name] = CompiledStep(name, fn,
+                                             interceptor=self._interceptor)
         return self._steps[name]
 
     def stats(self) -> Dict[str, Dict]:

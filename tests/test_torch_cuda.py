@@ -397,3 +397,91 @@ def test_drain_decode_and_split_block_cuda_match_cpu(dev, over):
     assert drain["flash_decode"] == 6 * cfg.n_layers
     assert drain["flash_decode_partial"] == 0 and drain["fused_ffn"] > 0
     assert split["flash_decode_partial"] == 6 * cfg.n_layers * 4
+
+
+@pytest.mark.parametrize("kv", ["bfloat16", "int8"])
+def test_swap_pair_cuda_matches_cpu(dev, kv):
+    """The swap pair on CUDA against the CPU on the same bytes: the export
+    image, and the cache after importing it into another slot at a valid
+    length inside a shard, equal bit for bit; positions at or past the
+    valid length keep their bytes; a 4-shard view of the restored slot
+    equals the CPU's."""
+    from repro_torch.kv.cache import export_slot_kv, import_slot_kv
+    cfg = get_config("qwen2-0.5b").reduced().replace(kv_dtype=kv)
+    g = torch.Generator().manual_seed(0)
+    cpu_api = build_model(cfg, device="cpu")
+    base = cpu_api.init_caches(3, 40)
+    for name in ("k", "v", "k_scale", "v_scale"):
+        t = getattr(base, name)
+        if t is None:
+            continue
+        if t.dtype == torch.int8:
+            t.copy_(torch.randint(-127, 127, t.shape, generator=g))
+        else:
+            t.copy_(torch.rand(t.shape, generator=g))
+    out = {}
+    for d in ("cpu", "cuda"):
+        api = build_model(cfg, device=d)
+        c = api.init_caches(3, 40)
+        for name in ("k", "v", "k_scale", "v_scale"):
+            if getattr(c, name) is not None:
+                getattr(c, name).copy_(getattr(base, name))
+        saved = export_slot_kv(c, 0)
+        host = tuple(None if a is None else a.cpu() for a in saved)
+        c = import_slot_kv(c, host, 2, 23)
+        views = shard_view(c.k[0], c.v[0], None if c.k_scale is None
+                           else c.k_scale[0], None if c.v_scale is None
+                           else c.v_scale[0], 40, 4)
+        out[d] = (host, tuple(None if t is None else t.cpu() for t in
+                              (c.k, c.v, c.k_scale, c.v_scale)),
+                  tuple(None if t is None else t.cpu() for t in views))
+    for a, b in zip(out["cpu"][0] + out["cpu"][1] + out["cpu"][2],
+                    out["cuda"][0] + out["cuda"][1] + out["cuda"][2]):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a, b)
+    k = out["cuda"][1][0]
+    assert torch.equal(k[:, 2, :, :23], base.k[:, 0, :, :23])
+    assert torch.equal(k[:, 2, :, 23:], base.k[:, 2, :, 23:])
+
+
+def test_preempt_restore_stream_cuda_matches_cpu(dev):
+    """One preempt-then-restore serve (int8 KV, T=8, 2 slots, a
+    high-priority arrival) on the card gives the CPU's streams, statuses
+    and counters, and launches K1 and K3."""
+    from repro_torch.runtime.serving import Request, ServingEngine
+    cfg = get_config("qwen2-0.5b").reduced().replace(dtype="float32",
+                                                      kv_dtype="int8")
+
+    def plan():
+        rng = np.random.default_rng(3)
+        rs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, 8,
+                                                 dtype=np.int32),
+                      max_new_tokens=20, priority=0) for i in range(2)]
+        rs.append(Request(rid=2, prompt=rng.integers(0, cfg.vocab_size, 6,
+                                                     dtype=np.int32),
+                          max_new_tokens=6, arrival_step=8, priority=5))
+        return rs
+
+    out = {}
+    for d in ("cpu", "cuda"):
+        api = build_model(cfg, device=d)
+        params = to_device(build_model(cfg, device="cpu").init(0),
+                           api.device)
+        eng = ServingEngine(api, 2, 8, max_new_cap=32, block_size=8,
+                            kv_bucket_chunk=16, prefill_chunk=4,
+                            preemptible=True, strict_invariants=True,
+                            device=api.device)
+        reqs = plan()
+        reset_launch_counts()
+        stats = eng.run(params, reqs, max_steps=600)
+        out[d] = ({r.rid: (r.status, r.generated) for r in reqs},
+                  {k: stats[k] for k in ("preemptions", "restores",
+                                         "host_syncs", "completed")},
+                  launch_counts())
+    assert out["cuda"][0] == out["cpu"][0]
+    assert out["cuda"][1] == out["cpu"][1]
+    assert out["cuda"][1]["preemptions"] >= 1
+    assert out["cuda"][1]["restores"] >= 1
+    assert out["cuda"][2]["flash_decode"] > 0
+    assert out["cuda"][2]["fused_ffn"] > 0
