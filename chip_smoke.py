@@ -22,17 +22,31 @@ phases; any failure exits non-zero before the result line:
    slotted decode, the decode block, split-KV decode (4 shards); on CUDA
    the shared-cursor decode step equals slotted decode at one cursor; the
    preemption swap pair (export, then import at valid_len 1, 37, 200, and
-   its 4-shard views) gives the CPU's bytes for float32 and int8 KV;
+   its 4-shard views) gives the CPU's bytes for float32 and int8 KV; the
+   tiered cache functions (append, chunk writes, one wrapping the ring,
+   the chunk program's hot image, the resolved read and its 4-shard views,
+   export and import at valid_len 1, 37, 200) give the CPU's bytes for
+   int8 and int4 cold; and over a tiered cache, chunked prefill across
+   cold boundaries, slotted decode, the decode block and 4-shard split
+   decode give the CPU's tokens and logits within 1e-3;
 4. the serving engine at full qwen2-0.5b (24 layers, seeded random bf16
    weights): (a) chunked admission + macro-step decode + KV buckets,
    (b) int8 weights and int8 KV with monolithic admission, (c) per-token
    decode, (d) drain mode (batch prefill of 8 x 128, shared-cursor
-   decode), (e) run (a) with int8 KV and split-KV decode over 4 shards;
-   every request must complete and every kernel of each run must have been
-   launched (counts reset just before the run); drain must admit no
-   request while another decodes; (e) must make as many host syncs as
-   (a); one decode block of (a), (b) and (e) is traced with torch.profiler
-   and counted for synchronising calls; (f) the failure model: a seeded
+   decode), (e) run (a) with int8 KV and split-KV decode over 4 shards,
+   (g) run (a) over a tiered cache (hot window 64, blocks of 16, int4
+   cold: the boundary moves from 64 to 128 during decode); every request
+   must complete and every kernel of each run must have been launched
+   (counts reset just before the run); drain must admit no request while
+   another decodes; (e) and (g) must make as many host syncs as (a), and
+   (g) must demote; one decode block of (a), (b), (e) and (g) is traced
+   with torch.profiler and counted for synchronising calls; (h) monolithic
+   tiered admission (the full-width ``serve_admit`` chunk; hot 32, blocks
+   of 16, int8 cold) with split-KV decode over 4 shards, preemptible,
+   served with no budget and then under a ``kv_budget_bytes`` of five
+   slots priced by the arbiter: both complete with the same tokens, the
+   budget preempts and restores, and K1 (partial) and K3 launch; (f) the
+   failure model: a seeded
    chaos schedule (``run_chaos``: a clean run, then injected dispatch
    failures, KV pressure and a high-priority arrival) over 4 slots with
    int8 KV, preemptible, a bounded queue and strict invariants, which must
@@ -40,12 +54,13 @@ phases; any failure exits non-zero before the result line:
    and launch K1 and K3 in both runs;
 5. time each kernel at the main path's shapes (K1 at B=8 over S=200 and
    at a long context of S=4096, bf16 and int8 KV, in partial mode at one
-   shard of 48, and the whole split attention of a layer at bucket 192;
-   K3 at 8, 32, 128 and 1,024 rows; K4 at 8 and 128 rows for the four
-   projection shapes) against its bound, its plain version and PyTorch
-   calls for the same function (K1: SDPA with ``enable_gqa``; K3: three
-   matmuls and silu; K4: a bf16 matmul on dequantized weights and
-   ``torch._int_mm``).
+   shard of 48, the whole split attention of a layer at bucket 192 and the
+   tiered attention of a layer at bucket 192, int8 and int4 cold: the
+   resolve plus K1; K3 at 8, 32, 128 and 1,024 rows; K4 at 8 and 128 rows
+   for the four projection shapes) against its bound, its plain version
+   and PyTorch calls for the same function (K1: SDPA with ``enable_gqa``;
+   K3: three matmuls and silu; K4: a bf16 matmul on dequantized weights
+   and ``torch._int_mm``), and the tiered append of a layer.
 
 It then prints the card (nvidia-smi name, power limit), a ``kernels`` JSON
 line, and last the JSON result line. Without a GPU, or without the rest of
@@ -73,6 +88,9 @@ PEAK_OPS = {torch.bfloat16: 989e12,       # dense tensor-core rates, 700 W
 L2_BYTES = 50 * 2 ** 20
 REPLACES = {
     "flash_decode": "src/repro/kernels/flash_decode/flash_decode.py:84",
+    # K1 in partial-statistics mode (split-KV decode), the same kernel
+    "flash_decode_partial":
+        "src/repro/kernels/flash_decode/flash_decode.py:84",
     "fused_ffn": "src/repro/kernels/fused_ffn/fused_ffn.py:43",
     "gemv_int8": "src/repro/kernels/gemv/gemv.py:42",
 }
@@ -136,13 +154,15 @@ def k1_inputs(dev, B, S, pair=("bfloat16", "bfloat16"), lim=None, Hq=14,
 
 def check_k1(args, lim):
     """Kernel against plain for one input set, normalised and partial:
-    returns (max |d|, max |d| / tol, repeat identical). Tolerance 1e-5 *
-    max(1, max|plain|) per output tensor (f32 online softmax in both, in
-    another order); kv_limit <= 0 must give exactly 0 / (0, NEG_INF, 0)."""
+    returns (max |d| of the normalised mode, max |d| of the partial mode,
+    max |d| / tol, repeat identical). Tolerance 1e-5 * max(1, max|plain|)
+    per output tensor (f32 online softmax in both, in another order);
+    kv_limit <= 0 must give exactly 0 / (0, NEG_INF, 0)."""
     from repro_torch.kernels.flash_decode.ops import flash_decode
     from repro_torch.kernels.flash_decode.ref import (NEG_INF,
                                                       flash_decode_ref)
-    err = ratio = 0.0
+    err = {False: 0.0, True: 0.0}
+    ratio = 0.0
     same = True
     for partial in (False, True):
         got = flash_decode(*args, partial_stats=partial)
@@ -152,7 +172,7 @@ def check_k1(args, lim):
             got, again, want = (got,), (again,), (want,)
         for a, b, w in zip(got, again, want):
             e = max_err(a, w)
-            err = max(err, e)
+            err[partial] = max(err[partial], e)
             ratio = max(ratio, e / (1e-5 * max(1.0, max_abs(w))))
             same = same and torch.equal(a, b)
         if lim <= 0:
@@ -161,7 +181,7 @@ def check_k1(args, lim):
                 require(bool((got[1] == NEG_INF).all())
                         and not got[2].any(),
                         "K1 at kv_limit 0 is not (0, NEG_INF, 0)")
-    return err, ratio, same
+    return err[False], err[True], ratio, same
 
 
 def split_inputs(dev, bucket, n, kv, ragged=True, B=8, Hq=14, n_kv=2,
@@ -251,7 +271,8 @@ def phase_compare(dev):
     from repro_torch.kernels.fused_ffn.ref import fused_ffn_ref
     from repro_torch.kernels.gemv.ops import gemv_int8_q
     from repro_torch.kernels.gemv.ref import gemv_int8_ref
-    errs = {"flash_decode": 0.0, "fused_ffn": 0.0, "gemv_int8": 0.0}
+    errs = {"flash_decode": 0.0, "flash_decode_partial": 0.0,
+            "fused_ffn": 0.0, "gemv_int8": 0.0}
     # K1: f32 online softmax in both, in a different summation order.
     # Every split count of the plan from one to many, kv_limit at 0, inside
     # a split, on a split edge and at S, and every row live to the end (as
@@ -267,18 +288,21 @@ def phase_compare(dev):
         plan = decode_plan(B, 2, Hq // 2, S, hd, isz)
         edge = plan.split if plan.splits > 1 else S
         lims = sorted({0, max(1, plan.split // 2 + 3), edge, S})
-        err = ratio = 0.0
+        err = err_p = ratio = 0.0
         same = True
         for lim in lims + [None]:             # None: every row live to S
             args = k1_inputs(dev, B, S, pair, lim, Hq=Hq, hd=hd,
                              seed=S + B + (lim or 0))
-            e, r, sm = check_k1(args, S if lim is None else lim)
-            err, ratio, same = max(err, e), max(ratio, r), same and sm
+            e, e_p, r, sm = check_k1(args, S if lim is None else lim)
+            err, err_p = max(err, e), max(err_p, e_p)
+            ratio, same = max(ratio, r), same and sm
         errs["flash_decode"] = max(errs["flash_decode"], err)
+        errs["flash_decode_partial"] = max(errs["flash_decode_partial"],
+                                           err_p)
         log(f"  K1 B={B} S={S} G={Hq // 2} hd={hd} q={pair[0]} kv={pair[1]}"
             f" ({plan.splits} splits of {plan.split}), kv_limit {lims}: "
-            f"max|d|={err:.3g}, max|d|/tol={ratio:.3g}, repeat "
-            f"identical={same}")
+            f"max|d|={err:.3g} normalised, {err_p:.3g} partial, "
+            f"max|d|/tol={ratio:.3g}, repeat identical={same}")
         require(ratio <= 1.0, f"K1 disagrees at B={B} S={S} {pair} hd={hd}")
         require(same, f"K1 not deterministic at B={B} S={S} {pair}")
     # Split-KV attention as the engine runs it (B=8, Hq=14, n_kv=2, hd=64):
@@ -307,7 +331,8 @@ def phase_compare(dev):
                 e = max_err(got.cpu()[act], want[act])
                 tol = 1e-5 * max(1.0, max_abs(want[act]))
                 same = torch.equal(got, again)
-                errs["flash_decode"] = max(errs["flash_decode"], e)
+                errs["flash_decode_partial"] = max(
+                    errs["flash_decode_partial"], e)
                 log(f"  split attention bucket={bucket} shards={n} "
                     f"(Sb={bucket // n}) kv={kv}: {launched} partial "
                     f"launches, max|d|={e:.3g} (tol {tol:.3g}), repeat "
@@ -361,10 +386,30 @@ def phase_compare(dev):
 # phase 3: full-width model, 2 layers, f32, CPU vs CUDA
 # ---------------------------------------------------------------------------
 
+CACHE_BUFFERS = ("k", "v", "k_scale", "v_scale", "hot_k", "hot_v")
+
+
 def clone_cache(c):
-    from repro_torch.kv.cache import KVCache
-    return KVCache(*(None if t is None else t.clone()
-                     for t in (c.k, c.v, c.k_scale, c.v_scale, c.length)))
+    import dataclasses
+    return dataclasses.replace(c, **{
+        f: None if getattr(c, f) is None else getattr(c, f).clone()
+        for f in CACHE_BUFFERS + ("length",)})
+
+
+def fill_cache(c, g):
+    """Seeded bytes in every buffer of cache ``c`` (CPU generator ``g``):
+    int8 over its whole range, scales in [0.01, 1.01), floats normal."""
+    for f in CACHE_BUFFERS:
+        t = getattr(c, f)
+        if t is None:
+            continue
+        if t.dtype == torch.int8:
+            t.copy_(torch.randint(-128, 128, t.shape, generator=g))
+        elif t.shape[-1] == 1:
+            t.copy_(torch.rand(t.shape, generator=g) + 0.01)
+        else:
+            t.copy_(torch.randn(t.shape, generator=g))
+    return c
 
 
 def rel_err(a, b) -> float:
@@ -503,6 +548,178 @@ def phase_swap_pair():
                     f"swap pair disagrees at kv={kv} valid_len={valid}")
 
 
+# the tier geometry of run (g): hot window 64, demotion blocks of 16, a ring
+# of 80 slots; run (h): hot window 32, blocks of 16, int8 cold
+G_TIERS = dict(hot_window=64, kv_cold_block=16)
+H_TIERS = dict(hot_window=32, kv_cold_block=16, kv_cold_dtype="int8")
+
+
+def phase_tiered_cache():
+    """The tiered cache functions on the card against the CPU, bit for bit,
+    on one layer of the 2-layer full-width cache (8 slots, extent 200, run
+    (g)'s ring of 80) filled with the same seeded bytes, int8 and int4
+    cold: 19 decode appends at ragged cursors (rows 6 and 7 inactive, the
+    ring wrapping), the resolved image over buckets 192 and 200 and its
+    4-shard views; a 32-wide chunk at 64 whose residue wraps the ring
+    (ring slots 64..79 and 0..15) and a 128-wide full-width chunk with 100
+    valid, each with the chunk program's hot image from the pre-write ring
+    and the slot's cold image after the write; then the export of slot 1
+    and its import into slot 5 at valid_len 1, 37 and 200."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kv import cache as kc
+    from repro_torch.models.registry import build_model
+    for cold in ("int8", "int4"):
+        cfg = get_config("qwen2-0.5b").replace(n_layers=2, dtype="float32",
+                                               kv_cold_dtype=cold, **G_TIERS)
+        g = torch.Generator().manual_seed(0)
+        base = fill_cache(build_model(cfg, device="cpu").init_caches(8, 200),
+                          g)
+        B, n_kv, hd = 8, cfg.n_kv_heads, cfg.head_dim
+        start_pos = torch.arange(B, dtype=torch.int32) * 19
+        appends = [(torch.randn(B, n_kv, hd, generator=g),
+                    torch.randn(B, n_kv, hd, generator=g),
+                    start_pos + t, (torch.arange(B) < 6) & (t % 7 != 5))
+                   for t in range(19)]
+        chunks = [(2, 64, 32, torch.randn(n_kv, 32, hd, generator=g),
+                   torch.randn(n_kv, 32, hd, generator=g)),
+                  (3, 0, 100, torch.randn(n_kv, 128, hd, generator=g),
+                   torch.randn(n_kv, 128, hd, generator=g))]
+        counts = start_pos + 19
+        res = {}
+        for d in ("cpu", "cuda"):
+            c = build_model(cfg, device=d).init_caches(8, 200)
+            for f in CACHE_BUFFERS:
+                if getattr(c, f) is not None:
+                    getattr(c, f).copy_(getattr(base, f))
+            lay = c.layer(1)
+            out = []
+
+            def snap():
+                return [t.clone() for t in lay if t is not None]
+
+            for kn, vn, pos, act in appends:
+                kc.layer_append_tiered(*lay, kn.to(d), vn.to(d), pos.to(d),
+                                       cold, act.to(d))
+            out += snap()
+            geom = (cfg.hot_window, cfg.kv_cold_block, cold)
+            for bucket in (192, 200):
+                out += kc.layer_read_tiered(*lay, counts.to(d), bucket,
+                                            *geom, dtype=torch.float32)
+                out += kc.layer_read_tiered_shards(
+                    *lay, counts.to(d), bucket, 4, *geom,
+                    dtype=torch.float32)
+            for slot, start, valid, kn, vn in chunks:
+                kn, vn = kn.to(d), vn.to(d)
+                out += kc.chunk_hot_image(lay[4], lay[5], kn, vn, slot,
+                                          start, valid, 200,
+                                          dtype=torch.float32)
+                kc.layer_write_chunk_tiered(*lay, kn, vn, slot, start, valid,
+                                            cold)
+                out += snap()
+                out += kc.layer_read_slot_cold(*lay[:4], slot, cold,
+                                               dtype=torch.float32)
+            image = tuple(a.cpu() for a in kc.export_slot_kv(c, 1))
+            out += image
+            for valid in (1, 37, 200):
+                r = kc.import_slot_kv(clone_cache(c), image, 5, valid)
+                out += [getattr(r, f) for f in CACHE_BUFFERS]
+            res[d] = [t.cpu() for t in out if t is not None]
+        same = [torch.equal(a, b) for a, b in zip(res["cpu"], res["cuda"])]
+        log(f"  tiered cache, cold={cold} (ring 80, extent 200): appends, "
+            f"resolved reads (buckets 192/200, 4 shards), hot images, chunk "
+            f"writes (one wrapping the ring), slot cold images, export and "
+            f"import at valid_len 1/37/200: {sum(same)} of {len(same)} "
+            f"tensors cuda == cpu bit for bit")
+        require(all(same) and len(same) == len(res["cuda"]),
+                f"tiered cache functions disagree between cpu and cuda "
+                f"(cold={cold})")
+
+
+def phase_model_parity_tiered():
+    """The model over a tiered cache at full width, 2 layers, f32, CPU
+    against CUDA, int8 and int4 cold, with hot window 8 and blocks of 4
+    (ring 12) so the boundary moves inside prefill and decode: 8 slots
+    admitted by two 8-wide chunks of a 16-token prompt (chunked prefill
+    across the boundaries 4, 8 and 12), 8 slotted decode steps at bucket
+    32, the decode block (T=8, bucket 32) from the admitted state and 8
+    split-KV decode steps over 4 shards of 12: equal tokens, logits within
+    1e-3 of max|logit|."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.interop import to_device
+    from repro_torch.models.registry import build_model
+    from repro_torch.quant.int4 import unpack_int4
+    rng = np.random.default_rng(1)
+    for cold in ("int8", "int4"):
+        cfg = get_config("qwen2-0.5b").replace(
+            n_layers=2, dtype="float32", hot_window=8, kv_cold_block=4,
+            kv_cold_dtype=cold)
+        prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 16),
+                                                dtype=np.int64))
+        cpu_params = build_model(cfg, device="cpu").init(0)
+        res = {}
+        for d in ("cpu", "cuda"):
+            api = build_model(cfg, device=d)
+            params = to_device(cpu_params, api.device)
+            caches = api.init_caches(8, 48)
+            chunk_lg = []
+            for slot in range(8):
+                for start in (0, 8):
+                    caches, lg = api.prefill_chunk(
+                        params, caches, prompts[slot:slot + 1,
+                                                start:start + 8].to(d),
+                        slot, start, 8)
+                    chunk_lg.append(lg[0, -1].float().cpu())
+            tok = torch.stack(chunk_lg[1::2]).argmax(-1).to(torch.int32) \
+                .to(d)
+            pos = torch.full((8,), 16, dtype=torch.int32, device=d)
+            act = torch.ones(8, dtype=torch.bool, device=d)
+            block_c, split_c = clone_cache(caches), clone_cache(caches)
+
+            def steps(**kw):
+                c, t, p = kw.pop("c"), tok, pos
+                logits, toks = [], []
+                for _ in range(8):
+                    c, lg = api.decode_slotted(params, c, t, p, act, **kw)
+                    logits.append(lg[:, 0].float().cpu())
+                    t = lg[:, 0].argmax(-1).to(torch.int32)
+                    toks.append(t.cpu())
+                    p = p + 1
+                return torch.stack(logits), torch.stack(toks), c
+
+            slotted = steps(c=caches, kv_bucket=32)
+            blk = api.decode_block(
+                params, block_c, tok, pos, act,
+                torch.full((8,), 8, dtype=torch.int32, device=d),
+                torch.full((8,), -1, dtype=torch.int32, device=d),
+                block_size=8, kv_bucket=32)
+            split = steps(c=split_c, kv_shards=4)
+            res[d] = (torch.stack(chunk_lg), slotted, blk[1].cpu(), split)
+        cpu, cuda = res["cpu"], res["cuda"]
+        flips = 0
+        for a, b in ((cpu[1][2].k, cuda[1][2].k), (cpu[1][2].v,
+                                                   cuda[1][2].v)):
+            a, b = a.cpu(), b.cpu()
+            if cold == "int4":
+                a, b = unpack_int4(a), unpack_int4(b)
+            flips += int((a != b).sum())
+        rels = {"chunked prefill": rel_err(cuda[0], cpu[0]),
+                "slotted decode": rel_err(cuda[1][0], cpu[1][0]),
+                "split decode, 4 shards": rel_err(cuda[3][0], cpu[3][0])}
+        same = {"slotted": torch.equal(cpu[1][1], cuda[1][1]),
+                "block": torch.equal(cpu[2], cuda[2]),
+                "block == slotted steps": torch.equal(cuda[2], cuda[1][1]),
+                "split": torch.equal(cpu[3][1], cuda[3][1])}
+        log(f"  tiered model, cold={cold} (hot 8, block 4), 2-layer "
+            f"full-width f32, cpu vs cuda: max|dlogit|/max|logit| "
+            + ", ".join(f"{k} {v:.3g}" for k, v in rels.items())
+            + f" (tol 1e-3); tokens equal: {same}; cold-tier steps that "
+            f"differ after slotted decode: {flips}")
+        require(all(np.isfinite(v) and v <= 1e-3 for v in rels.values()),
+                f"tiered model logits disagree (cold={cold})")
+        require(all(same.values()), f"tiered model tokens disagree "
+                f"(cold={cold})")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the engine at full qwen2-0.5b
 # ---------------------------------------------------------------------------
@@ -525,9 +742,15 @@ RUNS = {
         dict(block_size=8, kv_bucket_chunk=64, prefill_chunk=32,
              max_new_cap=72, a_shards=4), 12, 64,
         ("flash_decode", "flash_decode_partial", "fused_ffn")),
+    # run (a)'s plan over a tiered cache: the boundary moves from 64 to 128
+    # during decode (prompt 128, 64 new tokens)
+    "g_tiered_int4_chunked_T8": (
+        dict(kv_cold_dtype="int4", **G_TIERS),
+        dict(block_size=8, kv_bucket_chunk=64, prefill_chunk=32,
+             max_new_cap=72), 12, 64, ("flash_decode", "fused_ffn")),
 }
 TRACED = ("a_bf16_chunked_T8", "b_int8w_int8kv_monolithic_T8",
-          "e_int8kv_split4_chunked_T8")
+          "e_int8kv_split4_chunked_T8", "g_tiered_int4_chunked_T8")
 
 
 def count_syncs(fn) -> int:
@@ -569,28 +792,40 @@ def decode_block_fn(api, params, T=8, kv_shards=1, B=8):
     return block
 
 
+WALLS = (
+    # label: (config overrides, shards)
+    ("bfloat16 KV, 1 shard", {}, 1),
+    ("bfloat16 KV, 4 shards", {}, 4),
+    ("int8 KV, 1 shard", dict(kv_dtype="int8"), 1),
+    ("int8 KV, 4 shards", dict(kv_dtype="int8"), 4),
+    ("tiered int4 cold (hot 64, block 16), 1 shard",
+     dict(kv_cold_dtype="int4", **G_TIERS), 1),
+    ("tiered int8 cold (hot 32, block 16), 4 shards",
+     dict(H_TIERS), 4),
+)
+
+
 def block_walls():
     """Wall time (host clock to a synchronise, median of 5) of one decode
-    block at full qwen2-0.5b for bf16 and int8 KV x 1 and 4 shards, in one
-    process: what split-KV and what int8 KV add to a block."""
+    block at full qwen2-0.5b for bf16 and int8 KV x 1 and 4 shards and the
+    tiered caches of runs (g) and (h), in one process: what split-KV, int8
+    KV and the tiers add to a block."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models.registry import build_model
     out = {}
-    for kv in ("bfloat16", "int8"):
-        api = build_model(get_config("qwen2-0.5b").replace(kv_dtype=kv))
+    for label, over, n in WALLS:
+        api = build_model(get_config("qwen2-0.5b").replace(**over))
         params = api.init(0)
-        for n in (1, 4):
-            block = decode_block_fn(api, params, kv_shards=n)
+        block = decode_block_fn(api, params, kv_shards=n)
+        block()
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
             block()
-            walls = []
-            for _ in range(5):
-                torch.cuda.synchronize()
-                t0 = time.monotonic()
-                block()
-                torch.cuda.synchronize()
-                walls.append((time.monotonic() - t0) * 1e3)
-            out[f"{kv} KV, {n} shard{'s' if n > 1 else ''}"] = \
-                float(np.median(walls))
+            torch.cuda.synchronize()
+            walls.append((time.monotonic() - t0) * 1e3)
+        out[label] = float(np.median(walls))
         del api, params
         torch.cuda.empty_cache()
     log("  one decode block (T=8, 8 rows at 160, bucket 192), untraced "
@@ -671,6 +906,86 @@ def trace_decode_block(api, params, kw):
         f"{k} {us / 1e3:.3f} ms in {n} launches"
         for k, (us, n) in port.items()))
     return syncs
+
+
+# run (h): monolithic tiered admission (the full-width ``serve_admit`` chunk)
+# with split-KV decode over 4 shards and the swap pair, served twice: with no
+# budget, then under a KV byte budget of five slots priced at cursor 160 by
+# the arbiter's own byte model. With arrivals every 4 steps and 4 blocks a
+# request, a budget check sees at most six live slots (5.64 such prices at
+# its peak, in the plan's CPU rehearsal), so six prices would never bind
+# and five bind at three boundaries
+H_ENGINE = dict(block_size=8, kv_bucket_chunk=64, max_new_cap=72,
+                a_shards=4, preemptible=True)
+
+
+def run_budget(totals, runs, card):
+    """Run (h) at full qwen2-0.5b (24 layers, seeded random bf16 weights,
+    int8 cold tier, hot 32 / blocks of 16), 8 slots, 12 requests x 32
+    tokens. Both runs must complete every request with the same tokens;
+    the budgeted one must preempt and restore; ``serve_admit`` (no
+    ``serve_prefill1``), ``serve_swap_out`` and ``serve_swap_in`` are
+    registered once each; K1 in partial mode and K3 launch in both."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models.registry import build_model
+    from repro_torch.runtime.serving import KVArbiter, ServingEngine
+    cfg = get_config("qwen2-0.5b").replace(**H_TIERS)
+    api = build_model(cfg)
+    params = api.init(0)
+    arb = KVArbiter(api.init_caches(8, 200, device="meta"))
+    arb.observe(0, 160)
+    price = arb.slot_occupancy(0)["kv_bytes"]
+    budget = 5 * price
+    log(f"  run (h): the arbiter prices a slot at cursor 160 at {price} B "
+        f"(hot {arb.hot_bytes_per_token} B, cold "
+        f"{arb.cold_bytes_per_token} B a token); budget {budget} B")
+    streams = {}
+    for tag, b in (("h_tiered_int8_mono_split4", 0),
+                   ("h_tiered_int8_mono_split4_budget", budget)):
+        reqs = make_requests(cfg, 12, 128, 32, seed=0, arrival_every=4)
+        eng = ServingEngine(api, 8, 128, kv_budget_bytes=b, **H_ENGINE)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        stats = eng.run(params, reqs)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        runs[tag] = counts
+        for k, n in counts.items():
+            totals[k] += n
+        rt = stats["runtime"]
+        keys = ("completed", "preemptions", "restores", "host_syncs",
+                "swap_time_ms", "tpot_mean_ms", "tpot_p99_ms")
+        log(f"  run {tag}: launches {counts} [{card}]")
+        log("    stats: " + json.dumps({k: stats[k] for k in keys}))
+        log("    tiered: " + json.dumps(stats["tiered"]))
+        log("    programs: " + ", ".join(
+            f"{k}={v['calls']}" for k, v in rt.items() if v["calls"]))
+        require(stats["completed"] == 12, f"{tag}: not all completed")
+        for r in reqs:
+            require(len(r.generated) == 32 and all(
+                0 <= t < cfg.vocab_size for t in r.generated),
+                f"{tag}: request {r.rid} stream malformed")
+        for k in ("flash_decode_partial", "fused_ffn"):
+            require(counts[k] > 0, f"{tag}: kernel {k} never launched")
+        require("serve_prefill1" not in rt
+                and all(rt[p]["compiles"] == 1 for p in
+                        ("serve_admit", "serve_swap_out", "serve_swap_in")),
+                f"{tag}: serve_admit and the swap pair are not registered "
+                "once each")
+        require(stats["tiered"]["demotions"] > 0,
+                f"{tag}: the cold boundary never moved")
+        streams[tag] = ({r.rid: r.generated for r in reqs}, stats)
+    (free, _), (held, st) = streams.values()
+    require(held == free, "run (h): the budgeted run's tokens differ from "
+            "the unbudgeted run's")
+    require(st["preemptions"] >= 1 and st["restores"] >= 1,
+            "run (h): the budget never preempted and restored")
+    require(st["runtime"]["serve_swap_in"]["calls"] >= 1,
+            "run (h): serve_swap_in never ran")
+    del params, api
+    torch.cuda.empty_cache()
 
 
 # run (f): the failure model at full width and depth. The plan and its
@@ -822,6 +1137,9 @@ def phase_engine(totals, runs):
         require(len(per_req) == n_req, f"{name}: per-request stats missing")
         for k in needed:
             require(counts[k] > 0, f"{name}: kernel {k} never launched")
+        if "tiered" in stats:
+            require(stats["tiered"]["demotions"] > 0,
+                    f"{name}: the cold boundary never moved")
         host_syncs[name] = stats["host_syncs"]
         if kw.get("mode") == "drain":
             log(f"    drain admission groups (step: rids): "
@@ -840,14 +1158,20 @@ def phase_engine(totals, runs):
             per_step[name] = {k: n for k, n in launch_counts().items() if n}
         del params, eng, api
         torch.cuda.empty_cache()
-    a, e = "a_bf16_chunked_T8", "e_int8kv_split4_chunked_T8"
-    log(f"  host syncs: (a) {host_syncs[a]}, (e) {host_syncs[e]}; "
-        f"synchronising calls in one traced decode block: {syncs}")
+    a, e, g = ("a_bf16_chunked_T8", "e_int8kv_split4_chunked_T8",
+               "g_tiered_int4_chunked_T8")
+    log(f"  host syncs: (a) {host_syncs[a]}, (e) {host_syncs[e]}, (g) "
+        f"{host_syncs[g]}; synchronising calls in one traced decode block: "
+        f"{syncs}")
     require(host_syncs[e] == host_syncs[a],
             "split-KV run (e) made another number of host syncs than (a)")
+    require(host_syncs[g] == host_syncs[a],
+            "tiered run (g) made another number of host syncs than (a)")
     require(all(n == 0 for n in syncs.values()),
             "a traced decode block synchronises with the host")
-    run_failure(totals, runs, nvidia_smi())
+    card = nvidia_smi()
+    run_budget(totals, runs, card)
+    run_failure(totals, runs, card)
     block_walls()
     return per_step
 
@@ -917,6 +1241,92 @@ def variants_of(make, per_call_bytes):
     return [make(i) for i in range(n)]
 
 
+def tiered_inputs(dev, cold, seed=0, B=8, Hq=14, n_kv=2, hd=64, S=200,
+                  bucket=192):
+    """One tiered layer as run (g) holds it at cursor 160: the cold tier of
+    S positions (int8 or packed int4 with scales), the bf16 ring of 80, a
+    bf16 query, counts 161, the (B, bucket) mask and kv_limit 161."""
+    from repro_torch.kv.cache import batch_valid_mask, quantize_cold
+    g = torch.Generator(device=dev).manual_seed(seed)
+    kq, ks = quantize_cold(torch.randn(B, n_kv, S, hd, device=dev,
+                                       generator=g), cold)
+    vq, vs = quantize_cold(torch.randn(B, n_kv, S, hd, device=dev,
+                                       generator=g), cold)
+    H = G_TIERS["hot_window"] + G_TIERS["kv_cold_block"]
+    hk, hv = (torch.randn(B, n_kv, H, hd, device=dev, generator=g)
+              .to(torch.bfloat16) for _ in range(2))
+    q = torch.randn(B, Hq, hd, device=dev, generator=g).to(torch.bfloat16)
+    pos = torch.full((B,), 160, dtype=torch.int32, device=dev)
+    return (q, kq, vq, ks, vs, hk, hv, pos + 1, batch_valid_mask(bucket, pos),
+            (pos.max() + 1).to(torch.int32), cold)
+
+
+def tiered_bytes(args) -> int:
+    """Bytes the tiered attention of one layer must move: for each row, the
+    cold K/V below its boundary with their scales and the ring slots of
+    [boundary, counts); then q, counts, the mask, kv_limit and the bf16
+    output. Cold positions at or past the boundary and ring slots past
+    counts are never needed."""
+    from repro_torch.kv.cache import cold_boundary
+    q, k, v, ks, vs, hk, hv, counts, mask, lim = args[:10]
+    edge = cold_boundary(counts, G_TIERS["hot_window"],
+                         G_TIERS["kv_cold_block"])
+    n_cold, n_hot = int(edge.sum()), int((counts - edge).sum())
+    cold_row = sum(t.shape[-1] * t.element_size() for t in (k, v, ks, vs))
+    hot_row = sum(t.shape[-1] * t.element_size() for t in (hk, hv))
+    return (k.shape[1] * (n_cold * cold_row + n_hot * hot_row)
+            + nbytes(q, counts, mask, lim) + q.numel() * 2)
+
+
+def resolve_tiered(k, v, ks, vs, hk, hv, counts, cold, bucket=192):
+    """The bf16 image ``layer_read_tiered`` resolves for run (g)'s tiers."""
+    from repro_torch.kv.cache import layer_read_tiered
+    return layer_read_tiered(k, v, ks, vs, hk, hv, counts, bucket,
+                             G_TIERS["hot_window"], G_TIERS["kv_cold_block"],
+                             cold, dtype=torch.bfloat16)
+
+
+def tiered_attention(q, k, v, ks, vs, hk, hv, counts, mask, lim, cold,
+                     k1=None):
+    """One layer's tiered decode attention as ``block_decode_slotted`` runs
+    it: the resolve, then K1 (or ``k1``) in float mode over the image."""
+    from repro_torch.kernels.flash_decode.ops import flash_decode
+    kc, vc = resolve_tiered(k, v, ks, vs, hk, hv, counts, cold)
+    return (k1 or flash_decode)(q, kc, vc, mask, kv_limit=lim)
+
+
+def tiered_append_inputs(args):
+    """``layer_append_tiered`` operands for a ``tiered_inputs`` layer: new
+    bf16 K/V for 8 rows at cursor 160, every row active."""
+    q, k, v, ks, vs, hk, hv, counts = args[:8]
+    g = torch.Generator(device=q.device).manual_seed(1)
+    kn, vn = (torch.randn(hk.shape[0], hk.shape[1], hk.shape[3],
+                          device=q.device, generator=g).to(torch.bfloat16)
+              for _ in range(2))
+    return (k, v, ks, vs, hk, hv, kn, vn, counts - 1,
+            torch.ones_like(counts, dtype=torch.bool))
+
+
+def tiered_append(*a, cold_dtype):
+    from repro_torch.kv.cache import layer_append_tiered
+    return layer_append_tiered(*a[:9], cold_dtype, a[9])
+
+
+def count_kernels(fn, variant) -> int:
+    """Device kernels one call of ``fn`` launches, from torch.profiler
+    (0 when the profiler sees no device activity)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    args, kw = variant
+    fn(*args, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(*args, **kw)
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+
+
 def phase_timing(dev, launches, runs, per_step, errs):
     import torch.nn.functional as F
     from repro_torch.kernels.flash_decode.ops import (flash_decode,
@@ -978,9 +1388,9 @@ def phase_timing(dev, launches, runs, per_step, errs):
                         var, 50)
         lib = {"sdpa(enable_gqa) on the same shard, normalised":
                time_ms(F.scaled_dot_product_attention, sdpa_args(var), 400)}
-        rows.append(("flash_decode", f"partial, one shard: B=8 Hq=14 n_kv=2 "
-                     f"hd=64 Sb=48 kv={kv}", ms, plain, b_ms, b_by, lib,
-                     host_ms(flash_decode_partial, var)))
+        rows.append(("flash_decode_partial", f"partial, one shard: B=8 "
+                     f"Hq=14 n_kv=2 hd=64 Sb=48 kv={kv}", ms, plain, b_ms,
+                     b_by, lib, host_ms(flash_decode_partial, var)))
     # the whole split attention of one layer at bucket 192 over 4 shards (4
     # partial K1 launches + the LSE combine + the cast), against K1 once
     # over the same bucket and SDPA over the whole bucket
@@ -1008,6 +1418,46 @@ def phase_timing(dev, launches, runs, per_step, errs):
         rows.append(("flash_decode", f"split attention, 4 shards: B=8 Hq=14 "
                      f"n_kv=2 hd=64 bucket=192 kv={kv}", ms, plain, b_ms,
                      b_by, lib, host_ms(decode_attention_split, var)))
+    # the tiered attention of one layer as run (g) decodes it: B=8 rows at
+    # cursor 160 of a 200-position cache with run (g)'s ring of 80 (the
+    # boundary at 96), bucket 192: the resolve (cold dequantize, ring tile
+    # and select, plain PyTorch) plus K1 in float mode over the bf16 image.
+    # Bound: what the function needs read once: the cold tier below the
+    # boundary with its scales, the ring slots from the boundary to counts,
+    # q, mask and output. Yardsticks: K1 once over a flat bf16 bucket of 192,
+    # and SDPA over the resolved image
+    for cold in ("int8", "int4"):
+        var = variants_of(lambda i: (tiered_inputs(dev, cold, seed=i), {}),
+                          tiered_bytes(tiered_inputs(dev, cold)))
+        nb = tiered_bytes(var[0][0])
+        q0, counts0 = var[0][0][0], var[0][0][7]
+        b_ms, b_by = bound(nb, 4 * q0.shape[1] * q0.shape[2]
+                           * int(counts0.sum()), torch.bfloat16)
+        ms = time_ms(tiered_attention, var, 40)
+        plain = time_ms(lambda *a: tiered_attention(*a, k1=flash_decode_ref),
+                        var, 10)
+        flat = variants_of(lambda i: (k1_inputs(dev, 8, 192, seed=i), {}),
+                           nb)
+        images = [((a[0][:, :, None], *resolve_tiered(*a[1:8], cold)),
+                   dict(attn_mask=a[8][:, None, None, :], enable_gqa=True))
+                  for a, _ in var]
+        lib = {"K1 once over a flat bf16 bucket of 192":
+               time_ms(flash_decode, flat, 400),
+               "sdpa(enable_gqa) over the resolved bf16 image":
+               time_ms(F.scaled_dot_product_attention, images, 400)}
+        rows.append(("flash_decode", f"tiered attention of one layer "
+                     f"(resolve + K1): B=8 Hq=14 n_kv=2 hd=64 bucket=192 "
+                     f"cold={cold} ring=80", ms, plain, b_ms, b_by, lib,
+                     host_ms(tiered_attention, var)))
+        # the tiered append of one layer (both tiers, 8 rows): plain
+        # PyTorch; device time, host time and the kernels it launches
+        app = [(tiered_append_inputs(a), {"cold_dtype": cold})
+               for a, _ in var]
+        app_ms = time_ms(tiered_append, app, 40)
+        app_host = host_ms(tiered_append, app)
+        log(f"  tiered append of one layer, cold={cold} (8 rows, ring 80): "
+            f"{app_ms * 1e3:.2f} us device, {app_host * 1e3:.2f} us host a "
+            f"call, {count_kernels(tiered_append, app[0])} kernels a call")
     # K3 at decode (8 rows), chunk (32 rows), monolithic-prefill (128
     # rows) and drain batch-prefill (1,024 rows) widths
     for R in (8, 32, 128, 1024):
@@ -1070,6 +1520,7 @@ def phase_timing(dev, launches, runs, per_step, errs):
         mine = [r for r in rows if r[0] == name]
         first = mine[0]
         src = {"flash_decode": "flash_decode/csrc/flash_decode.cu",
+               "flash_decode_partial": "flash_decode/csrc/flash_decode.cu",
                "fused_ffn": "fused_ffn/csrc/fused_ffn.cu",
                "gemv_int8": "gemv/csrc/gemv_int8.cu"}[name]
         out.append({"name": name, "status": "ported", "route": "cuda",
@@ -1086,8 +1537,6 @@ def phase_timing(dev, launches, runs, per_step, errs):
                                 "bound_ms": r[4], "bound_by": r[5],
                                 "library_ms": r[6], "host_ms": r[7]}
                                for r in mine]})
-    # K1's launches in partial-statistics mode (split-KV decode, run (e))
-    out[0]["partial_stats_launches"] = launches["flash_decode_partial"]
     return out
 
 
@@ -1120,6 +1569,8 @@ def main() -> int:
     log("phase 3: model parity, full width, 2 layers, f32, cpu vs cuda")
     phase_model_parity()
     phase_swap_pair()
+    phase_tiered_cache()
+    phase_model_parity_tiered()
 
     log("phase 4: engine at full qwen2-0.5b")
     launches = {"flash_decode": 0, "flash_decode_partial": 0,

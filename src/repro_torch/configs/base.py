@@ -42,7 +42,7 @@ class ModelConfig:
     dtype: str = "bfloat16"         # activation/weight compute dtype
     kv_dtype: str = "bfloat16"      # "int8" enables quantized KV
     weight_int8: bool = False       # int8 weight storage
-    # --- tiered KV cache (not ported yet: hot_window must stay 0) ---
+    # --- tiered KV cache (hot_window > 0: hot ring + quantized cold tier) ---
     hot_window: int = 0
     kv_cold_dtype: str = "int8"
     kv_cold_block: int = 16

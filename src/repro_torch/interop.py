@@ -59,7 +59,10 @@ def params_from_numpy(tree: Dict[str, Any], cfg,
 def kv_cache_from_numpy(tree: Dict[str, Any], cfg,
                         device: DeviceLike = None) -> KVCache:
     """``tree``: {"k", "v", "k_scale", "v_scale", "length"} numpy arrays
-    (scales None for a float cache)."""
+    (scales None for a float cache), plus "hot_k" and "hot_v" for a tiered
+    cache, whose geometry (hot_window, cold block and dtype) is the
+    config's. Quantized tiers keep their int8 bytes (packed int4 nibbles
+    included); float leaves take the config's compute dtype."""
     dev = resolve_device(device)
     dt = dtype_of(cfg)
 
@@ -67,10 +70,15 @@ def kv_cache_from_numpy(tree: Dict[str, Any], cfg,
         a = tree.get(name)
         return None if a is None else _leaf(np.asarray(a), dtype, dev)
 
-    k = t("k", dt)
-    return KVCache(k, t("v", dt), t("k_scale", torch.float32),
+    tiers = {}
+    if tree.get("hot_k") is not None:
+        tiers = dict(hot_k=t("hot_k", dt), hot_v=t("hot_v", dt),
+                     hot_window=cfg.hot_window, cold_block=cfg.kv_cold_block,
+                     cold_dtype=cfg.kv_cold_dtype)
+    return KVCache(t("k", dt), t("v", dt), t("k_scale", torch.float32),
                    t("v_scale", torch.float32),
-                   _leaf(np.asarray(tree["length"], np.int32), None, dev))
+                   _leaf(np.asarray(tree["length"], np.int32), None, dev),
+                   **tiers)
 
 
 def to_device(tree, device):

@@ -1,15 +1,23 @@
-"""KV cache: the contiguous (L, B, n_kv, S_max, head_dim) cache, flat or
-int8 with per-(b, head, position) f32 scales.
+"""KV cache: the contiguous (L, B, n_kv, S_max, head_dim) cache, flat,
+int8 with per-(b, head, position) f32 scales, or tiered.
 
-Port of the flat, int8, split-KV and preemption swap-pair parts of
+Port of the flat, int8, tiered, split-KV and preemption swap-pair parts of
 ``repro.kv.cache``. Caches are updated IN PLACE: every write below
 mutates the cache tensors it is given and returns them. That is the
 PyTorch form of the reference's buffer donation (each step's cache output
 aliases its input there), so steady-state decode never holds two copies
 of the KV. Rows a write does not target keep their bytes, inactive decode
 rows stay byte-identical, and chunk positions at or past ``valid_len``
-keep their previous bytes. Sliding-window (ring) and tiered caches belong
-to families not yet ported.
+keep their previous bytes.
+
+A TIERED cache keeps every position in a cold tier (``k``/``v``) at
+``cold_dtype``: the compute dtype verbatim (``"bfloat16"``), int8 or
+packed int4 with per-row f32 scales, and the most recent positions exactly
+in a hot ring (``hot_k``/``hot_v``) of ``hot_window + cold_block`` slots at
+the compute dtype. Every write stages a position into both tiers; the
+hot-to-cold boundary ``cold_boundary(count)`` is read-side arithmetic on
+the device cursors, so demotion moves no bytes and needs no host round
+trip. Sliding-window (ring) caches belong to families not yet ported.
 """
 from __future__ import annotations
 
@@ -18,43 +26,137 @@ from typing import Optional
 
 import torch
 
+from repro_torch.quant.int4 import dequantize_kv_int4, quantize_kv_int4
 from repro_torch.quant.int8 import dequantize_kv, quantize_kv
+
+COLD_DTYPES = ("bfloat16", "int8", "int4")
 
 
 @dataclass
 class KVCache:
-    k: torch.Tensor                          # (L,B,n_kv,S,hd) dtype or int8
-    v: torch.Tensor
-    k_scale: Optional[torch.Tensor]          # (L,B,n_kv,S,1) f32, int8 only
+    k: torch.Tensor                 # (L,B,n_kv,S,hd_c) dtype or int8: the
+    v: torch.Tensor                 # flat cache, or the cold tier
+    k_scale: Optional[torch.Tensor]  # (L,B,n_kv,S,1) f32: int8/int4 only
     v_scale: Optional[torch.Tensor]
-    length: torch.Tensor                     # () int32 upper-bound cursor
+    length: torch.Tensor            # () int32 upper-bound cursor
+    hot_k: Optional[torch.Tensor] = None   # (L,B,n_kv,H,hd) compute dtype
+    hot_v: Optional[torch.Tensor] = None   # ring, tiered caches only
+    hot_window: int = 0             # 0: flat (untiered)
+    cold_block: int = 0             # demotion granularity (tokens)
+    cold_dtype: str = "bfloat16"    # bfloat16 | int8 | int4
 
     @property
     def is_quantized(self) -> bool:
         return self.k_scale is not None
 
+    @property
+    def is_tiered(self) -> bool:
+        return self.hot_k is not None
+
     def layer(self, i: int):
-        """One layer's (k, v, k_scale, v_scale) views (writes land in the
-        cache)."""
-        return (self.k[i], self.v[i],
-                None if self.k_scale is None else self.k_scale[i],
-                None if self.v_scale is None else self.v_scale[i])
+        """One layer's views (writes land in the cache): (k, v, k_scale,
+        v_scale), and (hot_k, hot_v) after them for a tiered cache."""
+        out = tuple(None if a is None else a[i]
+                    for a in (self.k, self.v, self.k_scale, self.v_scale))
+        if self.is_tiered:
+            out += (self.hot_k[i], self.hot_v[i])
+        return out
+
+
+# ---------------------------------------------------------------------------
+# Tier geometry
+# ---------------------------------------------------------------------------
+
+def hot_extent(hot_window: int, cold_block: int) -> int:
+    """Hot-ring size: the live hot region [cold_boundary, cursor] spans at
+    most hot_window + cold_block - 1 positions, so a ring of hot_window +
+    cold_block slots holds each of them in its own slot."""
+    return hot_window + cold_block
+
+
+def cold_boundary(counts, hot_window: int, cold_block: int) -> torch.Tensor:
+    """First position still HOT for a row holding ``counts`` tokens:
+    floor((counts - hot_window) / cold_block) * cold_block, clamped at 0.
+    Positions below it read the cold tier. Device arithmetic on the
+    cursors' own device (no host sync)."""
+    c = torch.as_tensor(counts).to(torch.int32)
+    over = torch.clamp_min(c - hot_window, 0)
+    return torch.div(over, cold_block, rounding_mode="floor") * cold_block
+
+
+def cold_pack_dim(head_dim: int, cold_dtype: str) -> int:
+    """Stored head_dim of the cold tier (int4 packs two nibbles a byte)."""
+    if cold_dtype == "int4":
+        if head_dim % 2:
+            raise ValueError(f"int4 cold tier needs even head_dim, "
+                             f"got {head_dim}")
+        return head_dim // 2
+    return head_dim
+
+
+def quantize_cold(x: torch.Tensor, cold_dtype: str):
+    """(values, scale) at the cold dtype; a bf16 cold tier stores x."""
+    if cold_dtype == "int4":
+        return quantize_kv_int4(x)
+    if cold_dtype == "int8":
+        return quantize_kv(x)
+    return x, None
+
+
+def cold_read(k_l, v_l, k_scale_l, v_scale_l, cold_dtype: str,
+              dtype=torch.bfloat16):
+    """A cold-tier slice in the compute dtype: int4 unpacks, int8 rescales,
+    a bf16 tier casts."""
+    if k_scale_l is None:
+        return k_l.to(dtype), v_l.to(dtype)
+    if cold_dtype == "int4":
+        return (dequantize_kv_int4(k_l, k_scale_l, dtype),
+                dequantize_kv_int4(v_l, v_scale_l, dtype))
+    return (dequantize_kv(k_l, k_scale_l, dtype),
+            dequantize_kv(v_l, v_scale_l, dtype))
 
 
 def init_kv_cache(n_layers: int, batch: int, n_kv: int, max_len: int,
                   head_dim: int, dtype=torch.bfloat16, quantized: bool = False,
-                  device=None) -> KVCache:
-    shape = (n_layers, batch, n_kv, max_len, head_dim)
-    sshape = shape[:-1] + (1,)
-    store = torch.int8 if quantized else dtype
-
+                  device=None, hot_window: int = 0,
+                  cold_block: int = 0, cold_dtype: str = "bfloat16"
+                  ) -> KVCache:
+    """A zeroed cache: flat (float or int8 with scales), or tiered when
+    ``hot_window`` > 0 (cold tier at ``cold_dtype`` + a hot ring of
+    ``hot_extent(hot_window, cold_block)`` slots at ``dtype``)."""
     def mk(s, dt):
         return torch.zeros(s, dtype=dt, device=device)
 
+    length = torch.zeros((), dtype=torch.int32, device=device)
+    if hot_window:
+        if quantized:
+            raise ValueError("tiered KV (hot_window > 0) subsumes the flat "
+                             "int8 cache; use kv_cold_dtype instead of "
+                             "kv_dtype='int8'")
+        if cold_block < 1:
+            raise ValueError(f"cold_block must be >= 1, got {cold_block}")
+        if cold_dtype not in COLD_DTYPES:
+            raise ValueError(f"unknown kv_cold_dtype {cold_dtype!r}")
+        scaled = cold_dtype in ("int8", "int4")
+        cshape = (n_layers, batch, n_kv, max_len,
+                  cold_pack_dim(head_dim, cold_dtype))
+        sshape = cshape[:-1] + (1,)
+        hshape = (n_layers, batch, n_kv, hot_extent(hot_window, cold_block),
+                  head_dim)
+        store = torch.int8 if scaled else dtype
+        return KVCache(mk(cshape, store), mk(cshape, store),
+                       mk(sshape, torch.float32) if scaled else None,
+                       mk(sshape, torch.float32) if scaled else None,
+                       length, hot_k=mk(hshape, dtype),
+                       hot_v=mk(hshape, dtype), hot_window=hot_window,
+                       cold_block=cold_block, cold_dtype=cold_dtype)
+    shape = (n_layers, batch, n_kv, max_len, head_dim)
+    sshape = shape[:-1] + (1,)
+    store = torch.int8 if quantized else dtype
     return KVCache(mk(shape, store), mk(shape, store),
                    mk(sshape, torch.float32) if quantized else None,
                    mk(sshape, torch.float32) if quantized else None,
-                   torch.zeros((), dtype=torch.int32, device=device))
+                   length)
 
 
 # ---------------------------------------------------------------------------
@@ -152,6 +254,23 @@ def layer_read_slot(k_l, v_l, k_scale_l, v_scale_l, slot: int,
 # Per-layer writes (in place)
 # ---------------------------------------------------------------------------
 
+def _put_rows(dst, new, rows, slots, act):
+    """Row b of ``dst`` (B,n_kv,S,x) takes ``new[b]`` (n_kv,x) at position
+    ``slots[b]`` where ``act[b]``; other rows write back their own bytes.
+    ``rows``: arange(B) on the cursors' device."""
+    cur = dst[rows, :, slots]                            # (B,n_kv,x)
+    dst[rows, :, slots] = torch.where(act[:, None, None], new.to(dst.dtype),
+                                      cur)
+
+
+def _row_operands(positions: torch.Tensor, active):
+    """(rows, active) for ``_put_rows``: every row active by default."""
+    if active is None:
+        active = torch.ones(positions.shape, dtype=torch.bool,
+                            device=positions.device)
+    return torch.arange(positions.shape[0], device=positions.device), active
+
+
 def layer_append_slotted(k_l, v_l, k_scale_l, v_scale_l, k_new, v_new,
                          positions: torch.Tensor,
                          active: Optional[torch.Tensor] = None):
@@ -159,25 +278,33 @@ def layer_append_slotted(k_l, v_l, k_scale_l, v_scale_l, k_new, v_new,
     ``positions[b]``; inactive rows write back the bytes already there, so
     their slice stays byte-identical. Cursors are clamped into the cache as
     the reference's dynamic_update_slice clamps them. No host sync."""
-    B, _, S, _ = k_l.shape
-    if active is None:
-        active = torch.ones(positions.shape, dtype=torch.bool,
-                            device=positions.device)
-    rows = torch.arange(B, device=positions.device)
-    slots = positions.to(torch.long).clamp(0, S - 1)
-    act = active[:, None, None]
-
-    def put(dst, new):
-        cur = dst[rows, :, slots]                        # (B,n_kv,x)
-        dst[rows, :, slots] = torch.where(act, new.to(dst.dtype), cur)
-
+    rows, active = _row_operands(positions, active)
+    slots = positions.to(torch.long).clamp(0, k_l.shape[2] - 1)
     if k_scale_l is not None:
         kq, ks = quantize_kv(k_new)
         vq, vs = quantize_kv(v_new)
-        put(k_l, kq), put(v_l, vq), put(k_scale_l, ks), put(v_scale_l, vs)
+        for dst, new in ((k_l, kq), (v_l, vq), (k_scale_l, ks),
+                         (v_scale_l, vs)):
+            _put_rows(dst, new, rows, slots, active)
     else:
-        put(k_l, k_new), put(v_l, v_new)
+        _put_rows(k_l, k_new, rows, slots, active)
+        _put_rows(v_l, v_new, rows, slots, active)
     return k_l, v_l, k_scale_l, v_scale_l
+
+
+def _check_window(start: int, C: int, S: int):
+    if start < 0 or start + C > S:
+        raise ValueError(f"chunk window [{start}, {start + C}) does not fit "
+                         f"the KV extent {S}")
+
+
+def _put_window(dst, new, slot: int, start: int, keep):
+    """Slot ``slot`` of ``dst`` takes the chunk ``new`` (n_kv,C,x) at
+    positions [start, start+C) where ``keep`` (1,C,1); elsewhere in the
+    window it keeps its bytes."""
+    C = new.shape[1]
+    cur = dst[slot, :, start:start + C]
+    cur.copy_(torch.where(keep, new.to(dst.dtype), cur))
 
 
 def layer_write_chunk(k_l, v_l, k_scale_l, v_scale_l, k_new, v_new,
@@ -188,45 +315,191 @@ def layer_write_chunk(k_l, v_l, k_scale_l, v_scale_l, k_new, v_new,
     (the scheduler shifts the final window left; nothing clamps
     silently). Quantizes per position for int8 caches."""
     C = k_new.shape[1]
-    S = k_l.shape[2]
-    if start < 0 or start + C > S:
-        raise ValueError(f"chunk window [{start}, {start + C}) does not fit "
-                         f"the KV extent {S}")
+    _check_window(start, C, k_l.shape[2])
     keep = (torch.arange(C, device=k_new.device) < valid_len)[None, :, None]
-
-    def put(dst, new):
-        cur = dst[slot, :, start:start + C]
-        cur.copy_(torch.where(keep, new.to(dst.dtype), cur))
-
     if k_scale_l is not None:
         kq, ks = quantize_kv(k_new)
         vq, vs = quantize_kv(v_new)
-        put(k_l, kq), put(v_l, vq), put(k_scale_l, ks), put(v_scale_l, vs)
+        for dst, new in ((k_l, kq), (v_l, vq), (k_scale_l, ks),
+                         (v_scale_l, vs)):
+            _put_window(dst, new, slot, start, keep)
     else:
-        put(k_l, k_new), put(v_l, v_new)
+        _put_window(k_l, k_new, slot, start, keep)
+        _put_window(v_l, v_new, slot, start, keep)
     return k_l, v_l, k_scale_l, v_scale_l
+
+
+# ---------------------------------------------------------------------------
+# Tiered per-layer reads and writes (hot ring + cold tier, in place)
+#
+# Every position is staged into the cold tier when it is written (quantizing
+# a given vector is deterministic, so staging at write time equals
+# re-quantizing at the demotion boundary) and written exactly into the hot
+# ring at slot position % H. Demotion is the read-side boundary
+# ``cold_boundary(count)`` advancing by cold_block.
+# ---------------------------------------------------------------------------
+
+def layer_append_tiered(k_l, v_l, k_scale_l, v_scale_l, hot_k_l, hot_v_l,
+                        k_new, v_new, positions: torch.Tensor,
+                        cold_dtype: str,
+                        active: Optional[torch.Tensor] = None):
+    """Decode append for a tiered layer: row b stages ``k_new[b]`` into
+    the cold tier at ``positions[b]`` (quantized at ``cold_dtype``) and
+    writes it exactly into the hot ring at ``positions[b] % H``; inactive
+    rows keep every byte. k_l/v_l: (B,n_kv,S,hd_c); rings (B,n_kv,H,hd);
+    k_new/v_new: (B,n_kv,hd). No host sync."""
+    rows, active = _row_operands(positions, active)
+    pos = positions.to(torch.long)
+    slots = pos.clamp(0, k_l.shape[2] - 1)
+    ring = torch.remainder(pos, hot_k_l.shape[2])
+    kq, ks = quantize_cold(k_new, cold_dtype)
+    vq, vs = quantize_cold(v_new, cold_dtype)
+    _put_rows(k_l, kq, rows, slots, active)
+    _put_rows(v_l, vq, rows, slots, active)
+    if k_scale_l is not None:
+        _put_rows(k_scale_l, ks, rows, slots, active)
+        _put_rows(v_scale_l, vs, rows, slots, active)
+    _put_rows(hot_k_l, k_new, rows, ring, active)
+    _put_rows(hot_v_l, v_new, rows, ring, active)
+    return k_l, v_l, k_scale_l, v_scale_l, hot_k_l, hot_v_l
+
+
+def _ring_tile(h: torch.Tensor, extent: int) -> torch.Tensor:
+    """The ring (...,n_kv,H,hd) tiled over ``extent`` positions: position
+    j reads ring slot j % H (a copy)."""
+    idx = torch.arange(extent, device=h.device)
+    return h.index_select(-2, torch.remainder(idx, h.shape[-2]))
+
+
+def layer_read_tiered(k_l, v_l, k_scale_l, v_scale_l, hot_k_l, hot_v_l,
+                      counts: torch.Tensor, bucket: int, hot_window: int,
+                      cold_block: int, cold_dtype: str,
+                      dtype=torch.bfloat16):
+    """The resolved (B,n_kv,Se,hd) image of the first ``bucket`` positions
+    (0 or >= S: all) in the compute dtype: position j of row b is the hot
+    ring's exact value when j >= cold_boundary(counts[b]) and the
+    dequantized cold bytes below it. ``counts``: (B,) tokens stored per
+    row (cursors + 1, after the append). Only the bucket prefix of the
+    cold tier is dequantized."""
+    S = k_l.shape[2]
+    Se = bucket if (bucket and bucket < S) else S
+
+    def cut(a):
+        return None if a is None else a[:, :, :Se]
+
+    kc, vc = cold_read(cut(k_l), cut(v_l), cut(k_scale_l), cut(v_scale_l),
+                       cold_dtype, dtype)
+    cb = cold_boundary(counts, hot_window, cold_block)            # (B,)
+    hot = (torch.arange(Se, device=cb.device)[None, :]
+           >= cb[:, None])[:, None, :, None]                      # (B,1,Se,1)
+    return (torch.where(hot, _ring_tile(hot_k_l, Se).to(dtype), kc),
+            torch.where(hot, _ring_tile(hot_v_l, Se).to(dtype), vc))
+
+
+def layer_read_tiered_shards(k_l, v_l, k_scale_l, v_scale_l, hot_k_l,
+                             hot_v_l, counts, bucket: int, n_shards: int,
+                             hot_window: int, cold_block: int,
+                             cold_dtype: str, dtype=torch.bfloat16):
+    """``layer_read_tiered``'s image cut into shard-major views
+    (B,n_kv,n_shards,Sb,hd): the select is positionwise, so shard s is
+    absolute positions [s*Sb, (s+1)*Sb) of the resolved image."""
+    k, v = layer_read_tiered(k_l, v_l, k_scale_l, v_scale_l, hot_k_l,
+                             hot_v_l, counts, bucket, hot_window, cold_block,
+                             cold_dtype, dtype)
+    B, n_kv, Se, hd = k.shape
+    Sb = shard_extent(Se, n_shards)
+    return (k.view(B, n_kv, n_shards, Sb, hd),
+            v.view(B, n_kv, n_shards, Sb, hd))
+
+
+def layer_write_chunk_tiered(k_l, v_l, k_scale_l, v_scale_l, hot_k_l,
+                             hot_v_l, k_new, v_new, slot: int, start: int,
+                             valid_len: int, cold_dtype: str):
+    """Chunked-prefill write into both tiers. The chunk (n_kv,C,hd) is
+    staged into the cold tier at [start, start+C) (quantized, positions
+    >= ``valid_len`` keep their bytes; a window that does not fit raises)
+    and ring slot s takes the LAST valid chunk position congruent to s
+    (mod H): chunk index r + H*floor((valid-1-r)/H) with r = (s - start)
+    mod H. Ring slots the chunk does not reach (r >= valid_len) keep
+    their bytes: they hold hot positions of earlier chunks."""
+    C = k_new.shape[1]
+    _check_window(start, C, k_l.shape[2])
+    dev = k_new.device
+    keep = (torch.arange(C, device=dev) < valid_len)[None, :, None]
+    kq, ks = quantize_cold(k_new, cold_dtype)
+    vq, vs = quantize_cold(v_new, cold_dtype)
+    _put_window(k_l, kq, slot, start, keep)
+    _put_window(v_l, vq, slot, start, keep)
+    if k_scale_l is not None:
+        _put_window(k_scale_l, ks, slot, start, keep)
+        _put_window(v_scale_l, vs, slot, start, keep)
+    H = hot_k_l.shape[2]
+    r = torch.remainder(torch.arange(H, device=dev) - start, H)
+    i_star = torch.clamp(
+        r + H * torch.div(valid_len - 1 - r, H, rounding_mode="floor"),
+        0, C - 1)
+    keep_h = (r < valid_len)[None, :, None]
+    for dst, new in ((hot_k_l, k_new), (hot_v_l, v_new)):
+        cur = dst[slot]
+        cur.copy_(torch.where(keep_h, new.index_select(1, i_star)
+                              .to(dst.dtype), cur))
+    return k_l, v_l, k_scale_l, v_scale_l, hot_k_l, hot_v_l
+
+
+def layer_read_slot_cold(k_l, v_l, k_scale_l, v_scale_l, slot: int,
+                         cold_dtype: str, dtype=torch.bfloat16):
+    """One slot's (1,n_kv,S,hd) cold image in the compute dtype."""
+    def take(a):
+        return None if a is None else a[slot:slot + 1]
+
+    return cold_read(take(k_l), take(v_l), take(k_scale_l),
+                     take(v_scale_l), cold_dtype, dtype)
+
+
+def chunk_hot_image(hot_k_l, hot_v_l, k_new, v_new, slot: int, start: int,
+                    valid_len: int, extent: int, dtype=torch.bfloat16):
+    """(1,n_kv,extent,hd) exact-value image for the chunk program's hot
+    reads, built from the PRE-write ring: every position tiles from the
+    ring except [start, start+valid_len), which comes from the incoming
+    chunk. The pre-write ring holds every position >= cold_boundary(start),
+    a superset of each query's hot tail. A chunk window that does not fit
+    the extent raises (the reference clamps it)."""
+    _check_window(start, k_new.shape[1], extent)
+
+    def one(h_l, new):
+        img = _ring_tile(h_l[slot:slot + 1], extent).to(dtype)
+        img[0, :, start:start + valid_len] = new[:, :valid_len].to(dtype)
+        return img
+
+    return one(hot_k_l, k_new), one(hot_v_l, v_new)
 
 
 # ---------------------------------------------------------------------------
 # Whole-cache slot operations (in place)
 # ---------------------------------------------------------------------------
 
+def _slot_buffers(cache: KVCache):
+    return (cache.k, cache.v, cache.k_scale, cache.v_scale, cache.hot_k,
+            cache.hot_v)
+
+
 def write_slot_kv(dst: KVCache, src: KVCache, slot: int) -> KVCache:
     """Admission: copy the batch-1 cache ``src`` (a fresh prefill) into
     batch slot ``slot`` of ``dst`` — the first min(S_src, S_dst)
-    positions. ``length`` stays an upper bound (max)."""
-    n = min(src.k.shape[3], dst.k.shape[3])
-    for d, s in ((dst.k, src.k), (dst.v, src.v),
-                 (dst.k_scale, src.k_scale), (dst.v_scale, src.v_scale)):
+    positions, and the first min(H_src, H_dst) ring slots of a tiered
+    cache. ``length`` stays an upper bound (max)."""
+    for d, s in zip(_slot_buffers(dst), _slot_buffers(src)):
         if d is not None:
+            n = min(s.shape[3], d.shape[3])
             d[:, slot, :, :n].copy_(s[:, 0, :, :n])
     dst.length = torch.maximum(dst.length, src.length)
     return dst
 
 
 def reset_slot(cache: KVCache, slot: int) -> KVCache:
-    """Zero one batch slot's K/V (retire); not needed for correctness."""
-    for d in (cache.k, cache.v, cache.k_scale, cache.v_scale):
+    """Zero one batch slot's K/V, both tiers of a tiered cache (retire);
+    not needed for correctness."""
+    for d in _slot_buffers(cache):
         if d is not None:
             d[:, slot].zero_()
     return cache
@@ -235,16 +508,13 @@ def reset_slot(cache: KVCache, slot: int) -> KVCache:
 def export_slot_kv(cache: KVCache, slot: int):
     """Preemption swap-out: one batch slot's full-extent STORED K/V as the
     reference's ``(k, v, k_scale, v_scale, hot_k, hot_v)`` tuple of
-    (L,1,n_kv,S,hd) tensors (scales (L,1,n_kv,S,1)); ``None`` for what the
-    cache lacks (scales of a float cache; the hot ring of the tiered
-    cache, not ported yet). int8 caches export the quantized values and
-    their scales verbatim, never a dequantized image. Read-only, and the
-    tensors are COPIES: the slot is reused while the image is held."""
-    def take(a):
-        return None if a is None else a[:, slot:slot + 1].clone()
-
-    return (take(cache.k), take(cache.v), take(cache.k_scale),
-            take(cache.v_scale), None, None)
+    (L,1,n_kv,S,hd_c) tensors (scales (L,1,n_kv,S,1), hot rings
+    (L,1,n_kv,H,hd)); ``None`` for what the cache lacks. Quantized tiers
+    export their values and scales verbatim (packed int4 nibbles
+    included), never a dequantized image. Read-only, and the tensors are
+    COPIES: the slot is reused while the image is held."""
+    return tuple(None if a is None else a[:, slot:slot + 1].clone()
+                 for a in _slot_buffers(cache))
 
 
 def import_slot_kv(cache: KVCache, saved, slot: int,
@@ -252,18 +522,24 @@ def import_slot_kv(cache: KVCache, saved, slot: int,
     """Preemption restore, in place: write an ``export_slot_kv`` tuple back
     into ``slot`` at positions < ``valid_len`` (the sequence's TRUE length);
     positions at or past it keep the bytes already in the cache, as
-    ``layer_write_chunk`` keeps them past its valid length. The image may
-    lie on another device (the engine hosts it); the stored bytes land
-    verbatim. ``length`` rises to max(length, valid_len)."""
-    k_s, v_s, ks_s, vs_s, hk_s, hv_s = saved
-    if hk_s is not None or hv_s is not None:
-        raise ValueError("a swap image with a hot ring needs the tiered "
-                         "cache, which is not ported yet")
+    ``layer_write_chunk`` keeps them past its valid length. A hot ring
+    restores verbatim at full ring width: ring slots are read only for
+    positions of the restored row's hot region, and the export holds the
+    victim's ring as it was. The image may lie on another device (the
+    engine hosts it); the stored bytes land verbatim. ``length`` rises to
+    max(length, valid_len)."""
+    hk_s, hv_s = saved[4:]
+    if (hk_s is not None or hv_s is not None) and not cache.is_tiered:
+        raise ValueError("a swap image with a hot ring needs a tiered "
+                         "cache")
     n = max(0, min(int(valid_len), cache.k.shape[3]))
-    for dst, src in ((cache.k, k_s), (cache.v, v_s),
-                     (cache.k_scale, ks_s), (cache.v_scale, vs_s)):
-        if dst is not None:
+    for i, (dst, src) in enumerate(zip(_slot_buffers(cache), saved)):
+        if dst is None or src is None:
+            continue
+        if i < 4:
             dst[:, slot:slot + 1, :, :n].copy_(src[:, :, :, :n])
+        else:
+            dst[:, slot:slot + 1].copy_(src)
     cache.length = torch.clamp(cache.length, min=int(valid_len))
     return cache
 

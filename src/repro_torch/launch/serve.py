@@ -4,14 +4,18 @@ one device.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
         --full-width --requests 12 --batch 8 --prompt-len 128 --max-new 32 \
         --arrival-every 4 --block-size 8 --kv-bucket-chunk 64 \
-        --prefill-chunk 32 [--a-shards 4] [--preemptible] [--max-queue 6]
+        --prefill-chunk 32 [--a-shards 4] [--preemptible] [--max-queue 6] \
+        [--hot-window 64 --kv-cold-dtype int4 --kv-cold-block 16 \
+         --kv-budget-bytes 7372800]
 
 ``--mode drain`` serves the drain-then-refill baseline instead (no chunk
 lane: ``--prefill-chunk`` is then ignored, as in the reference CLI).
 Runs on ``--device cuda`` by default (raises without a GPU); pass
 ``--device cpu`` for the plain PyTorch versions on the CPU. The config is
 reduced unless ``--full-width`` is given, as in the reference CLI. Weights
-are random, made from a fixed seed. Prints the engine's stats, a
+are random, made from a fixed seed. ``--hot-window`` > 0 serves a tiered KV
+cache (hot ring + cold tier at ``--kv-cold-dtype``). Prints the engine's
+stats, the tiered cache's ``tiered kv:`` and ``arbiter:`` lines, a
 per-request table and the per-program call counts.
 """
 from __future__ import annotations
@@ -42,10 +46,17 @@ def serve(arch: str, n_requests: int, batch_slots: int, prompt_len: int,
           mode: str = "continuous", arrival_every: int = 0,
           block_size: int = 1, kv_bucket_chunk: int = 0,
           prefill_chunk: int = 0, a_shards: int = 1,
-          preemptible: bool = False, max_queue: int = 0, device=None):
+          preemptible: bool = False, max_queue: int = 0,
+          hot_window: int = 0, kv_cold_dtype: str = "int8",
+          kv_cold_block: int = 16, kv_budget_bytes: int = 0, device=None):
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
+    if hot_window:
+        # tiered KV cache: hot ring at the compute dtype, cold prefix
+        # quantized, demoted in fixed blocks
+        cfg = cfg.replace(hot_window=hot_window, kv_cold_dtype=kv_cold_dtype,
+                          kv_cold_block=kv_cold_block)
     if mode == "drain" and prefill_chunk:
         print("note: --prefill-chunk ignored (drain mode has no chunk lane)")
         prefill_chunk = 0
@@ -58,7 +69,7 @@ def serve(arch: str, n_requests: int, batch_slots: int, prompt_len: int,
                         kv_bucket_chunk=kv_bucket_chunk,
                         prefill_chunk=prefill_chunk, a_shards=a_shards,
                         preemptible=preemptible, max_queue=max_queue,
-                        device=api.device)
+                        kv_budget_bytes=kv_budget_bytes, device=api.device)
     return eng.run(params, reqs)
 
 
@@ -92,6 +103,23 @@ def main(argv=None):
                     help="bounded queue: shed the lowest-priority queued "
                          "work beyond N as structured rejections "
                          "(0 = unbounded)")
+    ap.add_argument("--hot-window", type=int, default=0,
+                    help="tiered KV cache: keep the most recent N tokens "
+                         "per slot exact in a hot ring and demote older "
+                         "ones to the quantized cold tier in fixed blocks, "
+                         "inside the step programs (0 = flat cache)")
+    ap.add_argument("--kv-cold-dtype", default="int8",
+                    choices=("bfloat16", "int8", "int4"),
+                    help="cold-tier storage dtype (int4 packs two values "
+                         "a byte, one f32 scale a row)")
+    ap.add_argument("--kv-cold-block", type=int, default=16,
+                    help="demotion granularity: the cold boundary advances "
+                         "in blocks of N tokens")
+    ap.add_argument("--kv-budget-bytes", type=int, default=0,
+                    help="tiered-KV arbiter byte budget: preempt victims "
+                         "(with --preemptible) or hold admissions while the "
+                         "occupancy-priced live KV bytes exceed N "
+                         "(0 = unbounded)")
     args = ap.parse_args(argv)
     stats = serve(args.arch, args.requests, args.batch, args.prompt_len,
                   args.max_new, reduced=not args.full_width, mode=args.mode,
@@ -100,11 +128,29 @@ def main(argv=None):
                   kv_bucket_chunk=args.kv_bucket_chunk,
                   prefill_chunk=args.prefill_chunk, a_shards=args.a_shards,
                   preemptible=args.preemptible, max_queue=args.max_queue,
-                  device=args.device)
+                  hot_window=args.hot_window,
+                  kv_cold_dtype=args.kv_cold_dtype,
+                  kv_cold_block=args.kv_cold_block,
+                  kv_budget_bytes=args.kv_budget_bytes, device=args.device)
     per_req = stats.pop("per_request")
     rt = stats.pop("runtime")
     rejected = stats.pop("rejected")
+    tiered = stats.pop("tiered", None)
     print("serve stats:", stats)
+    if tiered:
+        # the KVArbiter's view: tier occupancy, in-program demotions
+        # counted off cursor watermarks, bytes
+        print(f"tiered kv:  hot_window={tiered['hot_window']} "
+              f"cold={tiered['cold_dtype']}/block{tiered['cold_block']} "
+              f"demotions={tiered['demotions']} "
+              f"kv_bytes_per_slot={tiered['kv_bytes_per_slot']} "
+              f"peak_kv_bytes={tiered['peak_kv_bytes']} "
+              f"cold_bytes_saved={tiered['cold_bytes_saved']}")
+        for sl in tiered["per_slot"]:
+            print(f"  slot {sl['slot']}: {sl['tokens']} tokens "
+                  f"({sl['hot_tokens']} hot / {sl['cold_tokens']} cold, "
+                  f"{sl['kv_bytes']} B)")
+        print(f"  arbiter: {tiered['recommendation']}")
     # every submitted request ends completed, rejected or deadline-missed
     print(f"pressure: preemptions={stats['preemptions']} "
           f"restores={stats['restores']} rejections={stats['rejections']} "

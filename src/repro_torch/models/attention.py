@@ -6,9 +6,11 @@ flash-decode wrapper: the hand-written kernel on CUDA, its plain version on
 the CPU, both in f32 (the reference rounds the softmax weights to the value
 dtype before the PV product; the kernel keeps them in f32). Split-KV decode
 (``decode_attention_split``) makes one such call per shard in the kernel's
-partial-statistics mode and merges the shards with the LSE combine. The prefill
-forms are plain PyTorch, as the reference's are jnp: bf16 operands enter
-the products exactly (upcast to f32) with f32 accumulation.
+partial-statistics mode and merges the shards with the LSE combine. A tiered
+cache reaches both through the image ``kv/cache.py::layer_read_tiered``
+resolves in the compute dtype. The prefill forms, ``chunk_attention_tiered``
+included, are plain PyTorch, as the reference's are jnp: bf16 operands
+enter the products exactly (upcast to f32) with f32 accumulation.
 """
 from __future__ import annotations
 
@@ -147,6 +149,36 @@ def chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if mask.ndim == 2:
         mask = mask[None]
     o = _masked_softmax_pv(s, mask[:, None, None], v, "bkgqs,bksh->bqkgh")
+    return o.reshape(B, C, Hq, hd).to(q.dtype)
+
+
+def chunk_attention_tiered(q: torch.Tensor, k_hot: torch.Tensor,
+                           v_hot: torch.Tensor, k_cold: torch.Tensor,
+                           v_cold: torch.Tensor, hot_mask: torch.Tensor,
+                           mask: torch.Tensor) -> torch.Tensor:
+    """``chunk_attention`` over a tiered image: key j of query i is the
+    exact hot value where ``hot_mask[b, i, j]`` and the dequantized cold
+    value elsewhere. The boundary is per QUERY, so both tiers are scored
+    and the select happens on the score and weight planes; each softmax
+    entry sees exactly one tier. q: (B,C,Hq,hd); tiers (B,n_kv,S,hd) in
+    the compute dtype; hot_mask (B,C,S) bool; mask (C,S) or (B,C,S)."""
+    B, C, Hq, hd = q.shape
+    n_kv = k_hot.shape[1]
+    qg = q.reshape(B, C, n_kv, Hq // n_kv, hd)
+    eq = "bqkgh,bksh->bkgqs"
+    hm = hot_mask[:, None, None]                          # (B,1,1,C,S)
+    s = torch.where(hm, _f32_einsum(eq, qg, k_hot),
+                    _f32_einsum(eq, qg, k_cold)) / math.sqrt(hd)
+    if mask.ndim == 2:
+        mask = mask[None]
+    s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    w = p / torch.clamp_min(p.sum(-1, keepdim=True), 1e-30)
+    zero = torch.zeros((), dtype=w.dtype, device=w.device)
+    pv = "bkgqs,bksh->bqkgh"
+    o = _f32_einsum(pv, torch.where(hm, w, zero).to(v_hot.dtype), v_hot) \
+        + _f32_einsum(pv, torch.where(hm, zero, w).to(v_cold.dtype), v_cold)
     return o.reshape(B, C, Hq, hd).to(q.dtype)
 
 

@@ -29,11 +29,14 @@ class ModelAPI(NamedTuple):
     # decode(params, caches, tokens) -> (caches, logits (B,1,V)): one
     #   shared-cursor step at caches.length (drain serving), in place
     decode: Callable
-    # init_caches(batch, max_len) -> caches on ``device``
+    # init_caches(batch, max_len, device=None) -> caches on ``device`` (the
+    #   API's by default; "meta" gives their shapes without memory): flat,
+    #   or tiered when the config's hot_window > 0
     init_caches: Callable
     # decode_slotted(params, caches, tokens, positions, active, kv_bucket=0,
     #                kv_shards=1) -> (caches, logits (B,1,V)); per-row
-    #   cursors, caches in place; kv_shards > 1 is split-KV decode
+    #   cursors, caches in place; kv_shards > 1 is split-KV decode; each
+    #   layer's slices are the cache's own (six for a tiered cache)
     decode_slotted: Callable
     # write_slot(caches, single, slot) -> caches: admit a batch-1 prefill
     write_slot: Callable
@@ -98,7 +101,7 @@ def _build_transformer(cfg: ModelConfig, device: torch.device) -> ModelAPI:
     def decode(params, caches, tokens):
         return T.decode_step(params, caches, tokens, cfg)
 
-    def init_caches(batch, max_len):
+    def init_caches(batch, max_len, device=device):
         return T.make_cache(cfg, batch, max_len, device)
 
     def decode_slotted(params, caches, tokens, positions, active,

@@ -6,7 +6,8 @@ reference's layer ``lax.scan`` over stacked parameters becomes a Python
 loop over the per-layer parameter dicts of ``params["blocks"]``; caches are
 updated in place (see ``repro_torch.kv.cache``). On CUDA the decode path
 launches K1 (attention over the stored bucket view, int8 dequantized inside
-the kernel), K3 (the gated FFN with float weights) and K4 (every linear
+the kernel; over a tiered cache, over the hot/cold image resolved in the
+compute dtype), K3 (the gated FFN with float weights) and K4 (every linear
 with int8 weights).
 """
 from __future__ import annotations
@@ -18,11 +19,16 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.fused_ffn.ops import fused_ffn
 from repro_torch.kv.cache import (KVCache, batch_valid_mask, bucket_view,
+                                  chunk_hot_image, cold_boundary,
                                   init_kv_cache, layer_append_slotted,
-                                  layer_read_slot, layer_write_chunk,
-                                  shard_view)
+                                  layer_append_tiered, layer_read_slot,
+                                  layer_read_slot_cold, layer_read_tiered,
+                                  layer_read_tiered_shards, layer_write_chunk,
+                                  layer_write_chunk_tiered, shard_view)
 from repro_torch.models import common
-from repro_torch.models.attention import (chunk_attention, decode_attention,
+from repro_torch.models.attention import (chunk_attention,
+                                          chunk_attention_tiered,
+                                          decode_attention,
                                           decode_attention_split,
                                           flash_attention, make_attn_params,
                                           qkv_project)
@@ -42,9 +48,6 @@ def check_supported(cfg: ModelConfig) -> None:
                          f"(gated: {sorted(_FUSED_ACTS)})")
     if cfg.pos != "rope" or cfg.norm != "rmsnorm":
         raise ValueError("only rope + rmsnorm dense models are ported yet")
-    if cfg.hot_window:
-        raise ValueError("tiered KV (hot_window > 0) waits for the "
-                         "tiered-KV slice of the port")
     if cfg.kv_dtype not in ("bfloat16", "float32", "int8"):
         raise ValueError(f"kv_dtype {cfg.kv_dtype!r} unsupported")
 
@@ -123,20 +126,39 @@ def block_decode_slotted(p: dict, x: torch.Tensor, cfg: ModelConfig,
     (device int32) lets the kernel skip tiles past every live cursor.
     ``kv_shards`` > 1: split-KV decode, the bucket prefix read as that many
     equal shards (``decode_attention_split``); the caller guarantees the
-    bucket divides."""
+    bucket divides.
+
+    Six slices are a tiered layer: the append stages both tiers, then the
+    bucket's hot/cold image is resolved per row from ``positions + 1``
+    tokens (on the device) in the compute dtype, and K1 attends that image
+    in float mode (one partial launch per shard when split)."""
     B = x.shape[0]
     h = common.apply_norm(p["ln1"], x, cfg.norm_eps)
     q, k, v = qkv_project(p["attn"], h, cfg, positions[:, None])
-    k_l, v_l, ks_l, vs_l = layer_append_slotted(*kv_slices, k[:, 0], v[:, 0],
-                                                positions, active)
+    if len(kv_slices) == 6:
+        slices = layer_append_tiered(*kv_slices, k[:, 0], v[:, 0], positions,
+                                     cfg.kv_cold_dtype, active)
+        tiers = (positions + 1, kv_bucket)
+        geom = (cfg.hot_window, cfg.kv_cold_block, cfg.kv_cold_dtype)
+        if kv_shards > 1:
+            kc, vc = layer_read_tiered_shards(*slices, *tiers, kv_shards,
+                                              *geom, dtype=x.dtype)
+        else:
+            kc, vc = layer_read_tiered(*slices, *tiers, *geom, dtype=x.dtype)
+        ksc = vsc = None
+    else:
+        k_l, v_l, ks_l, vs_l = layer_append_slotted(
+            *kv_slices, k[:, 0], v[:, 0], positions, active)
+        if kv_shards > 1:
+            kc, vc, ksc, vsc = shard_view(k_l, v_l, ks_l, vs_l, kv_bucket,
+                                          kv_shards)
+        else:
+            kc, vc, ksc, vsc = bucket_view(k_l, v_l, ks_l, vs_l, kv_bucket)
     if kv_shards > 1:
-        kc, vc, ksc, vsc = shard_view(k_l, v_l, ks_l, vs_l, kv_bucket,
-                                      kv_shards)
         mask = batch_valid_mask(kc.shape[2] * kc.shape[3], positions)
         o = decode_attention_split(q[:, 0], kc, vc, mask, ksc, vsc,
                                    kv_limit=kv_limit)
     else:
-        kc, vc, ksc, vsc = bucket_view(k_l, v_l, ks_l, vs_l, kv_bucket)
         mask = batch_valid_mask(kc.shape[2], positions)
         o = decode_attention(q[:, 0], kc, vc, mask, ksc, vsc,
                              kv_limit=kv_limit)
@@ -150,20 +172,38 @@ def block_prefill_chunk(p: dict, x: torch.Tensor, cfg: ModelConfig,
     """Chunk-prefill layer: x (1,C,D) is slot ``slot``'s prompt chunk at
     absolute positions [start, start+C). Writes the chunk's K/V (positions
     >= valid_len keep their bytes), reads the slot's prefix back from the
-    STORED cache and runs causal chunk attention against it."""
+    STORED cache and runs causal chunk attention against it.
+
+    A tiered layer (six slices) first builds the exact hot image from the
+    PRE-write ring and the chunk (the write may overwrite ring slots early
+    queries' hot tails live in), stages the chunk into both tiers, reads
+    the slot's cold image and attends both under each query's own boundary
+    ``cold_boundary(start + i + 1)``."""
     _, C, _ = x.shape
     positions = start + torch.arange(C, dtype=torch.int32,
                                      device=x.device)[None]
     h = common.apply_norm(p["ln1"], x, cfg.norm_eps)
     q, k, v = qkv_project(p["attn"], h, cfg, positions)
-    k_l = kv_slices[0]
-    S = k_l.shape[2]
-    mask = torch.arange(S, device=x.device)[None, :] \
-        <= positions[0][:, None]                                   # (C,S)
-    slices = layer_write_chunk(*kv_slices, k[0].transpose(0, 1),
-                               v[0].transpose(0, 1), slot, start, valid_len)
-    kc, vc = layer_read_slot(*slices, slot, dtype=x.dtype)
-    o = chunk_attention(q, kc, vc, mask)
+    S = kv_slices[0].shape[2]
+    idx = torch.arange(S, device=x.device)
+    mask = idx[None, :] <= positions[0][:, None]                  # (C,S)
+    k_ch, v_ch = k[0].transpose(0, 1), v[0].transpose(0, 1)
+    if len(kv_slices) == 6:
+        kh, vh = chunk_hot_image(*kv_slices[4:], k_ch, v_ch, slot, start,
+                                 valid_len, S, dtype=x.dtype)
+        slices = layer_write_chunk_tiered(*kv_slices, k_ch, v_ch, slot,
+                                          start, valid_len, cfg.kv_cold_dtype)
+        kc, vc = layer_read_slot_cold(*slices[:4], slot, cfg.kv_cold_dtype,
+                                      dtype=x.dtype)
+        hot_mask = (idx[None, :] >= cold_boundary(
+            positions[0] + 1, cfg.hot_window, cfg.kv_cold_block)[:, None]
+        )[None]                                                   # (1,C,S)
+        o = chunk_attention_tiered(q, kh, vh, kc, vc, hot_mask, mask)
+    else:
+        slices = layer_write_chunk(*kv_slices, k_ch, v_ch, slot, start,
+                                   valid_len)
+        kc, vc = layer_read_slot(*slices, slot, dtype=x.dtype)
+        o = chunk_attention(q, kc, vc, mask)
     o = common.linear(p["attn"]["wo"], o.reshape(1, C, -1))
     return _ffn_half(p, x + o, cfg)
 
@@ -233,7 +273,14 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, cache: KVCache
 
 
 def write_prefill(cache: KVCache, k_all, v_all, S: int) -> KVCache:
-    """Bulk-write a prefilled context (positions [0, S)) into the cache."""
+    """Bulk-write a prefilled context (positions [0, S)) into the cache.
+    A tiered cache raises: its admissions run the chunk program, which
+    stages both tiers."""
+    if cache.is_tiered:
+        raise ValueError(
+            "monolithic write_prefill does not support tiered caches — the "
+            "serving engine routes tiered admissions through the chunk "
+            "program (full-width), which stages both tiers")
     if cache.is_quantized:
         kq, ks = quantize_kv(k_all)
         vq, vs = quantize_kv(v_all)
@@ -306,7 +353,13 @@ def prefill_chunk(params, cache: KVCache, tokens: torch.Tensor, slot: int,
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, device
                ) -> KVCache:
+    """The config's slot cache: flat, or tiered when ``hot_window`` > 0."""
     check_supported(cfg)
+    tiered = cfg.hot_window > 0
     return init_kv_cache(cfg.n_layers, batch, cfg.n_kv_heads, max_len,
                          cfg.head_dim, dtype=common.dtype_of(cfg),
-                         quantized=(cfg.kv_dtype == "int8"), device=device)
+                         quantized=(cfg.kv_dtype == "int8"), device=device,
+                         hot_window=cfg.hot_window if tiered else 0,
+                         cold_block=cfg.kv_cold_block if tiered else 0,
+                         cold_dtype=cfg.kv_cold_dtype if tiered
+                         else "bfloat16")

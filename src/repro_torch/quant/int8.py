@@ -1,9 +1,12 @@
 """INT8 quantization, bit-exact with ``repro.quant.int8``.
 
 Symmetric per-channel scales. Bit-exactness rests on three choices kept
-from the reference: the division ``x / scale`` (never a multiply by the
-reciprocal), round-half-to-even (``torch.round`` and ``jnp.round`` agree),
-and the all-zero-row KV scale of 1.0.
+from the reference: the divisions ``amax / 127`` and ``x / scale`` (never a
+multiply by the reciprocal), round-half-to-even (``torch.round`` and
+``jnp.round`` agree), and the all-zero-row KV scale of 1.0. A float divisor
+is given as a 0-d tensor on the operand's device (``divisor``): on CUDA,
+PyTorch divides by a Python scalar as a multiply by its reciprocal, one ulp
+away in some scales.
 """
 from __future__ import annotations
 
@@ -11,6 +14,22 @@ from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
+
+_DIVISORS = {}
+
+
+def divisor(value: float, like: torch.Tensor) -> torch.Tensor:
+    """``value`` as a 0-d f32 tensor on ``like``'s device, filled once per
+    (device, value) and reused. A device tensor divisor divides exactly;
+    only a Python (or CPU) scalar becomes a reciprocal multiply on CUDA."""
+    key = (like.device, value)
+    t = _DIVISORS.get(key)
+    if t is None:
+        with torch.inference_mode(False):
+            t = torch.full((), value, dtype=torch.float32,
+                           device=like.device)
+        _DIVISORS[key] = t
+    return t
 
 
 @dataclass
@@ -39,7 +58,7 @@ def quantize_int8(x: torch.Tensor,
     channel); ``None`` is per-tensor."""
     xf = x.to(torch.float32)
     amax = torch.amax(xf.abs(), dim=_axes(x, axis), keepdim=True)
-    scale = torch.clamp_min(amax, 1e-8) / 127.0
+    scale = torch.clamp_min(amax, 1e-8) / divisor(127.0, amax)
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return QuantizedTensor(q, scale)
 
@@ -67,8 +86,9 @@ def quantize_kv(kv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     rows take scale 1.0 (reset slots, padded chunk tails)."""
     kf = kv.to(torch.float32)
     amax = torch.amax(kf.abs(), dim=-1, keepdim=True)
+    q127 = divisor(127.0, amax)
     scale = torch.where(amax > 0.0, torch.clamp_min(amax, 1e-8),
-                        torch.full_like(amax, 127.0)) / 127.0
+                        q127) / q127
     q = torch.clamp(torch.round(kf / scale), -127, 127).to(torch.int8)
     return q, scale
 

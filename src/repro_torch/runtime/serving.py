@@ -16,7 +16,14 @@ continuous-batching and drain mode, with the reference's failure model.
   sequence shards whose partial softmax statistics are LSE-merged,
 - ``mode="drain"``: the drain-then-refill baseline. The whole batch is
   prefilled at once and decodes with one shared cursor until every slot
-  has finished; only then are queued requests admitted.
+  has finished; only then are queued requests admitted,
+- tiered KV (a config with ``hot_window`` > 0): each slot keeps its most
+  recent tokens exact in a hot ring and every position quantized in a cold
+  tier; the hot-to-cold boundary advances inside the step programs, and
+  monolithic admission runs the full-width chunk program (``serve_admit``)
+  that stages both tiers. The host-side ``KVArbiter`` prices the live
+  bytes off the scheduler's cursors and, with ``kv_budget_bytes``,
+  preempts victims while they exceed the budget.
 
 Serving under pressure (the failure model): requests carry a ``priority``
 and TTFT/TPOT deadlines; admission drains the queue in priority order, a
@@ -38,8 +45,7 @@ its one host sync per decode round (``host_syncs``).
 
 Knobs of the reference that later slices of the port bring raise
 ``ValueError`` here instead of being ignored: the WA backend and its
-overlap, and tiered KV (``hot_window``) with its byte budget
-(``kv_budget_bytes``).
+overlap.
 """
 from __future__ import annotations
 
@@ -51,7 +57,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.kv.cache import export_slot_kv, import_slot_kv
+from repro_torch.kv.cache import KVCache, export_slot_kv, import_slot_kv
 from repro_torch.models.attention import bucket_for, kv_buckets
 from repro_torch.models.registry import DECODE_SLACK, ModelAPI
 from repro_torch.runtime.static_runtime import DispatchError, StaticRuntime
@@ -369,7 +375,8 @@ class ExecutorBackend:
     Programs registered per mode (one each, ``compiles`` == 1):
 
       chunked admission     serve_prefill_chunk
-      monolithic admission  serve_prefill1 + serve_admit
+      monolithic admission  serve_prefill1 + serve_admit (tiered KV:
+                            serve_admit alone, the full-width chunk)
       T == 1                serve_decode
       T > 1                 serve_decode_block[_s{N}] per KV bucket
       debug_reset_slots     serve_reset
@@ -523,14 +530,19 @@ class ColocatedBackend(ExecutorBackend):
                           debug_reset_slots):
         api, T = self.api, self.block_size
         self._prefill1 = None
-        if prefill_chunk:
+        # a tiered cache admits through the chunk program even
+        # monolithically: write_prefill has no cold-staging path, so
+        # monolithic admission is the degenerate full-width chunk (padding
+        # attended, cursor at the padded width)
+        if prefill_chunk or api.config.hot_window > 0:
             def chunk_fn(p, caches, toks, slot, start, valid):
                 caches, logits = api.prefill_chunk(p, caches, toks, slot,
                                                    start, valid)
                 return caches, torch.argmax(logits[:, -1], dim=-1)
 
-            self._chunk = self.rt.compile_step("serve_prefill_chunk",
-                                               chunk_fn)
+            self._chunk = self.rt.compile_step(
+                "serve_prefill_chunk" if prefill_chunk else "serve_admit",
+                chunk_fn)
         else:
             def prefill1_fn(p, toks):
                 caches, logits = api.prefill(p, toks)
@@ -568,8 +580,12 @@ class ColocatedBackend(ExecutorBackend):
                                               decode_fn)
 
     def admit_full(self, params, row: np.ndarray, slot: int):
-        """Monolithic admission: batch-1 full-width prefill + slot write.
-        Returns the device tensor holding the first token."""
+        """Monolithic admission: batch-1 full-width prefill + slot write,
+        or for a tiered cache ONE full-width chunk at start 0 that lands
+        both tiers in the slot. Returns the device tensor holding the first
+        token."""
+        if self._prefill1 is None:
+            return self.run_chunk(params, row, slot, 0, self.prompt_len)
         single, first = self._prefill1(
             params, torch.from_numpy(row[None]).to(self.device))
         self.caches = self._admit(self.caches, single, slot)
@@ -585,6 +601,165 @@ class ColocatedBackend(ExecutorBackend):
 
 
 BACKENDS = {"colocated": ColocatedBackend}
+
+
+# ---------------------------------------------------------------------------
+# KVArbiter — host-side accounting and policy for the tiered KV cache
+# ---------------------------------------------------------------------------
+
+class KVArbiter:
+    """Host-side placement arbiter of the tiered KV cache.
+
+    Demotion happens inside the step programs (the read-side cold boundary
+    advances with each slot's cursor), so what is left for the host is
+    accounting and policy: the arbiter observes per-slot cursors at the
+    block boundaries the engine already syncs at (no device traffic),
+    derives tier occupancy from the same ``cold_boundary`` arithmetic the
+    programs run (its own copy, on host integers), counts demotions off
+    cursor watermarks, tracks live and peak KV bytes against an optional
+    byte budget (the engine preempts victims while over it) and recommends
+    a placement from the observed pattern.
+
+    The byte model reads off the cache's shapes and dtypes (a ``meta``
+    cache will do): a hot token costs the compute dtype across every layer
+    and KV head, K and V; a cold token costs the (packed) cold store plus
+    its f32 scales. ``cold_bytes_saved`` prices the live cold tokens at the
+    hot rate minus the cold rate."""
+
+    def __init__(self, caches: KVCache, budget_bytes: int = 0):
+        if not caches.is_tiered:
+            raise ValueError("KVArbiter requires a tiered cache")
+        self.hot_window = int(caches.hot_window)
+        self.cold_block = int(caches.cold_block)
+        self.cold_dtype = str(caches.cold_dtype)
+        self.budget = int(budget_bytes)
+        L, _, n_kv, S, hd_c = caches.k.shape
+        H, hd = caches.hot_k.shape[3], caches.hot_k.shape[4]
+        hot_el = caches.hot_k.element_size()
+        cold_el = caches.k.element_size()
+        scale_b = 0 if caches.k_scale is None \
+            else caches.k_scale.element_size()
+        # per-token rates, K + V, across all layers and KV heads
+        self.hot_bytes_per_token = 2 * L * n_kv * hd * hot_el
+        self.cold_bytes_per_token = 2 * L * n_kv * (hd_c * cold_el + scale_b)
+        # the allocated footprint of ONE slot: full-extent cold store and
+        # scales plus the hot ring
+        self.kv_bytes_per_slot = (S * self.cold_bytes_per_token
+                                  + H * self.hot_bytes_per_token)
+        self.reset()
+
+    def reset(self):
+        """Per-run accounting reset (with the engine's accumulators)."""
+        self._cursor: Dict[int, int] = {}
+        self._watermark: Dict[int, int] = {}    # last-seen cold boundary
+        self.demotions = 0                      # cold blocks crossed, total
+        self.peak_bytes = 0
+        self.peak_saved = 0
+        self._last_rec = "no live slots observed"
+
+    # -- bookkeeping (at host-sync boundaries only) ---------------------
+    def _boundary(self, cursor: int) -> int:
+        over = max(int(cursor) - self.hot_window, 0)
+        return over // self.cold_block * self.cold_block
+
+    def observe(self, slot: int, cursor: int):
+        """One slot's cursor at a block boundary; each ``cold_block`` the
+        boundary crossed since the last observation counts a demotion."""
+        cursor = int(cursor)
+        nb = self._boundary(cursor)
+        prev = self._watermark.get(slot, 0)
+        if nb > prev:
+            self.demotions += (nb - prev) // self.cold_block
+        self._watermark[slot] = nb
+        self._cursor[slot] = cursor
+        self.peak_bytes = max(self.peak_bytes, self.live_bytes())
+        self.peak_saved = max(self.peak_saved, self.cold_bytes_saved())
+        self._last_rec = self._recommend_live()
+
+    def seed(self, slot: int, cursor: int):
+        """Swap-in restore: the slot resumes at ``cursor`` with its cold
+        prefix staged and already counted before the preemption; the
+        watermark is seeded so nothing is counted twice."""
+        cursor = int(cursor)
+        self._watermark[slot] = self._boundary(cursor)
+        self._cursor[slot] = cursor
+
+    def release(self, slot: int):
+        """Slot freed (retire, preempt, quarantine): its occupancy and
+        watermark leave the live view; cumulative counters stay."""
+        self._cursor.pop(slot, None)
+        self._watermark.pop(slot, None)
+
+    # -- occupancy / budget ---------------------------------------------
+    def slot_occupancy(self, slot: int) -> Dict[str, int]:
+        c = self._cursor.get(slot, 0)
+        cold = self._boundary(c)
+        hot = c - cold
+        return {"slot": slot, "tokens": c, "hot_tokens": hot,
+                "cold_tokens": cold,
+                "kv_bytes": hot * self.hot_bytes_per_token
+                + cold * self.cold_bytes_per_token}
+
+    def live_bytes(self) -> int:
+        """Occupancy-priced KV bytes of every live slot (hot tokens at the
+        resident rate, cold tokens at the quantized rate)."""
+        total = 0
+        for c in self._cursor.values():
+            cold = self._boundary(c)
+            total += (c - cold) * self.hot_bytes_per_token \
+                + cold * self.cold_bytes_per_token
+        return total
+
+    def cold_bytes_saved(self) -> int:
+        saved_rate = self.hot_bytes_per_token - self.cold_bytes_per_token
+        return sum(self._boundary(c) for c in self._cursor.values()) \
+            * saved_rate
+
+    def over_budget(self) -> bool:
+        return bool(self.budget) and self.live_bytes() > self.budget
+
+    # -- policy -----------------------------------------------------------
+    def recommend(self) -> str:
+        """Placement recommendation from the observed pattern; after a
+        drained run (no live slots) the last live verdict stands."""
+        return self._recommend_live() if self._cursor else self._last_rec
+
+    def _recommend_live(self) -> str:
+        cursors = list(self._cursor.values())
+        if not cursors:
+            return "no live slots observed"
+        total = sum(cursors)
+        cold = sum(self._boundary(c) for c in cursors)
+        if cold == 0:
+            return (f"working set fits hot_window={self.hot_window}; cold "
+                    "tier idle — a smaller hot_window frees resident bytes")
+        frac = cold / max(total, 1)
+        if frac > 0.75 and self.cold_dtype == "int8":
+            return ("cold tier dominates (>75% of tokens); int4 cold "
+                    "storage would halve its footprint")
+        if frac > 0.5 and self.cold_dtype == "bfloat16":
+            return ("cold tier holds most tokens at full width; quantize "
+                    "it (kv_cold_dtype=int8 or int4)")
+        return "placement balanced for the observed access pattern"
+
+    def stats(self) -> Dict[str, Any]:
+        return {
+            "hot_window": self.hot_window,
+            "cold_block": self.cold_block,
+            "cold_dtype": self.cold_dtype,
+            "hot_bytes_per_token": self.hot_bytes_per_token,
+            "cold_bytes_per_token": self.cold_bytes_per_token,
+            "kv_bytes_per_slot": self.kv_bytes_per_slot,
+            "kv_budget_bytes": self.budget,
+            "demotions": self.demotions,
+            "live_kv_bytes": self.live_bytes(),
+            "peak_kv_bytes": self.peak_bytes,
+            "cold_bytes_saved": max(self.peak_saved,
+                                    self.cold_bytes_saved()),
+            "per_slot": [self.slot_occupancy(s)
+                         for s in sorted(self._cursor)],
+            "recommendation": self.recommend(),
+        }
 
 
 # ---------------------------------------------------------------------------
@@ -640,6 +815,12 @@ class ServingEngine:
     as the dispatch interceptor for the run, and its ``slots_held(step)``
     withholds that many slots at each boundary (KV pressure, answered by
     preemption when preemptible).
+    ``kv_budget_bytes``: with a tiered cache (a config with ``hot_window``
+    > 0, continuous mode only), the ``KVArbiter``'s byte budget: while the
+    occupancy-priced live KV bytes exceed it, a block boundary preempts
+    victims (``preemptible``) or holds admissions. ``stats()["tiered"]``
+    reports the arbiter's view: demotions, per-slot tier occupancy, live
+    and peak bytes, the bytes the cold tier saves and a recommendation.
     ``device``: must be the api's device; ``None`` means ``cuda`` (raises
     without a GPU unless ``device="cpu"`` is passed).
 
@@ -675,10 +856,6 @@ class ServingEngine:
                              f"{sorted(BACKENDS)}")
         if overlap != 1:
             raise _later(f"overlap={overlap}", "WA-backend + overlap")
-        if kv_budget_bytes:
-            raise _later(f"kv_budget_bytes={kv_budget_bytes}", "tiered-KV")
-        if api.config.hot_window:
-            raise _later("hot_window > 0", "tiered-KV")
         if block_size < 1:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
         if prefill_chunk < 0:
@@ -709,6 +886,30 @@ class ServingEngine:
         self.strict_invariants = strict_invariants
         self.fault_injector = fault_injector
         self._kv_extent = prompt_len + self.max_new_cap
+        # the slot caches' shapes without their memory: the arbiter's byte
+        # model reads off them (the tiered geometry is validated here)
+        caches_meta = api.init_caches(batch_slots, self._kv_extent,
+                                      device="meta")
+        tiered = caches_meta.is_tiered
+        if tiered:
+            # the tiered cache stages its cold prefix inside the chunk
+            # program, which only the continuous scheduler has
+            if self.mode != "continuous":
+                raise ValueError(
+                    "tiered KV caches (hot_window > 0) serve through the "
+                    "continuous scheduler; drain mode has no chunk program "
+                    "to stage the cold tier")
+        if kv_budget_bytes < 0:
+            raise ValueError(
+                f"kv_budget_bytes must be >= 0, got {kv_budget_bytes}")
+        if kv_budget_bytes and not tiered:
+            raise ValueError(
+                "kv_budget_bytes is the tiered-KV arbiter's pressure knob "
+                "(hot_window > 0); flat caches have no arbiter to enforce "
+                "it")
+        self.kv_budget_bytes = kv_budget_bytes
+        self._arbiter = KVArbiter(caches_meta, kv_budget_bytes) \
+            if tiered else None
         if a_shards > 1:
             if self.mode == "drain":
                 raise ValueError("split-KV decode (a_shards > 1) runs "
@@ -756,6 +957,8 @@ class ServingEngine:
         self._emit_log: List[Tuple[int, int]] = []
         self._cursor_watermark: Dict[int, int] = {}
         self._slot_cap = self.slots
+        if self._arbiter is not None:
+            self._arbiter.reset()
 
     def _emit_token(self, r: Request, tok: int):
         r.generated.append(int(tok))
@@ -918,6 +1121,7 @@ class ServingEngine:
             self._shed_deadlines(sched)
             self._bound_queue(sched)
             self._apply_pressure(sched, steps)
+            self._apply_kv_budget(sched)
             self._priority_preempt(sched)
             batch_live = sched.occupied()
             while True:
@@ -933,6 +1137,7 @@ class ServingEngine:
                 # live keep chunking so a cold start does not serialize
                 if sched.decode_active().any() or not sched.prefill_fifo:
                     break
+            self._observe_tiers(sched)
             if self.strict_invariants:
                 self._assert_invariants(sched)
             active = sched.decode_active()
@@ -940,6 +1145,7 @@ class ServingEngine:
                 steps += 1                       # idle/prefill-only boundary
                 continue
             done.extend(self._decode_round(params, sched, active))
+            self._observe_tiers(sched)
             steps += T
         self._caches = ex.caches
         return self._stats(done, steps, admissions, overlapped)
@@ -1001,6 +1207,37 @@ class ServingEngine:
             if v is None or not self._preempt_slot(sched, v):
                 break
 
+    def _apply_kv_budget(self, sched: SlotScheduler):
+        """Real (not injected) KV pressure: while the arbiter's
+        occupancy-priced live bytes exceed ``kv_budget_bytes``, preempt the
+        usual victim; if that cannot get under the budget (or the engine is
+        not preemptible), hold admissions this boundary: over-budget
+        occupancy never grows."""
+        arb = self._arbiter
+        if arb is None or not arb.budget:
+            return
+        self._observe_tiers(sched)
+        while self.preemptible and arb.over_budget():
+            v = self._pick_victim(sched)
+            if v is None or not self._preempt_slot(sched, v):
+                break
+        if arb.over_budget():
+            busy = sum(1 for p in sched.phase if p != sched.FREE)
+            self._slot_cap = min(self._slot_cap, busy)
+
+    def _observe_tiers(self, sched: SlotScheduler):
+        """The arbiter's per-slot cursor view at a host boundary: decoding
+        slots report their host cursor, free (retired, preempted or
+        quarantined) slots leave the live view. Host arithmetic only."""
+        arb = self._arbiter
+        if arb is None:
+            return
+        for i in range(sched.n):
+            if sched.phase[i] == sched.DECODE:
+                arb.observe(i, int(sched.positions[i]))
+            elif sched.phase[i] == sched.FREE:
+                arb.release(i)
+
     def _priority_preempt(self, sched: SlotScheduler):
         """While the queue's best request outranks the lowest-priority
         decoding slot and no usable slot is free, swap the victim out. A
@@ -1039,6 +1276,8 @@ class ServingEngine:
         r.preemptions += 1
         self._preemptions += 1
         sched.preempt(slot)
+        if self._arbiter is not None:
+            self._arbiter.release(slot)
         return True
 
     def _restore(self, params, sched: SlotScheduler, slot: int,
@@ -1059,6 +1298,10 @@ class ServingEngine:
         self._swap_time += time.monotonic() - t0
         r.swap = None
         sched.resume_decode(slot, r, st)
+        if self._arbiter is not None:
+            # the restored prefix's demotions were counted before the
+            # preemption: seed the watermark so none is counted again
+            self._arbiter.seed(slot, st.kv_len)
         self._restores += 1
         return True
 
@@ -1393,7 +1636,7 @@ class ServingEngine:
         blk = np.array(self._block_tokens or [0.0])
         n_dec = self._decode_tokens
         dev = self.api.device
-        return {
+        out = {
             "mode": self.mode,
             "backend": self.backend,
             "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
@@ -1440,3 +1683,7 @@ class ServingEngine:
                 for r in sorted(self._rejected + self._deadline_missed,
                                 key=lambda r: r.rid)],
         }
+        if self._arbiter is not None:
+            # tier occupancy, demotions, live/peak bytes and the budget
+            out["tiered"] = self._arbiter.stats()
+        return out

@@ -485,3 +485,162 @@ def test_preempt_restore_stream_cuda_matches_cpu(dev):
     assert out["cuda"][1]["restores"] >= 1
     assert out["cuda"][2]["flash_decode"] > 0
     assert out["cuda"][2]["fused_ffn"] > 0
+
+
+TIERS = dict(hot_window=4, kv_cold_block=4)        # ring of 8
+
+
+@pytest.mark.parametrize("cold", ["bfloat16", "int8", "int4"])
+def test_tiered_cache_functions_cuda_match_cpu(dev, cold):
+    """The tiered cache functions on CUDA against the CPU on the same
+    bytes (one layer of a 3-slot cache of 40 positions, ring of 8): ragged
+    appends with an inactive row, the resolved read and its 2-shard views,
+    a chunk whose residue wraps the ring and a chunk with valid < C (hot
+    image before, cold image after each write), export and import at a
+    valid length inside the extent: bit for bit."""
+    from repro_torch.kv import cache as kc
+    cfg = get_config("qwen2-0.5b").reduced().replace(
+        dtype="float32", kv_cold_dtype=cold, **TIERS)
+    g = torch.Generator().manual_seed(0)
+    base = build_model(cfg, device="cpu").init_caches(3, 40)
+    fields = ("k", "v", "k_scale", "v_scale", "hot_k", "hot_v")
+    for name in fields:
+        t = getattr(base, name)
+        if t is None:
+            continue
+        t.copy_(torch.randint(-128, 128, t.shape, generator=g)
+                if t.dtype == torch.int8 else torch.rand(t.shape, generator=g))
+    n_kv, hd = cfg.n_kv_heads, cfg.head_dim
+    appends = [(torch.randn(3, n_kv, hd, generator=g),
+                torch.randn(3, n_kv, hd, generator=g),
+                torch.tensor([0, 9, 20], dtype=torch.int32) + t,
+                torch.tensor([True, t % 4 != 2, False])) for t in range(13)]
+    chunks = [(0, 6, 12, 12), (1, 20, 5, 12)]     # (slot, start, valid, C)
+    chunk_kv = [(torch.randn(n_kv, C, hd, generator=g),
+                 torch.randn(n_kv, C, hd, generator=g))
+                for _, _, _, C in chunks]
+    out = {}
+    for d in ("cpu", "cuda"):
+        c = build_model(cfg, device=d).init_caches(3, 40)
+        for name in fields:
+            if getattr(c, name) is not None:
+                getattr(c, name).copy_(getattr(base, name))
+        lay = c.layer(0)
+        res = []
+        for kn, vn, pos, act in appends:
+            kc.layer_append_tiered(*lay, kn.to(d), vn.to(d), pos.to(d), cold,
+                                   act.to(d))
+        res += [t.clone() for t in lay if t is not None]
+        counts = torch.tensor([13, 22, 21], dtype=torch.int32, device=d)
+        res += kc.layer_read_tiered(*lay, counts, 32, 4, 4, cold,
+                                    dtype=torch.float32)
+        res += kc.layer_read_tiered_shards(*lay, counts, 0, 2, 4, 4, cold,
+                                           dtype=torch.float32)
+        for (slot, start, valid, _), (kn, vn) in zip(chunks, chunk_kv):
+            kn, vn = kn.to(d), vn.to(d)
+            res += kc.chunk_hot_image(lay[4], lay[5], kn, vn, slot, start,
+                                      valid, 40, dtype=torch.float32)
+            kc.layer_write_chunk_tiered(*lay, kn, vn, slot, start, valid,
+                                        cold)
+            res += [t.clone() for t in lay if t is not None]
+            res += kc.layer_read_slot_cold(*lay[:4], slot, cold,
+                                           dtype=torch.float32)
+        image = tuple(None if a is None else a.cpu()
+                      for a in kc.export_slot_kv(c, 1))
+        c = kc.import_slot_kv(c, image, 2, 17)
+        res += [t for t in image if t is not None]
+        res += [getattr(c, n) for n in fields if getattr(c, n) is not None]
+        out[d] = [t.cpu() for t in res]
+    assert len(out["cpu"]) == len(out["cuda"])
+    for a, b in zip(out["cpu"], out["cuda"]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+@pytest.mark.parametrize("cold", ["int8", "int4"])
+def test_tiered_decode_block_cuda_matches_cpu(dev, cold, shards):
+    """Chunked prefill across the cold boundary, then one tiered decode
+    block (T=6) on CUDA against the CPU: equal tokens, K1 (in partial mode
+    when split) and K3 launched."""
+    cfg = get_config("qwen2-0.5b").reduced().replace(
+        dtype="float32", kv_cold_dtype=cold, **TIERS)
+    out = {}
+    for d in ("cpu", "cuda"):
+        api = build_model(cfg, device=d)
+        params = to_device(build_model(cfg, device="cpu").init(0),
+                           api.device)
+        prompts = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (2, 12), dtype=np.int64)).to(api.device)
+        caches = api.init_caches(2, 32)
+        first = []
+        for slot in range(2):
+            for start in (0, 4, 8):
+                caches, lg = api.prefill_chunk(
+                    params, caches, prompts[slot:slot + 1, start:start + 4],
+                    slot, start, 4)
+            first.append(lg[0, -1].argmax())
+        reset_launch_counts()
+        res = api.decode_block(
+            params, caches, torch.stack(first).to(torch.int32),
+            torch.full((2,), 12, dtype=torch.int32, device=api.device),
+            torch.ones(2, dtype=torch.bool, device=api.device),
+            torch.full((2,), 6, dtype=torch.int32, device=api.device),
+            torch.full((2,), -1, dtype=torch.int32, device=api.device),
+            block_size=6, kv_bucket=32, kv_shards=shards)
+        out[d] = (res[1].cpu(), launch_counts())
+    assert torch.equal(out["cpu"][0], out["cuda"][0])
+    counts = out["cuda"][1]
+    assert counts["flash_decode"] > 0 and counts["fused_ffn"] > 0
+    assert (counts["flash_decode_partial"] > 0) == (shards > 1)
+
+
+def test_tiered_budget_serve_cuda_matches_cpu(dev):
+    """A tiered serve (int4 cold, monolithic admission, a_shards=2, T=8)
+    under a byte budget that preempts, on the card and on the CPU: equal
+    streams, counters and ``stats()["tiered"]``."""
+    from repro_torch.runtime.serving import KVArbiter, Request, ServingEngine
+    cfg = get_config("qwen2-0.5b").reduced().replace(
+        dtype="float32", kv_cold_dtype="int4", **TIERS)
+
+    def plan():
+        rng = np.random.default_rng(0)
+        return [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, 8,
+                                                   dtype=np.int32),
+                        max_new_tokens=n, arrival_step=4 * i)
+                for i, n in enumerate((20, 12, 8))]
+
+    budget = KVArbiter(build_model(cfg, device="cpu").init_caches(
+        2, 32, device="meta")).hot_bytes_per_token * 8
+    out = {}
+    for d in ("cpu", "cuda"):
+        api = build_model(cfg, device=d)
+        params = to_device(build_model(cfg, device="cpu").init(0),
+                           api.device)
+        eng = ServingEngine(api, 2, 8, max_new_cap=24, block_size=8,
+                            kv_bucket_chunk=16, a_shards=2, preemptible=True,
+                            kv_budget_bytes=budget, device=api.device)
+        reqs = plan()
+        stats = eng.run(params, reqs, max_steps=1500)
+        out[d] = ({r.rid: (r.status, r.generated) for r in reqs},
+                  {k: stats[k] for k in ("preemptions", "restores",
+                                         "host_syncs", "completed")},
+                  stats["tiered"])
+    assert out["cuda"] == out["cpu"]
+    assert out["cuda"][1]["preemptions"] >= 1
+
+
+@pytest.mark.parametrize("which", ["kv_int8", "kv_int4", "rows_int8"])
+def test_quantizers_cuda_match_cpu_bit_for_bit(dev, which):
+    """The KV quantizers (int8, packed int4) and the per-row activation
+    quantizer give the CPU's values and scales on CUDA. They divide by a
+    tensor: PyTorch's CUDA division by a Python scalar multiplies by the
+    reciprocal, which moved some scales by one ulp."""
+    from repro_torch.quant.int4 import quantize_kv_int4
+    fn = {"kv_int8": quantize_kv, "kv_int4": quantize_kv_int4,
+          "rows_int8": lambda t: tuple(vars(quantize_int8(t, axis=-1))
+                                       .values())}[which]
+    x = torch.randn(64, 2, 200, 64, generator=torch.Generator()
+                    .manual_seed(0))
+    x[0, 0, :3] = 0.0                                  # all-zero rows
+    for a, b in zip(fn(x), fn(x.to(dev))):
+        assert torch.equal(a, b.cpu())

@@ -5,7 +5,8 @@ JAX engine on the same f32 weights and the staggered request plans of
 Per-request token streams must be identical for T=1 and T=8, monolithic
 and chunked admission, with and without KV buckets, and the counted host
 syncs must equal the reference's. Every knob the port does not have yet
-raises ``ValueError``.
+raises ``ValueError``; a tiered config serves (its parity with the
+reference is ``test_torch_tiered.py``'s).
 """
 import pytest
 
@@ -151,17 +152,22 @@ def test_length_contract_rejects_not_truncates(models):
 
 
 UNPORTED = {
-    "backend=wa": dict(backend="wa"),
-    "overlap=2": dict(overlap=2),
-    "kv_budget_bytes": dict(kv_budget_bytes=1 << 20),
+    # knob: (engine kwargs, the error's words)
+    "backend=wa": (dict(backend="wa"), "not ported to repro_torch yet"),
+    "overlap=2": (dict(overlap=2), "not ported to repro_torch yet"),
+    # ported with the tiered cache: on a flat cache it raises as the
+    # reference does (tests/test_torch_tiered.py holds the tiered case)
+    "kv_budget_bytes": (dict(kv_budget_bytes=1 << 20),
+                        "flat caches have no arbiter"),
 }
 
 
 @pytest.mark.parametrize("knob", sorted(UNPORTED))
 def test_unported_knob_raises(models, knob):
     _, _, _, tapi, _ = models
-    with pytest.raises(ValueError, match="not ported to repro_torch yet"):
-        ServingEngine(tapi, 2, PROMPT_LEN, device="cpu", **UNPORTED[knob])
+    kw, words = UNPORTED[knob]
+    with pytest.raises(ValueError, match=words):
+        ServingEngine(tapi, 2, PROMPT_LEN, device="cpu", **kw)
 
 
 def test_failure_model_request_fields_accepted(models):
@@ -178,9 +184,17 @@ def test_failure_model_request_fields_accepted(models):
 
 
 def test_unported_configs_raise():
-    """The tiered cache and the other families still raise."""
+    """A tiered config (the default int8 cold tier, blocks of 16) builds
+    and serves, demoting on the way; the other families still raise."""
     tcfg = get_config("qwen2-0.5b").reduced().replace(hot_window=16)
-    with pytest.raises(ValueError, match="tiered"):
-        build_model(tcfg, device="cpu")
+    api = build_model(tcfg, device="cpu")
+    eng = ServingEngine(api, 2, PROMPT_LEN, device="cpu", max_new_cap=32,
+                        block_size=4, kv_bucket_chunk=16, prefill_chunk=4)
+    reqs = _requests(Request, tcfg, [(28, 0), (9, 2)])
+    stats = eng.run(api.init(0), reqs, max_steps=400)
+    assert stats["completed"] == 2
+    assert [len(r.generated) for r in reqs] == [28, 9]
+    assert stats["tiered"]["cold_dtype"] == "int8"
+    assert stats["tiered"]["demotions"] > 0
     with pytest.raises(ValueError, match="not ported"):
         get_config("mamba2-1.3b")
