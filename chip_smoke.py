@@ -9,12 +9,13 @@ phases; any failure exits non-zero before the result line:
    with nvcc for sm_90a (one nvcc per source, all at once);
 2. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes and across the kernels' tiling boundaries (K1 flash
-   decode at S from 1 to 4096, B 1 and 8, the four q/KV dtype pairs,
+   decode at S from 1 to 4096, B 1, 2, 4 and 8 (the WA backend's
+   micro-batches launch it at 4 and 2 rows), the four q/KV dtype pairs,
    kv_limit at 0, inside a split, on a split edge and at S, normalised and
    partial, and at G*hd = 1024; split-KV attention, one K1 partial launch
    per shard plus the LSE combine, over buckets 64/128/192/200 x 2 and 4
    shards x bf16 and int8 KV; K3 fused FFN up to 1,024 rows; K4 int8 GEMV
-   — K4 must be bit-exact; every kernel must give the same bits on a
+   at 1 to 128 rows (2 and 4 included) — K4 must be bit-exact; every kernel must give the same bits on a
    second call);
 3. model parity at full qwen2-0.5b width, depth cut to 2 layers, float32:
    the same seeded weights on the CPU (plain versions) and on CUDA
@@ -28,7 +29,13 @@ phases; any failure exits non-zero before the result line:
    export and import at valid_len 1, 37, 200) give the CPU's bytes for
    int8 and int4 cold; and over a tiered cache, chunked prefill across
    cold boundaries, slotted decode, the decode block and 4-shard split
-   decode give the CPU's tokens and logits within 1e-3;
+   decode give the CPU's tokens and logits within 1e-3; the WA programs
+   (``core/wa.py``: chunked prefill, slotted decode, the decode block) at
+   overlap 1, 2 and 4 over flat f32 KV, int8 KV, int8 weights with int8
+   KV (K4 at the micro-batches' rows), 4 shards and a tiered int4 cache
+   give the CPU's tokens and logits within 1e-3, and the
+   largest difference between WA at depth 1 and the colocated programs
+   on the card is reported (the same kernels on two streams);
 4. the serving engine at full qwen2-0.5b (24 layers, seeded random bf16
    weights): (a) chunked admission + macro-step decode + KV buckets,
    (b) int8 weights and int8 KV with monolithic admission, (c) per-token
@@ -51,7 +58,16 @@ phases; any failure exits non-zero before the result line:
    failures, KV pressure and a high-priority arrival) over 4 slots with
    int8 KV, preemptible, a bounded queue and strict invariants, which must
    audit clean, finish with the clean run's tokens, preempt and restore,
-   and launch K1 and K3 in both runs;
+   and launch K1 and K3 in both runs; (i) run (a) through the WA backend
+   (``backend="wa"``, the KV side on its own CUDA stream) must give (a)'s
+   tokens and host syncs; (k) run (b) through the WA backend at overlap 1
+   (the WA admission program, whole batches) and (j) at overlap 2, served
+   twice, must give (b)'s host syncs, and (j) the same tokens twice; how
+   many streams of (k) equal (b)'s (the admission program's share of any
+   difference) and of (j) equal (k)'s (the micro-batching's share) is
+   reported; the traced blocks of (i) and (j) also
+   report each stream's busy time and the time both streams run a kernel
+   beside the schedule's ``overlap_efficiency``;
 5. time each kernel at the main path's shapes (K1 at B=8 over S=200 and
    at a long context of S=4096, bf16 and int8 KV, in partial mode at one
    shard of 48, the whole split attention of a layer at bucket 192 and the
@@ -60,7 +76,9 @@ phases; any failure exits non-zero before the result line:
    for the four projection shapes) against its bound, its plain version
    and PyTorch calls for the same function (K1: SDPA with ``enable_gqa``;
    K3: three matmuls and silu; K4: a bf16 matmul on dequantized weights
-   and ``torch._int_mm``), and the tiered append of a layer.
+   and ``torch._int_mm``), the tiered append of a layer, a W->A->W hop
+   pair of the WA backend against one colocated layer-step, and two spin
+   kernels on one stream against one on each.
 
 It then prints the card (nvidia-smi name, power limit), a ``kernels`` JSON
 line, and last the JSON result line. Without a GPU, or without the rest of
@@ -68,6 +86,7 @@ the repository beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -278,11 +297,13 @@ def phase_compare(dev):
     # a split, on a split edge and at S, and every row live to the end (as
     # timed in phase 5); then G*hd = 1024 (G=8, hd=128).
     from repro_torch.kernels.flash_decode.ops import decode_plan
+    # Rows 1 to 8: the plan follows B, and the WA backend's micro-batches
+    # launch K1 at 4 and 2 rows (8 slots at overlap 2 and 4).
     cases = [(S, B, pair, 14, 64)
              for S in (1, 17, 64, 128, 200, 1000, 4096)
-             for B in (1, 8) for pair in K1_PAIRS]
-    cases += [(S, B, pair, 16, 128) for S in (200, 4096) for B in (1, 8)
-              for pair in K1_PAIRS]
+             for B in (1, 2, 4, 8) for pair in K1_PAIRS]
+    cases += [(S, B, pair, 16, 128) for S in (200, 4096)
+              for B in (1, 2, 4, 8) for pair in K1_PAIRS]
     for S, B, pair, Hq, hd in cases:
         isz = torch.empty(0, dtype=getattr(torch, pair[1])).element_size()
         plan = decode_plan(B, 2, Hq // 2, S, hd, isz)
@@ -364,10 +385,11 @@ def phase_compare(dev):
                             f"{dtype} {act}")
                     require(same, f"K3 not deterministic at D={D} rows={R}")
     # K4: int32-exact accumulation, same f32 epilogue order: bit-exact.
-    # K=100 is no multiple of the 16-row K chunk, N=130 none of 16 bytes.
+    # K=100 is no multiple of the 16-row K chunk, N=130 none of 16 bytes;
+    # 2 and 4 rows are the WA backend's micro-batches of 8 slots.
     for K in (100, 896, 4864):
         for N in (128, 130, 896, 4864):
-            for R in (1, 8, 9, 17, 128):
+            for R in (1, 2, 4, 8, 9, 17, 128):
                 args, _ = k4_inputs(dev, R, K, N, seed=K + N + R)
                 got, want = gemv_int8_q(*args), gemv_int8_ref(*args)
                 e = max_err(got, want)
@@ -720,6 +742,175 @@ def phase_model_parity_tiered():
                 f"(cold={cold})")
 
 
+@contextlib.contextmanager
+def recorded_act_quant(rows, replay=None):
+    """Append a host copy of every activation quantization that K4
+    multiplies (values, scales; once per row for the linears that share an
+    input) to ``rows``, in call order. With ``replay`` (the records of the
+    same programs on the card), each call returns the card's quantization
+    instead of its own, which must pair up with it and be at most one int8
+    step from it everywhere.
+
+    int8 weights: the CPU and the card sum in different orders, so an f32
+    activation a last bit apart can round to the neighbouring int8 step,
+    and later layers carry the change on (thousands of flips and 2e-2 of
+    max|logit| over 2 layers at full width). Replaying the card's rows on
+    the CPU holds K4 and every other op to the 1e-3 bound on the same int8
+    inputs; the flips are counted (``int8_flips``)."""
+    from repro_torch.kernels.gemv import ops
+    from repro_torch.quant.int8 import QuantizedTensor
+    quantize = ops.quantize_int8
+
+    def rec(x, axis):
+        xq = quantize(x, axis=axis)
+        rows.append((xq.values.cpu(), xq.scale.cpu()))
+        if replay is None:
+            return xq
+        require(len(rows) <= len(replay), "the CPU quantizes more "
+                "activations than the card")
+        v, sc = replay[len(rows) - 1]
+        require(v.shape == xq.values.shape and int(
+            (v.int() - rows[-1][0].int()).abs().max()) <= 1,
+            "a CPU activation row is more than one int8 step from the "
+            "card's")
+        return QuantizedTensor(v.to(x.device), sc.to(x.device))
+
+    ops.quantize_int8 = rec
+    try:
+        yield
+    finally:
+        ops.quantize_int8 = quantize
+
+
+def int8_flips(a, b) -> int:
+    """Elements that differ between two records of ``recorded_act_quant``;
+    the records must pair up call for call."""
+    require(len(a) == len(b), "activations recorded on CPU and CUDA do "
+            "not pair up")
+    return sum(int((x[0] != y[0]).sum()) for x, y in zip(a, b))
+
+
+# the WA programs of phase 3: (label, config overrides, a_shards)
+WA_CACHES = (("flat f32 KV", {}, 1), ("int8 KV", dict(kv_dtype="int8"), 1),
+             ("int8 weights, int8 KV",
+              dict(weight_int8=True, kv_dtype="int8"), 1),
+             ("f32 KV, 4 shards", {}, 4),
+             ("tiered int4 cold (hot 8, block 4)",
+              dict(hot_window=8, kv_cold_block=4, kv_cold_dtype="int4"), 1))
+
+
+def phase_wa_parity():
+    """The WA programs (``core/wa.py``) at full width, 2 layers, f32, CPU
+    against CUDA, over the caches of ``WA_CACHES``: 8 slots admitted by
+    ``prefill_chunk`` (two 8-wide chunks of a 16-token prompt), then at
+    overlap 1, 2 and 4: 4 ``decode_step_slotted`` steps at bucket 32 (row
+    5 idle in the first) and one ``decode_block`` (T=8, bucket 32) from the
+    admitted state. Equal tokens, logits within 1e-3 of max|logit| (with
+    int8 weights, the CPU multiplies the card's int8 activation rows:
+    ``recorded_act_quant``). On CUDA, also the largest
+    difference between WA at depth 1 and the colocated programs on the
+    same state (the same kernels in the same order on two streams:
+    expected 0)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.wa import WADisaggregated
+    from repro_torch.interop import to_device
+    from repro_torch.models.registry import build_model
+    rng = np.random.default_rng(2)
+    for label, over, shards in WA_CACHES:
+        cfg = get_config("qwen2-0.5b").replace(n_layers=2, dtype="float32",
+                                               **over)
+        prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 16),
+                                                dtype=np.int64))
+        cpu_params = build_model(cfg, device="cpu").init(0)
+        res, vs_colocated, acts = {}, {}, {}
+        for d in ("cuda", "cpu"):
+            acts[d] = rec = {}
+            card = acts["cuda"] if d == "cpu" else {}
+            api = build_model(cfg, device=d)
+            params = to_device(cpu_params, api.device)
+            was = {D: WADisaggregated(cfg, d, overlap=D, a_shards=shards)
+                   for D in (1, 2, 4)}
+            caches = api.init_caches(8, 48)
+            chunk_lg = []
+            with recorded_act_quant(rec.setdefault("chunk", []),
+                                    card.get("chunk")):
+                for slot in range(8):
+                    for start in (0, 8):
+                        caches, lg = was[1].prefill_chunk(
+                            params, caches,
+                            prompts[slot:slot + 1, start:start + 8].to(d),
+                            slot, start, 8)
+                        chunk_lg.append(lg[0, -1].float().cpu())
+            tok = torch.stack(chunk_lg[1::2]).argmax(-1).to(torch.int32) \
+                .to(d)
+            pos = torch.full((8,), 16, dtype=torch.int32, device=d)
+
+            def steps(fn, c):
+                logits, toks = [], []
+                t, p = tok, pos
+                for i in range(4):
+                    act = torch.ones(8, dtype=torch.bool, device=d)
+                    if i == 0:
+                        act[5] = False
+                    c, lg = fn(params, c, t, p, act, kv_bucket=32)
+                    logits.append(lg[:, 0].float().cpu())
+                    t = torch.where(act, lg[:, 0].argmax(-1).to(torch.int32),
+                                    0)
+                    toks.append(t.cpu())
+                    p = p + act.to(torch.int32)
+                return torch.stack(logits), torch.stack(toks)
+
+            out = {}
+            for D, wa in was.items():
+                blk = wa.decode_block(
+                    params, clone_cache(caches), tok, pos,
+                    torch.ones(8, dtype=torch.bool, device=d),
+                    torch.full((8,), 8, dtype=torch.int32, device=d),
+                    torch.full((8,), -1, dtype=torch.int32, device=d),
+                    block_size=8, kv_bucket=32)
+                with recorded_act_quant(rec.setdefault(f"steps d{D}", []),
+                                        card.get(f"steps d{D}")):
+                    stepped = steps(wa.decode_step_slotted,
+                                    clone_cache(caches))
+                out[D] = (*stepped, blk[1].cpu())
+            res[d] = (torch.stack(chunk_lg), out)
+            if d == "cuda":
+                co = steps(lambda *a, **k: api.decode_slotted(
+                    *a, **k, kv_shards=shards), clone_cache(caches))
+                vs_colocated = {
+                    "step logits": float((out[1][0] - co[0]).abs().max()),
+                    "tokens equal": torch.equal(out[1][1], co[1])}
+        cpu, cuda = res["cpu"], res["cuda"]
+        # the CPU's own K4 activation steps that differ from the card's
+        flips = {"chunk": int8_flips(acts["cpu"]["chunk"],
+                                     acts["cuda"]["chunk"])}
+        rels = {"chunk": rel_err(cuda[0], cpu[0])}
+        same, depths = {}, {}
+        for D in (1, 2, 4):
+            key = f"steps d{D}"
+            flips[key] = int8_flips(acts["cpu"][key], acts["cuda"][key])
+            rels[key] = rel_err(cuda[1][D][0], cpu[1][D][0])
+            same[f"d{D}"] = (torch.equal(cuda[1][D][1], cpu[1][D][1])
+                             and torch.equal(cuda[1][D][2], cpu[1][D][2]))
+            # not a gate: K1's split plan follows the micro-batch's rows
+            depths[f"d{D}"] = (torch.equal(cuda[1][D][1], cuda[1][1][1])
+                               and torch.equal(cuda[1][D][2], cuda[1][1][2]))
+        log(f"  WA programs, {label}, 2-layer full-width f32, cpu vs cuda: "
+            f"max|dlogit|/max|logit| " + ", ".join(
+                f"{k} {v:.3g}" for k, v in rels.items())
+            + f" (tol 1e-3); CPU K4 activation steps one off the card's "
+            f"(the card's replayed): {flips}; tokens equal: {same}; "
+            f"cuda tokens equal to depth 1's: {depths}; WA depth 1 vs "
+            f"colocated on cuda: "
+            f"max|dlogit| {vs_colocated['step logits']:.3g}, tokens equal "
+            f"{vs_colocated['tokens equal']}")
+        require(all(np.isfinite(v) and v <= 1e-3 for v in rels.values()),
+                f"WA logits disagree ({label})")
+        require(all(same.values()), f"WA tokens disagree ({label})")
+        require(vs_colocated["tokens equal"],
+                f"WA depth 1 tokens differ from colocated ({label})")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the engine at full qwen2-0.5b
 # ---------------------------------------------------------------------------
@@ -748,9 +939,42 @@ RUNS = {
         dict(kv_cold_dtype="int4", **G_TIERS),
         dict(block_size=8, kv_bucket_chunk=64, prefill_chunk=32,
              max_new_cap=72), 12, 64, ("flash_decode", "fused_ffn")),
+    # runs (a) and (b) through the WA backend: QKV/FFN on the current
+    # stream, the KV side on a stream of its own; (k) is (b) at depth 1 (it
+    # changes only the admission program), (j) pipelines two micro-batches
+    # across the streams and is served twice
+    "i_wa_bf16_chunked_T8": (
+        {}, dict(block_size=8, kv_bucket_chunk=64, prefill_chunk=32,
+                 max_new_cap=72, backend="wa"), 12, 64,
+        ("flash_decode", "fused_ffn")),
+    "k_wa_int8w_int8kv_monolithic_T8": (
+        dict(weight_int8=True, kv_dtype="int8"),
+        dict(block_size=8, kv_bucket_chunk=64, max_new_cap=72,
+             backend="wa"), 12, 32, ("flash_decode", "gemv_int8")),
+    "j_wa_int8w_int8kv_overlap2_T8": (
+        dict(weight_int8=True, kv_dtype="int8"),
+        dict(block_size=8, kv_bucket_chunk=64, max_new_cap=72,
+             backend="wa", overlap=2), 12, 32,
+        ("flash_decode", "gemv_int8")),
 }
 TRACED = ("a_bf16_chunked_T8", "b_int8w_int8kv_monolithic_T8",
-          "e_int8kv_split4_chunked_T8", "g_tiered_int4_chunked_T8")
+          "e_int8kv_split4_chunked_T8", "g_tiered_int4_chunked_T8",
+          "i_wa_bf16_chunked_T8", "j_wa_int8w_int8kv_overlap2_T8")
+# each WA run: the colocated run whose plan, engine and host syncs it
+# repeats, and the earlier runs its streams are compared with, each with
+# whether they must be equal (only where the same programs run the same
+# kernels at the same rows)
+WA_TWINS = {
+    "i_wa_bf16_chunked_T8": ("a_bf16_chunked_T8",
+                             {"a_bf16_chunked_T8": True}),
+    "k_wa_int8w_int8kv_monolithic_T8": (
+        "b_int8w_int8kv_monolithic_T8",
+        {"b_int8w_int8kv_monolithic_T8": False}),
+    "j_wa_int8w_int8kv_overlap2_T8": (
+        "b_int8w_int8kv_monolithic_T8",
+        {"b_int8w_int8kv_monolithic_T8": False,
+         "k_wa_int8w_int8kv_monolithic_T8": False}),
+}
 
 
 def count_syncs(fn) -> int:
@@ -775,14 +999,16 @@ def count_syncs(fn) -> int:
     return n
 
 
-def decode_block_fn(api, params, T=8, kv_shards=1, B=8):
+def decode_block_fn(api, params, T=8, kv_shards=1, B=8, impl=None):
     """One steady decode block: T micro-steps, B live rows at position 160
-    of a fresh 200-position cache, KV bucket 192."""
+    of a fresh 200-position cache, KV bucket 192, through ``impl`` (a
+    ``decode_block``; the model's by default)."""
     dev = api.device
+    impl = impl or api.decode_block
 
     def block():
         caches = api.init_caches(B, 200)
-        return api.decode_block(
+        return impl(
             params, caches, torch.zeros(B, dtype=torch.int32, device=dev),
             torch.full((B,), 160, dtype=torch.int32, device=dev),
             torch.ones(B, dtype=torch.bool, device=dev),
@@ -850,17 +1076,68 @@ def drain_groups(reqs):
     return {s: [r.rid for r in groups[s]] for s in order}
 
 
-def trace_decode_block(api, params, kw):
+def union_spans(spans):
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def intersect_spans(x, y) -> float:
+    i = j = 0
+    total = 0.0
+    while i < len(x) and j < len(y):
+        lo, hi = max(x[i][0], y[j][0]), min(x[i][1], y[j][1])
+        total += max(0.0, hi - lo)
+        if x[i][1] < y[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def stream_overlap(prof):
+    """Per-stream busy time (us, the union of its kernels' spans) and the
+    time during which the two busiest streams both run a kernel, from the
+    profiler's trace of kernel spans."""
+    path = os.path.join(HERE, "build", "wa_trace.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        trace = json.load(f)
+    os.unlink(path)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    spans = {}
+    for e in events:
+        if e.get("cat") == "kernel" and "dur" in e:
+            stream = e.get("args", {}).get("stream", e.get("tid"))
+            spans.setdefault(stream, []).append(
+                (float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+    unions = {k: union_spans(v) for k, v in spans.items()}
+    busy = {k: sum(b - a for a, b in u) for k, u in unions.items()}
+    top = sorted(busy, key=lambda k: -busy[k])[:2]
+    both = intersect_spans(*(unions[k] for k in top)) if len(top) == 2 \
+        else 0.0
+    return busy, both
+
+
+def trace_decode_block(api, params, kw, impl=None, efficiency=None):
     """Profile one steady decode block (T=8, 8 live rows at position 160,
     bucket 192): device busy time from the profiler's per-kernel sums
     against the block's wall time; prints the idle share, the kernels per
-    token step and the ops that take most device time. Returns the
-    synchronising calls one untraced block makes."""
+    token step and the ops that take most device time. With the WA
+    backend's block (``impl``), also each stream's busy time and the time
+    both streams run a kernel (the measured overlap) beside the schedule's
+    ``overlap_efficiency``. Returns the synchronising calls one untraced
+    block makes."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     T = kw["block_size"]
     shards = kw.get("a_shards", 1)
-    block = decode_block_fn(api, params, T, shards)
+    block = decode_block_fn(api, params, T, shards, impl=impl)
     block()
     torch.cuda.synchronize()
     syncs = count_syncs(block)
@@ -905,6 +1182,14 @@ def trace_decode_block(api, params, kw):
     log("      port kernels: " + ", ".join(
         f"{k} {us / 1e3:.3f} ms in {n} launches"
         for k, (us, n) in port.items()))
+    if impl is not None:
+        busy, both = stream_overlap(prof)
+        log("      streams: " + ", ".join(
+            f"stream {k} busy {us / 1e3:.3f} ms" for k, us in busy.items())
+            + f"; both streams running a kernel {both / 1e3:.3f} ms "
+            f"({both / max(1.0, min(busy.values(), default=1.0)):.3f} of "
+            f"the less busy stream); schedule overlap_efficiency "
+            f"{efficiency:.3f}")
     return syncs
 
 
@@ -1100,7 +1385,7 @@ def phase_engine(totals, runs):
     from repro_torch.launch.serve import make_requests
     from repro_torch.models.registry import build_model
     from repro_torch.runtime.serving import ServingEngine
-    per_step, syncs, host_syncs = {}, {}, {}
+    per_step, syncs, host_syncs, streams = {}, {}, {}, {}
     for name, (over, kw, n_req, max_new, needed) in RUNS.items():
         cfg = get_config("qwen2-0.5b").replace(**over)
         api = build_model(cfg)
@@ -1141,19 +1426,66 @@ def phase_engine(totals, runs):
             require(stats["tiered"]["demotions"] > 0,
                     f"{name}: the cold boundary never moved")
         host_syncs[name] = stats["host_syncs"]
+        streams[name] = {r.rid: list(r.generated) for r in reqs}
         if kw.get("mode") == "drain":
             log(f"    drain admission groups (step: rids): "
                 f"{drain_groups(reqs)}")
+        wa = eng._ex.wa if kw.get("backend") == "wa" else None
+        if wa is not None:
+            log(f"    wa: {json.dumps(stats['wa'])}")
+            twin, compared = WA_TWINS[name]
+            for other, must in compared.items():
+                same = sum(streams[name][r] == streams[other][r]
+                           for r in streams[name])
+                first = sorted(next((i for i, (x, y) in enumerate(zip(
+                    streams[name][r], streams[other][r])) if x != y),
+                    max_new) for r in streams[name])
+                log(f"    streams equal to run {other}'s: {same}/{n_req} "
+                    f"(first differing token of each request: {first})")
+                if must:
+                    require(same == n_req, f"{name}: tokens differ from "
+                            f"{other}'s (depth 1 runs the same kernels in "
+                            "the same order)")
+            log(f"    host syncs {host_syncs[name]} ({twin}: "
+                f"{host_syncs[twin]})")
+            require(host_syncs[name] == host_syncs[twin],
+                    f"{name}: another number of host syncs than {twin}")
+            if kw.get("overlap", 1) > 1:
+                # served again on the same engine: the race check at depth
+                # 2 (fresh caches, the same plan, the same tokens)
+                again = make_requests(cfg, n_req, 128, max_new, seed=0,
+                                      arrival_every=4)
+                reset_launch_counts()
+                stats2 = eng.run(params, again)
+                torch.cuda.synchronize()
+                counts2 = launch_counts()
+                runs[name + "_again"] = counts2
+                for k, n in counts2.items():
+                    totals[k] += n
+                log(f"    served again: completed {stats2['completed']}, "
+                    f"launches {counts2}, TPOT mean "
+                    f"{stats2['tpot_mean_ms']:.3f} ms")
+                require(stats2["completed"] == n_req
+                        and {r.rid: r.generated for r in again}
+                        == streams[name], f"{name}: the second serve's "
+                        "tokens differ from the first's")
         if name in TRACED:
-            syncs[name] = trace_decode_block(api, params, kw)
+            syncs[name] = trace_decode_block(
+                api, params, kw, impl=None if wa is None else
+                wa.decode_block, efficiency=None if wa is None else
+                stats["wa"]["overlap_efficiency"])
             # launches of one decode step (T = 1)
             caches = api.init_caches(8, 200)
             z = torch.zeros(8, dtype=torch.int32, device=api.device)
+            on = torch.ones(8, dtype=torch.bool, device=api.device)
             reset_launch_counts()
-            api.decode_slotted(params, caches, z, z + 100,
-                               torch.ones(8, dtype=torch.bool,
-                                          device=api.device), kv_bucket=128,
-                               kv_shards=kw.get("a_shards", 1))
+            if wa is None:
+                api.decode_slotted(params, caches, z, z + 100, on,
+                                   kv_bucket=128,
+                                   kv_shards=kw.get("a_shards", 1))
+            else:
+                wa.decode_step_slotted(params, caches, z, z + 100, on,
+                                       kv_bucket=128)
             torch.cuda.synchronize()
             per_step[name] = {k: n for k, n in launch_counts().items() if n}
         del params, eng, api
@@ -1173,6 +1505,7 @@ def phase_engine(totals, runs):
     run_budget(totals, runs, card)
     run_failure(totals, runs, card)
     block_walls()
+    wa_block_walls(card)
     return per_step
 
 
@@ -1540,6 +1873,156 @@ def phase_timing(dev, launches, runs, per_step, errs):
     return out
 
 
+def phase_hops(card):
+    """Host and device time of one W->A->W hop pair of the WA backend (an
+    event recorded on W and waited on by A, the switch to the A stream and
+    back, an event recorded on A and waited on by W, ``record_stream`` on
+    q, k, v and o) against one colocated decode layer-step and the same
+    layer-step through the W/A split, at full
+    qwen2-0.5b width (bf16, 8 rows at 160, bucket 192). Device times by
+    ``time_ms``; host times by ``host_ms``, the median of 5 rounds that
+    alternate the two layer-steps (host clocks drift within a call)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.wa import WADisaggregated
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import build_model
+    cfg = get_config("qwen2-0.5b")
+    api = build_model(cfg)
+    dev = api.device
+    wa = WADisaggregated(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def make(i):
+        lp = T.make_block_params(gen, cfg)
+        x = torch.randn(8, 1, cfg.d_model, device=dev,
+                        generator=gen).to(torch.bfloat16)
+        pos = torch.full((8,), 160, dtype=torch.int32, device=dev)
+        return (lp, x, api.init_caches(8, 200).layer(0), pos,
+                torch.ones(8, dtype=torch.bool, device=dev),
+                (pos.max() + 1).to(torch.int32)), {}
+
+    def colocated(lp, x, kv, pos, act, lim):
+        return T.block_decode_slotted(lp, x, cfg, kv, pos, act,
+                                      kv_bucket=192, kv_limit=lim)
+
+    def split(lp, x, kv, pos, act, lim):
+        q, k, v = T.pre_attention(lp, x, pos[:, None], cfg)
+        o, ev = wa._a_op(0, wa._to_a(0, q, k, v), T.attend_decode_slotted,
+                         q, k, v, kv, pos, act, cfg, 192, lim)
+        wa._to_w(ev)
+        return T.post_attention(lp, x, o, cfg)
+
+    hd = cfg.head_dim
+    layer_bytes = 2 * (cfg.d_model * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+                       * hd + 3 * cfg.d_model * cfg.d_ff)
+    var = variants_of(make, layer_bytes)
+    q = torch.randn(8, 1, 14, 64, device=dev).to(torch.bfloat16)
+    kk, vv = q[:, :, :2].clone(), q[:, :, :2].clone()
+    w, a = torch.cuda.current_stream(dev), wa._a
+    ev = torch.cuda.Event()
+
+    def hop_pair(q, k, v, o):
+        _, back = wa._a_op(0, wa._to_a(0, q, k, v), lambda: o)
+        wa._to_w(back)
+
+    hops = [((q, kk, vv, q[:, 0].clone()), {})]
+    rows = {"W->A->W hop pair": (
+        time_ms(hop_pair, hops, 400),
+        float(np.median([host_ms(hop_pair, hops, 200) for _ in range(5)])))}
+    layers = {"colocated layer-step": colocated,
+              "WA layer-step (the same ops, one hop pair)": split}
+    dev_ms = {k: time_ms(fn, var, 40) for k, fn in layers.items()}
+    hosts = {k: [] for k in layers}
+    for _ in range(5):
+        for k, fn in layers.items():
+            hosts[k].append(host_ms(fn, var))
+    for k in layers:
+        rows[k] = (dev_ms[k], float(np.median(hosts[k])))
+    for label, (d, host) in rows.items():
+        log(f"  {label}: device {d * 1e3:.2f} us, host {host * 1e3:.2f} us "
+            f"a call [{card}]")
+    # can W and A run at once at all? Two ~1 ms spin kernels, one per
+    # stream between a fork and a join, against both on W (CUDA events)
+    spins = {}
+    for label, second in (("one on W, one on A", a), ("both on W", w)):
+        times = []
+        for _ in range(5):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            torch.cuda.synchronize()
+            start.record(w)
+            ev.record(w)
+            a.wait_event(ev)
+            torch.cuda._sleep(1_000_000)
+            with torch.cuda.stream(second):
+                torch.cuda._sleep(1_000_000)
+            back = a.record_event()
+            w.wait_event(back)
+            end.record(w)
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        spins[label] = float(np.median(times))
+    log("  two spin kernels of 1,000,000 cycles between a fork and a join, "
+        "median of 5: " + ", ".join(f"{k} {v:.3f} ms"
+                                    for k, v in spins.items())
+        + f" [{card}]")
+    rows["spins"] = spins
+    del api, var
+    torch.cuda.empty_cache()
+    return rows
+
+
+def wa_block_walls(card):
+    """Wall time (host clock to a synchronise) of one decode block (T=8, 8
+    rows at 160, bucket 192) at full qwen2-0.5b through the colocated
+    programs and the WA backend at depths 1 and 2, bf16 and int8 weights +
+    int8 KV: 3 rounds, each timing every variant once in turn, median per
+    variant; with the kernels each variant launches per token step
+    (torch.profiler, one block)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.wa import WADisaggregated
+    from repro_torch.models.registry import build_model
+    for label, over in (("bf16", {}),
+                        ("int8 weights + int8 KV",
+                         dict(weight_int8=True, kv_dtype="int8"))):
+        cfg = get_config("qwen2-0.5b").replace(**over)
+        api = build_model(cfg)
+        params = api.init(0)
+        impls = {"colocated": None}
+        for D in (1, 2):
+            impls[f"WA d{D}"] = WADisaggregated(cfg, api.device,
+                                                overlap=D).decode_block
+        blocks = {k: decode_block_fn(api, params, impl=v)
+                  for k, v in impls.items()}
+        kernels = {}
+        for k, block in blocks.items():
+            block()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                block()
+                torch.cuda.synchronize()
+            kernels[k] = sum(e.count for e in prof.key_averages()
+                             if e.device_type == DeviceType.CUDA) / 8
+        walls = {k: [] for k in blocks}
+        for _ in range(3):
+            for k, block in blocks.items():
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                block()
+                torch.cuda.synchronize()
+                walls[k].append((time.monotonic() - t0) * 1e3)
+        base = float(np.median(walls["colocated"]))
+        log(f"  decode block walls, {label}, median of 3 alternating: "
+            + ", ".join(f"{k} {np.median(v):.2f} ms "
+                        f"({np.median(v) / base:.2f}x, "
+                        f"{kernels[k]:.1f} kernels a token step)"
+                        for k, v in walls.items()) + f" [{card}]")
+        del api, params, impls, blocks
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1571,6 +2054,7 @@ def main() -> int:
     phase_swap_pair()
     phase_tiered_cache()
     phase_model_parity_tiered()
+    phase_wa_parity()
 
     log("phase 4: engine at full qwen2-0.5b")
     launches = {"flash_decode": 0, "flash_decode_partial": 0,
@@ -1581,6 +2065,7 @@ def main() -> int:
 
     log("phase 5: kernel timing")
     kernels = phase_timing(dev, launches, runs, per_step, errs)
+    phase_hops(card)
     log(f"total {time.monotonic() - t_start:.1f}s")
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -6,7 +6,7 @@ one device.
         --arrival-every 4 --block-size 8 --kv-bucket-chunk 64 \
         --prefill-chunk 32 [--a-shards 4] [--preemptible] [--max-queue 6] \
         [--hot-window 64 --kv-cold-dtype int4 --kv-cold-block 16 \
-         --kv-budget-bytes 7372800]
+         --kv-budget-bytes 7372800] [--backend wa --overlap 2]
 
 ``--mode drain`` serves the drain-then-refill baseline instead (no chunk
 lane: ``--prefill-chunk`` is then ignored, as in the reference CLI).
@@ -14,9 +14,12 @@ Runs on ``--device cuda`` by default (raises without a GPU); pass
 ``--device cpu`` for the plain PyTorch versions on the CPU. The config is
 reduced unless ``--full-width`` is given, as in the reference CLI. Weights
 are random, made from a fixed seed. ``--hot-window`` > 0 serves a tiered KV
-cache (hot ring + cold tier at ``--kv-cold-dtype``). Prints the engine's
-stats, the tiered cache's ``tiered kv:`` and ``arbiter:`` lines, a
-per-request table and the per-program call counts.
+cache (hot ring + cold tier at ``--kv-cold-dtype``). ``--backend wa``
+serves through the weight-attention split (the KV side on its own CUDA
+stream), ``--overlap D`` pipelines D micro-batches across it. Prints the
+engine's stats, the tiered cache's ``tiered kv:`` and ``arbiter:`` lines,
+the WA backend's ``wa routing:`` and ``wa overlap:`` lines, a per-request
+table and the per-program call counts.
 """
 from __future__ import annotations
 
@@ -46,6 +49,7 @@ def serve(arch: str, n_requests: int, batch_slots: int, prompt_len: int,
           mode: str = "continuous", arrival_every: int = 0,
           block_size: int = 1, kv_bucket_chunk: int = 0,
           prefill_chunk: int = 0, a_shards: int = 1,
+          backend: str = "colocated", overlap: int = 1,
           preemptible: bool = False, max_queue: int = 0,
           hot_window: int = 0, kv_cold_dtype: str = "int8",
           kv_cold_block: int = 16, kv_budget_bytes: int = 0, device=None):
@@ -68,6 +72,7 @@ def serve(arch: str, n_requests: int, batch_slots: int, prompt_len: int,
                         block_size=block_size,
                         kv_bucket_chunk=kv_bucket_chunk,
                         prefill_chunk=prefill_chunk, a_shards=a_shards,
+                        backend=backend, overlap=overlap,
                         preemptible=preemptible, max_queue=max_queue,
                         kv_budget_bytes=kv_budget_bytes, device=api.device)
     return eng.run(params, reqs)
@@ -96,6 +101,16 @@ def main(argv=None):
     ap.add_argument("--a-shards", type=int, default=1,
                     help="split-KV decode: read each KV bucket as N equal "
                          "sequence shards merged by the LSE combine")
+    ap.add_argument("--backend", default="colocated",
+                    choices=("colocated", "wa"),
+                    help="executor backend: colocated, or the weight-"
+                         "attention split (QKV/FFN on the caller's CUDA "
+                         "stream, KV and attention on a stream of its own)")
+    ap.add_argument("--overlap", type=int, default=1,
+                    help="micro-batch pipelining depth of the W/A boundary "
+                         "(backend wa only; --batch must divide by it): W "
+                         "runs QKV/FFN for one micro-batch while A attends "
+                         "another, token-exact at every depth")
     ap.add_argument("--preemptible", action="store_true",
                     help="register the token-exact KV swap pair and allow "
                          "priority/pressure preemption at block boundaries")
@@ -127,6 +142,7 @@ def main(argv=None):
                   block_size=args.block_size,
                   kv_bucket_chunk=args.kv_bucket_chunk,
                   prefill_chunk=args.prefill_chunk, a_shards=args.a_shards,
+                  backend=args.backend, overlap=args.overlap,
                   preemptible=args.preemptible, max_queue=args.max_queue,
                   hot_window=args.hot_window,
                   kv_cold_dtype=args.kv_cold_dtype,
@@ -136,6 +152,7 @@ def main(argv=None):
     rt = stats.pop("runtime")
     rejected = stats.pop("rejected")
     tiered = stats.pop("tiered", None)
+    wa = stats.pop("wa", None)
     print("serve stats:", stats)
     if tiered:
         # the KVArbiter's view: tier occupancy, in-program demotions
@@ -151,6 +168,21 @@ def main(argv=None):
                   f"({sl['hot_tokens']} hot / {sl['cold_tokens']} cold, "
                   f"{sl['kv_bytes']} B)")
         print(f"  arbiter: {tiered['recommendation']}")
+    if wa:
+        # the metered W<->A traffic and the overlap schedule's per-domain
+        # stall accounting (efficiency = busy ticks / total, both domains)
+        print(f"wa routing: {wa['routing_bytes_per_token']} B/token "
+              f"(2 hops x layers x d_model), total "
+              f"{wa['routing_total_bytes']} B, "
+              f"{wa['routing_bytes_per_decode_token']:.1f} B per decode "
+              f"token")
+        print(f"wa overlap: depth={wa['overlap']} "
+              f"efficiency={wa['overlap_efficiency']:.3f} "
+              f"(W busy {wa['w_busy_ticks']}/{wa['schedule_ticks']}, "
+              f"A busy {wa['a_busy_ticks']}/{wa['schedule_ticks']} ticks); "
+              f"per macro-step W-idle {wa['w_idle_ms_per_macro_step']:.2f} "
+              f"ms / A-idle {wa['a_idle_ms_per_macro_step']:.2f} ms; "
+              f"micro-batch occupancy {wa['micro_batch_occupancy']:.2f}")
     # every submitted request ends completed, rejected or deadline-missed
     print(f"pressure: preemptions={stats['preemptions']} "
           f"restores={stats['restores']} rejections={stats['rejections']} "

@@ -1,8 +1,8 @@
 """Model API of the port: ``build_model(cfg, device)`` -> ModelAPI.
 
 Port of ``repro.models.registry`` for the dense family: the fields the
-serving engine uses (continuous and drain), ``make_decode_block`` and
-``count_params``.
+serving engine uses (continuous and drain, colocated and WA),
+``make_decode_block`` and ``count_params``.
 Sharding contexts are gone (one device per engine in this slice).
 """
 from __future__ import annotations
@@ -49,6 +49,9 @@ class ModelAPI(NamedTuple):
     # prefill_chunk(params, caches, tokens (1,C), slot, start, valid_len)
     #   -> (caches, logits (1,1,V))
     prefill_chunk: Callable
+    # the family's KV decouples from its weights, so the WA backend
+    # (``core/wa.py``) can serve it
+    wa_servable: bool = False
 
 
 def make_decode_block(decode_slotted: Callable) -> Callable:
@@ -117,7 +120,8 @@ def _build_transformer(cfg: ModelConfig, device: torch.device) -> ModelAPI:
     return ModelAPI(cfg, device, init, prefill, decode, init_caches,
                     decode_slotted,
                     write_slot_kv, reset_slot,
-                    make_decode_block(decode_slotted), prefill_chunk)
+                    make_decode_block(decode_slotted), prefill_chunk,
+                    wa_servable=True)
 
 
 def build_model(cfg: ModelConfig, device: DeviceLike = None) -> ModelAPI:

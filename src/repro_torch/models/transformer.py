@@ -115,26 +115,41 @@ def block_full_seq(p: dict, x: torch.Tensor, cfg: ModelConfig,
     return _ffn_half(p, x + o, cfg), (k, v)
 
 
-def block_decode_slotted(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                         kv_slices: Tuple, positions: torch.Tensor,
-                         active: torch.Tensor, kv_bucket: int = 0,
-                         kv_limit=None, kv_shards: int = 1) -> torch.Tensor:
-    """One decode layer with per-row cursors. x: (B,1,D). Row b appends at
-    ``positions[b]`` (inactive rows write nothing) and attends its own
+def pre_attention(p: dict, x: torch.Tensor, positions: torch.Tensor,
+                  cfg: ModelConfig):
+    """The layer before attention: ln1 and the QKV projection with per-row
+    RoPE phases ``positions`` (B,S). x: (B,S,D); returns q, k, v."""
+    h = common.apply_norm(p["ln1"], x, cfg.norm_eps)
+    return qkv_project(p["attn"], h, cfg, positions)
+
+
+def post_attention(p: dict, x: torch.Tensor, o: torch.Tensor,
+                   cfg: ModelConfig) -> torch.Tensor:
+    """The layer after attention: output projection, residual, ln2 and the
+    FFN half. x: (B,S,D); o: (B,S,Hq,hd) or (B,Hq,hd) for S = 1."""
+    B, S = x.shape[0], x.shape[1]
+    o = common.linear(p["attn"]["wo"], o.reshape(B, S, -1))
+    return _ffn_half(p, x + o, cfg)
+
+
+def attend_decode_slotted(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, kv_slices: Tuple,
+                          positions: torch.Tensor, active: torch.Tensor,
+                          cfg: ModelConfig, kv_bucket: int = 0,
+                          kv_limit=None, kv_shards: int = 1) -> torch.Tensor:
+    """The KV side of one decode layer: row b appends its k/v (B,1,n_kv,hd)
+    at ``positions[b]`` (inactive rows write nothing) and attends its own
     prefix over the first ``kv_bucket`` positions (0 = full extent); the
     cache slices in ``kv_slices`` are updated in place. ``kv_limit``
     (device int32) lets the kernel skip tiles past every live cursor.
     ``kv_shards`` > 1: split-KV decode, the bucket prefix read as that many
     equal shards (``decode_attention_split``); the caller guarantees the
-    bucket divides.
+    bucket divides. Returns o (B,Hq,hd).
 
     Six slices are a tiered layer: the append stages both tiers, then the
     bucket's hot/cold image is resolved per row from ``positions + 1``
     tokens (on the device) in the compute dtype, and K1 attends that image
     in float mode (one partial launch per shard when split)."""
-    B = x.shape[0]
-    h = common.apply_norm(p["ln1"], x, cfg.norm_eps)
-    q, k, v = qkv_project(p["attn"], h, cfg, positions[:, None])
     if len(kv_slices) == 6:
         slices = layer_append_tiered(*kv_slices, k[:, 0], v[:, 0], positions,
                                      cfg.kv_cold_dtype, active)
@@ -142,9 +157,9 @@ def block_decode_slotted(p: dict, x: torch.Tensor, cfg: ModelConfig,
         geom = (cfg.hot_window, cfg.kv_cold_block, cfg.kv_cold_dtype)
         if kv_shards > 1:
             kc, vc = layer_read_tiered_shards(*slices, *tiers, kv_shards,
-                                              *geom, dtype=x.dtype)
+                                              *geom, dtype=q.dtype)
         else:
-            kc, vc = layer_read_tiered(*slices, *tiers, *geom, dtype=x.dtype)
+            kc, vc = layer_read_tiered(*slices, *tiers, *geom, dtype=q.dtype)
         ksc = vsc = None
     else:
         k_l, v_l, ks_l, vs_l = layer_append_slotted(
@@ -156,56 +171,77 @@ def block_decode_slotted(p: dict, x: torch.Tensor, cfg: ModelConfig,
             kc, vc, ksc, vsc = bucket_view(k_l, v_l, ks_l, vs_l, kv_bucket)
     if kv_shards > 1:
         mask = batch_valid_mask(kc.shape[2] * kc.shape[3], positions)
-        o = decode_attention_split(q[:, 0], kc, vc, mask, ksc, vsc,
-                                   kv_limit=kv_limit)
-    else:
-        mask = batch_valid_mask(kc.shape[2], positions)
-        o = decode_attention(q[:, 0], kc, vc, mask, ksc, vsc,
-                             kv_limit=kv_limit)
-    o = common.linear(p["attn"]["wo"], o.reshape(B, 1, -1))
-    return _ffn_half(p, x + o, cfg)
+        return decode_attention_split(q[:, 0], kc, vc, mask, ksc, vsc,
+                                      kv_limit=kv_limit)
+    mask = batch_valid_mask(kc.shape[2], positions)
+    return decode_attention(q[:, 0], kc, vc, mask, ksc, vsc,
+                            kv_limit=kv_limit)
 
 
-def block_prefill_chunk(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                        kv_slices: Tuple, slot: int, start: int,
-                        valid_len: int) -> torch.Tensor:
-    """Chunk-prefill layer: x (1,C,D) is slot ``slot``'s prompt chunk at
-    absolute positions [start, start+C). Writes the chunk's K/V (positions
-    >= valid_len keep their bytes), reads the slot's prefix back from the
-    STORED cache and runs causal chunk attention against it.
+def block_decode_slotted(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                         kv_slices: Tuple, positions: torch.Tensor,
+                         active: torch.Tensor, kv_bucket: int = 0,
+                         kv_limit=None, kv_shards: int = 1) -> torch.Tensor:
+    """One decode layer with per-row cursors. x: (B,1,D):
+    ``pre_attention``, the KV side (``attend_decode_slotted``), then
+    ``post_attention``."""
+    q, k, v = pre_attention(p, x, positions[:, None], cfg)
+    o = attend_decode_slotted(q, k, v, kv_slices, positions, active, cfg,
+                              kv_bucket, kv_limit, kv_shards)
+    return post_attention(p, x, o, cfg)
+
+
+def chunk_positions(start: int, C: int, device) -> torch.Tensor:
+    """(1,C) int32 absolute positions of a prompt chunk at ``start``."""
+    return start + torch.arange(C, dtype=torch.int32, device=device)[None]
+
+
+def attend_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 kv_slices: Tuple, slot: int, start: int, valid_len: int,
+                 positions: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The KV side of one chunk-prefill layer: q/k/v (1,C,H,hd) of slot
+    ``slot``'s prompt chunk at ``positions`` (1,C) = [start, start+C).
+    Writes the chunk's K/V (positions >= valid_len keep their bytes), reads
+    the slot's prefix back from the STORED cache and runs causal chunk
+    attention against it. Returns o (1,C,Hq,hd).
 
     A tiered layer (six slices) first builds the exact hot image from the
     PRE-write ring and the chunk (the write may overwrite ring slots early
     queries' hot tails live in), stages the chunk into both tiers, reads
     the slot's cold image and attends both under each query's own boundary
     ``cold_boundary(start + i + 1)``."""
-    _, C, _ = x.shape
-    positions = start + torch.arange(C, dtype=torch.int32,
-                                     device=x.device)[None]
-    h = common.apply_norm(p["ln1"], x, cfg.norm_eps)
-    q, k, v = qkv_project(p["attn"], h, cfg, positions)
     S = kv_slices[0].shape[2]
-    idx = torch.arange(S, device=x.device)
+    idx = torch.arange(S, device=q.device)
     mask = idx[None, :] <= positions[0][:, None]                  # (C,S)
     k_ch, v_ch = k[0].transpose(0, 1), v[0].transpose(0, 1)
     if len(kv_slices) == 6:
         kh, vh = chunk_hot_image(*kv_slices[4:], k_ch, v_ch, slot, start,
-                                 valid_len, S, dtype=x.dtype)
+                                 valid_len, S, dtype=q.dtype)
         slices = layer_write_chunk_tiered(*kv_slices, k_ch, v_ch, slot,
                                           start, valid_len, cfg.kv_cold_dtype)
         kc, vc = layer_read_slot_cold(*slices[:4], slot, cfg.kv_cold_dtype,
-                                      dtype=x.dtype)
+                                      dtype=q.dtype)
         hot_mask = (idx[None, :] >= cold_boundary(
             positions[0] + 1, cfg.hot_window, cfg.kv_cold_block)[:, None]
         )[None]                                                   # (1,C,S)
-        o = chunk_attention_tiered(q, kh, vh, kc, vc, hot_mask, mask)
-    else:
-        slices = layer_write_chunk(*kv_slices, k_ch, v_ch, slot, start,
-                                   valid_len)
-        kc, vc = layer_read_slot(*slices, slot, dtype=x.dtype)
-        o = chunk_attention(q, kc, vc, mask)
-    o = common.linear(p["attn"]["wo"], o.reshape(1, C, -1))
-    return _ffn_half(p, x + o, cfg)
+        return chunk_attention_tiered(q, kh, vh, kc, vc, hot_mask, mask)
+    slices = layer_write_chunk(*kv_slices, k_ch, v_ch, slot, start,
+                               valid_len)
+    kc, vc = layer_read_slot(*slices, slot, dtype=q.dtype)
+    return chunk_attention(q, kc, vc, mask)
+
+
+def block_prefill_chunk(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                        kv_slices: Tuple, slot: int, start: int,
+                        valid_len: int) -> torch.Tensor:
+    """Chunk-prefill layer: x (1,C,D) is slot ``slot``'s prompt chunk at
+    absolute positions [start, start+C): ``pre_attention``, the KV side
+    (``attend_chunk``), then ``post_attention``."""
+    positions = chunk_positions(start, x.shape[1], x.device)
+    q, k, v = pre_attention(p, x, positions, cfg)
+    o = attend_chunk(q, k, v, kv_slices, slot, start, valid_len, positions,
+                     cfg)
+    return post_attention(p, x, o, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -233,7 +269,7 @@ def unembed_table(params, cfg: ModelConfig) -> torch.Tensor:
             else params["unembed"])["table"]
 
 
-def _final_logits(params, x, cfg):
+def final_logits(params, x, cfg):
     x = common.apply_norm(params["ln_f"], x, cfg.norm_eps)
     return common.unembed_logits(unembed_table(params, cfg), x)
 
@@ -333,7 +369,7 @@ def decode_step_slotted(params, cache: KVCache, tokens: torch.Tensor,
     cache.length = torch.maximum(
         cache.length, (torch.where(active, positions, 0).max() + 1)
         .to(torch.int32))
-    return cache, _final_logits(params, x, cfg)
+    return cache, final_logits(params, x, cfg)
 
 
 def prefill_chunk(params, cache: KVCache, tokens: torch.Tensor, slot: int,
@@ -348,7 +384,7 @@ def prefill_chunk(params, cache: KVCache, tokens: torch.Tensor, slot: int,
         x = block_prefill_chunk(lp, x, cfg, cache.layer(i), slot, start,
                                 valid_len)
     cache.length = torch.clamp_min(cache.length, start + valid_len)
-    return cache, _final_logits(params, x[:, valid_len - 1:valid_len], cfg)
+    return cache, final_logits(params, x[:, valid_len - 1:valid_len], cfg)
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, device

@@ -1,5 +1,6 @@
-"""Serving engine: the colocated part of ``repro.runtime.serving``, in
-continuous-batching and drain mode, with the reference's failure model.
+"""Serving engine: the port of ``repro.runtime.serving``, in
+continuous-batching and drain mode, with the reference's failure model and
+its two executor backends (colocated and weight–attention).
 
 - the decode batch is a fixed set of SLOTS; a queued request is admitted
   into any free slot mid-serve,
@@ -41,11 +42,10 @@ request ends completed, rejected or deadline_missed.
 The host-side ``SlotScheduler`` decides what runs at each block boundary;
 the ``ExecutorBackend`` owns the slot caches and the registered step
 programs; ``ServingEngine`` is the boundary loop between them and counts
-its one host sync per decode round (``host_syncs``).
-
-Knobs of the reference that later slices of the port bring raise
-``ValueError`` here instead of being ignored: the WA backend and its
-overlap.
+its one host sync per decode round (``host_syncs``). ``backend="wa"``
+serves every continuous-mode program through ``core/wa.py``: the weight
+ops on the caller's CUDA stream, the KV side on a stream of its own, with
+``overlap`` = D > 1 pipelining D micro-batches across the two.
 """
 from __future__ import annotations
 
@@ -56,9 +56,13 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.pipeline import wa_schedule_occupancy
+from repro_torch.core.wa import (WADisaggregated, micro_batch_slices,
+                                 routing_bytes)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kv.cache import KVCache, export_slot_kv, import_slot_kv
 from repro_torch.models.attention import bucket_for, kv_buckets
+from repro_torch.models.common import dtype_of
 from repro_torch.models.registry import DECODE_SLACK, ModelAPI
 from repro_torch.runtime.static_runtime import DispatchError, StaticRuntime
 
@@ -216,6 +220,14 @@ class SlotScheduler:
     def decode_active(self) -> np.ndarray:
         return np.array([p == self.DECODE for p in self.phase])
 
+    def micro_batch_view(self, depth: int, active=None):
+        """Per-micro-batch (slot indices, active-mask rows) under overlap
+        depth ``depth``, through ``core.wa.micro_batch_slices``: the row
+        split the pipelined layer loop uses."""
+        act = self.decode_active() if active is None else np.asarray(active)
+        return [(list(range(sl.start, sl.stop)), act[sl])
+                for sl in micro_batch_slices(self.n, depth)]
+
     def usable_free(self) -> Optional[int]:
         """Lowest-index FREE slot that is not quarantined, or None."""
         for i in range(self.n):
@@ -372,22 +384,32 @@ class ExecutorBackend:
       reset(slot) / has_reset                debug slot zeroing
       swap_out(slot) / swap_in(saved, slot, valid_len)   preemption pair
 
-    Programs registered per mode (one each, ``compiles`` == 1):
+    Programs registered per backend and mode (one each, ``compiles`` ==
+    1):
 
-      chunked admission     serve_prefill_chunk
-      monolithic admission  serve_prefill1 + serve_admit (tiered KV:
-                            serve_admit alone, the full-width chunk)
-      T == 1                serve_decode
-      T > 1                 serve_decode_block[_s{N}] per KV bucket
-      debug_reset_slots     serve_reset
-      preemptible           serve_swap_out + serve_swap_in
-      drain mode            serve_prefill_batch + serve_decode_drain
+      colocated  chunked admission     serve_prefill_chunk
+      colocated  monolithic admission  serve_prefill1 + serve_admit
+                                       (tiered KV: serve_admit alone, the
+                                       full-width chunk)
+      colocated  T == 1                serve_decode
+      colocated  T > 1                 serve_decode_block[_s{N}] per bucket
+      colocated  drain mode            serve_prefill_batch +
+                                       serve_decode_drain
+      wa         chunked admission     serve_wa_prefill_chunk
+      wa         monolithic admission  serve_wa_admit (full-width chunk)
+      wa         T == 1                serve_wa_decode
+      wa         T > 1                 serve_wa_decode_block[_s{N}]
+      either     debug_reset_slots     serve_reset
+      either     preemptible           serve_[wa_]swap_out +
+                                       serve_[wa_]swap_in
     """
+
+    program_prefix = "serve_"
 
     def __init__(self, api: ModelAPI, rt: StaticRuntime, *, mode: str,
                  slots: int, prompt_len: int, max_new_cap: int,
                  block_size: int, kv_bucket_chunk: int, prefill_chunk: int,
-                 debug_reset_slots: bool, a_shards: int,
+                 debug_reset_slots: bool, a_shards: int, overlap: int,
                  preemptible: bool):
         self.api, self.rt = api, rt
         self.device = api.device
@@ -396,6 +418,9 @@ class ExecutorBackend:
         self.block_size = block_size
         self.prefill_chunk = prefill_chunk
         self.a_shards = a_shards
+        # micro-batch pipelining depth of the W/A boundary (WA backend
+        # only; the engine validated it)
+        self.overlap = overlap
         self.caches = None
         self.buckets: Tuple[int, ...] = ()
         self._decode_blocks: Dict[int, Any] = {}
@@ -422,16 +447,22 @@ class ExecutorBackend:
             self._reset = self.rt.compile_step("serve_reset",
                                                self.api.reset_slot)
 
+    def _swap_export_fn(self, caches, slot):
+        return export_slot_kv(caches, slot)
+
+    def _swap_import_fn(self, caches, saved, slot, valid_len):
+        return import_slot_kv(caches, saved, slot, valid_len)
+
     def _build_swap(self):
         """The token-exact preemption pair, one program each for every slot
         and length. ``swap_out`` is read-only (it returns copies of the
         slot's slices), so a failed or retried dispatch cannot touch the
         resident cache; ``swap_in`` writes positions below the true length
         in place."""
-        self._swap_out_p = self.rt.compile_step("serve_swap_out",
-                                                export_slot_kv)
-        self._swap_in_p = self.rt.compile_step("serve_swap_in",
-                                               import_slot_kv)
+        self._swap_out_p = self.rt.compile_step(
+            f"{self.program_prefix}swap_out", self._swap_export_fn)
+        self._swap_in_p = self.rt.compile_step(
+            f"{self.program_prefix}swap_in", self._swap_import_fn)
 
     @staticmethod
     def _postprocess(logits, positions, active):
@@ -439,10 +470,13 @@ class ExecutorBackend:
         return torch.where(active, nxt, torch.zeros_like(nxt)), \
             positions + active.to(torch.int32)
 
-    def _build_decode_programs(self, kv_bucket_chunk, prefix, slotted_fn,
-                               block_fn):
-        """One ``{prefix}decode_block[_s{N}]`` per KV bucket for T > 1,
-        else the single ``{prefix}decode`` step program."""
+    def _build_decode_programs(self, kv_bucket_chunk, slotted_fn, block_fn):
+        """One ``{program_prefix}decode_block[_s{N}]`` per KV bucket for
+        T > 1, else the single ``{program_prefix}decode`` step program. An
+        overlap depth above 1 is recorded as the programs' ``overlap``
+        meta."""
+        meta = {"overlap": self.overlap} if self.overlap > 1 else None
+        prefix = self.program_prefix
         if self.block_size > 1:
             self.buckets = self._bucket_set(kv_bucket_chunk)
             for sb in self.buckets:
@@ -452,15 +486,16 @@ class ExecutorBackend:
                 def block_step(p, caches, tok, pos, act, rem, eos, _sb=sb):
                     return block_fn(p, caches, tok, pos, act, rem, eos, _sb)
 
-                self._decode_blocks[sb] = self.rt.compile_step(name,
-                                                               block_step)
+                self._decode_blocks[sb] = self.rt.compile_step(
+                    name, block_step, meta=meta)
             return
 
         def decode_fn(p, caches, tokens, positions, active):
             caches, logits = slotted_fn(p, caches, tokens, positions, active)
             return (caches,) + self._postprocess(logits, positions, active)
 
-        self._decode = self.rt.compile_step(f"{prefix}decode", decode_fn)
+        self._decode = self.rt.compile_step(f"{prefix}decode", decode_fn,
+                                            meta=meta)
 
     def _build_continuous(self, kv_bucket_chunk, prefill_chunk,
                           debug_reset_slots):
@@ -554,7 +589,7 @@ class ColocatedBackend(ExecutorBackend):
         self._build_reset(debug_reset_slots)
         n = self.a_shards
         self._build_decode_programs(
-            kv_bucket_chunk, "serve_",
+            kv_bucket_chunk,
             lambda p, c, t, pos, act: api.decode_slotted(p, c, t, pos, act,
                                                          kv_shards=n),
             lambda p, c, t, pos, act, rem, eos, sb: api.decode_block(
@@ -600,7 +635,131 @@ class ColocatedBackend(ExecutorBackend):
         return self._decode_b(params, caches, last)
 
 
-BACKENDS = {"colocated": ColocatedBackend}
+class WABackend(ExecutorBackend):
+    """Weight–attention disaggregated executor: every step program runs
+    ``core/wa.py``'s routed layer loop (QKV/FFN on W, KV writes, reads,
+    bucket slices and attention on A), and so does the swap pair (on A).
+    Continuous mode only.
+
+    Admission is always the WA chunk program: the chunked lane runs the
+    fixed (1,C) window; monolithic admission is the degenerate single
+    full-width chunk (C = prompt_len, valid = prompt_len: padding
+    attended, cursor at the padded width, the colocated monolithic
+    semantics).
+
+    ``routed_bytes`` meters the W<->A hops (``core/wa.py::routing_bytes``)
+    from the runtime's dispatch counts: a decode dispatch routes the whole
+    (B, d_model) batch twice a layer per micro-step, a prefill chunk its
+    (C, d_model) window. A dispatch the interceptor refused is not counted,
+    so it routes nothing."""
+
+    program_prefix = "serve_wa_"
+
+    def _swap_export_fn(self, caches, slot):
+        return self.wa.swap_out_slot(caches, slot)
+
+    def _swap_import_fn(self, caches, saved, slot, valid_len):
+        return self.wa.swap_in_slot(caches, saved, slot, valid_len)
+
+    def _build_continuous(self, kv_bucket_chunk, prefill_chunk,
+                          debug_reset_slots):
+        T = self.block_size
+        self.wa = WADisaggregated(self.api.config, self.device,
+                                  a_shards=self.a_shards,
+                                  overlap=self.overlap)
+        self._el = dtype_of(self.api.config).itemsize
+        self._calls0: Dict[str, int] = {}
+
+        def chunk_fn(p, caches, toks, slot, start, valid):
+            caches, logits = self.wa.prefill_chunk(p, caches, toks, slot,
+                                                   start, valid)
+            return caches, torch.argmax(logits[:, -1], dim=-1)
+
+        self._chunk = self.rt.compile_step(
+            "serve_wa_prefill_chunk" if prefill_chunk else "serve_wa_admit",
+            chunk_fn)
+        self._build_reset(debug_reset_slots)
+        self._build_decode_programs(
+            kv_bucket_chunk,
+            lambda p, c, t, pos, act: self.wa.decode_step_slotted(
+                p, c, t, pos, act),
+            lambda p, c, t, pos, act, rem, eos, sb: self.wa.decode_block(
+                p, c, t, pos, act, rem, eos, block_size=T, kv_bucket=sb))
+
+    # -- W<->A traffic model --------------------------------------------
+    def expected_routing(self, name: str) -> Tuple[int, int]:
+        """``(rows, trips)`` of ONE dispatch of program ``name``: it routes
+        ``trips * routing_bytes(cfg, rows, el)`` W<->A bytes (``trips`` =
+        micro-steps inside the program). The swap pair routes none."""
+        if name in ("serve_wa_swap_out", "serve_wa_swap_in"):
+            return 0, 0
+        if name == "serve_wa_admit":
+            return self.prompt_len, 1
+        if name == "serve_wa_prefill_chunk":
+            return self.prefill_chunk, 1
+        if name == "serve_wa_decode":
+            return self.slots, 1
+        if name.startswith("serve_wa_decode_block"):
+            return self.slots, self.block_size
+        raise KeyError(f"no routing model for WA program {name!r}")
+
+    @property
+    def routed_bytes(self) -> int:
+        """W<->A bytes of this run: each WA program's dispatches since
+        ``fresh`` times what one dispatch routes."""
+        total = 0
+        for name, rec in self.rt.stats().items():
+            if not name.startswith(self.program_prefix):
+                continue
+            rows, trips = self.expected_routing(name)
+            total += (rec["calls"] - self._calls0.get(name, 0)) * trips * \
+                routing_bytes(self.api.config, rows, self._el)
+        return total
+
+    def fresh(self):
+        super().fresh()
+        self._calls0 = {n: r["calls"] for n, r in self.rt.stats().items()}
+
+    def admit_full(self, params, row: np.ndarray, slot: int):
+        """Monolithic WA admission: one full-width chunk at start 0 (the
+        padded width valid), straight into the slot."""
+        return self.run_chunk(params, row, slot, 0, self.prompt_len)
+
+    def routing_stats(self, decode_tokens: int) -> Dict[str, Any]:
+        """The per-token "only embeddings move" claim (2 hops x L x
+        d_model for one row) and the metered total of this run; both are
+        overlap-invariant."""
+        return {
+            "routing_bytes_per_token": routing_bytes(self.api.config, 1,
+                                                     self._el),
+            "routing_total_bytes": int(self.routed_bytes),
+            "routing_bytes_per_decode_token":
+                float(self.routed_bytes / max(decode_tokens, 1)),
+        }
+
+    def overlap_stats(self, decode_time_s: float, macro_steps: int,
+                      mb_live: int, mb_total: int) -> Dict[str, Any]:
+        """Per-domain stall accounting of the overlap schedule: each
+        domain's idle ticks are schedule arithmetic
+        (``wa_schedule_occupancy``); the measured decode wall per
+        macro-step splits by those fractions into W-idle and A-idle time.
+        ``micro_batch_occupancy``: the share of dispatched micro-batches
+        that carried a live slot (the scheduler's view)."""
+        occ = wa_schedule_occupancy(self.api.config.n_layers, self.overlap)
+        step_ms = decode_time_s * 1e3 / max(macro_steps, 1)
+        return {
+            "overlap": self.overlap,
+            "overlap_efficiency": occ["overlap_efficiency"],
+            "schedule_ticks": occ["total_ticks"],
+            "w_busy_ticks": occ["w_busy_ticks"],
+            "a_busy_ticks": occ["a_busy_ticks"],
+            "w_idle_ms_per_macro_step": step_ms * occ["w_idle_frac"],
+            "a_idle_ms_per_macro_step": step_ms * occ["a_idle_frac"],
+            "micro_batch_occupancy": float(mb_live / max(mb_total, 1)),
+        }
+
+
+BACKENDS = {"colocated": ColocatedBackend, "wa": WABackend}
 
 
 # ---------------------------------------------------------------------------
@@ -766,11 +925,6 @@ class KVArbiter:
 # ServingEngine — the boundary loop
 # ---------------------------------------------------------------------------
 
-def _later(knob: str, slice_name: str) -> ValueError:
-    return ValueError(f"{knob} is not ported to repro_torch yet; it arrives "
-                      f"with the {slice_name} slice of the port")
-
-
 class ServingEngine:
     """Greedy decoding over fixed batch slots with per-slot admission.
 
@@ -786,6 +940,13 @@ class ServingEngine:
     port serves has slotted decode).
     ``a_shards`` (n): split-KV decode, each KV bucket read as n equal
     shards; the KV extent prompt_len + max_new_cap must divide by n.
+    ``backend``: ``colocated`` (the family's own programs) or ``wa``
+    (``WABackend``: the weight-attention split of ``core/wa.py``, the A
+    domain on its own CUDA stream; continuous mode only).
+    ``overlap`` (D, WA only): split each decode dispatch into D
+    micro-batches pipelined across the W/A boundary; ``batch_slots`` must
+    divide by D. ``stats()["wa"]`` reports the routed bytes and the
+    schedule's occupancy.
 
     ``preemptible``: register the swap pair (``serve_swap_out`` /
     ``serve_swap_in``) and let a block boundary preempt a decoding slot:
@@ -849,17 +1010,36 @@ class ServingEngine:
             raise ValueError(mode)
         if a_shards < 1:
             raise ValueError(f"a_shards must be >= 1, got {a_shards}")
-        if backend == "wa":
-            raise _later("backend='wa'", "WA-backend + overlap")
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; choose from "
                              f"{sorted(BACKENDS)}")
-        if overlap != 1:
-            raise _later(f"overlap={overlap}", "WA-backend + overlap")
         if block_size < 1:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
         if prefill_chunk < 0:
             raise ValueError(f"prefill_chunk must be >= 0, got {prefill_chunk}")
+        if overlap < 1:
+            raise ValueError(f"overlap must be >= 1, got {overlap}")
+        if overlap > 1:
+            # micro-batch pipelining needs the W/A boundary (the WA
+            # backend) and equal micro-batches
+            if backend != "wa":
+                raise ValueError(
+                    f"overlap={overlap} pipelines the W/A boundary; the "
+                    f"{backend} backend has no W↔A hops to overlap "
+                    "(use backend='wa')")
+            if batch_slots % overlap:
+                raise ValueError(
+                    f"batch_slots={batch_slots} does not divide into "
+                    f"overlap={overlap} equal micro-batches")
+        if backend == "wa":
+            if mode == "drain":
+                raise ValueError("the WA backend serves through the "
+                                 "continuous scheduler; drain mode is "
+                                 "colocated-only")
+            if not api.wa_servable:
+                raise ValueError(
+                    f"{api.config.family} family has no WA-disaggregated "
+                    "serving support")
         if mode == "drain" and prefill_chunk > 0:
             raise ValueError("chunked prefill requires the continuous "
                              "scheduler (drain prefills the whole batch)")
@@ -877,6 +1057,7 @@ class ServingEngine:
         self.kv_bucket_chunk = kv_bucket_chunk
         self.prefill_chunk = prefill_chunk
         self.a_shards = a_shards
+        self.overlap = overlap
         self.debug_reset_slots = debug_reset_slots
         self.preemptible = preemptible
         self.max_queue = max_queue
@@ -942,6 +1123,9 @@ class ServingEngine:
         self._prefill_chunks = 0
         self._block_tokens: List[int] = []
         self._macro_steps = 0
+        # micro-batch occupancy under overlap > 1 (scheduler view)
+        self._micro_batches_live = 0
+        self._micro_batches_total = 0
         self.queue = []
         # failure-model accounting
         self._rejected: List[Request] = []
@@ -1075,7 +1259,8 @@ class ServingEngine:
                 kv_bucket_chunk=self.kv_bucket_chunk,
                 prefill_chunk=self.prefill_chunk,
                 debug_reset_slots=self.debug_reset_slots,
-                a_shards=self.a_shards, preemptible=self.preemptible)
+                a_shards=self.a_shards, overlap=self.overlap,
+                preemptible=self.preemptible)
 
     @torch.inference_mode()
     def run(self, params, requests: List[Request],
@@ -1263,7 +1448,8 @@ class ServingEngine:
         r = sched.req[slot]
         t0 = time.monotonic()
         try:
-            saved = self._dispatch("serve_swap_out", ex.swap_out, slot)
+            saved = self._dispatch(ex.program_prefix + "swap_out",
+                                   ex.swap_out, slot)
         except DispatchFailure:
             return False                 # the victim keeps its slot
         # to the host, as the reference's np.asarray (not a counted sync)
@@ -1288,8 +1474,8 @@ class ServingEngine:
         st = r.swap
         t0 = time.monotonic()
         try:
-            self._dispatch("serve_swap_in", ex.swap_in, st.saved, slot,
-                           st.kv_len)
+            self._dispatch(ex.program_prefix + "swap_in", ex.swap_in,
+                           st.saved, slot, st.kv_len)
         except DispatchFailure as e:
             # the restore never ran (DispatchError fires before the body):
             # the slot stays clean and FREE, the request is rejected
@@ -1347,7 +1533,8 @@ class ServingEngine:
         sched.req[slot] = r
         t0 = time.monotonic()
         try:
-            first = self._dispatch("serve_admit", ex.admit_full, params,
+            first = self._dispatch(ex.program_prefix + "admit",
+                                   ex.admit_full, params,
                                    pad_row(r.prompt, self.prompt_len), slot)
         except DispatchFailure as e:
             self._demote_admission(sched, slot, r, e)
@@ -1417,8 +1604,9 @@ class ServingEngine:
         row = pad_row(r.prompt[start:start + n_valid], self.prefill_chunk)
         t0 = time.monotonic()
         try:
-            tok = self._dispatch("serve_prefill_chunk", ex.run_chunk, params,
-                                 row, slot, start, n_valid)
+            tok = self._dispatch(ex.program_prefix + "prefill_chunk",
+                                 ex.run_chunk, params, row, slot, start,
+                                 n_valid)
         except DispatchFailure as e:
             # the slot may hold a partly written prompt: reject, quarantine
             self._demote_admission(sched, slot, r, e)
@@ -1464,12 +1652,18 @@ class ServingEngine:
         T = self.block_size
         ex = self._ex
         finished: List[Request] = []
+        if ex.overlap > 1:
+            # the share of dispatched micro-batches that carry a live slot
+            # (an idle micro-batch still runs: the programs are static)
+            for _slots, act in sched.micro_batch_view(ex.overlap, active):
+                self._micro_batches_total += 1
+                self._micro_batches_live += bool(act.any())
         if T == 1:
             while True:
                 t0 = time.monotonic()
                 try:
                     nxt, new_pos = self._dispatch(
-                        "serve_decode", ex.decode_step,
+                        ex.program_prefix + "decode", ex.decode_step,
                         params, sched.last_tok, sched.positions, active)
                 except DispatchFailure as e:
                     active = self._demote_decode(sched, e)
@@ -1510,7 +1704,7 @@ class ServingEngine:
                 t0 = time.monotonic()
                 try:
                     out = self._dispatch(
-                        "serve_decode_block", ex.decode_block,
+                        ex.program_prefix + "decode_block", ex.decode_block,
                         params, sb, sched.last_tok, sched.positions, active,
                         sched.remaining, sched.eos)
                 except DispatchFailure as e:
@@ -1686,4 +1880,11 @@ class ServingEngine:
         if self._arbiter is not None:
             # tier occupancy, demotions, live/peak bytes and the budget
             out["tiered"] = self._arbiter.stats()
+        if self.backend == "wa" and self._ex is not None:
+            # the routed W<->A bytes ("only embeddings move") and the
+            # per-domain stall accounting of the overlap schedule
+            out["wa"] = self._ex.routing_stats(n_dec)
+            out["wa"].update(self._ex.overlap_stats(
+                self._decode_time, self._macro_steps,
+                self._micro_batches_live, self._micro_batches_total))
         return out

@@ -12,7 +12,7 @@ Every step runs through an optional dispatch interceptor (fault injection,
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 
 class DispatchError(RuntimeError):
@@ -34,6 +34,9 @@ class CompiledStep:
     # models a dispatch that never reached the device (operands untouched,
     # retry-safe). Installed on every step by StaticRuntime.set_interceptor.
     interceptor: Optional[Callable[[str], None]] = None
+    # program metadata merged into its stats() record (the WA backend's
+    # overlap depth, when > 1)
+    meta: Optional[Dict[str, Any]] = None
 
     def __call__(self, *args, **kw):
         if self.interceptor is not None:
@@ -59,17 +62,25 @@ class StaticRuntime:
         for step in self._steps.values():
             step.interceptor = fn
 
-    def compile_step(self, name: str, fn: Callable) -> CompiledStep:
+    def compile_step(self, name: str, fn: Callable,
+                     meta: Optional[Dict[str, Any]] = None) -> CompiledStep:
         """Register ``fn`` under ``name`` once; a second registration of
         the same name returns the first step (programs persist across
-        engine runs)."""
+        engine runs). ``meta`` is merged into the step's ``stats()``
+        record."""
         if name not in self._steps:
-            self._steps[name] = CompiledStep(name, fn,
-                                             interceptor=self._interceptor)
+            self._steps[name] = CompiledStep(
+                name, fn, interceptor=self._interceptor,
+                meta=dict(meta) if meta else None)
         return self._steps[name]
 
     def stats(self) -> Dict[str, Dict]:
-        """Per-step ``{"compiles", "compile_s", "calls"}``; nothing is
-        compiled ahead of time, so ``compile_s`` is 0."""
-        return {name: {"compiles": 1, "compile_s": 0.0, "calls": s.calls}
-                for name, s in self._steps.items()}
+        """Per-step ``{"compiles", "compile_s", "calls"}`` plus the step's
+        ``meta``; nothing is compiled ahead of time, so ``compile_s`` is
+        0."""
+        out = {}
+        for name, s in self._steps.items():
+            out[name] = {"compiles": 1, "compile_s": 0.0, "calls": s.calls}
+            if s.meta:
+                out[name].update(s.meta)
+        return out

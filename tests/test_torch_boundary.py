@@ -58,6 +58,18 @@ def test_default_device_raises_without_cuda(no_cuda):
         serve_cli.main(["--requests", "1", "--batch", "1"])
 
 
+def test_wa_engine_defaults_to_cuda(no_cuda):
+    """The WA domains are CUDA streams: without a GPU the default device
+    raises, and no path falls back to the CPU."""
+    from repro_torch.core.wa import WADisaggregated
+    cfg = get_config("qwen2-0.5b").reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        WADisaggregated(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_cli.main(["--requests", "1", "--batch", "2", "--backend",
+                        "wa", "--overlap", "2"])
+
+
 def test_engine_refuses_devices_it_cannot_serve_on():
     api = build_model(get_config("qwen2-0.5b").reduced(), device="cpu")
     with pytest.raises(ValueError, match="unsupported device"):
@@ -84,3 +96,16 @@ def test_cli_serves_reduced_on_cpu(capsys):
                     "--kv-bucket-chunk", "8", "--prefill-chunk", "4"])
     out = capsys.readouterr().out
     assert "'completed': 3" in out and "serve_prefill_chunk" in out
+
+
+def test_cli_serves_wa_overlap_on_cpu(capsys):
+    serve_cli.main(["--device", "cpu", "--requests", "5", "--batch", "4",
+                    "--prompt-len", "6", "--max-new", "5",
+                    "--arrival-every", "2", "--block-size", "4",
+                    "--kv-bucket-chunk", "16", "--prefill-chunk", "3",
+                    "--backend", "wa", "--overlap", "2"])
+    out = capsys.readouterr().out
+    assert "'completed': 5" in out and "'backend': 'wa'" in out
+    assert "wa routing:" in out and "wa overlap: depth=2" in out
+    assert "serve_wa_prefill_chunk" in out and "'overlap': 2" in out
+    assert "'compiles': 2" not in out

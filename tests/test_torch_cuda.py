@@ -644,3 +644,209 @@ def test_quantizers_cuda_match_cpu_bit_for_bit(dev, which):
     x[0, 0, :3] = 0.0                                  # all-zero rows
     for a, b in zip(fn(x), fn(x.to(dev))):
         assert torch.equal(a, b.cpu())
+
+
+# ---------------------------------------------------------------------------
+# the WA backend: the A domain on its own CUDA stream
+# ---------------------------------------------------------------------------
+
+def _wa_admitted(cfg, d, seed=0):
+    """(api, params, caches): 4 slots of a (4, 32) cache admitted by
+    chunked prefill (8-token prompts, chunks of 4) on device ``d``."""
+    api = build_model(cfg, device=d)
+    params = to_device(build_model(cfg, device="cpu").init(0), api.device)
+    prompts = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (4, 8), dtype=np.int64)).to(api.device)
+    caches = api.init_caches(4, 32)
+    for slot in range(4):
+        for start in (0, 4):
+            caches, _ = api.prefill_chunk(
+                params, caches, prompts[slot:slot + 1, start:start + 4],
+                slot, start, 4)
+    return api, params, caches
+
+
+def _clone_cache(c):
+    import dataclasses
+    return dataclasses.replace(c, **{
+        f: None if getattr(c, f) is None else getattr(c, f).clone()
+        for f in ("k", "v", "k_scale", "v_scale", "hot_k", "hot_v",
+                  "length")})
+
+
+def _block_args(dev_, T=6):
+    return (torch.tensor([1, 2, 3, 4], dtype=torch.int32, device=dev_),
+            torch.full((4,), 8, dtype=torch.int32, device=dev_),
+            torch.tensor([True, True, False, True], device=dev_),
+            torch.tensor([T, 3, T, T], dtype=torch.int32, device=dev_),
+            torch.full((4,), -1, dtype=torch.int32, device=dev_))
+
+
+@pytest.mark.parametrize("over", [dict(dtype="float32"),
+                                  dict(dtype="float32", kv_dtype="int8"),
+                                  dict(dtype="float32", weight_int8=True),
+                                  dict(kv_dtype="int8")])
+def test_wa_depth_one_equals_colocated_bit_for_bit(dev, over):
+    """At depth 1 the WA programs launch the colocated programs' kernels in
+    the same order, QKV/FFN on the current stream and the KV side on the A
+    stream: chunk logits, step logits and every cache byte are equal."""
+    from repro_torch.core.wa import WADisaggregated
+    cfg = get_config("qwen2-0.5b").reduced().replace(**over)
+    api, params, caches = _wa_admitted(cfg, "cuda")
+    wa = WADisaggregated(cfg, "cuda")
+    got = {}
+    for name, step, chunk in (
+            ("colocated", api.decode_slotted, api.prefill_chunk),
+            ("wa", wa.decode_step_slotted, wa.prefill_chunk)):
+        c = _clone_cache(caches)
+        tok, pos, act = _block_args(dev)[:3]
+        logits = []
+        for _ in range(4):
+            c, lg = step(params, c, tok, pos, act, kv_bucket=16)
+            logits.append(lg)
+            tok, pos = lg[:, 0].argmax(-1).to(torch.int32), pos + 1
+        row = torch.arange(4, device=dev)[None] + 7
+        c, lg = chunk(params, c, row, 2, 12, 3)
+        logits.append(lg[:, 0].expand(4, -1)[:, None])
+        torch.cuda.synchronize()
+        got[name] = (torch.cat(logits), c)
+    (l0, c0), (l1, c1) = got["colocated"], got["wa"]
+    assert torch.equal(l0, l1)
+    for f in ("k", "v", "k_scale", "v_scale", "length"):
+        a, b = getattr(c0, f), getattr(c1, f)
+        assert (a is None) == (b is None) and (a is None or
+                                               torch.equal(a, b)), f
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+@pytest.mark.parametrize("depth", [2, 4])
+@pytest.mark.parametrize("kv", ["float32", "int8"])
+def test_wa_overlap_matches_cpu_and_repeats(dev, kv, depth, shards):
+    """The pipelined decode block (T=6, one row idle, one halting after 3)
+    on the card gives the CPU's tokens, and a second call from the same
+    state gives the same tokens and cache bytes (the race check)."""
+    from repro_torch.core.wa import WADisaggregated
+    cfg = get_config("qwen2-0.5b").reduced().replace(dtype="float32",
+                                                      kv_dtype=kv)
+    toks = {}
+    for d in ("cpu", "cuda"):
+        api, params, caches = _wa_admitted(cfg, d)
+        wa = WADisaggregated(cfg, d, overlap=depth, a_shards=shards)
+        runs = []
+        for _ in range(2 if d == "cuda" else 1):
+            c = _clone_cache(caches)
+            reset_launch_counts()
+            out = wa.decode_block(params, c, *_block_args(api.device),
+                                  block_size=6, kv_bucket=16)
+            torch.cuda.synchronize()
+            runs.append((out[1].cpu(), out[0].k.cpu(), launch_counts()))
+        toks[d] = runs
+    assert torch.equal(toks["cuda"][0][0], toks["cpu"][0][0])
+    assert torch.equal(toks["cuda"][1][0], toks["cuda"][0][0])
+    assert torch.equal(toks["cuda"][1][1], toks["cuda"][0][1])
+    counts = toks["cuda"][0][2]
+    assert counts["flash_decode"] > 0 and counts["fused_ffn"] > 0
+    assert (counts["flash_decode_partial"] > 0) == (shards > 1)
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_wa_block_makes_no_synchronising_call(dev, depth):
+    """A WA decode block (its forks, hops and joins included) runs under
+    PyTorch's sync debug mode set to raise on any synchronising call."""
+    from repro_torch.core.wa import WADisaggregated
+    cfg = get_config("qwen2-0.5b").reduced().replace(kv_dtype="int8")
+    api, params, caches = _wa_admitted(cfg, "cuda")
+    wa = WADisaggregated(cfg, "cuda", overlap=depth)
+    args = _block_args(dev)
+    wa.decode_block(params, _clone_cache(caches), *args, block_size=4,
+                    kv_bucket=16)
+    torch.cuda.synchronize()
+    c = _clone_cache(caches)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        wa.decode_block(params, c, *args, block_size=4, kv_bucket=16)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_wa_program_join_leaves_no_a_work_pending(dev):
+    """Each WA program joins the A stream back into the caller's: once the
+    caller's stream has drained after a program returns, an event recorded
+    on A is complete (decode step at depth 2, chunk, swap pair)."""
+    from repro_torch.core.wa import WADisaggregated
+    cfg = get_config("qwen2-0.5b").reduced().replace(kv_dtype="int8")
+    api, params, caches = _wa_admitted(cfg, "cuda")
+    wa = WADisaggregated(cfg, "cuda", overlap=2)
+    w = torch.cuda.current_stream(dev)
+    tok, pos, act = _block_args(dev)[:3]
+    programs = (
+        lambda: wa.decode_step_slotted(params, caches, tok, pos, act),
+        lambda: wa.prefill_chunk(params, caches,
+                                 torch.ones((1, 4), dtype=torch.int64,
+                                            device=dev), 1, 8, 4),
+        lambda: wa.swap_in_slot(caches, wa.swap_out_slot(caches, 3), 0, 8))
+    for program in programs:
+        torch.cuda.synchronize()
+        torch.cuda._sleep(50_000_000)          # keep W busy past the return
+        program()
+        w.synchronize()
+        assert wa._a.record_event().query()
+
+
+# a spin long enough (~1 ms) that the host has issued the hop's consumer
+# well before the slowed producer's output is written
+SLOW_SPIN = 2_000_000
+
+
+@pytest.mark.parametrize("slowed", ["pre_attention", "attend_decode_slotted",
+                                    "post_attention"])
+@pytest.mark.parametrize("depth", [1, 2, 4])
+@pytest.mark.parametrize("kv", ["float32", "int8"])
+def test_wa_hops_hold_under_slow_producers(dev, monkeypatch, kv, depth,
+                                           slowed):
+    """One op of the layer loop is made slow: a spin kernel runs on its
+    stream just before it. Slow ln1 + QKV on W: an A stream that did not
+    wait on the W -> A event would attend q/k/v before they are written.
+    Slow attention on A: a W stream that did not wait on the A -> W event
+    would read o early, and q/k/v not marked in use by A could have their
+    memory handed to W's next micro-batch while A still reads them. Slow
+    post-attention on W: o not marked in use by W could be reused by A.
+    The decode block (T=6, one row idle, one halting after 3) still gives
+    the CPU's tokens and, bit for bit, the cache bytes of a run without
+    the spin."""
+    from repro_torch.core import wa as wamod
+    cfg = get_config("qwen2-0.5b").reduced().replace(dtype="float32",
+                                                      kv_dtype=kv)
+    api, params, caches = _wa_admitted(cfg, "cpu")
+    want = wamod.WADisaggregated(cfg, "cpu", overlap=depth).decode_block(
+        params, _clone_cache(caches), *_block_args("cpu"), block_size=6,
+        kv_bucket=16)[1]
+    api, params, caches = _wa_admitted(cfg, "cuda")
+    wa = wamod.WADisaggregated(cfg, "cuda", overlap=depth)
+    fields = ("k", "v", "k_scale", "v_scale", "length")
+
+    def block():
+        c = _clone_cache(caches)
+        torch.cuda.synchronize()
+        out = wa.decode_block(params, c, *_block_args(dev), block_size=6,
+                              kv_bucket=16)
+        torch.cuda.synchronize()
+        return out[1].cpu(), [None if getattr(c, f) is None
+                              else getattr(c, f).cpu() for f in fields]
+
+    plain = block()
+    fn = getattr(wamod, slowed)
+
+    def spun(*a, **kw):
+        torch.cuda._sleep(SLOW_SPIN)
+        return fn(*a, **kw)
+
+    monkeypatch.setattr(wamod, slowed, spun)
+    toks, cache = block()
+    assert torch.equal(plain[0], want)
+    assert torch.equal(toks, want)
+    for f, a, b in zip(fields, cache, plain[1]):
+        assert (a is None) == (b is None) and (a is None or
+                                               torch.equal(a, b)), f

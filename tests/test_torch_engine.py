@@ -4,9 +4,10 @@ JAX engine on the same f32 weights and the staggered request plans of
 
 Per-request token streams must be identical for T=1 and T=8, monolithic
 and chunked admission, with and without KV buckets, and the counted host
-syncs must equal the reference's. Every knob the port does not have yet
-raises ``ValueError``; a tiered config serves (its parity with the
-reference is ``test_torch_tiered.py``'s).
+syncs must equal the reference's. The WA backend's knobs raise the
+reference's validation errors where they do not combine (its parity with
+the reference is ``test_torch_wa.py``'s); a tiered config serves (its
+parity with the reference is ``test_torch_tiered.py``'s).
 """
 import pytest
 
@@ -153,8 +154,6 @@ def test_length_contract_rejects_not_truncates(models):
 
 UNPORTED = {
     # knob: (engine kwargs, the error's words)
-    "backend=wa": (dict(backend="wa"), "not ported to repro_torch yet"),
-    "overlap=2": (dict(overlap=2), "not ported to repro_torch yet"),
     # ported with the tiered cache: on a flat cache it raises as the
     # reference does (tests/test_torch_tiered.py holds the tiered case)
     "kv_budget_bytes": (dict(kv_budget_bytes=1 << 20),
@@ -168,6 +167,29 @@ def test_unported_knob_raises(models, knob):
     kw, words = UNPORTED[knob]
     with pytest.raises(ValueError, match=words):
         ServingEngine(tapi, 2, PROMPT_LEN, device="cpu", **kw)
+
+
+WA_ERRORS = {
+    # case: (slots, engine kwargs, the reference's words)
+    "overlap_without_wa": (2, dict(overlap=2), "no W↔A hops to overlap"),
+    "slots_not_divisible_by_overlap": (
+        3, dict(backend="wa", overlap=2),
+        "does not divide into overlap=2 equal micro-batches"),
+    "wa_with_drain": (2, dict(backend="wa", mode="drain"),
+                      "drain mode is colocated-only"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WA_ERRORS))
+def test_wa_validation_raises(models, case):
+    """The WA backend and its overlap serve (``test_torch_wa.py``); the
+    combinations the reference refuses raise its errors."""
+    _, japi, _, tapi, _ = models
+    slots, kw, words = WA_ERRORS[case]
+    with pytest.raises(ValueError, match=words):
+        JaxEngine(japi, NULL_CTX, slots, PROMPT_LEN, **kw)
+    with pytest.raises(ValueError, match=words):
+        ServingEngine(tapi, slots, PROMPT_LEN, device="cpu", **kw)
 
 
 def test_failure_model_request_fields_accepted(models):
