@@ -12,11 +12,17 @@ phases; any failure exits non-zero before the result line:
    decode at S from 1 to 4096, B 1, 2, 4 and 8 (the WA backend's
    micro-batches launch it at 4 and 2 rows), the four q/KV dtype pairs,
    kv_limit at 0, inside a split, on a split edge and at S, normalised and
-   partial, and at G*hd = 1024; split-KV attention, one K1 partial launch
-   per shard plus the LSE combine, over buckets 64/128/192/200 x 2 and 4
-   shards x bf16 and int8 KV; K3 fused FFN up to 1,024 rows; K4 int8 GEMV
-   at 1 to 128 rows (2 and 4 included) — K4 must be bit-exact; every kernel must give the same bits on a
-   second call);
+   partial, and at G*hd = 1024; at the other configurations' groups with
+   hd 128 and the engine runs' bucket extents: G=16 (qwen3-moe: two
+   launches of 8 heads), 4 (at B 1, 2, 4 and 8), 3 and 1;
+   split-KV attention, one K1 partial launch per shard plus the LSE
+   combine, over buckets 64/128/192/200 x 2 and 4 shards x bf16 and int8
+   KV; K3 fused FFN up to 1,024 rows, also at Llama-2-7B's D=4096
+   F=11008; K4 int8 GEMV at 1 to 128 rows (2 and 4 included) and at the
+   paper's Llama projections (4096x4096, 4096x11008, 11008x4096,
+   3072x8192) and phi3.5-moe's k/v (4096x1024) at 1 to 128 rows — K4
+   must be bit-exact; every kernel must
+   give the same bits on a second call);
 3. model parity at full qwen2-0.5b width, depth cut to 2 layers, float32:
    the same seeded weights on the CPU (plain versions) and on CUDA
    (kernels) give equal tokens and logits within 1e-3 of max|logit|, for
@@ -35,8 +41,15 @@ phases; any failure exits non-zero before the result line:
    KV (K4 at the micro-batches' rows), 4 shards and a tiered int4 cache
    give the CPU's tokens and logits within 1e-3, and the
    largest difference between WA at depth 1 and the colocated programs
-   on the card is reported (the same kernels on two streams);
-4. the serving engine at full qwen2-0.5b (24 layers, seeded random bf16
+   on the card is reported (the same kernels on two streams); the MoE
+   family at full phi3.5-moe width (16 experts x 6400, LayerNorm), 2
+   layers: chunked prefill, slotted decode, the decode block, 4-shard
+   split decode and the WA programs at overlap 1, 2 and 4 give the CPU's
+   tokens and logits within 1e-3 (2e-2 in a program where the recorded
+   routings of the two sides differ), and WA at depth 1 gives the
+   colocated logits bit for bit;
+4. the serving engine at full qwen2-0.5b width (24 layers, runs (e), (f)
+   and (h) cut to 12 to keep the script's time; seeded random bf16
    weights): (a) chunked admission + macro-step decode + KV buckets,
    (b) int8 weights and int8 KV with monolithic admission, (c) per-token
    decode, (d) drain mode (batch prefill of 8 x 128, shared-cursor
@@ -67,7 +80,14 @@ phases; any failure exits non-zero before the result line:
    difference) and of (j) equal (k)'s (the micro-batching's share) is
    reported; the traced blocks of (i) and (j) also
    report each stream's busy time and the time both streams run a kernel
-   beside the schedule's ``overlap_efficiency``;
+   beside the schedule's ``overlap_efficiency``; then the other
+   configurations at full width: (l) qwen3-moe-235b-a22b cut to 4 layers
+   on (a)'s plan (K1 only, two launches a layer), (m) phi3.5-moe-42b cut
+   to 8 layers with int8 weights and KV through the WA backend at overlap
+   2 on (j)'s plan, served twice, and (n) the paper's Llama-2-7B int8
+   deployment at full depth on (b)'s plan; each must complete, launch
+   exactly its path's kernels (no K3 in any) and make its twin run's
+   host syncs; one decode block of (l) and (n) is traced;
 5. time each kernel at the main path's shapes (K1 at B=8 over S=200 and
    at a long context of S=4096, bf16 and int8 KV, in partial mode at one
    shard of 48, the whole split attention of a layer at bucket 192 and the
@@ -78,7 +98,10 @@ phases; any failure exits non-zero before the result line:
    K3: three matmuls and silu; K4: a bf16 matmul on dequantized weights
    and ``torch._int_mm``), the tiered append of a layer, a W->A->W hop
    pair of the WA backend against one colocated layer-step, and two spin
-   kernels on one stream against one on each.
+   kernels on one stream against one on each; then K1 at G=16 (S=200 and
+   4096), K4 at the Llama projections and K3 at Llama-2-7B's FFN, and an
+   MoE layer's device time at qwen3-moe and phi3.5-moe widths split into
+   router + dispatch, expert products and combine.
 
 It then prints the card (nvidia-smi name, power limit), a ``kernels`` JSON
 line, and last the JSON result line. Without a GPU, or without the rest of
@@ -299,20 +322,35 @@ def phase_compare(dev):
     from repro_torch.kernels.flash_decode.ops import decode_plan
     # Rows 1 to 8: the plan follows B, and the WA backend's micro-batches
     # launch K1 at 4 and 2 rows (8 slots at overlap 2 and 4).
-    cases = [(S, B, pair, 14, 64)
+    cases = [(S, B, pair, 14, 2, 64)
              for S in (1, 17, 64, 128, 200, 1000, 4096)
              for B in (1, 2, 4, 8) for pair in K1_PAIRS]
-    cases += [(S, B, pair, 16, 128) for S in (200, 4096)
+    cases += [(S, B, pair, 16, 2, 128) for S in (200, 4096)
               for B in (1, 2, 4, 8) for pair in K1_PAIRS]
-    for S, B, pair, Hq, hd in cases:
+    # the other configurations' groups at hd 128, at the engine runs'
+    # bucket extents (64-200) among the S: G=16 (qwen3-moe, two launches
+    # of 8 heads; run (l) at 8 rows), G=4 (phi3.5-moe and qwen3-8b; run
+    # (m) at the overlap-2 micro-batches' 4 rows and phase 3's WA depths
+    # at 2 and 1 in f32, so every row count and pair), G=3 (llama3.2-3b),
+    # G=1 (llama2-7b; run (n) at 8 rows)
+    buckets = (64, 128, 192, 200)
+    cases += [(S, B, pair, 64, 4, 128)
+              for S in (1, 17, *buckets, 1000, 4096)
+              for B in (1, 8) for pair in K1_PAIRS[2:]]
+    cases += [(S, B, pair, 32, 8, 128) for S in (1, *buckets, 4096)
+              for B in (1, 2, 4, 8) for pair in K1_PAIRS]
+    cases += [(S, B, pair, Hq, n_kv, 128) for S in (1, *buckets, 4096)
+              for B in (1, 8) for Hq, n_kv in ((24, 8), (32, 32))
+              for pair in K1_PAIRS[2:]]
+    for S, B, pair, Hq, n_kv, hd in cases:
         isz = torch.empty(0, dtype=getattr(torch, pair[1])).element_size()
-        plan = decode_plan(B, 2, Hq // 2, S, hd, isz)
+        plan = decode_plan(B, n_kv, Hq // n_kv, S, hd, isz)
         edge = plan.split if plan.splits > 1 else S
         lims = sorted({0, max(1, plan.split // 2 + 3), edge, S})
         err = err_p = ratio = 0.0
         same = True
         for lim in lims + [None]:             # None: every row live to S
-            args = k1_inputs(dev, B, S, pair, lim, Hq=Hq, hd=hd,
+            args = k1_inputs(dev, B, S, pair, lim, Hq=Hq, n_kv=n_kv, hd=hd,
                              seed=S + B + (lim or 0))
             e, e_p, r, sm = check_k1(args, S if lim is None else lim)
             err, err_p = max(err, e), max(err_p, e_p)
@@ -320,12 +358,15 @@ def phase_compare(dev):
         errs["flash_decode"] = max(errs["flash_decode"], err)
         errs["flash_decode_partial"] = max(errs["flash_decode_partial"],
                                            err_p)
-        log(f"  K1 B={B} S={S} G={Hq // 2} hd={hd} q={pair[0]} kv={pair[1]}"
-            f" ({plan.splits} splits of {plan.split}), kv_limit {lims}: "
+        log(f"  K1 B={B} S={S} G={Hq // n_kv} hd={hd} q={pair[0]} "
+            f"kv={pair[1]} ({plan.runs} x {plan.heads} heads, "
+            f"{plan.splits} splits of {plan.split}), kv_limit {lims}: "
             f"max|d|={err:.3g} normalised, {err_p:.3g} partial, "
             f"max|d|/tol={ratio:.3g}, repeat identical={same}")
-        require(ratio <= 1.0, f"K1 disagrees at B={B} S={S} {pair} hd={hd}")
-        require(same, f"K1 not deterministic at B={B} S={S} {pair}")
+        require(ratio <= 1.0, f"K1 disagrees at B={B} S={S} {pair} hd={hd} "
+                f"G={Hq // n_kv}")
+        require(same, f"K1 not deterministic at B={B} S={S} {pair} "
+                f"G={Hq // n_kv}")
     # Split-KV attention as the engine runs it (B=8, Hq=14, n_kv=2, hd=64):
     # one K1 launch per shard in partial mode (shard views of the cache,
     # the mask sliced per shard, kv_limit element s of shard_kv_limits on
@@ -367,39 +408,49 @@ def phase_compare(dev):
     # K3: f32 through the intermediate in both; different summation order.
     # Rows across the 16/32/64-row tiles and the drain batch prefill's
     # 1,024 rows (8 x 128); D=200 F=700 divides no tile.
-    for D, F in ((896, 4864), (200, 700)):
-        for dtype in (torch.bfloat16, torch.float32):
-            for R in (1, 8, 16, 17, 32, 128, 1024):
-                args, _ = k3_inputs(dev, R, seed=R + D, D=D, F=F,
-                                    dtype=dtype)
-                for act in ("silu", "gelu"):
-                    got = fused_ffn(*args, act=act)
-                    want = fused_ffn_ref(*args, act=act)
-                    e, tol = max_err(got, want), 1e-4 * max(1, max_abs(want))
-                    same = torch.equal(fused_ffn(*args, act=act), got)
-                    errs["fused_ffn"] = max(errs["fused_ffn"], e)
-                    log(f"  K3 D={D} F={F} {str(dtype)[6:]} rows={R} "
-                        f"act={act}: max|d|={e:.3g} (tol {tol:.3g}), "
-                        f"repeat identical={same}")
-                    require(e <= tol, f"K3 disagrees at D={D} rows={R} "
-                            f"{dtype} {act}")
-                    require(same, f"K3 not deterministic at D={D} rows={R}")
+    # then the Llama-2-7B FFN (D=4096, F=11008) in bf16
+    ffn_cases = [(D, F, dtype, R) for D, F in ((896, 4864), (200, 700))
+                 for dtype in (torch.bfloat16, torch.float32)
+                 for R in (1, 8, 16, 17, 32, 128, 1024)]
+    ffn_cases += [(4096, 11008, torch.bfloat16, R) for R in (8, 32, 128,
+                                                             1024)]
+    for D, F, dtype, R in ffn_cases:
+        args, _ = k3_inputs(dev, R, seed=R + D, D=D, F=F, dtype=dtype)
+        for act in ("silu", "gelu"):
+            got = fused_ffn(*args, act=act)
+            want = fused_ffn_ref(*args, act=act)
+            e, tol = max_err(got, want), 1e-4 * max(1, max_abs(want))
+            same = torch.equal(fused_ffn(*args, act=act), got)
+            errs["fused_ffn"] = max(errs["fused_ffn"], e)
+            log(f"  K3 D={D} F={F} {str(dtype)[6:]} rows={R} act={act}: "
+                f"max|d|={e:.3g} (tol {tol:.3g}), repeat identical={same}")
+            require(e <= tol, f"K3 disagrees at D={D} rows={R} {dtype} "
+                    f"{act}")
+            require(same, f"K3 not deterministic at D={D} rows={R}")
     # K4: int32-exact accumulation, same f32 epilogue order: bit-exact.
     # K=100 is no multiple of the 16-row K chunk, N=130 none of 16 bytes;
-    # 2 and 4 rows are the WA backend's micro-batches of 8 slots.
-    for K in (100, 896, 4864):
-        for N in (128, 130, 896, 4864):
-            for R in (1, 2, 4, 8, 9, 17, 128):
-                args, _ = k4_inputs(dev, R, K, N, seed=K + N + R)
-                got, want = gemv_int8_q(*args), gemv_int8_ref(*args)
-                e = max_err(got, want)
-                exact = torch.equal(got, want)
-                same = torch.equal(gemv_int8_q(*args), got)
-                errs["gemv_int8"] = max(errs["gemv_int8"], e)
-                log(f"  K4 K={K} N={N} rows={R}: max|d|={e:.3g} (tol 0, "
-                    f"exact={exact}, repeat identical={same})")
-                require(exact, f"K4 not exact at {K}x{N} rows={R}")
-                require(same, f"K4 not deterministic at {K}x{N} rows={R}")
+    # 2 and 4 rows are the WA backend's micro-batches of 8 slots; then the
+    # paper's Llama projections (q/o 4096x4096, gate/up 4096x11008, down
+    # 11008x4096, llama3.2-3b gate/up 3072x8192) and phi3.5-moe's k/v
+    # (4096x1024, run (m)) at 1-64 rows and a 128-token admission
+    gemv_cases = [(K, N, R) for K in (100, 896, 4864)
+                  for N in (128, 130, 896, 4864)
+                  for R in (1, 2, 4, 8, 9, 17, 128)]
+    gemv_cases += [(K, N, R) for K, N in ((4096, 4096), (4096, 1024),
+                                          (4096, 11008), (11008, 4096),
+                                          (3072, 8192))
+                   for R in (1, 2, 4, 8, 16, 32, 64, 128)]
+    for K, N, R in gemv_cases:
+        args, _ = k4_inputs(dev, R, K, N, seed=K + N + R)
+        got, want = gemv_int8_q(*args), gemv_int8_ref(*args)
+        e = max_err(got, want)
+        exact = torch.equal(got, want)
+        same = torch.equal(gemv_int8_q(*args), got)
+        errs["gemv_int8"] = max(errs["gemv_int8"], e)
+        log(f"  K4 K={K} N={N} rows={R}: max|d|={e:.3g} (tol 0, "
+            f"exact={exact}, repeat identical={same})")
+        require(exact, f"K4 not exact at {K}x{N} rows={R}")
+        require(same, f"K4 not deterministic at {K}x{N} rows={R}")
     torch.cuda.synchronize()
     return errs
 
@@ -911,10 +962,143 @@ def phase_wa_parity():
                 f"WA depth 1 tokens differ from colocated ({label})")
 
 
+@contextlib.contextmanager
+def recorded_routing(rows):
+    """Append a host copy of the (T, K) expert ids of every MoE layer's
+    routing to ``rows``, in call order."""
+    from repro_torch.models import moe
+    route = moe.route
+
+    def rec(p, xf, k):
+        out = route(p, xf, k)
+        rows.append(out[2].cpu())
+        return out
+
+    moe.route = rec
+    try:
+        yield
+    finally:
+        moe.route = route
+
+
+def router_flips(a, b) -> int:
+    """Token rows whose top-k expert set differs between two records of
+    ``recorded_routing``, which must pair up call for call."""
+    require(len(a) == len(b) and all(x.shape == y.shape
+                                     for x, y in zip(a, b)),
+            "routings recorded on CPU and CUDA do not pair up")
+    return sum(int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
+               for x, y in zip(a, b))
+
+
+def phase_moe_parity():
+    """The MoE family at full phi3.5-moe width (d 4096, 32/8 heads of 128,
+    16 experts x 6400, top-2, LayerNorm), depth cut to 2 layers, f32, the
+    same seeded weights on the CPU (plain versions) and the card (made on
+    the card from a seed, copied to the CPU): 8 slots admitted by 8-wide
+    chunks (``prefill_chunk``), then from the admitted state 4 slotted
+    decode steps (bucket 32), the decode block (T=4), 4 split-KV steps
+    over 4 shards of 12, and 4 steps of the WA program at overlap 1, 2
+    and 4. Tokens equal; logits within
+    1e-3 of max|logit|, or 2e-2 in a program whose routing (recorded on
+    both sides, chunks included) picked another top-k set for some token
+    (the CPU and cuBLAS sum the f32 router product in other orders). On
+    the card, WA at depth 1 gives the colocated step's logits bit for
+    bit."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.wa import WADisaggregated
+    from repro_torch.interop import to_device
+    from repro_torch.models.registry import build_model
+    cfg = get_config("phi3.5-moe-42b-a6.6b").replace(n_layers=2,
+                                                     dtype="float32")
+    prompts = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (8, 8), dtype=np.int64))
+    t0 = time.monotonic()
+    cpu_params = to_device(build_model(cfg).init(0), "cpu")
+    log(f"  MoE parity: seeded f32 weights of 2 phi3.5-moe layers made on "
+        f"the card and copied to the CPU in {time.monotonic() - t0:.1f}s")
+    res, routes, walls = {}, {}, {}
+    for d in ("cuda", "cpu"):
+        t0 = time.monotonic()
+        routes[d] = rec = {}
+        api = build_model(cfg, device=d)
+        params = to_device(cpu_params, api.device)
+        caches = api.init_caches(8, 48)
+        chunk_lg = []
+        with recorded_routing(rec.setdefault("chunk", [])):
+            for slot in range(8):
+                caches, lg = api.prefill_chunk(
+                    params, caches, prompts[slot:slot + 1].to(d), slot, 0, 8)
+                chunk_lg.append(lg[0, -1].float().cpu())
+        tok = torch.stack(chunk_lg).argmax(-1).to(torch.int32).to(d)
+        pos = torch.full((8,), 8, dtype=torch.int32, device=d)
+        act = torch.ones(8, dtype=torch.bool, device=d)
+
+        def steps(fn, key, **kw):
+            c, t, p = clone_cache(caches), tok, pos
+            logits, toks = [], []
+            with recorded_routing(rec.setdefault(key, [])):
+                for _ in range(4):
+                    c, lg = fn(params, c, t, p, act, **kw)
+                    logits.append(lg[:, 0].float().cpu())
+                    t = lg[:, 0].argmax(-1).to(torch.int32)
+                    toks.append(t.cpu())
+                    p = p + 1
+            return torch.stack(logits), torch.stack(toks)
+
+        def block(impl, key):
+            with recorded_routing(rec.setdefault(key, [])):
+                return impl(params, clone_cache(caches), tok, pos, act,
+                            torch.full((8,), 4, dtype=torch.int32, device=d),
+                            torch.full((8,), -1, dtype=torch.int32,
+                                       device=d),
+                            block_size=4, kv_bucket=32)[1].cpu()
+
+        out = {"slotted": steps(api.decode_slotted, "slotted", kv_bucket=32),
+               "block": block(api.decode_block, "block"),
+               "split": steps(api.decode_slotted, "split", kv_shards=4)}
+        for D in (1, 2, 4):
+            wa = WADisaggregated(cfg, d, overlap=D)
+            out[f"wa d{D}"] = steps(wa.decode_step_slotted, f"wa d{D}",
+                                    kv_bucket=32)
+        res[d] = (torch.stack(chunk_lg), out)
+        walls[d] = time.monotonic() - t0
+        del api, params, caches
+    del cpu_params
+    torch.cuda.empty_cache()
+    cpu, cuda = res["cpu"], res["cuda"]
+    flips = {k: router_flips(routes["cpu"][k], routes["cuda"][k])
+             for k in routes["cpu"]}
+    rels, same = {"chunk": rel_err(cuda[0], cpu[0])}, {}
+    ok = rels["chunk"] <= (1e-3 if flips["chunk"] == 0 else 2e-2)
+    for k, (lg_cpu, tk_cpu) in ((k, v) for k, v in cpu[1].items()
+                                if k != "block"):
+        rels[k] = rel_err(cuda[1][k][0], lg_cpu)
+        tol = 1e-3 if flips["chunk"] + flips[k] == 0 else 2e-2
+        ok = ok and np.isfinite(rels[k]) and rels[k] <= tol
+        same[k] = torch.equal(cuda[1][k][1], tk_cpu)
+    same["block"] = torch.equal(cuda[1]["block"], cpu[1]["block"])
+    same["block == slotted steps"] = torch.equal(cuda[1]["block"],
+                                                 cuda[1]["slotted"][1])
+    d1_exact = torch.equal(cuda[1]["wa d1"][0], cuda[1]["slotted"][0])
+    log(f"  MoE (phi3.5-moe width, 2 layers, f32), cpu vs cuda: "
+        f"max|dlogit|/max|logit| " + ", ".join(
+            f"{k} {v:.3g}" for k, v in rels.items())
+        + f" (tol 1e-3, 2e-2 after a router flip); router flips (token "
+        f"rows with another top-k set): {flips}; tokens equal: {same}; WA "
+        f"depth 1 logits == colocated on cuda bit for bit: {d1_exact}; "
+        f"wall cuda {walls['cuda']:.1f}s, cpu {walls['cpu']:.1f}s")
+    require(ok, "MoE logits disagree between cpu and cuda")
+    require(all(same.values()), "MoE tokens disagree")
+    require(d1_exact, "MoE: WA depth 1 differs from colocated on cuda")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the engine at full qwen2-0.5b
 # ---------------------------------------------------------------------------
 
+# runs (e), (f) and (h) at half of qwen2-0.5b's 24 layers
+SHORT = dict(n_layers=12)
 RUNS = {
     # name: (config overrides, engine kwargs, n_requests, max_new, kernels)
     "a_bf16_chunked_T8": (
@@ -928,8 +1112,10 @@ RUNS = {
                   ("flash_decode", "fused_ffn")),
     "d_bf16_drain_T1": ({}, dict(mode="drain", max_new_cap=72), 12, 32,
                         ("flash_decode", "fused_ffn")),
+    # cut to 12 of 24 layers (SHORT), as are (f) and (h): the other
+    # configurations' runs below take their time
     "e_int8kv_split4_chunked_T8": (
-        dict(kv_dtype="int8"),
+        dict(kv_dtype="int8", **SHORT),
         dict(block_size=8, kv_bucket_chunk=64, prefill_chunk=32,
              max_new_cap=72, a_shards=4), 12, 64,
         ("flash_decode", "flash_decode_partial", "fused_ffn")),
@@ -957,9 +1143,34 @@ RUNS = {
              backend="wa", overlap=2), 12, 32,
         ("flash_decode", "gemv_int8")),
 }
+# the other families and configurations at full width, after the qwen2
+# runs: (l) qwen3-moe (64/4 heads: K1 in two launches of 8 heads, 128
+# experts x 1536, top-8) with depth cut to 4 of 94 layers, ~22 GB of bf16
+# weights, on (a)'s plan; (m) phi3.5-moe with depth cut to 8 of 32 layers
+# (~21 GB), int8 weights (K4 on attention; the experts stay bf16) and int8
+# KV, monolithic, through WA at overlap 2 on (j)'s plan, served twice; (n)
+# the paper's Llama-2-7B deployment at full depth (32 layers, int8 weights
+# and KV, ~7 GB) on (b)'s plan. MoE layers have no dense FFN: no K3.
+FAMILY_RUNS = {
+    # name: (arch, config overrides, engine kwargs, n_requests, max_new,
+    #        kernels, the run whose plan and host syncs it repeats)
+    "l_qwen3moe_4L_chunked_T8": (
+        "qwen3-moe-235b-a22b", dict(n_layers=4),
+        RUNS["a_bf16_chunked_T8"][1], 12, 64, ("flash_decode",),
+        "a_bf16_chunked_T8"),
+    "m_phi35moe_8L_int8_wa_overlap2_T8": (
+        "phi3.5-moe-42b-a6.6b",
+        dict(n_layers=8, weight_int8=True, kv_dtype="int8"),
+        RUNS["j_wa_int8w_int8kv_overlap2_T8"][1], 12, 32,
+        ("flash_decode", "gemv_int8"), "j_wa_int8w_int8kv_overlap2_T8"),
+    "n_llama2_7b_int8_monolithic_T8": (
+        "llama2-7b", {}, RUNS["b_int8w_int8kv_monolithic_T8"][1], 12, 32,
+        ("flash_decode", "gemv_int8"), "b_int8w_int8kv_monolithic_T8"),
+}
 TRACED = ("a_bf16_chunked_T8", "b_int8w_int8kv_monolithic_T8",
           "e_int8kv_split4_chunked_T8", "g_tiered_int4_chunked_T8",
-          "i_wa_bf16_chunked_T8", "j_wa_int8w_int8kv_overlap2_T8")
+          "i_wa_bf16_chunked_T8", "j_wa_int8w_int8kv_overlap2_T8",
+          "l_qwen3moe_4L_chunked_T8", "n_llama2_7b_int8_monolithic_T8")
 # each WA run: the colocated run whose plan, engine and host syncs it
 # repeats, and the earlier runs its streams are compared with, each with
 # whether they must be equal (only where the same programs run the same
@@ -974,6 +1185,8 @@ WA_TWINS = {
         "b_int8w_int8kv_monolithic_T8",
         {"b_int8w_int8kv_monolithic_T8": False,
          "k_wa_int8w_int8kv_monolithic_T8": False}),
+    "m_phi35moe_8L_int8_wa_overlap2_T8": (
+        "j_wa_int8w_int8kv_overlap2_T8", {}),
 }
 
 
@@ -1205,8 +1418,8 @@ H_ENGINE = dict(block_size=8, kv_bucket_chunk=64, max_new_cap=72,
 
 
 def run_budget(totals, runs, card):
-    """Run (h) at full qwen2-0.5b (24 layers, seeded random bf16 weights,
-    int8 cold tier, hot 32 / blocks of 16), 8 slots, 12 requests x 32
+    """Run (h) at full qwen2-0.5b width (12 layers, seeded random bf16
+    weights, int8 cold tier, hot 32 / blocks of 16), 8 slots, 12 requests x 32
     tokens. Both runs must complete every request with the same tokens;
     the budgeted one must preempt and restore; ``serve_admit`` (no
     ``serve_prefill1``), ``serve_swap_out`` and ``serve_swap_in`` are
@@ -1216,7 +1429,7 @@ def run_budget(totals, runs, card):
     from repro_torch.launch.serve import make_requests
     from repro_torch.models.registry import build_model
     from repro_torch.runtime.serving import KVArbiter, ServingEngine
-    cfg = get_config("qwen2-0.5b").replace(**H_TIERS)
+    cfg = get_config("qwen2-0.5b").replace(**H_TIERS, **SHORT)
     api = build_model(cfg)
     params = api.init(0)
     arb = KVArbiter(api.init_caches(8, 200, device="meta"))
@@ -1273,7 +1486,7 @@ def run_budget(totals, runs, card):
     torch.cuda.empty_cache()
 
 
-# run (f): the failure model at full width and depth. The plan and its
+# run (f): the failure model at full width, 12 layers. The plan and its
 # faults come from FaultPlan.generate(F_SEED); injected stalls and TTFT
 # deadlines are cleared (they depend on wall time, which the card's runs
 # do not share), and one scripted priority-3 arrival (F_SCRIPTED: prompt,
@@ -1289,8 +1502,8 @@ F_ENGINE = dict(block_size=8, kv_bucket_chunk=64, prefill_chunk=32,
 
 def run_failure(totals, runs, card):
     """Run (f): ``run_chaos`` (a clean run, then the chaos run with the
-    plan's injector) through the colocated engine at full qwen2-0.5b (24
-    layers, seeded random bf16 weights, int8 KV), 4 slots. Requires no
+    plan's injector) through the colocated engine at full qwen2-0.5b width
+    (12 layers, seeded random bf16 weights, int8 KV), 4 slots. Requires no
     invariant violation, completed streams equal to the clean run's, at
     least one injected failure, preemption and restore, K1 and K3 launched
     in both runs, and the swap pair registered once each."""
@@ -1300,7 +1513,7 @@ def run_failure(totals, runs, card):
     from repro_torch.models.registry import build_model
     from repro_torch.runtime import faults
     from repro_torch.runtime.serving import Request, ServingEngine
-    cfg = get_config("qwen2-0.5b").replace(kv_dtype="int8")
+    cfg = get_config("qwen2-0.5b").replace(kv_dtype="int8", **SHORT)
     api = build_model(cfg)
     params = api.init(0)
     plan = dataclasses.replace(faults.FaultPlan.generate(F_SEED,
@@ -1386,8 +1599,11 @@ def phase_engine(totals, runs):
     from repro_torch.models.registry import build_model
     from repro_torch.runtime.serving import ServingEngine
     per_step, syncs, host_syncs, streams = {}, {}, {}, {}
-    for name, (over, kw, n_req, max_new, needed) in RUNS.items():
-        cfg = get_config("qwen2-0.5b").replace(**over)
+    plans = [(name, "qwen2-0.5b", *spec, None)
+             for name, spec in RUNS.items()]
+    plans += [(name, *spec) for name, spec in FAMILY_RUNS.items()]
+    for name, arch, over, kw, n_req, max_new, needed, twin in plans:
+        cfg = get_config(arch).replace(**over)
         api = build_model(cfg)
         t0 = time.monotonic()
         params = api.init(0)
@@ -1398,15 +1614,18 @@ def phase_engine(totals, runs):
         eng = ServingEngine(api, 8, 128, **kw)
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
+        t0 = time.monotonic()
         stats = eng.run(params, reqs)
         torch.cuda.synchronize()
+        serve_s = time.monotonic() - t0
         counts = launch_counts()
         runs[name] = counts
         for k, n in counts.items():
             totals[k] += n
         per_req = stats.pop("per_request")
         runtime = stats.pop("runtime")
-        log(f"  run {name}: init {init_s:.1f}s, launches {counts}")
+        log(f"  run {name}: init {init_s:.1f}s, serve {serve_s:.1f}s, "
+            f"launches {counts}")
         log(f"    stats: {json.dumps(stats)}")
         log(f"    programs: " + ", ".join(
             f"{k}={v['calls']}" for k, v in runtime.items() if v["calls"]))
@@ -1422,6 +1641,15 @@ def phase_engine(totals, runs):
         require(len(per_req) == n_req, f"{name}: per-request stats missing")
         for k in needed:
             require(counts[k] > 0, f"{name}: kernel {k} never launched")
+        if twin is not None:
+            # another configuration: exactly its path's kernels launch
+            require(all(n == 0 for k, n in counts.items()
+                        if k not in needed), f"{name}: a kernel off its "
+                    f"path launched: {counts}")
+            log(f"    {arch} x {cfg.n_layers} layers: host syncs "
+                f"{stats['host_syncs']} ({twin}: {host_syncs[twin]})")
+            require(stats["host_syncs"] == host_syncs[twin],
+                    f"{name}: another number of host syncs than {twin}")
         if "tiered" in stats:
             require(stats["tiered"]["demotions"] > 0,
                     f"{name}: the cold boundary never moved")
@@ -1838,6 +2066,59 @@ def phase_timing(dev, launches, runs, per_step, errs):
                 lib[f"torch._int_mm, rows padded to {pad}"] = None
             rows.append(("gemv_int8", f"rows={R} K={K} N={N}", ms, plain,
                          b_ms, b_by, lib, host_ms(gemv_int8_q, var)))
+    # the other configurations' shapes: K1 at qwen3-moe's G=16 (two
+    # launches of 8 heads over the same K/V), K4 at the paper's Llama
+    # projections and K3 at Llama-2-7B's FFN, each at decode rows
+    for S, kv in ((200, "bfloat16"), (200, "int8"), (4096, "bfloat16"),
+                  (4096, "int8")):
+        shape = dict(Hq=64, n_kv=4, hd=128)
+        q, k, v, mask, ks, vs, lim = k1_inputs(dev, 8, S, ("bfloat16", kv),
+                                               **shape)
+        nb = nbytes(q, k, v, mask, ks, vs) + q.numel() * 4
+        b_ms, b_by = bound(nb, 4 * q.shape[0] * q.shape[1] * S * 128,
+                           torch.bfloat16)
+        var = variants_of(lambda i: (k1_inputs(dev, 8, S, ("bfloat16", kv),
+                                               seed=i, **shape), {}), nb)
+        lib = {"sdpa(enable_gqa) on dequantized bf16 K/V":
+               time_ms(F.scaled_dot_product_attention, sdpa_args(var), 400)}
+        rows.append(("flash_decode", f"G=16 (2 launches of 8 heads): B=8 "
+                     f"Hq=64 n_kv=4 hd=128 S={S} kv={kv}",
+                     time_ms(flash_decode, var, 400),
+                     time_ms(flash_decode_ref, var, 50), b_ms, b_by, lib,
+                     host_ms(flash_decode, var)))
+    for K, N in ((4096, 4096), (4096, 11008), (11008, 4096), (3072, 8192)):
+        (xq, xs, wq, ws), _ = k4_inputs(dev, 8, K, N)
+        nb = nbytes(xq, xs, wq, ws) + 8 * N * 4
+        b_ms, b_by = bound(nb, 2 * 8 * K * N, torch.int8)
+        var = variants_of(lambda i: k4_inputs(dev, 8, K, N, seed=i), nb)
+        dq = [((a[0].to(torch.bfloat16),
+                (a[2].float() * a[3]).to(torch.bfloat16)), {})
+              for a, _ in var]
+        im = [((torch.cat([a[0], a[0].new_zeros(24, K)]), a[2]), {})
+              for a, _ in var]
+        lib = {"bf16 torch.matmul on dequantized weights":
+               time_ms(torch.matmul, dq, 400),
+               "torch._int_mm, rows padded to 32": time_ms(torch._int_mm, im,
+                                                           400)}
+        rows.append(("gemv_int8", f"Llama: rows=8 K={K} N={N}",
+                     time_ms(gemv_int8_q, var, 400),
+                     time_ms(gemv_int8_ref, var, 50), b_ms, b_by, lib,
+                     host_ms(gemv_int8_q, var)))
+    for R in (8, 32, 128):
+        (x, wg, wu, wd), kw = k3_inputs(dev, R, D=4096, F=11008)
+        nb = nbytes(x, wg, wu, wd) + R * 4096 * 4
+        b_ms, b_by = bound(nb, 2 * R * 4096 * 11008 * 3, torch.bfloat16)
+        var = variants_of(lambda i: k3_inputs(dev, R, seed=i, D=4096,
+                                              F=11008), nb)
+
+        def lib_ffn(x, wg, wu, wd, act="silu"):
+            return torch.matmul(F.silu(torch.matmul(x, wg))
+                                * torch.matmul(x, wu), wd)
+        lib = {"3x torch.matmul + silu (bf16)": time_ms(lib_ffn, var, 100)}
+        rows.append(("fused_ffn", f"Llama-2-7B FFN: rows={R} D=4096 F=11008 "
+                     f"bf16", time_ms(fused_ffn, var, 100),
+                     time_ms(fused_ffn_ref, var, 20), b_ms, b_by, lib,
+                     host_ms(fused_ffn, var)))
     for name, shape, ms, plain, b_ms, b_by, lib, host in rows:
         libs = ", ".join(("not measured" if v is None else
                           f"{v * 1e3:.2f} us") + f" ({k})"
@@ -1972,6 +2253,55 @@ def phase_hops(card):
     return rows
 
 
+def phase_moe_timing(card):
+    """Device time of one MoE layer's FFN half at decode (8 rows, bf16) for
+    qwen3-moe (128 experts x 1536, top-8) and phi3.5-moe (16 x 6400, top-2)
+    widths, split into its stages (``models/moe.py``): router + top-k +
+    sort-based dispatch + the bucket copy; the experts'
+    three batched products over all E x C slots; the gather-and-sum
+    combine. Each stage reads its operands from device memory (the expert
+    weights are far past the L2). Bound of the products: their weights
+    read once over 3.35 TB/s."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import moe
+    dev = torch.device("cuda")
+    for arch in ("qwen3-moe-235b-a22b", "phi3.5-moe-42b-a6.6b"):
+        cfg = get_config(arch)
+        m = cfg.moe
+        K, E, D = m.experts_per_token, m.num_experts, cfg.d_model
+        gen = torch.Generator(device=dev).manual_seed(0)
+        p = moe.make_moe_params(gen, cfg)
+        x = torch.randn(8, 1, D, device=dev, generator=gen).to(torch.bfloat16)
+        xf = x.reshape(8, D)
+        C = moe.capacity(8, cfg)
+
+        def route_dispatch():
+            _, gv, gi = moe.route(p, xf, K)
+            order, slot, keep = moe.dispatch(gi, E, C)
+            return (moe.gather_tokens(xf, order, slot, K, E, C), order, slot,
+                    keep, gv)
+
+        disp, order, slot, keep, gv = route_dispatch()
+        eo = moe.expert_products(p, disp, cfg)
+        one = [((), {})]
+        stages = {
+            "router + dispatch": time_ms(route_dispatch, one, 40),
+            "expert products": time_ms(
+                lambda: moe.expert_products(p, disp, cfg), one, 20),
+            "combine": time_ms(lambda: moe.combine(eo, order, slot, keep,
+                                                   gv), one, 40),
+            "moe_ffn (all)": time_ms(lambda: moe.moe_ffn(p, x, cfg), one, 20)}
+        w_bytes = nbytes(p["w_gate"], p["w_up"], p["w_down"])
+        b_ms = (w_bytes + nbytes(disp, eo)) / HBM_BYTES_PER_S * 1e3
+        log(f"  MoE layer at {arch} width (8 rows, C={C}, {E} experts x "
+            f"{m.expert_d_ff}, top-{K}, bf16): " + ", ".join(
+                f"{k} {v * 1e3:.2f} us" for k, v in stages.items())
+            + f"; the products' bound {b_ms * 1e3:.2f} us (bytes: "
+            f"{w_bytes / 1e9:.3f} GB of expert weights) [{card}]")
+        del p, disp, eo
+        torch.cuda.empty_cache()
+
+
 def wa_block_walls(card):
     """Wall time (host clock to a synchronise) of one decode block (T=8, 8
     rows at 160, bucket 192) at full qwen2-0.5b through the colocated
@@ -2047,25 +2377,36 @@ def main() -> int:
                 log(f"  [{name}] {line.strip()}")
 
     log("phase 2: kernels against their plain versions")
+    t0 = time.monotonic()
     errs = phase_compare(dev)
+    log(f"  phase 2 took {time.monotonic() - t0:.1f}s")
 
     log("phase 3: model parity, full width, 2 layers, f32, cpu vs cuda")
+    t0 = time.monotonic()
     phase_model_parity()
     phase_swap_pair()
     phase_tiered_cache()
     phase_model_parity_tiered()
     phase_wa_parity()
+    log(f"  phase 3 before the MoE took {time.monotonic() - t0:.1f}s")
+    t0 = time.monotonic()
+    phase_moe_parity()
+    log(f"  phase 3's MoE parity took {time.monotonic() - t0:.1f}s")
 
-    log("phase 4: engine at full qwen2-0.5b")
+    log("phase 4: engine at full qwen2-0.5b, then qwen3-moe (4 layers), "
+        "phi3.5-moe (8 layers) and Llama-2-7B")
     launches = {"flash_decode": 0, "flash_decode_partial": 0,
                 "fused_ffn": 0, "gemv_int8": 0}
     runs = {}
+    t0 = time.monotonic()
     per_step = phase_engine(launches, runs)
     log(f"  main-path launches {launches}; per decode step {per_step}")
+    log(f"  phase 4 took {time.monotonic() - t0:.1f}s")
 
     log("phase 5: kernel timing")
     kernels = phase_timing(dev, launches, runs, per_step, errs)
     phase_hops(card)
+    phase_moe_timing(card)
     log(f"total {time.monotonic() - t_start:.1f}s")
     log(json.dumps({"kernels": kernels}))
     log(card)

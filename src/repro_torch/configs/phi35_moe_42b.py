@@ -1,0 +1,21 @@
+"""phi3.5-moe-42b-a6.6b [moe] — 32L d_model=4096 32H (GQA kv=8) d_ff=6400(expert)
+vocab=32064, MoE 16 experts top-2. [hf:microsoft/Phi-3.5-MoE-instruct; hf]
+"""
+from repro_torch.configs.base import ModelConfig, MoEConfig
+
+CONFIG = ModelConfig(
+    name="phi3.5-moe-42b-a6.6b",
+    family="moe",
+    n_layers=32,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=8,
+    d_ff=6400,                 # per-expert intermediate size
+    vocab_size=32064,
+    head_dim=128,
+    norm="layernorm",
+    act="swiglu",
+    rope_theta=10000.0,
+    moe=MoEConfig(num_experts=16, experts_per_token=2, expert_d_ff=6400),
+    source="[hf:microsoft/Phi-3.5-MoE-instruct; hf]",
+)

@@ -1,17 +1,27 @@
 """Architecture registry of the port: ``--arch <id>`` -> ModelConfig.
 
-Only architectures whose family the port serves are listed; the others
-raise with the list of what is ported so far."""
+The reference's dense and MoE configurations and the paper's own four
+deployments are listed; the other families' ids raise with the list of
+what is ported so far."""
 from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs import qwen2_0p5b
+from repro_torch.configs import (granite3_2b, internlm2_1p8b,
+                                 phi3_medium_14b, phi35_moe_42b, qwen2_0p5b,
+                                 qwen3_moe_235b)
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.paper_models import PAPER_MODELS
 
 REGISTRY: Dict[str, ModelConfig] = {
+    "qwen3-moe-235b-a22b": qwen3_moe_235b.CONFIG,
+    "phi3.5-moe-42b-a6.6b": phi35_moe_42b.CONFIG,
+    "internlm2-1.8b": internlm2_1p8b.CONFIG,
+    "granite-3-2b": granite3_2b.CONFIG,
+    "phi3-medium-14b": phi3_medium_14b.CONFIG,
     "qwen2-0.5b": qwen2_0p5b.CONFIG,
 }
+REGISTRY.update(PAPER_MODELS)
 
 
 def get_config(arch: str) -> ModelConfig:

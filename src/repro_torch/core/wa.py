@@ -96,7 +96,7 @@ def _hop(tensors: Sequence[torch.Tensor], src: torch.cuda.Stream,
 
 
 # ---------------------------------------------------------------------------
-# Disaggregated engine (dense family)
+# Disaggregated engine
 # ---------------------------------------------------------------------------
 
 class WADisaggregated:
@@ -106,6 +106,10 @@ class WADisaggregated:
     Layer split (paper Fig 5b):
         W: x -> ln1 -> QKV proj ---route q,k,v---> A: append KV, attention
         W: o.Wo + residual + ln2 + FFN <--route o--'
+
+    The FFN is the dense one or the MoE (router, dispatch, expert products
+    and combine), both inside ``post_attention``, so an MoE layer's every
+    op runs on W.
 
     The serving programs are ``decode_step_slotted``, ``decode_block``
     (the registry's ``make_decode_block`` lift of it) and

@@ -4,10 +4,11 @@
 arrays (layers stacked on a leading axis, a quantized weight as
 ``{"values", "scale"}``, bf16 leaves as float32 arrays, which is exact) and
 returns the port's parameters: the same tree with ``blocks`` split into a
-list of per-layer dicts, float leaves in the config's compute dtype and
-quantization scales in float32. ``kv_cache_from_numpy`` does the same for a
-cache. Turning a JAX pytree into numpy is the caller's job (the tests' own
-helper); this module imports no JAX.
+list of per-layer dicts, float leaves in the config's compute dtype, and
+quantization scales and the leaves the reference keeps in float32 whatever
+the compute dtype (an MoE router) in float32. ``kv_cache_from_numpy`` does
+the same for a cache. Turning a JAX pytree into numpy is the caller's job
+(the tests' own helper); this module imports no JAX.
 """
 from __future__ import annotations
 
@@ -29,13 +30,19 @@ def _leaf(a: np.ndarray, dtype, device) -> torch.Tensor:
     return t.to(device)
 
 
+# subtrees the reference makes in float32 at any compute dtype
+# (``repro.models.moe.make_moe_params``: the router routes in f32)
+F32_SUBTREES = ("router",)
+
+
 def _convert(node, dtype, device):
     if isinstance(node, dict):
         if set(node) == {"values", "scale"}:
             return QuantizedTensor(_leaf(node["values"], None, device),
                                    _leaf(node["scale"], torch.float32,
                                          device))
-        return {k: _convert(v, dtype, device) for k, v in node.items()}
+        return {k: _convert(v, torch.float32 if k in F32_SUBTREES
+                            else dtype, device) for k, v in node.items()}
     return _leaf(np.asarray(node), dtype, device)
 
 

@@ -1,8 +1,13 @@
 """K1 wrapper: flash decode attention on CUDA (hand-written kernel) or on
 the CPU (plain version). A CUDA tensor launches the kernel or raises.
 ``decode_plan`` is the kernel's launch plan (split of S across CTAs, ring
-tiles, scratch, shared memory), kept in Python so that the CPU tests can
-check it."""
+tiles, scratch, shared memory, runs of query heads), kept in Python so
+that the CPU tests can check it.
+
+The kernel takes at most MAX_GROUP query heads per KV head (the mma's n8)
+and MAX_GROUP_WIDTH = G * hd. A wider group (qwen3-moe: G = 16, hd = 128)
+runs as ``head_runs`` equal runs of heads, one launch each over the same
+K/V (``by_head_runs``), up to MAX_HEAD_RUNS; anything wider raises."""
 from __future__ import annotations
 
 import ctypes
@@ -21,6 +26,7 @@ _SUPPORTED = {(0, 0), (0, 2), (1, 1), (1, 2)}
 HEAD_DIMS = (32, 64, 128, 256)   # multiples of the mma's k16, instantiated
 MAX_GROUP = 8                    # query heads per KV head: the mma's n8
 MAX_GROUP_WIDTH = 1024           # G*hd: merge buffers, 4 outputs a thread
+MAX_HEAD_RUNS = 2                # launches a wider group may take
 WARPS = 8                        # port::kThreads / 32
 MAX_TILE = 1024                  # positions per tile (4 mask bytes/thread)
 SPLIT_CHUNK = 16                 # splits the last CTA stages per round trip
@@ -37,7 +43,9 @@ class DecodePlan:
     in tiles of ``tile`` positions through ``stages`` ring stages (one
     stage holds the whole split). With more than one split the raw
     (o, m, l) of each split go to an f32 scratch of ``scratch`` elements
-    and the last CTA of each (b, h) merges them."""
+    and the last CTA of each (b, h) merges them. A group of more than
+    MAX_GROUP heads (or MAX_GROUP_WIDTH columns) runs as ``runs`` launches
+    of ``heads`` heads each; the other fields describe one launch."""
     split: int
     splits: int
     tile: int
@@ -45,6 +53,8 @@ class DecodePlan:
     grid: Tuple[int, int, int]
     scratch: int                # f32 elements (0: one split)
     smem: int                   # dynamic shared memory bytes a CTA takes
+    heads: int = 1              # query heads per KV head in one launch
+    runs: int = 1               # launches: heads * runs = G
 
     @property
     def ctas(self) -> int:
@@ -71,6 +81,36 @@ def smem_bytes(tile: int, stages: int, splits: int, G: int, hd: int,
     return max(stages * stage, merge) + WARPS * MAX_GROUP * 20 * 4
 
 
+def head_runs(G: int, hd: int) -> int:
+    """The fewest equal runs of G query heads in which each run has at most
+    MAX_GROUP heads and MAX_GROUP_WIDTH columns; raises past
+    MAX_HEAD_RUNS."""
+    for runs in range(1, MAX_HEAD_RUNS + 1):
+        if G % runs == 0 and G // runs <= MAX_GROUP \
+                and G // runs * hd <= MAX_GROUP_WIDTH:
+            return runs
+    raise ValueError(f"flash_decode: G={G} hd={hd} does not split into "
+                     f"<= {MAX_HEAD_RUNS} equal runs of <= {MAX_GROUP} "
+                     f"heads and <= {MAX_GROUP_WIDTH} columns")
+
+
+def by_head_runs(fn, q: torch.Tensor, n_kv: int, runs: int):
+    """``fn`` once per run of query heads: q (B,Hq,hd) is viewed
+    (B, n_kv, runs, r, hd) with r = Hq / n_kv / runs, and run j passes the
+    contiguous (B, n_kv*r, hd) copy of heads [j*r, (j+1)*r) of every KV
+    group. ``fn`` returns (o (B,n_kv*r,hd), m (B,n_kv*r), l); the runs'
+    outputs interleave back into (B,Hq,hd) and (B,Hq), head h of group g
+    at g*G + h as in a one-launch call."""
+    B, Hq, hd = q.shape
+    r = Hq // n_kv // runs
+    qv = q.view(B, n_kv, runs, r, hd)
+    outs = [fn(qv[:, :, j].contiguous().view(B, n_kv * r, hd))
+            for j in range(runs)]
+    o, m, l = (torch.stack([t.view(B, n_kv, r, -1) for t in ts], dim=2)
+               for ts in zip(*outs))
+    return o.view(B, Hq, hd), m.view(B, Hq), l.view(B, Hq)
+
+
 def decode_plan(B: int, n_kv: int, G: int, S: int, hd: int,
                 kv_itemsize: int, split: Optional[int] = None,
                 tile: Optional[int] = None) -> DecodePlan:
@@ -83,7 +123,10 @@ def decode_plan(B: int, n_kv: int, G: int, S: int, hd: int,
     at B=8, S=200 one split beats 2 to 13; at S=4096, 16 splits of 256
     beat 8 of 512 and 32 of 128). ``split`` and ``tile`` override the
     choice (the sweep's variants). A split whose K/V bytes pass STAGE_BYTES
-    streams through two ring stages of half that size."""
+    streams through two ring stages of half that size. A group wider than
+    the kernel's takes ``head_runs(G, hd)`` launches of G / runs heads."""
+    runs = head_runs(G, hd)
+    G //= runs
     pairs = B * n_kv
     if split is None:
         want = 1 if pairs >= SMS else cdiv(CTAS_PER_SM * SMS, pairs)
@@ -109,7 +152,7 @@ def decode_plan(B: int, n_kv: int, G: int, S: int, hd: int,
                          f"split {split} ({splits} splits), G={G} hd={hd}")
     scratch = pairs * splits * G * (hd + 2) if splits > 1 else 0
     return DecodePlan(split, splits, tile, stages, (n_kv, B, splits),
-                      scratch, smem)
+                      scratch, smem, G, runs)
 
 
 def _lib():
@@ -210,7 +253,8 @@ def flash_decode(q, k, v, mask, k_scale=None, v_scale=None, kv_limit=None,
     is fine); int8 K/V take scales (B,n_kv,S,1) f32; mask: (B,S) bool;
     kv_limit: 0-d int32 device tensor (or int) — tiles at or past it are
     skipped. Returns (B,Hq,hd) f32, or ``(o, m, l)`` with
-    ``partial_stats``."""
+    ``partial_stats``. A group wider than the kernel's runs as the plan's
+    ``runs`` launches (``by_head_runs``), each counted."""
     if q.device.type == "cpu":
         return flash_decode_ref(q, k, v, mask, k_scale, v_scale, kv_limit,
                                 scale, partial_stats)
@@ -220,12 +264,22 @@ def flash_decode(q, k, v, mask, k_scale=None, v_scale=None, kv_limit=None,
     n_kv, S = k.shape[1], k.shape[2]
     plan = decode_plan(B, n_kv, max(1, Hq // max(n_kv, 1)), S, hd,
                        k.element_size())
-    o, m, l = launch_plan(plan, PDL, q, k, v, mask, k_scale, v_scale,
+
+    def launch(qr):
+        out = launch_plan(plan, PDL, qr, k, v, mask, k_scale, v_scale,
                           kv_limit, scale, partial_stats)
-    if B and Hq:                        # launch_plan launched the kernel
-        flash_decode.launches += 1
-        if partial_stats:
-            flash_decode_partial.launches += 1
+        if B and Hq:                    # launch_plan launched the kernel
+            flash_decode.launches += 1
+            if partial_stats:
+                flash_decode_partial.launches += 1
+        return out
+
+    if plan.runs == 1:
+        o, m, l = launch(q)
+    else:
+        if not q.is_contiguous():
+            raise ValueError("flash_decode: q must be contiguous")
+        o, m, l = by_head_runs(launch, q, n_kv, plan.runs)
     return (o, m, l) if partial_stats else o
 
 

@@ -1,13 +1,16 @@
 """Serving CLI of the port: continuous-batching (or drain-mode) decode on
 one device.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
         --full-width --requests 12 --batch 8 --prompt-len 128 --max-new 32 \
         --arrival-every 4 --block-size 8 --kv-bucket-chunk 64 \
         --prefill-chunk 32 [--a-shards 4] [--preemptible] [--max-queue 6] \
         [--hot-window 64 --kv-cold-dtype int4 --kv-cold-block 16 \
          --kv-budget-bytes 7372800] [--backend wa --overlap 2]
 
+``--arch`` takes every registered config (``configs/registry.py``: the
+dense and MoE models and the paper's Llama/Qwen deployments); the default
+is the reference CLI's, internlm2-1.8b.
 ``--mode drain`` serves the drain-then-refill baseline instead (no chunk
 lane: ``--prefill-chunk`` is then ignored, as in the reference CLI).
 Runs on ``--device cuda`` by default (raises without a GPU); pass
@@ -27,7 +30,7 @@ import argparse
 
 import numpy as np
 
-from repro_torch.configs.registry import get_config
+from repro_torch.configs.registry import REGISTRY, get_config
 from repro_torch.models.registry import build_model
 from repro_torch.runtime.serving import Request, ServingEngine
 
@@ -80,7 +83,8 @@ def serve(arch: str, n_requests: int, batch_slots: int, prompt_len: int,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2-0.5b")
+    ap.add_argument("--arch", default="internlm2-1.8b",
+                    choices=sorted(REGISTRY))
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

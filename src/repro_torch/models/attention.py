@@ -220,7 +220,7 @@ def make_attn_params(gen, cfg) -> dict:
     d = cfg.d_model
     dt = common.dtype_of(cfg)
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    return {
+    p = {
         "wq": common.make_linear(gen, d, hq * hd, dt, bias=cfg.qkv_bias,
                                  int8=cfg.weight_int8),
         "wk": common.make_linear(gen, d, hkv * hd, dt, bias=cfg.qkv_bias,
@@ -229,17 +229,25 @@ def make_attn_params(gen, cfg) -> dict:
                                  int8=cfg.weight_int8),
         "wo": common.make_linear(gen, hq * hd, d, dt, int8=cfg.weight_int8),
     }
+    if cfg.qk_norm:
+        p["q_norm"] = common.make_norm("rmsnorm", hd, dt, gen.device)
+        p["k_norm"] = common.make_norm("rmsnorm", hd, dt, gen.device)
+    return p
 
 
 def qkv_project(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x: (B,S,D) -> q (B,S,Hq,hd), k/v (B,S,Hkv,hd) with RoPE applied."""
+    """x: (B,S,D) -> q (B,S,Hq,hd), k/v (B,S,Hkv,hd) with RoPE applied
+    (after the per-head q/k RMSNorm where the config has one)."""
     B, S, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = common.linears([p["wq"], p["wk"], p["wv"]], x)
     q = q.reshape(B, S, hq, hd)
     k = k.reshape(B, S, hkv, hd)
     v = v.reshape(B, S, hkv, hd)
+    if "q_norm" in p:
+        q = common.apply_norm("rmsnorm", p["q_norm"], q, cfg.norm_eps)
+        k = common.apply_norm("rmsnorm", p["k_norm"], k, cfg.norm_eps)
     q = common.apply_rope(q, positions, cfg.rope_theta)
     k = common.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v

@@ -79,17 +79,26 @@ def linears(ps, x: torch.Tensor, out_dtype=None):
 # Norms
 # ---------------------------------------------------------------------------
 
-def make_norm(d: int, dtype, device) -> Params:
-    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+def make_norm(kind: str, d: int, dtype, device) -> Params:
+    """RMSNorm takes a scale; LayerNorm a scale and a bias."""
+    p: Params = {"scale": torch.ones((d,), dtype=dtype, device=device)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros((d,), dtype=dtype, device=device)
+    return p
 
 
-def apply_norm(p: Params, x: torch.Tensor, eps: float = 1e-6
+def apply_norm(kind: str, p: Params, x: torch.Tensor, eps: float = 1e-6
                ) -> torch.Tensor:
-    """RMSNorm in f32, returned in x's dtype (the ported configs all use
-    rmsnorm; ``transformer.check_supported`` refuses layernorm)."""
+    """RMSNorm or LayerNorm in f32, returned in x's dtype."""
     xf = x.to(torch.float32)
-    n = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
-    return (n * p["scale"].to(torch.float32)).to(x.dtype)
+    if kind == "rmsnorm":
+        n = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+        return (n * p["scale"].to(torch.float32)).to(x.dtype)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    n = (xf - mu) * torch.rsqrt(var + eps)
+    return (n * p["scale"].to(torch.float32)
+            + p["bias"].to(torch.float32)).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,147 @@
+"""Mixture-of-Experts FFN: f32 router, top-k, capacity-bounded dispatch.
+
+Port of ``repro.models.moe`` (``make_moe_params``, ``capacity``,
+``moe_ffn``) for one device: the reference's multi-device dispatch
+(``_moe_ffn_sharded``) arrives with the multi-device slice. Each token's
+expert assignment is sorted by expert (stable), ranked within its expert's
+segment and kept while its rank is below the capacity C; kept tokens are
+copied into an (E, C, D) bucket tensor, every expert's products run over
+all of its C slots as batched matrix products (the reference's einsums,
+computed outside any kernel there too), and each token's K expert rows are
+gathered back and summed.
+
+The combine is a gather, not the reference's scatter-add: every token has
+exactly K assignments, so it reads its K rows (a dropped one weighted 0)
+and sums them in a fixed order. That is the same function, and unlike
+``index_add_`` on CUDA (atomics) it gives the same bits on every call.
+Nothing here synchronises with the host: the drop rule, slots and gathers
+stay on the device.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import common
+
+
+def make_moe_params(gen, cfg: ModelConfig) -> Dict:
+    """The router as an f32 linear (d_model -> E) and the experts stacked
+    (E, D, F) / (E, F, D) in the compute dtype (never int8: the reference
+    stores them in the compute dtype whatever ``weight_int8`` says)."""
+    m = cfg.moe
+    d, f, e = cfg.d_model, m.expert_d_ff, m.num_experts
+    dt = common.dtype_of(cfg)
+    return {
+        "router": common.make_linear(gen, d, e, torch.float32),
+        "w_gate": common.dense_init(gen, (e, d, f), dt, fan_in=d),
+        "w_up": common.dense_init(gen, (e, d, f), dt, fan_in=d),
+        "w_down": common.dense_init(gen, (e, f, d), dt, fan_in=f),
+    }
+
+
+def capacity(tokens: int, cfg: ModelConfig) -> int:
+    """Per-expert slot count for a call of ``tokens`` tokens (rows x
+    sequence, inactive decode rows included, as in the reference).
+    capacity_factor <= 0: no drop (every assignment could land on one
+    expert); else GShard-style, padded to a multiple of 8, at least 8."""
+    m = cfg.moe
+    if m.capacity_factor <= 0:
+        return tokens * m.experts_per_token
+    c = int(math.ceil(tokens * m.experts_per_token * m.capacity_factor
+                      / m.num_experts))
+    return max(8, -(-c // 8) * 8)
+
+
+def route(p: Dict, xf: torch.Tensor, k: int):
+    """The router on f32 activations: softmax probabilities (T, E) and the
+    top-k (values, expert ids), both (T, K), values renormalised."""
+    logits = common.linear(p["router"], xf.to(torch.float32))
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, gate_idx = torch.topk(probs, k, dim=-1)
+    gate_vals = gate_vals / torch.clamp_min(
+        gate_vals.sum(-1, keepdim=True), 1e-9)
+    return probs, gate_vals, gate_idx
+
+
+def dispatch(gate_idx: torch.Tensor, E: int, C: int):
+    """Sort-based capacity dispatch of the (T, K) assignments, flattened
+    token-major: ``order`` sorts them by expert (stable), and the
+    assignment at sorted position i has rank i - (its expert's segment
+    start); it is kept while its rank is below C, in slot expert*C + rank,
+    and a dropped one gets slot E*C. Returns (order, slot, keep), the
+    last two in sorted order."""
+    flat_e = gate_idx.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    se = flat_e[order]
+    seg_start = torch.searchsorted(
+        se, torch.arange(E, device=se.device, dtype=se.dtype))
+    rank = torch.arange(se.numel(), device=se.device) - seg_start[se]
+    keep = rank < C
+    slot = torch.where(keep, se * C + rank, torch.full_like(se, E * C))
+    return order, slot, keep
+
+
+def load_balance_loss(probs: torch.Tensor, gate_idx: torch.Tensor,
+                      E: int) -> torch.Tensor:
+    """Switch-style aux loss: E * sum over experts of the mean router
+    probability times the mean number of the token's K picks it gets."""
+    share = (gate_idx[..., None] == torch.arange(E, device=probs.device)
+             ).to(torch.float32).sum(1)
+    return E * torch.sum(probs.mean(0) * share.mean(0))
+
+
+def gather_tokens(xf: torch.Tensor, order: torch.Tensor, slot: torch.Tensor,
+                  K: int, E: int, C: int) -> torch.Tensor:
+    """The (E, C, D) expert buckets: kept assignments copied into their
+    unique slots, every dropped one onto a spare row, empty slots 0."""
+    disp = torch.zeros((E * C + 1, xf.shape[1]), dtype=xf.dtype,
+                       device=xf.device)
+    disp.index_copy_(0, slot, xf[torch.div(order, K, rounding_mode="floor")])
+    return disp[:E * C].view(E, C, -1)
+
+
+def expert_products(p: Dict, disp: torch.Tensor, cfg: ModelConfig
+                    ) -> torch.Tensor:
+    """Every expert's gated FFN over all C of its slots: (E, C, D) ->
+    (E*C, D), three batched products in the compute dtype (experts are
+    gated: a ``gelu_mlp`` config's take swiglu, as in the reference)."""
+    gate = torch.bmm(disp, p["w_gate"])
+    up = torch.bmm(disp, p["w_up"])
+    act = "swiglu" if cfg.act == "gelu_mlp" else cfg.act
+    eo = torch.bmm(common.gated_act(act, up, gate), p["w_down"])
+    return eo.reshape(-1, eo.shape[-1])
+
+
+def combine(eo: torch.Tensor, order: torch.Tensor, slot: torch.Tensor,
+            keep: torch.Tensor, gate_vals: torch.Tensor) -> torch.Tensor:
+    """(T, D): each token gathers its K expert rows (token order, through
+    the inverse of the sort), weights them by its renormalised gates (a
+    dropped one by 0) and sums them in top-k order."""
+    T, K = gate_vals.shape
+    n = eo.shape[0]
+    tok_slot = torch.empty_like(slot).index_copy_(0, order, slot)
+    tok_keep = torch.empty_like(keep).index_copy_(0, order, keep)
+    w = (gate_vals.reshape(-1) * tok_keep).to(eo.dtype)
+    contrib = eo[torch.clamp_max(tok_slot, n - 1)] * w[:, None]
+    return contrib.view(T, K, -1).sum(1)
+
+
+def moe_ffn(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """x: (B,S,D) -> (B,S,D) in x's dtype. The reference also returns the
+    load-balance loss, a training term that serving drops: training calls
+    ``load_balance_loss`` on ``route``'s outputs itself."""
+    m = cfg.moe
+    B, S, D = x.shape
+    T = B * S
+    K, E = m.experts_per_token, m.num_experts
+    C = capacity(T, cfg)
+    xf = x.reshape(T, D)
+    _, gate_vals, gate_idx = route(p, xf, K)
+    order, slot, keep = dispatch(gate_idx, E, C)
+    eo = expert_products(p, gather_tokens(xf, order, slot, K, E, C), cfg)
+    out = combine(eo, order, slot, keep, gate_vals)
+    return out.reshape(B, S, D)

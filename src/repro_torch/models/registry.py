@@ -1,8 +1,8 @@
 """Model API of the port: ``build_model(cfg, device)`` -> ModelAPI.
 
-Port of ``repro.models.registry`` for the dense family: the fields the
-serving engine uses (continuous and drain, colocated and WA),
-``make_decode_block`` and ``count_params``.
+Port of ``repro.models.registry`` for the transformer families (dense and
+MoE): the fields the serving engine uses (continuous and drain, colocated
+and WA), ``make_decode_block`` and ``count_params``.
 Sharding contexts are gone (one device per engine in this slice).
 """
 from __future__ import annotations
@@ -125,23 +125,37 @@ def _build_transformer(cfg: ModelConfig, device: torch.device) -> ModelAPI:
 
 
 def build_model(cfg: ModelConfig, device: DeviceLike = None) -> ModelAPI:
-    """The dense family's API on ``device`` (default ``cuda``; raises
-    without a GPU unless ``device="cpu"`` is passed)."""
+    """The transformer families' API (dense, moe) on ``device`` (default
+    ``cuda``; raises without a GPU unless ``device="cpu"`` is passed)."""
     dev = resolve_device(device)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return _build_transformer(cfg, dev)
     raise ValueError(f"family {cfg.family!r} is not ported to repro_torch "
-                     "yet (dense only)")
+                     "yet (dense and moe only)")
 
 
-def count_params(cfg: ModelConfig) -> int:
-    """Exact parameter count of the dense family from its shapes (int8
-    quantization scales are not parameters)."""
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Exact parameter count of a dense or MoE transformer from its shapes,
+    as the reference counts it: int8 quantization scales are not
+    parameters; norm scales (q/k norms included), LayerNorm biases and the
+    router are.
+    ``active_only``: each expert tensor counts K of its E experts."""
     d, hd = cfg.d_model, cfg.head_dim
     hq, hkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
     attn = d * hq + 2 * d * hkv + hq * d
     if cfg.qkv_bias:
         attn += hq + 2 * hkv
-    per_layer = 2 * d + attn + 3 * d * cfg.d_ff
+    if cfg.qk_norm:
+        attn += 2 * hd
+    norm = d * (2 if cfg.norm == "layernorm" else 1)
+    if cfg.moe is not None:
+        m = cfg.moe
+        experts = 3 * m.num_experts * d * m.expert_d_ff
+        if active_only:
+            experts = experts * m.experts_per_token // m.num_experts
+        ffn = d * m.num_experts + experts
+    else:
+        ffn = 3 * d * cfg.d_ff
+    per_layer = 2 * norm + attn + ffn
     emb = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
-    return emb + cfg.n_layers * per_layer + d
+    return emb + cfg.n_layers * per_layer + norm

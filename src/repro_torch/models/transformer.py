@@ -1,14 +1,17 @@
-"""Decoder-only dense transformer: parameters, prefill, shared-cursor and
-slotted decode (sequential or split-KV) and chunked prefill.
+"""Decoder-only transformer (dense and MoE): parameters, prefill,
+shared-cursor and slotted decode (sequential or split-KV) and chunked
+prefill.
 
-Port of the dense, inference part of ``repro.models.transformer``. The
+Port of the inference part of ``repro.models.transformer``. The
 reference's layer ``lax.scan`` over stacked parameters becomes a Python
 loop over the per-layer parameter dicts of ``params["blocks"]``; caches are
 updated in place (see ``repro_torch.kv.cache``). On CUDA the decode path
 launches K1 (attention over the stored bucket view, int8 dequantized inside
 the kernel; over a tiered cache, over the hot/cold image resolved in the
-compute dtype), K3 (the gated FFN with float weights) and K4 (every linear
-with int8 weights).
+compute dtype), K3 (the dense gated FFN with float weights) and K4 (every
+linear with int8 weights). An MoE layer replaces the dense FFN by
+``models/moe.py::moe_ffn`` in ``_mix_ffn``, the one branch point under
+every block path (full-sequence, slotted, chunk, tiered, split, WA).
 """
 from __future__ import annotations
 
@@ -32,22 +35,26 @@ from repro_torch.models.attention import (chunk_attention,
                                           decode_attention_split,
                                           flash_attention, make_attn_params,
                                           qkv_project)
+from repro_torch.models.moe import make_moe_params, moe_ffn
 from repro_torch.quant.int8 import (QuantizedTensor, dequantize_kv,
                                     quantize_kv)
 
 _FUSED_ACTS = {"swiglu": "silu", "geglu": "gelu"}
+FAMILIES = ("dense", "moe")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for configurations the port does not serve yet."""
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES or (cfg.family == "moe") != (
+            cfg.moe is not None):
         raise ValueError(f"family {cfg.family!r} is not ported to "
-                         "repro_torch yet (dense only)")
+                         f"repro_torch yet (ported: {list(FAMILIES)})")
     if cfg.act not in _FUSED_ACTS:
         raise ValueError(f"activation {cfg.act!r} is not ported yet "
                          f"(gated: {sorted(_FUSED_ACTS)})")
-    if cfg.pos != "rope" or cfg.norm != "rmsnorm":
-        raise ValueError("only rope + rmsnorm dense models are ported yet")
+    if cfg.pos != "rope" or cfg.norm not in ("rmsnorm", "layernorm"):
+        raise ValueError("only rope + rmsnorm/layernorm models are ported "
+                         "yet")
     if cfg.kv_dtype not in ("bfloat16", "float32", "int8"):
         raise ValueError(f"kv_dtype {cfg.kv_dtype!r} unsupported")
 
@@ -86,14 +93,22 @@ def ffn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def make_block_params(gen, cfg: ModelConfig) -> dict:
     dt = common.dtype_of(cfg)
     dev = gen.device
-    return {"ln1": common.make_norm(cfg.d_model, dt, dev),
-            "attn": make_attn_params(gen, cfg),
-            "ln2": common.make_norm(cfg.d_model, dt, dev),
-            "ffn": make_ffn_params(gen, cfg)}
+    p = {"ln1": common.make_norm(cfg.norm, cfg.d_model, dt, dev),
+         "attn": make_attn_params(gen, cfg),
+         "ln2": common.make_norm(cfg.norm, cfg.d_model, dt, dev)}
+    if cfg.moe is not None:
+        p["moe"] = make_moe_params(gen, cfg)
+    else:
+        p["ffn"] = make_ffn_params(gen, cfg)
+    return p
 
 
-def _ffn_half(p, x, cfg):
-    h = common.apply_norm(p["ln2"], x, cfg.norm_eps)
+def _mix_ffn(p, x, cfg):
+    """The FFN half of a block: ln2, then the MoE or the dense FFN, and the
+    residual."""
+    h = common.apply_norm(cfg.norm, p["ln2"], x, cfg.norm_eps)
+    if cfg.moe is not None:
+        return x + moe_ffn(p["moe"], h, cfg)
     return x + ffn_apply(p["ffn"], h, cfg)
 
 
@@ -104,7 +119,7 @@ def block_full_seq(p: dict, x: torch.Tensor, cfg: ModelConfig,
     ``kv_quant_roundtrip`` (int8-KV prefill): attend the quantize ->
     dequantize image of K/V, the values the cache will hold; the original
     K/V still go to the caller."""
-    h = common.apply_norm(p["ln1"], x, cfg.norm_eps)
+    h = common.apply_norm(cfg.norm, p["ln1"], x, cfg.norm_eps)
     q, k, v = qkv_project(p["attn"], h, cfg, positions)
     k_att, v_att = k, v
     if kv_quant_roundtrip:
@@ -112,14 +127,14 @@ def block_full_seq(p: dict, x: torch.Tensor, cfg: ModelConfig,
         v_att = dequantize_kv(*quantize_kv(v), dtype=v.dtype)
     o = flash_attention(q, k_att, v_att)
     o = common.linear(p["attn"]["wo"], o.reshape(x.shape[0], x.shape[1], -1))
-    return _ffn_half(p, x + o, cfg), (k, v)
+    return _mix_ffn(p, x + o, cfg), (k, v)
 
 
 def pre_attention(p: dict, x: torch.Tensor, positions: torch.Tensor,
                   cfg: ModelConfig):
     """The layer before attention: ln1 and the QKV projection with per-row
     RoPE phases ``positions`` (B,S). x: (B,S,D); returns q, k, v."""
-    h = common.apply_norm(p["ln1"], x, cfg.norm_eps)
+    h = common.apply_norm(cfg.norm, p["ln1"], x, cfg.norm_eps)
     return qkv_project(p["attn"], h, cfg, positions)
 
 
@@ -129,7 +144,7 @@ def post_attention(p: dict, x: torch.Tensor, o: torch.Tensor,
     FFN half. x: (B,S,D); o: (B,S,Hq,hd) or (B,Hq,hd) for S = 1."""
     B, S = x.shape[0], x.shape[1]
     o = common.linear(p["attn"]["wo"], o.reshape(B, S, -1))
-    return _ffn_half(p, x + o, cfg)
+    return _mix_ffn(p, x + o, cfg)
 
 
 def attend_decode_slotted(q: torch.Tensor, k: torch.Tensor,
@@ -256,7 +271,7 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
     params: Dict[str, Any] = {
         "embed": common.make_embedding(gen, cfg.vocab_size, cfg.d_model, dt),
         "blocks": [make_block_params(gen, cfg) for _ in range(cfg.n_layers)],
-        "ln_f": common.make_norm(cfg.d_model, dt, gen.device),
+        "ln_f": common.make_norm(cfg.norm, cfg.d_model, dt, gen.device),
     }
     if not cfg.tie_embeddings:
         params["unembed"] = common.make_embedding(gen, cfg.vocab_size,
@@ -270,7 +285,7 @@ def unembed_table(params, cfg: ModelConfig) -> torch.Tensor:
 
 
 def final_logits(params, x, cfg):
-    x = common.apply_norm(params["ln_f"], x, cfg.norm_eps)
+    x = common.apply_norm(cfg.norm, params["ln_f"], x, cfg.norm_eps)
     return common.unembed_logits(unembed_table(params, cfg), x)
 
 
@@ -293,7 +308,7 @@ def forward_hidden(params, tokens: torch.Tensor, cfg: ModelConfig):
         x, kv = block_full_seq(lp, x, cfg, positions,
                                kv_quant_roundtrip=roundtrip)
         kvs.append(kv)
-    return common.apply_norm(params["ln_f"], x, cfg.norm_eps), kvs
+    return common.apply_norm(cfg.norm, params["ln_f"], x, cfg.norm_eps), kvs
 
 
 def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, cache: KVCache

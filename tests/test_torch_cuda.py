@@ -850,3 +850,23 @@ def test_wa_hops_hold_under_slow_producers(dev, monkeypatch, kv, depth,
     for f, a, b in zip(fields, cache, plain[1]):
         assert (a is None) == (b is None) and (a is None or
                                                torch.equal(a, b)), f
+
+
+@pytest.mark.parametrize("pair", PAIRS)
+@pytest.mark.parametrize("S", [1, 200, 4096])
+def test_flash_decode_kernel_wide_group_runs(dev, S, pair):
+    """G = 16 query heads per KV head at hd 128 (qwen3-moe: 64 over 4):
+    two launches of 8 heads over the same K/V, interleaved back, against
+    the plain version over all 16; kv_limit at 0, inside and at S;
+    normalised and partial. Each call counts its two launches."""
+    B = 4
+    for lim in sorted({0, max(1, S // 2), S}):
+        args = _fd_case(dev, B, S, pair, Hq=64, n_kv=4, hd=128,
+                        seed=S + lim, lim=lim)
+        reset_launch_counts()
+        for partial in (False, True):
+            _check_k1(args, lim, partial)
+        # _check_k1 makes two wrapper calls per mode, two launches each
+        counts = launch_counts()
+        assert counts["flash_decode"] == 8
+        assert counts["flash_decode_partial"] == 4

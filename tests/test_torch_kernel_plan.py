@@ -259,3 +259,88 @@ def test_decode_plan_overrides_and_refusals():
             fd.decode_plan(8, 2, 7, 4096, 64, 2, **bad)
     with pytest.raises(ValueError, match="shared memory"):
         fd.decode_plan(1, 1, 8, 2 ** 20, 128, 4, split=16)
+
+
+# K1 groups wider than the kernel's n8 side and 1,024 columns: (G, hd) ->
+# launches (qwen3-moe: 64 query heads over 4 KV heads, hd 128)
+HEAD_RUNS = {(16, 128): 2, (16, 64): 2, (8, 256): 2, (12, 128): 2,
+             (8, 128): 1, (4, 128): 1, (3, 128): 1, (1, 128): 1}
+
+
+@pytest.mark.parametrize("G,hd", list(HEAD_RUNS))
+@pytest.mark.parametrize("S", [1, 200, 4096])
+def test_decode_plan_wide_groups_take_head_runs(G, hd, S):
+    """A group past 8 heads or 1,024 columns is planned as equal runs of
+    heads, one launch each, and every other field of the plan is that of
+    one run's launch (its shared memory and scratch follow the run's
+    heads); groups that fit take one launch."""
+    for B, isz in ((1, 2), (8, 1), (64, 2)):
+        p = fd.decode_plan(B, 4, G, S, hd, isz)
+        assert p.runs == HEAD_RUNS[G, hd] and p.heads * p.runs == G
+        assert p.heads <= fd.MAX_GROUP and p.heads * hd <= fd.MAX_GROUP_WIDTH
+        one = fd.decode_plan(B, 4, p.heads, S, hd, isz)
+        assert (one.runs, one.heads) == (1, p.heads)
+        assert one.split == p.split and one.tile == p.tile
+        assert p.smem == one.smem == _k1_smem(p, p.heads, hd, isz)
+        assert p.scratch == one.scratch == (
+            B * 4 * p.splits * p.heads * (hd + 2) if p.splits > 1 else 0)
+
+
+@pytest.mark.parametrize("G,hd", [(16, 256), (11, 64), (24, 128),
+                                  (32, 128)])
+def test_head_runs_refuse_groups_past_two_launches(G, hd):
+    with pytest.raises(ValueError, match="does not split"):
+        fd.decode_plan(8, 4, G, 200, hd, 2)
+
+
+def test_by_head_runs_interleaves_heads_back_in_place():
+    """Each run passes heads [j*r, (j+1)*r) of every KV group, contiguous,
+    and the outputs land where a one-launch call puts them: an identity
+    ``fn`` gives q, its first column and its second back."""
+    torch = pytest.importorskip("torch")
+    B, n_kv, G, hd = 3, 4, 16, 8
+    q = torch.arange(B * n_kv * G * hd, dtype=torch.float32).view(
+        B, n_kv * G, hd)
+    seen = []
+
+    def fn(qr):
+        assert qr.is_contiguous() and qr.shape == (B, n_kv * 8, hd)
+        seen.append(qr.view(B, n_kv, 8, hd)[..., 0] // hd % G)
+        return qr, qr[..., 0], qr[..., 1]
+
+    o, m, l = fd.by_head_runs(fn, q, n_kv, 2)
+    assert torch.equal(o, q) and torch.equal(m, q[..., 0]) \
+        and torch.equal(l, q[..., 1])
+    for j, heads in enumerate(seen):      # head index within the group
+        assert torch.equal(heads, (torch.arange(8) + 8 * j).expand(
+            B, n_kv, 8).to(heads.dtype))
+
+
+@pytest.mark.parametrize("partial", [False, True])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_by_head_runs_of_the_plain_version_equal_one_call(hd, partial):
+    """Two runs of 8 heads of the plain K1 version, interleaved back,
+    equal the plain version over all 16 heads of each KV group (int8 KV,
+    a kv_limit inside the extent)."""
+    torch = pytest.importorskip("torch")
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+    from repro_torch.quant.int8 import quantize_kv
+    g = torch.Generator().manual_seed(hd)
+    B, n_kv, G, S = 2, 4, 16, 50
+    q = torch.randn(B, n_kv * G, hd, generator=g)
+    (k, ks), (v, vs) = (quantize_kv(torch.randn(B, n_kv, S, hd, generator=g))
+                        for _ in range(2))
+    mask = torch.rand(B, S, generator=g) < 0.7
+    mask[:, 0] = True
+    lim = torch.tensor(37, dtype=torch.int32)
+
+    def plain(qr):
+        out = flash_decode_ref(qr, k, v, mask, ks, vs, lim,
+                               partial_stats=True)
+        return out if partial else (out[0] / out[2].clamp_min(1e-30)[
+            ..., None], out[1], out[2])
+
+    runs = fd.by_head_runs(plain, q, n_kv, 2)
+    whole = plain(q)
+    for a, b in zip(runs, whole):
+        assert torch.equal(a, b)
