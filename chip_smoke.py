@@ -21,8 +21,13 @@ phases; any failure exits non-zero before the result line:
    F=11008; K4 int8 GEMV at 1 to 128 rows (2 and 4 included) and at the
    paper's Llama projections (4096x4096, 4096x11008, 11008x4096,
    3072x8192) and phi3.5-moe's k/v (4096x1024) at 1 to 128 rows — K4
-   must be bit-exact; every kernel must
-   give the same bits on a second call);
+   must be bit-exact; K1 over recurrentgemma's ring at hd 256 (16 query
+   heads on one KV head: four launches of 4 heads; and G=4, one launch)
+   at B 1, 2, 4 and 8 over ring extents 64, 256 and 2,048, the cursor at
+   0, mid-ring, the last slot and wrapped (the windowed mask of
+   ``slot_valid_mask``), bf16 and int8 KV (f32 at B 1 and 2); K3 in its
+   gelu mode at recurrentgemma's FFN (D=4096, F=12288) at 1 to 1,024
+   rows; every kernel must give the same bits on a second call);
 3. model parity at full qwen2-0.5b width, depth cut to 2 layers, float32:
    the same seeded weights on the CPU (plain versions) and on CUDA
    (kernels) give equal tokens and logits within 1e-3 of max|logit|, for
@@ -47,7 +52,13 @@ phases; any failure exits non-zero before the result line:
    split decode and the WA programs at overlap 1, 2 and 4 give the CPU's
    tokens and logits within 1e-3 (2e-2 in a program where the recorded
    routings of the two sides differ), and WA at depth 1 gives the
-   colocated logits bit for bit;
+   colocated logits bit for bit; mamba2 at full width, 2 layers
+   (monolithic prefill, a prompt in 3 chunks, the last partial, slotted
+   decode with one inactive row whose state must keep its bytes, the
+   decode block) and recurrentgemma at full width, 4 layers (one
+   superblock and a tail layer, window cut to 64, vocabulary to 32,000
+   for the CPU side; a 96-token prefill rolls the ring, 48 decode steps
+   wrap it) give the CPU's tokens and logits within 1e-3 at every step;
 4. the serving engine at full qwen2-0.5b width (24 layers, runs (e), (f)
    and (h) cut to 12 to keep the script's time; seeded random bf16
    weights): (a) chunked admission + macro-step decode + KV buckets,
@@ -87,7 +98,16 @@ phases; any failure exits non-zero before the result line:
    2 on (j)'s plan, served twice, and (n) the paper's Llama-2-7B int8
    deployment at full depth on (b)'s plan; each must complete, launch
    exactly its path's kernels (no K3 in any) and make its twin run's
-   host syncs; one decode block of (l) and (n) is traced;
+   host syncs; one decode block of (l) and (n) is traced; then the
+   recurrent families at full width and depth: (o) mamba2-1.3b on (a)'s
+   plan, which must complete, launch no kernel of the port (the counts
+   stay 0: the SSD has none), make the host syncs of the same plan
+   served on the CPU and register one decode-block program (no buckets),
+   and (p) recurrentgemma-9b with ``mode="auto"``, which must resolve to
+   drain (no slotted API), complete with no admission while another
+   request decodes, and launch K1 and K3 (and not K4); one decode block
+   of (o) and three drain steps of (p) are traced, with no synchronising
+   call;
 5. time each kernel at the main path's shapes (K1 at B=8 over S=200 and
    at a long context of S=4096, bf16 and int8 KV, in partial mode at one
    shard of 48, the whole split attention of a layer at bucket 192 and the
@@ -99,9 +119,13 @@ phases; any failure exits non-zero before the result line:
    and ``torch._int_mm``), the tiered append of a layer, a W->A->W hop
    pair of the WA backend against one colocated layer-step, and two spin
    kernels on one stream against one on each; then K1 at G=16 (S=200 and
-   4096), K4 at the Llama projections and K3 at Llama-2-7B's FFN, and an
+   4096), K4 at the Llama projections and K3 at Llama-2-7B's FFN, an
    MoE layer's device time at qwen3-moe and phi3.5-moe widths split into
-   router + dispatch, expert products and combine.
+   router + dispatch, expert products and combine; K1 at run (p)'s shape
+   (B=8, 16 heads on one KV head of 256, ring 256 and 2,048) against
+   SDPA, K3 gelu at D=4096 F=12288 at 8 and 1,024 rows against three
+   matmuls and gelu, and one SSD decode layer and one RG-LRU residual
+   block at 8 rows (plain PyTorch, for the record).
 
 It then prints the card (nvidia-smi name, power limit), a ``kernels`` JSON
 line, and last the JSON result line. Without a GPU, or without the rest of
@@ -1734,7 +1758,7 @@ def phase_engine(totals, runs):
     run_failure(totals, runs, card)
     block_walls()
     wa_block_walls(card)
-    return per_step
+    return per_step, host_syncs
 
 
 # ---------------------------------------------------------------------------
@@ -2119,6 +2143,7 @@ def phase_timing(dev, launches, runs, per_step, errs):
                      f"bf16", time_ms(fused_ffn, var, 100),
                      time_ms(fused_ffn_ref, var, 20), b_ms, b_by, lib,
                      host_ms(fused_ffn, var)))
+    rows += recurrent_timing_rows(dev, bound, sdpa_args)
     for name, shape, ms, plain, b_ms, b_by, lib, host in rows:
         libs = ", ".join(("not measured" if v is None else
                           f"{v * 1e3:.2f} us") + f" ({k})"
@@ -2353,6 +2378,525 @@ def wa_block_walls(card):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the recurrent families: mamba2 (SSD state, no port kernel) and
+# recurrentgemma (RG-LRU state, local attention over a ring through K1, the
+# GeGLU FFN through K3 in its gelu mode)
+# ---------------------------------------------------------------------------
+
+# recurrentgemma-9b: 16 query heads on one KV head of 256 (K1 in four
+# launches of 4 heads); G=4 at hd 256 is one launch of 1,024 columns
+RING_GROUPS = ((16, 1), (16, 4))
+RING_EXTENTS = (64, 256, 2048)
+
+
+def ring_inputs(dev, B, S, pair, pos, window, Hq=16, n_kv=1, hd=256,
+                seed=0):
+    """K1 inputs over one ring layer of S slots as the hybrid's decode
+    passes them: q (B,Hq,hd) and K/V (layer 1 of a 2-layer ring cache,
+    bf16/f32 or int8 with scales) in the dtype ``pair``, every row's mask
+    ``slot_valid_mask(S, pos, window)`` and kv_limit min(pos + 1, S) on the
+    device."""
+    from repro_torch.kv.cache import slot_valid_mask
+    from repro_torch.quant.int8 import quantize_kv
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qdt, kvdt = (getattr(torch, n) for n in pair)
+    q = torch.randn(B, Hq, hd, device=dev, generator=g).to(qdt)
+    kf = torch.randn(2, B, n_kv, S, hd, device=dev, generator=g)
+    vf = torch.randn(2, B, n_kv, S, hd, device=dev, generator=g)
+    if kvdt == torch.int8:
+        (k, ks), (v, vs) = quantize_kv(kf), quantize_kv(vf)
+        k, v, ks, vs = k[1], v[1], ks[1], vs[1]
+    else:
+        k, v, ks, vs = kf[1].to(kvdt), vf[1].to(kvdt), None, None
+    p = torch.tensor(pos, device=dev)
+    mask = slot_valid_mask(S, p, window)[None].expand(B, S).contiguous()
+    lim = torch.clamp_max(p + 1, S).to(torch.int32)
+    return q, k, v, mask, ks, vs, lim
+
+
+def phase_compare_recurrent(dev, errs):
+    """K1 over the hybrid's ring at hd 256: G=16 (four launches of 4
+    heads) and G=4 (one launch), B 1/2/4/8, ring extents 64/256/2,048, the
+    cursor at 0 (kv_limit 1), mid-ring and at the last slot (full), and a
+    wrapped ring (the model's: window = extent, every slot valid; and a
+    window of 3/4 of the extent: a run of valid slots across the wrap);
+    bf16 and int8 KV at every B, f32 q and KV at B 1 and 2 (phase 3's
+    f32 parity); then K3 in its gelu mode at recurrentgemma's FFN (D=4096,
+    F=12288) at 1, 8, 32, 128 and 1,024 rows. Tolerances as in
+    ``phase_compare``; every case repeats bit for bit."""
+    from repro_torch.kernels.flash_decode.ops import decode_plan
+    from repro_torch.kernels.fused_ffn.ops import fused_ffn
+    from repro_torch.kernels.fused_ffn.ref import fused_ffn_ref
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    n_cases = 0
+    for Hq, n_kv in RING_GROUPS:
+        for B in (1, 2, 4, 8):
+            pairs = K1_PAIRS if B <= 2 else K1_PAIRS[2:]
+            for S in RING_EXTENTS:
+                for pair in pairs:
+                    isz = torch.empty(0, dtype=getattr(torch, pair[1])) \
+                        .element_size()
+                    plan = decode_plan(B, n_kv, Hq // n_kv, S, 256, isz)
+                    err = err_p = ratio = 0.0
+                    same = True
+                    for pos, window in ((0, S), (S // 2, S), (S - 1, S),
+                                        (S + S // 3, S),
+                                        (S + S // 3, 3 * S // 4)):
+                        args = ring_inputs(dev, B, S, pair, pos, window, Hq,
+                                           n_kv, seed=S + B + pos + window)
+                        reset_launch_counts()
+                        e, e_p, r, sm = check_k1(args, min(pos + 1, S))
+                        # 2 modes x 2 calls, each ``runs`` launches
+                        require(launch_counts()["flash_decode"]
+                                == 4 * plan.runs, "K1 ring launches")
+                        err, err_p = max(err, e), max(err_p, e_p)
+                        ratio, same = max(ratio, r), same and sm
+                        n_cases += 1
+                    errs["flash_decode"] = max(errs["flash_decode"], err)
+                    errs["flash_decode_partial"] = max(
+                        errs["flash_decode_partial"], err_p)
+                    log(f"  K1 ring B={B} S={S} G={Hq // n_kv} hd=256 "
+                        f"q={pair[0]} kv={pair[1]} ({plan.runs} x "
+                        f"{plan.heads} heads, {plan.splits} splits of "
+                        f"{plan.split}, smem {plan.smem} B), cursor 0 / "
+                        f"mid / last / wrapped (window S and 3S/4): "
+                        f"max|d|={err:.3g} normalised, {err_p:.3g} partial,"
+                        f" max|d|/tol={ratio:.3g}, repeat identical={same}")
+                    require(ratio <= 1.0, f"K1 ring disagrees at B={B} "
+                            f"S={S} {pair} G={Hq // n_kv}")
+                    require(same, f"K1 ring not deterministic at B={B} "
+                            f"S={S} {pair}")
+    log(f"  K1 ring cases: {n_cases}")
+    for R in (1, 8, 32, 128, 1024):
+        args, _ = k3_inputs(dev, R, seed=R, D=4096, F=12288)
+        got = fused_ffn(*args, act="gelu")
+        want = fused_ffn_ref(*args, act="gelu")
+        e, tol = max_err(got, want), 1e-4 * max(1, max_abs(want))
+        same = torch.equal(fused_ffn(*args, act="gelu"), got)
+        errs["fused_ffn"] = max(errs["fused_ffn"], e)
+        log(f"  K3 gelu D=4096 F=12288 bf16 rows={R}: max|d|={e:.3g} "
+            f"(tol {tol:.3g}), repeat identical={same}")
+        require(e <= tol, f"K3 gelu disagrees at rows={R}")
+        require(same, f"K3 gelu not deterministic at rows={R}")
+    torch.cuda.synchronize()
+
+
+def _close_steps(name, res, tol=1e-3):
+    """CPU against CUDA (``res``: the card's records, then the CPU's) for
+    each recorded program: its values (the logits of every step; the state
+    of the decode block) within ``tol`` of their largest magnitude, tokens
+    equal."""
+    for key in res[1]:
+        lc, tc = res[1][key]
+        lg, tg = res[0][key]
+        rel = rel_err(lg, lc)
+        same = torch.equal(tc, tg)
+        log(f"  {name} {key}: max|d|/max = {rel:.3g} (tol {tol:g}) over "
+            f"{lc.shape[0]} step(s), tokens equal={same}")
+        require(np.isfinite(rel) and rel <= tol and same,
+                f"{name} {key}: cpu and cuda disagree")
+
+
+def parity_ssm(cfg, devs=("cuda", "cpu")):
+    """mamba2 (SSD) CPU against CUDA on the same seeded f32 weights (made
+    on the first device, copied): monolithic prefill of 4 prompts of 40;
+    a 40-token prompt in 3 chunks of 16 (16, 16, 8) into slot 2 of a fresh
+    state; 6 slotted steps from the prefilled state with row 3 inactive
+    (its state must keep its bytes); the decode block (T=4)."""
+    from repro_torch.interop import to_device
+    from repro_torch.models.registry import build_model
+    prompts = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (4, 40), dtype=np.int64))
+    src = to_device(build_model(cfg, device=devs[0]).init(0), "cpu")
+    res = []
+    for d in devs:
+        api = build_model(cfg, device=d)
+        params = to_device(src, api.device)
+        r = {}
+        res.append(r)
+        st, lg = api.prefill(params, prompts.to(d))
+        first = lg[:, -1].argmax(-1).to(torch.int32)
+        r["prefill"] = (lg[:, -1].float().cpu()[None], first.cpu()[None])
+        cst = api.init_caches(4, 64)
+        out = []
+        for start in (0, 16, 32):
+            n = min(16, 40 - start)
+            row = torch.zeros((1, 16), dtype=torch.long)
+            row[0, :n] = prompts[2, start:start + n]
+            cst, lc = api.prefill_chunk(params, cst, row.to(d), 2, start, n)
+            out.append(lc[:, -1].float().cpu())
+        r["chunked"] = (torch.stack(out), torch.stack(out).argmax(-1))
+        ch_rel = rel_err(cst.h[:, 2].float().cpu(), st.h[:, 2].float().cpu())
+        log(f"  mamba2 on {d}: chunked (16+16+8) state against the "
+            f"monolithic prefill's: max|d|/max = {ch_rel:.3g}")
+        require(ch_rel <= 1e-3, "chunked SSD state differs from prefill")
+        blk_state = type(st)(st.h.clone(), st.conv.clone())
+        act = torch.tensor([True, True, True, False], device=d)
+        keep = (st.h[:, 3].clone(), st.conv[:, 3].clone())
+        tok, pos = first, torch.full((4,), 40, dtype=torch.int32, device=d)
+        logits, toks = [], []
+        for _ in range(6):
+            st, lg = api.decode_slotted(params, st, tok, pos, act)
+            logits.append(lg[:3, 0].float().cpu())
+            tok = torch.where(act, lg[:, 0].argmax(-1).to(torch.int32), 0)
+            toks.append(tok[:3].cpu())
+            pos = pos + act.to(torch.int32)
+        kept = torch.equal(st.h[:, 3], keep[0]) \
+            and torch.equal(st.conv[:, 3], keep[1])
+        log(f"  mamba2 on {d}: inactive row's state kept its bytes through "
+            f"6 slotted steps: {kept}")
+        require(kept, f"mamba2 slotted decode wrote an inactive row on {d}")
+        r["slotted"] = (torch.stack(logits), torch.stack(toks))
+        blk = api.decode_block(
+            params, blk_state, first, torch.full((4,), 40, dtype=torch.int32,
+                                                 device=d),
+            torch.ones(4, dtype=torch.bool, device=d),
+            torch.full((4,), 4, dtype=torch.int32, device=d),
+            torch.full((4,), -1, dtype=torch.int32, device=d), block_size=4)
+        # the block's state and tokens (T, B)
+        r["block"] = (blk_state.h.float().cpu()[None], blk[1].cpu())
+    _close_steps("mamba2", res)
+
+
+def parity_hybrid(cfg, devs=("cuda", "cpu"), prompt=96, steps=48):
+    """recurrentgemma CPU against CUDA: prefill of 2 prompts longer than
+    the window (the ring rolls), then ``steps`` shared-cursor decode steps
+    that wrap the ring, logits compared at every step."""
+    from repro_torch.interop import to_device
+    from repro_torch.models.registry import build_model
+    prompts = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (2, prompt), dtype=np.int64))
+    src = to_device(build_model(cfg, device=devs[0]).init(0), "cpu")
+    res = []
+    for d in devs:
+        t0 = time.monotonic()
+        api = build_model(cfg, device=d)
+        params = to_device(src, api.device)
+        caches, lg = api.prefill(params, prompts.to(d))
+        size = caches["kv"].k.shape[3]
+        logits, toks = [lg[:, -1].float().cpu()], []
+        tok = lg[:, -1].argmax(-1).to(torch.int32)
+        toks.append(tok.cpu())
+        for _ in range(steps):
+            caches, lg = api.decode(params, caches, tok)
+            logits.append(lg[:, 0].float().cpu())
+            tok = lg[:, 0].argmax(-1).to(torch.int32)
+            toks.append(tok.cpu())
+        length = int(caches["kv"].length)
+        res.append({"prefill+decode": (torch.stack(logits),
+                                       torch.stack(toks))})
+        log(f"  recurrentgemma on {d}: ring of {size} slots (window "
+            f"{cfg.rglru.window}), prompt {prompt}, {steps} steps to "
+            f"length {length} ({time.monotonic() - t0:.1f}s)")
+        require(length > size + prompt % size and prompt > size,
+                "the ring did not roll and wrap")
+    _close_steps("recurrentgemma", res)
+
+
+def phase_parity_recurrent():
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    t0 = time.monotonic()
+    parity_ssm(get_config("mamba2-1.3b").replace(n_layers=2,
+                                                 dtype="float32"))
+    log(f"  mamba2 parity (full width, 2 layers, f32) took "
+        f"{time.monotonic() - t0:.1f}s")
+    t0 = time.monotonic()
+    cfg = get_config("recurrentgemma-9b")
+    cfg = cfg.replace(n_layers=4, dtype="float32", vocab_size=32000,
+                      rglru=dataclasses.replace(cfg.rglru, window=64))
+    parity_hybrid(cfg)
+    log(f"  recurrentgemma parity (full width, 4 layers: one superblock "
+        f"and one tail layer, window cut to 64, vocabulary cut to 32,000 "
+        f"of 256,000 for the CPU side, f32) took "
+        f"{time.monotonic() - t0:.1f}s")
+
+
+# phase 4's recurrent runs: (o) mamba2 at full width and depth on (a)'s
+# plan (no port kernel: the SSD has none, the reference never quantizes
+# its projections); (p) recurrentgemma at full width and depth, mode
+# "auto", which resolves to drain (no slotted API), 8 slots, prompt 128,
+# 12 x 32 tokens: K1 over the ring (256 slots: min(window, 128 + 128)) and
+# K3 in its gelu mode
+RECURRENT_RUNS = {
+    # name: (arch, engine kwargs, n_requests, max_new, kernels)
+    "o_mamba2_chunked_T8": (
+        "mamba2-1.3b", RUNS["a_bf16_chunked_T8"][1], 12, 64, ()),
+    "p_recurrentgemma_auto_drain": (
+        "recurrentgemma-9b", dict(mode="auto", max_new_cap=72), 12, 32,
+        ("flash_decode", "fused_ffn")),
+}
+
+
+def rehearse_host_syncs(arch, kw, n_req, max_new) -> int:
+    """Host syncs of the same plan on the CPU at the reduced config: they
+    depend on the plan alone (no stop ids)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models.registry import build_model
+    from repro_torch.runtime.serving import ServingEngine
+    cfg = get_config(arch).reduced()
+    api = build_model(cfg, device="cpu")
+    eng = ServingEngine(api, 8, 128, device="cpu", **kw)
+    stats = eng.run(api.init(0), make_requests(cfg, n_req, 128, max_new,
+                                               seed=0, arrival_every=4))
+    require(stats["completed"] == n_req, "CPU rehearsal incomplete")
+    return stats["host_syncs"]
+
+
+def trace_drain_steps(api, params, n_steps=3, B=8, S=128):
+    """Profile ``n_steps`` shared-cursor decode steps after a batch
+    prefill of B x S (drain serving): synchronising calls (counted on an
+    untraced step), kernels per token step, device busy time and idle
+    share. Returns the synchronising calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    dev = api.device
+    toks = torch.randint(0, api.config.vocab_size, (B, S), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(0))
+    caches, lg = api.prefill(params, toks)
+    tok = lg[:, -1].argmax(-1).to(torch.int32)
+
+    def steps(n):
+        nonlocal caches, tok
+        for _ in range(n):
+            caches, lg = api.decode(params, caches, tok)
+            tok = lg[:, 0].argmax(-1).to(torch.int32)
+
+    steps(1)
+    torch.cuda.synchronize()
+    syncs = count_syncs(lambda: steps(n_steps))
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    steps(n_steps)
+    torch.cuda.synchronize()
+    wall_plain = time.monotonic() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        steps(n_steps)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kern)
+    log(f"    synchronising calls inside {n_steps} drain decode steps: "
+        f"{syncs}")
+    if busy_us <= 0:
+        log("    trace: profiler reported no device time (idle share not "
+            "measured)")
+        return syncs
+    n_kern = sum(e.count for e in kern)
+    log(f"    trace of {n_steps} drain decode steps (8 rows, ring cursor "
+        f"{S + 1}): untraced wall {wall_plain * 1e3:.2f} ms, device busy "
+        f"{busy_us / 1e3:.2f} ms in {n_kern} kernels "
+        f"({n_kern / n_steps:.1f} per token step), idle share "
+        f"{1 - busy_us / 1e3 / (wall_plain * 1e3):.3f} of the untraced "
+        f"wall")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"      {e.key[:64]:64s} {e.self_device_time_total / 1e3:8.3f} "
+            f"ms, {e.count} launches")
+    port = {}
+    for e in kern:
+        for tag in ("flash_decode", "gate_up_kernel", "down_kernel"):
+            if tag in e.key:
+                us, n = port.get(tag, (0.0, 0))
+                port[tag] = (us + e.self_device_time_total, n + e.count)
+    log("      port kernels: " + ", ".join(
+        f"{k} {us / 1e3:.3f} ms in {n} launches"
+        for k, (us, n) in port.items()))
+    return syncs
+
+
+def phase_engine_recurrent(totals, runs, per_step, host_syncs_a):
+    """Runs (o) and (p) (``RECURRENT_RUNS``), seeded random bf16 weights.
+    (o): every request completes, no port kernel launches (the counts
+    stay 0: the path's truth), the host syncs equal the CPU rehearsal's
+    of the same plan, and one decode-block program serves (no buckets);
+    one decode block is traced. (p): ``auto`` resolves to drain, every
+    request completes, no request is admitted while another decodes, K1
+    and K3 launch and K4 does not; three drain decode steps are traced.
+    The traced steps make no synchronising call."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models.registry import build_model
+    from repro_torch.runtime.serving import ServingEngine
+    syncs = {}
+    for name, (arch, kw, n_req, max_new, needed) in RECURRENT_RUNS.items():
+        cfg = get_config(arch)
+        t0 = time.monotonic()
+        api = build_model(cfg)
+        params = api.init(0)
+        torch.cuda.synchronize()
+        init_s = time.monotonic() - t0
+        reqs = make_requests(cfg, n_req, 128, max_new, seed=0,
+                             arrival_every=4)
+        eng = ServingEngine(api, 8, 128, **kw)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.monotonic()
+        stats = eng.run(params, reqs)
+        torch.cuda.synchronize()
+        serve_s = time.monotonic() - t0
+        counts = launch_counts()
+        runs[name] = counts
+        for k, n in counts.items():
+            totals[k] += n
+        stats.pop("per_request")
+        runtime = stats.pop("runtime")
+        log(f"  run {name}: {arch} x {cfg.n_layers} layers, init "
+            f"{init_s:.1f}s, serve {serve_s:.1f}s, launches {counts}")
+        log(f"    stats: {json.dumps(stats)}")
+        log(f"    programs: " + ", ".join(
+            f"{k}={v['calls']}" for k, v in runtime.items() if v["calls"]))
+        log(f"    decode TPOT mean {stats['tpot_mean_ms']:.3f} ms, p50 "
+            f"{stats['tpot_p50_ms']:.3f} ms, p99 {stats['tpot_p99_ms']:.3f} "
+            f"ms; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        require(stats["completed"] == n_req, f"{name}: not all completed")
+        for r in reqs:
+            require(len(r.generated) == max_new and all(
+                0 <= t < cfg.vocab_size for t in r.generated),
+                f"{name}: request {r.rid} stream malformed")
+        require(all((n > 0) == (k in needed) for k, n in counts.items()),
+                f"{name}: launches {counts}, its path's kernels {needed}")
+        if cfg.family == "ssm":
+            want = rehearse_host_syncs(arch, kw, n_req, max_new)
+            log(f"    host syncs {stats['host_syncs']} (the same plan on "
+                f"the CPU at the reduced config: {want}; run (a): "
+                f"{host_syncs_a})")
+            require(stats["host_syncs"] == want,
+                    f"{name}: another number of host syncs than the plan")
+            blocks = [k for k in runtime if k.startswith("serve_decode_block")]
+            require(blocks == ["serve_decode_block"] and eng._ex.buckets
+                    == (0,), f"{name}: decode-block programs {blocks}")
+            syncs[name] = trace_decode_block(api, params, kw)
+            caches = api.init_caches(8, 200)
+            z = torch.zeros(8, dtype=torch.int32, device=api.device)
+            on = torch.ones(8, dtype=torch.bool, device=api.device)
+            reset_launch_counts()
+            api.decode_slotted(params, caches, z, z + 100, on)
+        else:
+            require(eng.mode == stats["mode"] == "drain",
+                    f"{name}: auto resolved to {eng.mode}")
+            log(f"    drain admission groups (step: rids): "
+                f"{drain_groups(reqs)}")
+            syncs[name] = trace_drain_steps(api, params)
+            caches, lg = api.prefill(params, torch.zeros(
+                (8, 128), dtype=torch.long, device=api.device))
+            reset_launch_counts()
+            api.decode(params, caches, lg[:, -1].argmax(-1))
+        torch.cuda.synchronize()
+        per_step[name] = {k: n for k, n in launch_counts().items() if n}
+        log(f"    launches of one decode step: {per_step[name]}")
+        del params, eng, api
+        torch.cuda.empty_cache()
+    require(all(n == 0 for n in syncs.values()),
+            f"a traced recurrent step synchronises with the host: {syncs}")
+    return syncs
+
+
+def recurrent_timing_rows(dev, bound, sdpa_args):
+    """Phase 5 rows of the recurrent families: K1 at run (p)'s shape (B=8,
+    16 query heads on one KV head of 256, ring 256 and 2,048, bf16 KV,
+    every slot live) against SDPA with ``enable_gqa``; K3 gelu at
+    D=4096 F=12288 at 8 and 1,024 rows against three matmuls and gelu;
+    and, for the record, one SSD decode layer of mamba2 and one RG-LRU
+    residual block of recurrentgemma at 8 rows (plain PyTorch: their
+    device and host time and kernels a call)."""
+    import torch.nn.functional as F
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_decode.ops import flash_decode
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+    from repro_torch.kernels.fused_ffn.ops import fused_ffn
+    from repro_torch.kernels.fused_ffn.ref import fused_ffn_ref
+    rows = []
+    for S in (256, 2048):
+        def make(i, S=S):
+            return ring_inputs(dev, 8, S, ("bfloat16", "bfloat16"), S - 1,
+                               S, seed=i), {}
+        q, k, v, mask, ks, vs, lim = make(0)[0]
+        nb = nbytes(q, k, v, mask) + q.numel() * 4
+        b_ms, b_by = bound(nb, 4 * 8 * 16 * S * 256, torch.bfloat16)
+        var = variants_of(make, nb)
+        lib = {"sdpa(enable_gqa)": time_ms(F.scaled_dot_product_attention,
+                                           sdpa_args(var), 400)}
+        rows.append(("flash_decode", f"recurrentgemma ring, G=16 (4 "
+                     f"launches of 4 heads): B=8 Hq=16 n_kv=1 hd=256 "
+                     f"S={S} kv=bfloat16", time_ms(flash_decode, var, 400),
+                     time_ms(flash_decode_ref, var, 50), b_ms, b_by, lib,
+                     host_ms(flash_decode, var)))
+    for R in (8, 1024):
+        (x, wg, wu, wd), _ = k3_inputs(dev, R, D=4096, F=12288)
+        nb = nbytes(x, wg, wu, wd) + R * 4096 * 4
+        b_ms, b_by = bound(nb, 2 * R * 4096 * 12288 * 3, torch.bfloat16)
+
+        def make(i, R=R):
+            args, _ = k3_inputs(dev, R, seed=i, D=4096, F=12288)
+            return args, dict(act="gelu")
+        var = variants_of(make, nb)
+
+        def lib_ffn(x, wg, wu, wd, act="gelu"):
+            return torch.matmul(F.gelu(torch.matmul(x, wg),
+                                       approximate="tanh")
+                                * torch.matmul(x, wu), wd)
+        lib = {"3x torch.matmul + gelu (bf16)": time_ms(lib_ffn, var, 100)}
+        rows.append(("fused_ffn", f"recurrentgemma GeGLU FFN: rows={R} "
+                     f"D=4096 F=12288 bf16 gelu",
+                     time_ms(fused_ffn, var, 100),
+                     time_ms(fused_ffn_ref, var, 20), b_ms, b_by, lib,
+                     host_ms(fused_ffn, var)))
+    # the recurrent layers themselves, plain PyTorch, at 8 decode rows
+    from repro_torch.models import rglru, ssm
+    from repro_torch.models.registry import build_model
+    for arch in ("mamba2-1.3b", "recurrentgemma-9b"):
+        cfg = get_config(arch).replace(n_layers=1)  # hybrid: one tail layer
+        api = build_model(cfg)
+        params = api.init(0)
+        g = torch.Generator(device=dev).manual_seed(1)
+        x = torch.randn(8, 1, cfg.d_model, device=dev, generator=g).to(
+            torch.bfloat16)
+        if cfg.family == "ssm":
+            lp = params["blocks"][0]["ssd"]
+            st = api.init_caches(8, 0)
+            h, c = st.h[0], st.conv[0]
+            fn = lambda x, h, c: ssm.ssd_decode(lp, x, cfg, h, c)  # noqa
+            what = "one SSD decode layer (mamba2, 8 rows)"
+            state_b = nbytes(h, c)
+        else:
+            lp = params["tail"][0]
+            st = api.init_caches(8, 256)["state"]
+            h, c = st.h[0], st.conv[0]
+            fn = lambda x, h, c: rglru._mix_residual(  # noqa
+                lp, x, cfg, (h, c))
+            what = ("one RG-LRU residual block (recurrentgemma: mix + GeGLU "
+                    "FFN through K3, 8 rows)")
+            state_b = nbytes(h, c)
+        w_b = sum(t.numel() * t.element_size() for t in _leaves(lp))
+        var = [((x, h, c), {})]
+        ms = time_ms(fn, var, 40)
+        host = host_ms(fn, var, 20)
+        b_ms = (w_b + 2 * state_b) / HBM_BYTES_PER_S * 1e3
+        log(f"  {what}: {ms * 1e3:.2f} us device, {host * 1e3:.2f} us host "
+            f"a call, {count_kernels(fn, var[0])} kernels; weights "
+            f"{w_b / 1e6:.1f} MB + state {state_b / 1e6:.2f} MB read and "
+            f"written: bound {b_ms * 1e3:.2f} us (bytes)")
+        del params, api
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2379,6 +2923,7 @@ def main() -> int:
     log("phase 2: kernels against their plain versions")
     t0 = time.monotonic()
     errs = phase_compare(dev)
+    phase_compare_recurrent(dev, errs)
     log(f"  phase 2 took {time.monotonic() - t0:.1f}s")
 
     log("phase 3: model parity, full width, 2 layers, f32, cpu vs cuda")
@@ -2392,14 +2937,19 @@ def main() -> int:
     t0 = time.monotonic()
     phase_moe_parity()
     log(f"  phase 3's MoE parity took {time.monotonic() - t0:.1f}s")
+    phase_parity_recurrent()
 
     log("phase 4: engine at full qwen2-0.5b, then qwen3-moe (4 layers), "
-        "phi3.5-moe (8 layers) and Llama-2-7B")
+        "phi3.5-moe (8 layers), Llama-2-7B, mamba2 and recurrentgemma")
     launches = {"flash_decode": 0, "flash_decode_partial": 0,
                 "fused_ffn": 0, "gemv_int8": 0}
     runs = {}
     t0 = time.monotonic()
-    per_step = phase_engine(launches, runs)
+    per_step, host_syncs = phase_engine(launches, runs)
+    t1 = time.monotonic()
+    phase_engine_recurrent(launches, runs, per_step,
+                           host_syncs["a_bf16_chunked_T8"])
+    log(f"  runs (o) and (p) took {time.monotonic() - t1:.1f}s")
     log(f"  main-path launches {launches}; per decode step {per_step}")
     log(f"  phase 4 took {time.monotonic() - t0:.1f}s")
 

@@ -1,17 +1,24 @@
 """Model configuration: the port's own copy of ``repro.configs.base``.
 
 The field set and defaults equal the reference ``ModelConfig`` so a config
-compares field by field against its JAX counterpart. ``MoEConfig`` is a
-copy of the reference's; the sub-configs of the families not yet ported
-(SSM, RG-LRU, encoder) stay ``None`` here, and the registry admits only
-ported architectures. ``param_count`` lives in
-``repro_torch.models.registry.count_params``.
+compares field by field against its JAX counterpart. ``MoEConfig``,
+``SSMConfig`` and ``RGLRUConfig`` are copies of the reference's; the
+encoder sub-config of the families not yet ported (enc-dec, VLM) stays
+``None`` here, and the registry admits only ported architectures.
+``param_count`` lives in ``repro_torch.models.registry.count_params``.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
+
+# Block kinds of a decoder stack: recurrentgemma interleaves RG-LRU and
+# local attention, mamba2 is all SSD, every other family uniform attention
+ATTN = "attn"            # full (global) GQA attention
+LOCAL_ATTN = "local"     # sliding-window GQA attention
+RGLRU = "rglru"          # RG-LRU recurrent block (Griffin)
+SSD = "ssd"              # Mamba-2 state-space-duality block
 
 
 @dataclass(frozen=True)
@@ -27,9 +34,33 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 128
+    head_dim: int = 64
+    expand: int = 2                 # d_inner = expand * d_model
+    conv_width: int = 4
+    n_groups: int = 1
+    chunk: int = 256                # SSD chunk length of prefill
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
+
+
+@dataclass(frozen=True)
+class RGLRUConfig:
+    lru_width: int = 0              # 0 -> d_model
+    conv_width: int = 4
+    block_pattern: Tuple[str, ...] = (RGLRU, RGLRU, LOCAL_ATTN)
+    window: int = 2048              # local attention sliding window
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # dense | moe (the families ported so far)
+    family: str                     # dense | moe | ssm | hybrid (ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -46,9 +77,9 @@ class ModelConfig:
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
     moe: Optional[MoEConfig] = None
-    # --- sub-configs of families not yet ported (always None here) ---
-    ssm: Optional[Any] = None
-    rglru: Optional[Any] = None
+    ssm: Optional[SSMConfig] = None
+    rglru: Optional[RGLRUConfig] = None
+    # --- sub-config of the families not yet ported (always None here) ---
     encoder: Optional[Any] = None
     n_vision_tokens: int = 0
     # --- numerics ---
@@ -65,6 +96,15 @@ class ModelConfig:
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    def block_kinds(self) -> Tuple[str, ...]:
+        """Per-layer temporal-mixing kind of the decoder stack."""
+        if self.family == "ssm":
+            return (SSD,) * self.n_layers
+        if self.family == "hybrid":
+            pat = self.rglru.block_pattern
+            return tuple(pat[i % len(pat)] for i in range(self.n_layers))
+        return (ATTN,) * self.n_layers
+
     @property
     def qk_norm(self) -> bool:
         """Per-head RMSNorm of q and k before RoPE (Qwen3's). The reference
@@ -74,14 +114,20 @@ class ModelConfig:
 
     def reduced(self) -> "ModelConfig":
         """Same structure at tiny widths, for CPU tests (the reference's
-        ``reduced()`` for the dense and MoE families: 4 experts, top
-        ``min(k, 2)``, expert width 64)."""
+        ``reduced()``: 4 experts, top ``min(k, 2)``, expert width 64; SSD
+        state 16, head 32, chunk 16; RG-LRU width d_model, window 32)."""
         kw = {}
         if self.moe is not None:
             kw["moe"] = dataclasses.replace(
                 self.moe, num_experts=4,
                 experts_per_token=min(self.moe.experts_per_token, 2),
                 expert_d_ff=64)
+        if self.ssm is not None:
+            kw["ssm"] = dataclasses.replace(self.ssm, d_state=16,
+                                            head_dim=32, chunk=16)
+        if self.rglru is not None:
+            kw["rglru"] = dataclasses.replace(self.rglru, lru_width=0,
+                                              window=32)
         return self.replace(name=self.name + "-reduced",
                             n_layers=min(self.n_layers, 3), d_model=128,
                             n_heads=4, n_kv_heads=min(self.n_kv_heads, 2),

@@ -3,12 +3,15 @@
 ``params_from_numpy`` takes the JAX parameter tree as nested dicts of numpy
 arrays (layers stacked on a leading axis, a quantized weight as
 ``{"values", "scale"}``, bf16 leaves as float32 arrays, which is exact) and
-returns the port's parameters: the same tree with ``blocks`` split into a
-list of per-layer dicts, float leaves in the config's compute dtype, and
+returns the port's parameters: the same tree with each stacked layer list
+(``blocks``; the hybrid's ``super`` and ``tail``) split into a list of
+per-layer dicts, float leaves in the config's compute dtype, and
 quantization scales and the leaves the reference keeps in float32 whatever
-the compute dtype (an MoE router) in float32. ``kv_cache_from_numpy`` does
-the same for a cache. Turning a JAX pytree into numpy is the caller's job
-(the tests' own helper); this module imports no JAX.
+the compute dtype (an MoE router, the SSD's dt_bias, A_log and D_skip, the
+RG-LRU's lam) in float32. ``kv_cache_from_numpy`` and
+``recurrent_state_from_numpy`` do the same for a cache and a recurrent
+state. Turning a JAX pytree into numpy is the caller's job (the tests' own
+helper); this module imports no JAX.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kv.cache import KVCache
+from repro_torch.kv.state import RecurrentState
 from repro_torch.models.common import dtype_of
 from repro_torch.quant.int8 import QuantizedTensor
 
@@ -30,9 +34,13 @@ def _leaf(a: np.ndarray, dtype, device) -> torch.Tensor:
     return t.to(device)
 
 
-# subtrees the reference makes in float32 at any compute dtype
-# (``repro.models.moe.make_moe_params``: the router routes in f32)
-F32_SUBTREES = ("router",)
+# subtrees and leaves the reference makes in float32 at any compute dtype:
+# the MoE router (``repro.models.moe.make_moe_params``), the SSD's decay
+# and skip parameters (``repro.models.ssm.make_ssd_params``) and the
+# RG-LRU's lam (``repro.models.rglru.make_rglru_params``)
+F32_SUBTREES = ("router", "dt_bias", "A_log", "D_skip", "lam")
+# stacked per-layer subtrees (layers on the leading axis)
+LAYER_STACKS = ("blocks", "super", "tail")
 
 
 def _convert(node, dtype, device):
@@ -58,18 +66,31 @@ def params_from_numpy(tree: Dict[str, Any], cfg,
                       device: DeviceLike = None) -> Dict[str, Any]:
     dev = resolve_device(device)
     out = _convert(tree, dtype_of(cfg), dev)
-    stacked = out["blocks"]
-    out["blocks"] = [_layer(stacked, i) for i in range(cfg.n_layers)]
+    for name in LAYER_STACKS:
+        if name in out:
+            stacked = out[name]
+            n = _depth(stacked)
+            out[name] = [_layer(stacked, i) for i in range(n)]
     return out
 
 
+def _depth(node) -> int:
+    """Leading (layer) extent of a stacked subtree."""
+    while isinstance(node, dict):
+        node = next(iter(node.values()))
+    return (node.values if isinstance(node, QuantizedTensor)
+            else node).shape[0]
+
+
 def kv_cache_from_numpy(tree: Dict[str, Any], cfg,
-                        device: DeviceLike = None) -> KVCache:
+                        device: DeviceLike = None,
+                        window: int = 0) -> KVCache:
     """``tree``: {"k", "v", "k_scale", "v_scale", "length"} numpy arrays
     (scales None for a float cache), plus "hot_k" and "hot_v" for a tiered
     cache, whose geometry (hot_window, cold block and dtype) is the
     config's. Quantized tiers keep their int8 bytes (packed int4 nibbles
-    included); float leaves take the config's compute dtype."""
+    included); float leaves take the config's compute dtype. ``window``
+    > 0: a ring cache (the hybrid's local attention)."""
     dev = resolve_device(device)
     dt = dtype_of(cfg)
 
@@ -85,7 +106,17 @@ def kv_cache_from_numpy(tree: Dict[str, Any], cfg,
     return KVCache(t("k", dt), t("v", dt), t("k_scale", torch.float32),
                    t("v_scale", torch.float32),
                    _leaf(np.asarray(tree["length"], np.int32), None, dev),
-                   **tiers)
+                   window=window, **tiers)
+
+
+def recurrent_state_from_numpy(tree: Dict[str, Any],
+                               device: DeviceLike = None) -> RecurrentState:
+    """``tree``: {"h", "conv"} numpy arrays of the reference's
+    ``RecurrentState``; both stay float32."""
+    dev = resolve_device(device)
+    return RecurrentState(
+        h=_leaf(np.asarray(tree["h"], np.float32), torch.float32, dev),
+        conv=_leaf(np.asarray(tree["conv"], np.float32), torch.float32, dev))
 
 
 def to_device(tree, device):

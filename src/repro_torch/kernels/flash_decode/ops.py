@@ -5,7 +5,8 @@ tiles, scratch, shared memory, runs of query heads), kept in Python so
 that the CPU tests can check it.
 
 The kernel takes at most MAX_GROUP query heads per KV head (the mma's n8)
-and MAX_GROUP_WIDTH = G * hd. A wider group (qwen3-moe: G = 16, hd = 128)
+and MAX_GROUP_WIDTH = G * hd. A wider group (qwen3-moe: G = 16, hd = 128,
+two runs of 8 heads; recurrentgemma-9b: G = 16, hd = 256, four runs of 4)
 runs as ``head_runs`` equal runs of heads, one launch each over the same
 K/V (``by_head_runs``), up to MAX_HEAD_RUNS; anything wider raises."""
 from __future__ import annotations
@@ -26,7 +27,7 @@ _SUPPORTED = {(0, 0), (0, 2), (1, 1), (1, 2)}
 HEAD_DIMS = (32, 64, 128, 256)   # multiples of the mma's k16, instantiated
 MAX_GROUP = 8                    # query heads per KV head: the mma's n8
 MAX_GROUP_WIDTH = 1024           # G*hd: merge buffers, 4 outputs a thread
-MAX_HEAD_RUNS = 2                # launches a wider group may take
+MAX_HEAD_RUNS = 4                # launches a wider group may take
 WARPS = 8                        # port::kThreads / 32
 MAX_TILE = 1024                  # positions per tile (4 mask bytes/thread)
 SPLIT_CHUNK = 16                 # splits the last CTA stages per round trip

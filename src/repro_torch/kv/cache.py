@@ -17,7 +17,15 @@ in a hot ring (``hot_k``/``hot_v``) of ``hot_window + cold_block`` slots at
 the compute dtype. Every write stages a position into both tiers; the
 hot-to-cold boundary ``cold_boundary(count)`` is read-side arithmetic on
 the device cursors, so demotion moves no bytes and needs no host round
-trip. Sliding-window (ring) caches belong to families not yet ported.
+trip.
+
+A RING cache (``window`` > 0, the hybrid family's local attention) holds
+min(window, max_len) slots; position p lives in slot p % size, and the
+valid mask of a query resolves which absolute position each slot holds.
+It is written with one shared cursor (drain serving: ``layer_append_ring``
+at ``length % size``, on the device) and filled by ``write_prefill``,
+which keeps the last ``size`` positions of a longer prompt rolled into
+ring order.
 """
 from __future__ import annotations
 
@@ -44,6 +52,7 @@ class KVCache:
     hot_window: int = 0             # 0: flat (untiered)
     cold_block: int = 0             # demotion granularity (tokens)
     cold_dtype: str = "bfloat16"    # bfloat16 | int8 | int4
+    window: int = 0                 # 0: full context; > 0: ring buffer
 
     @property
     def is_quantized(self) -> bool:
@@ -119,11 +128,12 @@ def cold_read(k_l, v_l, k_scale_l, v_scale_l, cold_dtype: str,
 def init_kv_cache(n_layers: int, batch: int, n_kv: int, max_len: int,
                   head_dim: int, dtype=torch.bfloat16, quantized: bool = False,
                   device=None, hot_window: int = 0,
-                  cold_block: int = 0, cold_dtype: str = "bfloat16"
-                  ) -> KVCache:
-    """A zeroed cache: flat (float or int8 with scales), or tiered when
+                  cold_block: int = 0, cold_dtype: str = "bfloat16",
+                  window: int = 0) -> KVCache:
+    """A zeroed cache: flat (float or int8 with scales), tiered when
     ``hot_window`` > 0 (cold tier at ``cold_dtype`` + a hot ring of
-    ``hot_extent(hot_window, cold_block)`` slots at ``dtype``)."""
+    ``hot_extent(hot_window, cold_block)`` slots at ``dtype``), or a ring
+    of min(window, max_len) slots when ``window`` > 0."""
     def mk(s, dt):
         return torch.zeros(s, dtype=dt, device=device)
 
@@ -133,6 +143,9 @@ def init_kv_cache(n_layers: int, batch: int, n_kv: int, max_len: int,
             raise ValueError("tiered KV (hot_window > 0) subsumes the flat "
                              "int8 cache; use kv_cold_dtype instead of "
                              "kv_dtype='int8'")
+        if window:
+            raise ValueError("tiered KV does not compose with sliding-window "
+                             "(ring) caches")
         if cold_block < 1:
             raise ValueError(f"cold_block must be >= 1, got {cold_block}")
         if cold_dtype not in COLD_DTYPES:
@@ -150,13 +163,14 @@ def init_kv_cache(n_layers: int, batch: int, n_kv: int, max_len: int,
                        length, hot_k=mk(hshape, dtype),
                        hot_v=mk(hshape, dtype), hot_window=hot_window,
                        cold_block=cold_block, cold_dtype=cold_dtype)
-    shape = (n_layers, batch, n_kv, max_len, head_dim)
+    size = min(window, max_len) if window else max_len
+    shape = (n_layers, batch, n_kv, size, head_dim)
     sshape = shape[:-1] + (1,)
     store = torch.int8 if quantized else dtype
     return KVCache(mk(shape, store), mk(shape, store),
                    mk(sshape, torch.float32) if quantized else None,
                    mk(sshape, torch.float32) if quantized else None,
-                   length)
+                   length, window=window)
 
 
 # ---------------------------------------------------------------------------
@@ -289,6 +303,23 @@ def layer_append_slotted(k_l, v_l, k_scale_l, v_scale_l, k_new, v_new,
     else:
         _put_rows(k_l, k_new, rows, slots, active)
         _put_rows(v_l, v_new, rows, slots, active)
+    return k_l, v_l, k_scale_l, v_scale_l
+
+
+def layer_append_ring(k_l, v_l, k_scale_l, v_scale_l, k_new, v_new,
+                      pos: torch.Tensor):
+    """Shared-cursor append into a ring layer: every row writes
+    ``k_new[b]`` (n_kv,hd) at slot ``pos % size``; ``pos`` is a 0-d device
+    int (no host sync). Quantizes per position for int8 caches."""
+    slot = torch.remainder(pos.to(torch.long), k_l.shape[2]).reshape(1)
+    if k_scale_l is not None:
+        kq, ks = quantize_kv(k_new)
+        vq, vs = quantize_kv(v_new)
+        pairs = ((k_l, kq), (v_l, vq), (k_scale_l, ks), (v_scale_l, vs))
+    else:
+        pairs = ((k_l, k_new), (v_l, v_new))
+    for dst, new in pairs:
+        dst.index_copy_(2, slot, new[:, :, None].to(dst.dtype))
     return k_l, v_l, k_scale_l, v_scale_l
 
 
@@ -548,10 +579,18 @@ def import_slot_kv(cache: KVCache, saved, slot: int,
 # Masks (decode order: append, then attend)
 # ---------------------------------------------------------------------------
 
-def slot_valid_mask(size: int, query_pos) -> torch.Tensor:
-    """(S,) bool: positions a query at ``query_pos`` attends."""
+def slot_valid_mask(size: int, query_pos, window: int = 0) -> torch.Tensor:
+    """(S,) bool: slots a query at ``query_pos`` attends. A ring
+    (``window`` > 0): slot s holds the largest position p <= query_pos with
+    p = s (mod size), valid when p >= 0 and p > query_pos - window."""
     qp = torch.as_tensor(query_pos)
-    return torch.arange(size, device=qp.device) < qp + 1
+    idx = torch.arange(size, device=qp.device)
+    count = qp + 1
+    if not window:
+        return idx < count
+    head = torch.remainder(count + size - 1 - idx, size)
+    p = count - 1 - head
+    return (p >= 0) & (p <= qp) & (p > qp - window)
 
 
 def batch_valid_mask(size: int, positions: torch.Tensor) -> torch.Tensor:

@@ -9,10 +9,14 @@ one device.
          --kv-budget-bytes 7372800] [--backend wa --overlap 2]
 
 ``--arch`` takes every registered config (``configs/registry.py``: the
-dense and MoE models and the paper's Llama/Qwen deployments); the default
-is the reference CLI's, internlm2-1.8b.
-``--mode drain`` serves the drain-then-refill baseline instead (no chunk
-lane: ``--prefill-chunk`` is then ignored, as in the reference CLI).
+dense and MoE models, mamba2-1.3b (SSM), recurrentgemma-9b (hybrid) and
+the paper's Llama/Qwen deployments); the default is the reference CLI's,
+internlm2-1.8b.
+``--mode`` is ``auto`` by default, as in the reference CLI: continuous
+where the family has slotted decode (every family but the hybrid, which
+``auto`` serves in drain mode). ``--mode drain`` serves the
+drain-then-refill baseline (no chunk lane: ``--prefill-chunk`` is then
+ignored, as in the reference CLI).
 Runs on ``--device cuda`` by default (raises without a GPU); pass
 ``--device cpu`` for the plain PyTorch versions on the CPU. The config is
 reduced unless ``--full-width`` is given, as in the reference CLI. Weights
@@ -49,7 +53,7 @@ def make_requests(cfg, n_requests: int, prompt_len: int, max_new: int,
 
 def serve(arch: str, n_requests: int, batch_slots: int, prompt_len: int,
           max_new: int, *, reduced: bool = True, seed: int = 0,
-          mode: str = "continuous", arrival_every: int = 0,
+          mode: str = "auto", arrival_every: int = 0,
           block_size: int = 1, kv_bucket_chunk: int = 0,
           prefill_chunk: int = 0, a_shards: int = 1,
           backend: str = "colocated", overlap: int = 1,
@@ -92,7 +96,7 @@ def main(argv=None):
     ap.add_argument("--full-width", action="store_true",
                     help="serve the published widths (default: reduced)")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--mode", default="continuous",
+    ap.add_argument("--mode", default="auto",
                     choices=("auto", "continuous", "drain"))
     ap.add_argument("--arrival-every", type=int, default=0,
                     help="stagger: request i arrives at step i*N")

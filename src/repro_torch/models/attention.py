@@ -46,18 +46,22 @@ def _masked_softmax_pv(s: torch.Tensor, mask: torch.Tensor, v: torch.Tensor,
     return _f32_einsum(eq, w, v)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
-                    ) -> torch.Tensor:
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    window: int = 0) -> torch.Tensor:
     """Forward of the reference ``flash_attention`` for monolithic prefill,
-    as one causal masked softmax. q: (B,Sq,Hq,hd); k/v: (B,Sk,Hkv,hd) ->
-    (B,Sq,Hq,hd). Inference only: no backward in this port yet."""
+    as one causal masked softmax; ``window`` > 0 keeps the band of keys
+    (q - window, q] (local attention). q: (B,Sq,Hq,hd); k/v: (B,Sk,Hkv,hd)
+    -> (B,Sq,Hq,hd). Inference only: no backward in this port yet."""
     B, Sq, Hq, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
     qg = q.reshape(B, Sq, Hkv, G, hd)
     s = _f32_einsum("bqkgh,btkh->bkgqt", qg, k) / math.sqrt(hd)
-    mask = torch.arange(Sk, device=q.device)[None, :] \
-        <= torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    mask = kpos <= qpos
+    if window:
+        mask = mask & (kpos > qpos - window)
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     m = torch.amax(s, dim=-1, keepdim=True)
     p = torch.exp(s - m)

@@ -1,13 +1,15 @@
 """Model API of the port: ``build_model(cfg, device)`` -> ModelAPI.
 
-Port of ``repro.models.registry`` for the transformer families (dense and
-MoE): the fields the serving engine uses (continuous and drain, colocated
-and WA), ``make_decode_block`` and ``count_params``.
+Port of ``repro.models.registry`` for the transformer (dense and MoE),
+SSM (Mamba-2) and hybrid (RecurrentGemma) families: the fields the serving
+engine uses (continuous and drain, colocated and WA), ``make_decode_block``
+and ``count_params``. As in the reference, the slotted fields are None for
+a family that serves in drain mode only (the hybrid).
 Sharding contexts are gone (one device per engine in this slice).
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -30,25 +32,28 @@ class ModelAPI(NamedTuple):
     #   shared-cursor step at caches.length (drain serving), in place
     decode: Callable
     # init_caches(batch, max_len, device=None) -> caches on ``device`` (the
-    #   API's by default; "meta" gives their shapes without memory): flat,
-    #   or tiered when the config's hot_window > 0
+    #   API's by default; "meta" gives their shapes without memory): a
+    #   KVCache (flat, or tiered when the config's hot_window > 0), a
+    #   RecurrentState (ssm) or {"kv": ring KVCache, "state": ...} (hybrid)
     init_caches: Callable
+    # -- continuous-batching fields (None: the family serves in drain mode
+    #    only, as the hybrid does) ----------------------------------------
     # decode_slotted(params, caches, tokens, positions, active, kv_bucket=0,
     #                kv_shards=1) -> (caches, logits (B,1,V)); per-row
     #   cursors, caches in place; kv_shards > 1 is split-KV decode; each
     #   layer's slices are the cache's own (six for a tiered cache)
-    decode_slotted: Callable
+    decode_slotted: Optional[Callable] = None
     # write_slot(caches, single, slot) -> caches: admit a batch-1 prefill
-    write_slot: Callable
+    write_slot: Optional[Callable] = None
     # reset_slot(caches, slot) -> caches: zero a retired slot
-    reset_slot: Callable
+    reset_slot: Optional[Callable] = None
     # decode_block(params, caches, tokens, positions, active, remaining,
     #              eos_ids, *, block_size, kv_bucket=0, kv_shards=1)
     #   -> 7-tuple
-    decode_block: Callable
+    decode_block: Optional[Callable] = None
     # prefill_chunk(params, caches, tokens (1,C), slot, start, valid_len)
     #   -> (caches, logits (1,1,V))
-    prefill_chunk: Callable
+    prefill_chunk: Optional[Callable] = None
     # the family's KV decouples from its weights, so the WA backend
     # (``core/wa.py``) can serve it
     wa_servable: bool = False
@@ -87,14 +92,19 @@ def make_decode_block(decode_slotted: Callable) -> Callable:
     return decode_block
 
 
-def _build_transformer(cfg: ModelConfig, device: torch.device) -> ModelAPI:
-    from repro_torch.models import transformer as T
-    T.check_supported(cfg)
-
+def _seeded_init(module, cfg: ModelConfig, device: torch.device):
+    """``init(seed)``: the family module's parameters from a seeded
+    ``torch.Generator`` on ``device``."""
     def init(seed: int = 0):
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
-        return T.init_params(gen, cfg)
+        return module.init_params(gen, cfg)
+    return init
+
+
+def _build_transformer(cfg: ModelConfig, device: torch.device) -> ModelAPI:
+    from repro_torch.models import transformer as T
+    T.check_supported(cfg)
 
     def prefill(params, tokens):
         cache = T.make_cache(cfg, tokens.shape[0],
@@ -117,29 +127,74 @@ def _build_transformer(cfg: ModelConfig, device: torch.device) -> ModelAPI:
         return T.prefill_chunk(params, caches, tokens, slot, start,
                                valid_len, cfg)
 
-    return ModelAPI(cfg, device, init, prefill, decode, init_caches,
-                    decode_slotted,
+    return ModelAPI(cfg, device, _seeded_init(T, cfg, device), prefill,
+                    decode, init_caches, decode_slotted,
                     write_slot_kv, reset_slot,
                     make_decode_block(decode_slotted), prefill_chunk,
                     wa_servable=True)
 
 
+def _build_ssm(cfg: ModelConfig, device: torch.device) -> ModelAPI:
+    """Mamba-2: slotted decode, chunked and monolithic admission; the
+    state is O(1), so no KV buckets, split-KV, tiers or swap pair, and no
+    WA backend (no KV to decouple)."""
+    from repro_torch.kv.state import reset_slot_tree, write_slot_tree
+    from repro_torch.models import ssm as S
+
+    def decode_slotted(params, state, tokens, positions, active,
+                       kv_bucket: int = 0, kv_shards: int = 1):
+        return S.decode_step_slotted(params, state, tokens, positions,
+                                     active, cfg, kv_bucket=kv_bucket)
+
+    def prefill_chunk(params, state, tokens, slot, start, valid_len):
+        return S.prefill_chunk(params, state, tokens, slot, start,
+                               valid_len, cfg)
+
+    return ModelAPI(
+        cfg, device, _seeded_init(S, cfg, device),
+        lambda params, tokens: S.prefill(params, tokens, cfg),
+        lambda params, state, tokens: S.decode_step(params, state, tokens,
+                                                    cfg),
+        lambda batch, max_len, device=device: S.make_state(cfg, batch,
+                                                           device),
+        decode_slotted, write_slot_tree, reset_slot_tree,
+        make_decode_block(decode_slotted), prefill_chunk)
+
+
+def _build_hybrid(cfg: ModelConfig, device: torch.device) -> ModelAPI:
+    """RecurrentGemma: prefill, shared-cursor decode and caches only (no
+    slotted API: the engine serves it in drain mode)."""
+    from repro_torch.models import rglru as R
+    from repro_torch.models import transformer as T
+    T.check_supported(cfg)
+
+    return ModelAPI(
+        cfg, device, _seeded_init(R, cfg, device),
+        lambda params, tokens: R.prefill(params, tokens, cfg,
+                                         tokens.shape[1] + DECODE_SLACK),
+        lambda params, caches, tokens: R.decode_step(params, caches, tokens,
+                                                     cfg),
+        lambda batch, max_len, device=device: R.make_caches(cfg, batch,
+                                                            max_len, device))
+
+
 def build_model(cfg: ModelConfig, device: DeviceLike = None) -> ModelAPI:
-    """The transformer families' API (dense, moe) on ``device`` (default
+    """The family's API (dense, moe, ssm, hybrid) on ``device`` (default
     ``cuda``; raises without a GPU unless ``device="cpu"`` is passed)."""
     dev = resolve_device(device)
     if cfg.family in ("dense", "moe"):
         return _build_transformer(cfg, dev)
+    if cfg.family == "ssm":
+        return _build_ssm(cfg, dev)
+    if cfg.family == "hybrid":
+        return _build_hybrid(cfg, dev)
     raise ValueError(f"family {cfg.family!r} is not ported to repro_torch "
-                     "yet (dense and moe only)")
+                     "yet (dense, moe, ssm and hybrid only)")
 
 
-def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
-    """Exact parameter count of a dense or MoE transformer from its shapes,
-    as the reference counts it: int8 quantization scales are not
-    parameters; norm scales (q/k norms included), LayerNorm biases and the
-    router are.
-    ``active_only``: each expert tensor counts K of its E experts."""
+def _attn_block_params(cfg: ModelConfig) -> int:
+    """One transformer block: two norms, attention and the FFN (dense or
+    MoE, total experts)."""
     d, hd = cfg.d_model, cfg.head_dim
     hq, hkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
     attn = d * hq + 2 * d * hkv + hq * d
@@ -147,15 +202,54 @@ def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
         attn += hq + 2 * hkv
     if cfg.qk_norm:
         attn += 2 * hd
-    norm = d * (2 if cfg.norm == "layernorm" else 1)
     if cfg.moe is not None:
         m = cfg.moe
-        experts = 3 * m.num_experts * d * m.expert_d_ff
-        if active_only:
-            experts = experts * m.experts_per_token // m.num_experts
-        ffn = d * m.num_experts + experts
+        ffn = d * m.num_experts + 3 * m.num_experts * d * m.expert_d_ff
     else:
         ffn = 3 * d * cfg.d_ff
-    per_layer = 2 * norm + attn + ffn
+    return 2 * _norm_params(cfg) + attn + ffn
+
+
+def _norm_params(cfg: ModelConfig) -> int:
+    return cfg.d_model * (2 if cfg.norm == "layernorm" else 1)
+
+
+def _ssd_block_params(cfg: ModelConfig) -> int:
+    """One Mamba-2 layer: its norm and the SSD block."""
+    s, d = cfg.ssm, cfg.d_model
+    d_in, nh, gn = s.d_inner(d), s.n_heads(d), 2 * s.n_groups * s.d_state
+    ssd = (2 * d * d_in + d * gn + d * nh + 3 * nh
+           + s.conv_width * (d_in + gn) + d_in + d_in * d)
+    return _norm_params(cfg) + ssd
+
+
+def _mix_block_params(cfg: ModelConfig) -> int:
+    """One RG-LRU residual block: two norms, the GeGLU FFN and the mix."""
+    d, nh = cfg.d_model, cfg.n_heads
+    lw = cfg.rglru.lru_width or d
+    mix = 2 * d * lw + cfg.rglru.conv_width * lw + 2 * nh * (lw // nh) ** 2 \
+        + lw + lw * d
+    return 2 * _norm_params(cfg) + 3 * d * cfg.d_ff + mix
+
+
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Exact parameter count from the shapes, as the reference counts it:
+    int8 quantization scales are not parameters; norm scales (q/k norms
+    included), LayerNorm biases and the router are.
+    ``active_only``: each expert tensor counts K of its E experts."""
+    d = cfg.d_model
     emb = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
-    return emb + cfg.n_layers * per_layer + norm
+    if cfg.family == "ssm":
+        return emb + cfg.n_layers * _ssd_block_params(cfg) + _norm_params(cfg)
+    if cfg.family == "hybrid":
+        from repro_torch.models.rglru import _layer_plan
+        n_super, n_tail = _layer_plan(cfg)
+        return (emb + n_super * (2 * _mix_block_params(cfg)
+                                 + _attn_block_params(cfg))
+                + n_tail * _mix_block_params(cfg) + _norm_params(cfg))
+    per_layer = _attn_block_params(cfg)
+    if active_only and cfg.moe is not None:
+        m = cfg.moe
+        experts = 3 * m.num_experts * d * m.expert_d_ff
+        per_layer -= experts - experts * m.experts_per_token // m.num_experts
+    return emb + cfg.n_layers * per_layer + _norm_params(cfg)

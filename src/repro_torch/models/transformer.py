@@ -1,6 +1,7 @@
 """Decoder-only transformer (dense and MoE): parameters, prefill,
 shared-cursor and slotted decode (sequential or split-KV) and chunked
-prefill.
+prefill; and the hybrid family's local-attention block over a ring cache
+(banded prefill, ``block_decode`` at the shared cursor).
 
 Port of the inference part of ``repro.models.transformer``. The
 reference's layer ``lax.scan`` over stacked parameters becomes a Python
@@ -24,10 +25,12 @@ from repro_torch.kernels.fused_ffn.ops import fused_ffn
 from repro_torch.kv.cache import (KVCache, batch_valid_mask, bucket_view,
                                   chunk_hot_image, cold_boundary,
                                   init_kv_cache, layer_append_slotted,
-                                  layer_append_tiered, layer_read_slot,
-                                  layer_read_slot_cold, layer_read_tiered,
+                                  layer_append_ring, layer_append_tiered,
+                                  layer_read_slot, layer_read_slot_cold,
+                                  layer_read_tiered,
                                   layer_read_tiered_shards, layer_write_chunk,
-                                  layer_write_chunk_tiered, shard_view)
+                                  layer_write_chunk_tiered, shard_view,
+                                  slot_valid_mask)
 from repro_torch.models import common
 from repro_torch.models.attention import (chunk_attention,
                                           chunk_attention_tiered,
@@ -40,11 +43,14 @@ from repro_torch.quant.int8 import (QuantizedTensor, dequantize_kv,
                                     quantize_kv)
 
 _FUSED_ACTS = {"swiglu": "silu", "geglu": "gelu"}
-FAMILIES = ("dense", "moe")
+# families whose attention blocks this module builds (the hybrid's local
+# attention layers are dense blocks over a ring cache, models/rglru.py)
+FAMILIES = ("dense", "moe", "hybrid")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for configurations the port does not serve yet."""
+    """Raise for configurations whose attention blocks the port does not
+    serve yet."""
     if cfg.family not in FAMILIES or (cfg.family == "moe") != (
             cfg.moe is not None):
         raise ValueError(f"family {cfg.family!r} is not ported to "
@@ -114,18 +120,19 @@ def _mix_ffn(p, x, cfg):
 
 def block_full_seq(p: dict, x: torch.Tensor, cfg: ModelConfig,
                    positions: torch.Tensor,
-                   kv_quant_roundtrip: bool = False):
+                   kv_quant_roundtrip: bool = False, window: int = 0):
     """Full-sequence block (prefill). x: (B,S,D) -> (x', (k, v)).
     ``kv_quant_roundtrip`` (int8-KV prefill): attend the quantize ->
     dequantize image of K/V, the values the cache will hold; the original
-    K/V still go to the caller."""
+    K/V still go to the caller. ``window`` > 0: local attention over the
+    band (q - window, q]."""
     h = common.apply_norm(cfg.norm, p["ln1"], x, cfg.norm_eps)
     q, k, v = qkv_project(p["attn"], h, cfg, positions)
     k_att, v_att = k, v
     if kv_quant_roundtrip:
         k_att = dequantize_kv(*quantize_kv(k), dtype=k.dtype)
         v_att = dequantize_kv(*quantize_kv(v), dtype=v.dtype)
-    o = flash_attention(q, k_att, v_att)
+    o = flash_attention(q, k_att, v_att, window)
     o = common.linear(p["attn"]["wo"], o.reshape(x.shape[0], x.shape[1], -1))
     return _mix_ffn(p, x + o, cfg), (k, v)
 
@@ -203,6 +210,27 @@ def block_decode_slotted(p: dict, x: torch.Tensor, cfg: ModelConfig,
     q, k, v = pre_attention(p, x, positions[:, None], cfg)
     o = attend_decode_slotted(q, k, v, kv_slices, positions, active, cfg,
                               kv_bucket, kv_limit, kv_shards)
+    return post_attention(p, x, o, cfg)
+
+
+def block_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                 kv_slices: Tuple, pos: torch.Tensor, window: int
+                 ) -> torch.Tensor:
+    """Shared-cursor decode layer over a ring layer (the hybrid's local
+    attention): every row appends at slot ``pos % size`` and attends the
+    slots holding positions (pos - window, pos] through K1, with the tile
+    limit min(pos + 1, size). ``pos`` is a 0-d device int: no host sync.
+    x: (B,1,D); the slices are updated in place."""
+    B = x.shape[0]
+    q, k, v = pre_attention(p, x, pos.reshape(1, 1).expand(B, 1), cfg)
+    k_l, v_l, ks_l, vs_l = layer_append_ring(*kv_slices[:4], k[:, 0],
+                                             v[:, 0], pos)
+    size = k_l.shape[2]
+    mask = slot_valid_mask(size, pos, window)[None].expand(B, size) \
+        .contiguous()
+    kv_limit = torch.clamp_max(pos + 1, size).to(torch.int32)
+    o = decode_attention(q[:, 0], k_l, v_l, mask, ks_l, vs_l,
+                         kv_limit=kv_limit)
     return post_attention(p, x, o, cfg)
 
 
@@ -325,23 +353,31 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, cache: KVCache
 
 def write_prefill(cache: KVCache, k_all, v_all, S: int) -> KVCache:
     """Bulk-write a prefilled context (positions [0, S)) into the cache.
-    A tiered cache raises: its admissions run the chunk program, which
-    stages both tiers."""
+    A ring cache shorter than S keeps the last ``size`` positions, rolled
+    so that position p lands in slot p % size. A tiered cache raises: its
+    admissions run the chunk program, which stages both tiers."""
     if cache.is_tiered:
         raise ValueError(
             "monolithic write_prefill does not support tiered caches — the "
             "serving engine routes tiered admissions through the chunk "
             "program (full-width), which stages both tiers")
+    size = cache.k.shape[3]
+    n = S
+    if cache.window and S > size:
+        shift = (S - size) % size
+        k_all = torch.roll(k_all[..., S - size:, :], shift, dims=3)
+        v_all = torch.roll(v_all[..., S - size:, :], shift, dims=3)
+        n = size
     if cache.is_quantized:
         kq, ks = quantize_kv(k_all)
         vq, vs = quantize_kv(v_all)
-        cache.k[..., :S, :].copy_(kq)
-        cache.v[..., :S, :].copy_(vq)
-        cache.k_scale[..., :S, :].copy_(ks)
-        cache.v_scale[..., :S, :].copy_(vs)
+        cache.k[..., :n, :].copy_(kq)
+        cache.v[..., :n, :].copy_(vq)
+        cache.k_scale[..., :n, :].copy_(ks)
+        cache.v_scale[..., :n, :].copy_(vs)
     else:
-        cache.k[..., :S, :].copy_(k_all)
-        cache.v[..., :S, :].copy_(v_all)
+        cache.k[..., :n, :].copy_(k_all)
+        cache.v[..., :n, :].copy_(v_all)
     cache.length = torch.full((), S, dtype=torch.int32,
                               device=cache.k.device)
     return cache
@@ -393,7 +429,11 @@ def prefill_chunk(params, cache: KVCache, tokens: torch.Tensor, slot: int,
     """Chunked prefill: tokens (1,C) are slot ``slot``'s prompt chunk at
     positions [start, start+valid_len); positions >= valid_len are padding,
     masked out of the KV write and of the returned logits. Returns (cache,
-    logits (1,1,V)) at the chunk's last valid position."""
+    logits (1,1,V)) at the chunk's last valid position. A ring cache
+    raises, as in the reference."""
+    if cache.window:
+        raise ValueError("chunked prefill requires a non-windowed cache "
+                         "(ring order has no per-position write offset)")
     x = common.embed(params["embed"], tokens)
     for i, lp in enumerate(params["blocks"]):
         x = block_prefill_chunk(lp, x, cfg, cache.layer(i), slot, start,

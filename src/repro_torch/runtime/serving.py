@@ -24,7 +24,12 @@ its two executor backends (colocated and weight–attention).
   monolithic admission runs the full-width chunk program (``serve_admit``)
   that stages both tiers. The host-side ``KVArbiter`` prices the live
   bytes off the scheduler's cursors and, with ``kv_budget_bytes``,
-  preempts victims while they exceed the budget.
+  preempts victims while they exceed the budget,
+- recurrent families: an O(1) state (the SSM) or a ring KV cache beside it
+  (the hybrid) has no KV extent, so admission sets no length bound, the
+  block programs have no buckets, and split-KV, preemption and the WA
+  backend refuse; ``mode="auto"`` serves a family without slotted decode
+  or admission (the hybrid) in drain mode.
 
 Serving under pressure (the failure model): requests carry a ``priority``
 and TTFT/TPOT deadlines; admission drains the queue in priority order, a
@@ -50,6 +55,7 @@ ops on the caller's CUDA stream, the KV side on a stream of its own, with
 from __future__ import annotations
 
 import time
+import warnings
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -265,17 +271,18 @@ class SlotScheduler:
         self.filled[slot] = 0
         self.prefill_fifo.append(slot)
 
-    def next_chunk(self, chunk: int, kv_extent: int
+    def next_chunk(self, chunk: int, kv_extent: Optional[int]
                    ) -> Optional[Tuple[int, Request, int, int]]:
         """(slot, request, start, n_valid) of the next fixed-(1,C) chunk, or
         None. A window that would overrun the KV extent shifts LEFT over
-        already-written positions (recomputing them is bit-identical)."""
+        already-written positions (recomputing them is bit-identical); a
+        recurrent state (``kv_extent`` None) has no extent to overrun."""
         if not self.prefill_fifo:
             return None
         i = self.prefill_fifo[0]
         r = self.req[i]
         start = self.filled[i]
-        if start + chunk > kv_extent:
+        if kv_extent is not None and start + chunk > kv_extent:
             start = kv_extent - chunk
         return i, r, start, min(chunk, len(r.prompt) - start)
 
@@ -410,8 +417,12 @@ class ExecutorBackend:
                  slots: int, prompt_len: int, max_new_cap: int,
                  block_size: int, kv_bucket_chunk: int, prefill_chunk: int,
                  debug_reset_slots: bool, a_shards: int, overlap: int,
-                 preemptible: bool):
+                 preemptible: bool, kv_extent: Optional[int] = None,
+                 tiered: bool = False):
         self.api, self.rt = api, rt
+        # the slot caches' KV extent (None: no length axis, a recurrent
+        # state or a ring) and whether they are tiered
+        self.kv_extent, self.tiered = kv_extent, tiered
         self.device = api.device
         self.slots, self.prompt_len = slots, prompt_len
         self.max_new_cap = max_new_cap
@@ -437,10 +448,11 @@ class ExecutorBackend:
     def _bucket_set(self, kv_bucket_chunk) -> Tuple[int, ...]:
         """Static KV bucket set of the block programs; with a_shards > 1
         every bucket splits into equal shard blocks (kv_buckets rounds the
-        chunk up; the engine validated the extent)."""
-        s_max = self.prompt_len + self.max_new_cap
-        return kv_buckets(s_max, kv_bucket_chunk, self.a_shards) \
-            if kv_bucket_chunk > 0 else (0,)
+        chunk up; the engine validated the extent). Caches with no KV
+        extent (recurrent states, rings) get the one full program."""
+        if self.kv_extent is None or kv_bucket_chunk <= 0:
+            return (0,)
+        return kv_buckets(self.kv_extent, kv_bucket_chunk, self.a_shards)
 
     def _build_reset(self, debug_reset_slots):
         if debug_reset_slots:
@@ -569,7 +581,7 @@ class ColocatedBackend(ExecutorBackend):
         # monolithically: write_prefill has no cold-staging path, so
         # monolithic admission is the degenerate full-width chunk (padding
         # attended, cursor at the padded width)
-        if prefill_chunk or api.config.hot_window > 0:
+        if prefill_chunk or self.tiered:
             def chunk_fn(p, caches, toks, slot, start, valid):
                 caches, logits = api.prefill_chunk(p, caches, toks, slot,
                                                    start, valid)
@@ -936,8 +948,11 @@ class ServingEngine:
     bucket and picks the smallest covering bucket per macro-step.
     ``debug_reset_slots``: zero a slot's cache when its request retires.
     ``mode``: ``continuous`` (slot admission), ``drain`` (the
-    drain-then-refill baseline) or ``auto`` (continuous: every family the
-    port serves has slotted decode).
+    drain-then-refill baseline) or ``auto`` (the default, as in the
+    reference: continuous where the family has slotted decode and
+    admission, else drain: the hybrid). ``prefill_chunk`` > 0 under
+    ``auto`` on a family without ``prefill_chunk`` warns (``UserWarning``)
+    and admits monolithically; under ``continuous`` it raises.
     ``a_shards`` (n): split-KV decode, each KV bucket read as n equal
     shards; the KV extent prompt_len + max_new_cap must divide by n.
     ``backend``: ``colocated`` (the family's own programs) or ``wa``
@@ -991,7 +1006,7 @@ class ServingEngine:
 
     def __init__(self, api: ModelAPI, batch_slots: int, prompt_len: int,
                  runtime: Optional[StaticRuntime] = None,
-                 mode: str = "continuous",
+                 mode: str = "auto",
                  max_new_cap: int = DECODE_SLACK, block_size: int = 1,
                  kv_bucket_chunk: int = 0, prefill_chunk: int = 0,
                  debug_reset_slots: bool = False,
@@ -1032,6 +1047,9 @@ class ServingEngine:
                     f"batch_slots={batch_slots} does not divide into "
                     f"overlap={overlap} equal micro-batches")
         if backend == "wa":
+            # the WA backend carries its own programs (core/wa.py): the
+            # continuous scheduler and a family whose KV the W/A split can
+            # decouple
             if mode == "drain":
                 raise ValueError("the WA backend serves through the "
                                  "continuous scheduler; drain mode is "
@@ -1040,18 +1058,49 @@ class ServingEngine:
                 raise ValueError(
                     f"{api.config.family} family has no WA-disaggregated "
                     "serving support")
-        if mode == "drain" and prefill_chunk > 0:
-            raise ValueError("chunked prefill requires the continuous "
-                             "scheduler (drain prefills the whole batch)")
+            resolved = "continuous"
+        else:
+            # continuous mode needs a decode half (decode_block for T > 1,
+            # decode_slotted for T == 1) and an admission half
+            # (prefill_chunk for the chunked lane, write_slot for
+            # monolithic admission)
+            decode_ok = (api.decode_block is not None if block_size > 1
+                         else api.decode_slotted is not None)
+            if mode == "auto" and prefill_chunk > 0 \
+                    and api.prefill_chunk is None:
+                # fall back to monolithic admission, LOUDLY: a run that
+                # asked for the chunk lane must not quietly measure the
+                # monolithic one
+                warnings.warn(
+                    f"prefill_chunk={prefill_chunk} requested but the "
+                    f"{api.config.family} family has no prefill_chunk "
+                    "support; falling back to monolithic admission (the "
+                    "chunked-prefill lane is OFF for this engine)",
+                    UserWarning, stacklevel=2)
+                prefill_chunk = 0
+            admit_ok = (api.prefill_chunk is not None if prefill_chunk > 0
+                        else api.write_slot is not None)
+            slotted_ok = admit_ok and decode_ok
+            if mode == "continuous" and not slotted_ok:
+                raise ValueError(
+                    f"{api.config.family} family has no "
+                    f"{'chunked-prefill' if prefill_chunk > 0 else 'slotted'}"
+                    " serving support")
+            if mode == "drain" and prefill_chunk > 0:
+                raise ValueError("chunked prefill requires the continuous "
+                                 "scheduler (drain prefills the whole "
+                                 "batch)")
+            resolved = ("continuous" if slotted_ok else "drain") \
+                if mode == "auto" else mode
         if max_retries < 0:
             raise ValueError(f"max_retries must be >= 0, got {max_retries}")
         self.api = api
         self.slots = batch_slots
         self.prompt_len = prompt_len
         self.max_new_cap = min(max_new_cap, DECODE_SLACK)
-        # the reference resolves "auto" to continuous for a family with
-        # slotted decode and admission, which every family of the port has
-        self.mode = "continuous" if mode == "auto" else mode
+        self.mode = resolved
+        if resolved == "drain":
+            prefill_chunk = 0                    # auto fallback: no lane
         self.backend = backend
         self.block_size = block_size
         self.kv_bucket_chunk = kv_bucket_chunk
@@ -1066,12 +1115,18 @@ class ServingEngine:
         self.watchdog_s = watchdog_s
         self.strict_invariants = strict_invariants
         self.fault_injector = fault_injector
-        self._kv_extent = prompt_len + self.max_new_cap
-        # the slot caches' shapes without their memory: the arbiter's byte
-        # model reads off them (the tiered geometry is validated here)
-        caches_meta = api.init_caches(batch_slots, self._kv_extent,
+        # the slot caches' shapes without their memory: the KV extent and
+        # the arbiter's byte model read off them (the tiered geometry is
+        # validated here). No extent (None): no length axis to bound, a
+        # recurrent state or a ring window
+        caches_meta = api.init_caches(batch_slots,
+                                      prompt_len + self.max_new_cap,
                                       device="meta")
-        tiered = caches_meta.is_tiered
+        is_kv = isinstance(caches_meta, KVCache)
+        self._kv_extent = caches_meta.k.shape[3] \
+            if is_kv and not caches_meta.window else None
+        tiered = is_kv and caches_meta.is_tiered
+        self._tiered = tiered
         if tiered:
             # the tiered cache stages its cold prefix inside the chunk
             # program, which only the continuous scheduler has
@@ -1092,23 +1147,47 @@ class ServingEngine:
         self._arbiter = KVArbiter(caches_meta, kv_budget_bytes) \
             if tiered else None
         if a_shards > 1:
+            # split-KV decode shards the prefix-ordered KV walk of one
+            # slot; a recurrent state or a ring has nothing to shard
             if self.mode == "drain":
                 raise ValueError("split-KV decode (a_shards > 1) runs "
                                  "through the slotted decode programs; "
                                  "drain mode has none")
+            if self._kv_extent is None:
+                raise ValueError(
+                    f"a_shards={a_shards} requires a prefix-ordered "
+                    "(non-windowed) KV-cache family; the "
+                    f"{api.config.family} family has no KV sequence axis "
+                    "to shard")
             if self._kv_extent % a_shards:
                 raise ValueError(
                     f"KV extent {self._kv_extent} (prompt_len + "
                     f"max_new_cap) not divisible by a_shards={a_shards}; "
                     "every shard must own an equal contiguous block")
-        if prefill_chunk > self._kv_extent:
+        if prefill_chunk and is_kv and caches_meta.window:
+            raise ValueError("chunked prefill requires a non-windowed KV "
+                             "cache (ring order has no per-position write "
+                             "offset)")
+        if prefill_chunk and self._kv_extent is not None \
+                and prefill_chunk > self._kv_extent:
             raise ValueError(
                 f"prefill_chunk={prefill_chunk} exceeds the KV extent "
                 f"{self._kv_extent}; the fixed (1,C) window must fit the "
                 "cache")
-        if preemptible and self.mode != "continuous":
-            raise ValueError("preemptible serving requires the continuous "
-                             "scheduler (drain has no slots to swap)")
+        if preemptible:
+            # the swap pair moves one slot of a prefix-ordered KV cache at
+            # its true length: recurrent states and rings have no such
+            # slice, drain mode has no slot scheduler
+            if self.mode != "continuous":
+                raise ValueError("preemptible serving requires the "
+                                 "continuous scheduler (drain has no slots "
+                                 "to swap)")
+            if self._kv_extent is None:
+                raise ValueError(
+                    "preemptible=True requires a prefix-ordered "
+                    "(non-windowed) KV-cache family; the "
+                    f"{api.config.family} family has no slot KV extent to "
+                    "swap out")
         self.rt = runtime or StaticRuntime()
         self.queue: List[Request] = []
         self._ex: Optional[ExecutorBackend] = None
@@ -1236,7 +1315,8 @@ class ServingEngine:
                     f"width {self.prompt_len} (monolithic admission); raise "
                     "prompt_len or enable prefill_chunk > 0",
                     length=L, limit=self.prompt_len, limit_name="prompt_len")
-        elif L + r.max_new_tokens > self._kv_extent:
+        elif self._kv_extent is not None \
+                and L + r.max_new_tokens > self._kv_extent:
             raise RequestRejected(
                 r.rid, f"prompt length {L} + max_new_tokens="
                 f"{r.max_new_tokens} exceeds the KV extent "
@@ -1260,7 +1340,8 @@ class ServingEngine:
                 prefill_chunk=self.prefill_chunk,
                 debug_reset_slots=self.debug_reset_slots,
                 a_shards=self.a_shards, overlap=self.overlap,
-                preemptible=self.preemptible)
+                preemptible=self.preemptible, kv_extent=self._kv_extent,
+                tiered=self._tiered)
 
     @torch.inference_mode()
     def run(self, params, requests: List[Request],

@@ -1,5 +1,6 @@
 """The port's registry against the reference's: every registered config
-(dense, MoE and the paper's four deployments) equals its JAX counterpart
+(dense, MoE, SSM, hybrid and the paper's four deployments) equals its JAX
+counterpart
 field by field (``reduced()`` included), ``count_params`` (total and
 active) equals the reference's, each ``.reduced()`` builds on the CPU (and
 raises without a GPU on the default device), the kernels' launch plans
@@ -36,8 +37,8 @@ ARCHS = sorted(REGISTRY)
 NEW_ARCHS = ("qwen3-moe-235b-a22b", "phi3.5-moe-42b-a6.6b",
              "internlm2-1.8b", "granite-3-2b", "phi3-medium-14b",
              "llama3.2-3b", "llama2-7b", "qwen3-8b", "llama2-70b")
-UNPORTED = ("whisper-medium", "internvl2-76b", "recurrentgemma-9b",
-            "mamba2-1.3b")
+UNPORTED = ("whisper-medium", "internvl2-76b")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _fields(cfg) -> dict:
@@ -50,9 +51,12 @@ def _fields(cfg) -> dict:
 
 
 def test_registry_holds_every_transformer_config_of_the_reference():
+    """Every dense, MoE, SSM and hybrid config of the reference; the
+    enc-dec and VLM ids still raise."""
     assert set(NEW_ARCHS) < set(REGISTRY)
+    assert {"mamba2-1.3b", "recurrentgemma-9b"} < set(REGISTRY)
     assert set(REGISTRY) == {a for a, c in JAX_REGISTRY.items()
-                             if c.family in ("dense", "moe")}
+                             if c.family in PORTED_FAMILIES}
     for arch in UNPORTED:
         with pytest.raises(ValueError, match="not ported"):
             get_config(arch)
@@ -67,9 +71,14 @@ def test_config_equals_reference_field_by_field(arch, reduced):
     assert [f.name for f in dataclasses.fields(port)] == \
         [f.name for f in dataclasses.fields(ref)]
     assert _fields(port) == _fields(ref)
-    if ref.moe is not None:
-        assert [f.name for f in dataclasses.fields(port.moe)] == \
-            [f.name for f in dataclasses.fields(ref.moe)]
+    assert port.block_kinds() == ref.block_kinds()
+    for sub in ("moe", "ssm", "rglru"):
+        if getattr(ref, sub) is not None:
+            assert [f.name for f in dataclasses.fields(getattr(port, sub))] \
+                == [f.name for f in dataclasses.fields(getattr(ref, sub))]
+    if ref.ssm is not None:
+        assert port.ssm.d_inner(port.d_model) == ref.ssm.d_inner(ref.d_model)
+        assert port.ssm.n_heads(port.d_model) == ref.ssm.n_heads(ref.d_model)
 
 
 @pytest.mark.parametrize("active", [False, True])
@@ -101,6 +110,13 @@ def test_reduced_builds_on_cpu_and_default_device_raises(arch, monkeypatch):
     if cfg.moe is not None:
         assert all(b["moe"]["router"]["w"].dtype == torch.float32
                    for b in params["blocks"])
+    if cfg.ssm is not None:
+        assert all(b["ssd"][k].dtype == torch.float32
+                   for b in params["blocks"]
+                   for k in ("dt_bias", "A_log", "D_skip"))
+    if cfg.rglru is not None:
+        assert all(m["mix"]["lam"].dtype == torch.float32
+                   for sp in params["super"] for m in (sp["r1"], sp["r2"]))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_model(cfg)
@@ -150,14 +166,21 @@ def _linears(cfg):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_launch_plans_exist_at_the_config_widths(arch):
+    """K1 at every config's group, K4 at its linears and K3 at its FFN;
+    attention-free mamba2 runs no kernel of the port (no K1, no FFN for
+    K3, and the reference never quantizes its projections)."""
     cfg = get_config(arch)
+    if cfg.family == "ssm":
+        assert cfg.n_kv_heads == 0 and cfg.d_ff == 0 and not cfg.weight_int8
+        return
     G = cfg.n_heads // cfg.n_kv_heads
     isz = 1 if cfg.kv_dtype == "int8" else 2
     for B in ROWS:
         for S in (1, 200, 4096, 32768):
             p = decode_plan(B, cfg.n_kv_heads, G, S, cfg.head_dim, isz)
             assert p.heads * p.runs == G
-            assert p.runs == (2 if G > 8 else 1)
+            assert p.runs == (1 if G <= 8 else 2 if cfg.head_dim <= 128
+                              else 4)
         for K, N in _linears(cfg):
             p = gemv_plan(B, K, N)
             assert p.k_chunk * p.k_splits >= K

@@ -870,3 +870,155 @@ def test_flash_decode_kernel_wide_group_runs(dev, S, pair):
         counts = launch_counts()
         assert counts["flash_decode"] == 8
         assert counts["flash_decode_partial"] == 4
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families: K1 over the hybrid's ring at hd 256, K3 in its
+# gelu mode, and the SSM and hybrid models on CUDA against the CPU
+# ---------------------------------------------------------------------------
+
+def _ring_case(dev, B, S, pair, pos, window, Hq=16, n_kv=1, hd=256, seed=0):
+    """Decode attention inputs over one ring layer of S slots: the mask of
+    ``slot_valid_mask(S, pos, window)`` for every row; the tile limit is
+    min(pos + 1, S)."""
+    from repro_torch.kv.cache import slot_valid_mask
+    q, k, v, _, ks, vs = _fd_case(dev, B, S, pair, Hq=Hq, n_kv=n_kv, hd=hd,
+                                  seed=seed)
+    mask = slot_valid_mask(S, torch.tensor(pos, device=dev), window)
+    return (q, k, v, mask[None].expand(B, S).contiguous(), ks, vs), \
+        min(pos + 1, S)
+
+
+@pytest.mark.parametrize("pair", PAIRS)
+@pytest.mark.parametrize("S", [64, 256, 2048])
+@pytest.mark.parametrize("groups", [(16, 1), (16, 4)])
+def test_flash_decode_kernel_ring_hd256(dev, groups, S, pair):
+    """recurrentgemma's attention: 16 query heads on one KV head of 256
+    (four launches of 4 heads) and G=4 at hd 256 (one launch of 1,024
+    columns), over a ring: the cursor at 0, mid-ring, at the last slot, and
+    wrapped (window = S: every slot valid; window 3S/4: a run of valid
+    slots across the wrap); normalised and partial."""
+    Hq, n_kv = groups
+    runs = fd_ops.head_runs(Hq // n_kv, 256)
+    for pos, window in ((0, S), (S // 2, S), (S - 1, S), (S + S // 3, S),
+                        (S + S // 3, 3 * S // 4)):
+        args, lim = _ring_case(dev, 4, S, pair, pos, window, Hq, n_kv,
+                               seed=S + pos + window)
+        reset_launch_counts()
+        for partial in (False, True):
+            _check_k1(args, lim, partial)
+        assert launch_counts()["flash_decode"] == 4 * runs
+
+
+@pytest.mark.parametrize("R", [1, 8, 32, 128, 1024])
+def test_fused_ffn_kernel_gelu_at_recurrentgemma_width(dev, R):
+    """K3 in its gelu mode at D=4096, F=12288 (bf16) against its plain
+    version within 1e-4 of max|plain|, repeatable."""
+    g = torch.Generator(device=dev).manual_seed(R)
+    D, F = 4096, 12288
+    x = torch.randn(R, D, device=dev, generator=g).to(torch.bfloat16)
+    ws = [(torch.randn(s, device=dev, generator=g) / s[0] ** 0.5)
+          .to(torch.bfloat16) for s in ((D, F), (D, F), (F, D))]
+    got = fused_ffn(x, *ws, act="gelu")
+    want = fused_ffn_ref(x, *ws, act="gelu")
+    assert (got - want).abs().max() <= 1e-4 * max(1.0, want.abs().max())
+    assert torch.equal(fused_ffn(x, *ws, act="gelu"), got)
+
+
+def test_ssm_cuda_matches_cpu(dev):
+    """Reduced mamba2 in f32 on CUDA against the CPU: prefill, six slotted
+    steps with one inactive row (whose state keeps its bytes), a chunked
+    prompt; no port kernel launches (the SSD has none)."""
+    cfg = get_config("mamba2-1.3b").reduced().replace(dtype="float32")
+    src = build_model(cfg, device="cpu").init(0)
+    prompts = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (3, 21), dtype=np.int64))
+    out = {}
+    for d in ("cpu", "cuda"):
+        api = build_model(cfg, device=d)
+        params = to_device(src, api.device)
+        reset_launch_counts()
+        st, lg = api.prefill(params, prompts.to(d))
+        logits = [lg[:, -1].cpu()]
+        keep = st.h[:, 2].clone()
+        act = torch.tensor([True, True, False], device=d)
+        tok = lg[:, -1].argmax(-1).to(torch.int32)
+        pos = torch.full((3,), 21, dtype=torch.int32, device=d)
+        for _ in range(6):
+            st, lg = api.decode_slotted(params, st, tok, pos, act)
+            logits.append(lg[:2, 0].cpu())
+            tok = lg[:, 0].argmax(-1).to(torch.int32)
+        assert torch.equal(st.h[:, 2], keep)
+        for start in (0, 8, 16):
+            n = min(8, 21 - start)
+            row = torch.zeros((1, 8), dtype=torch.long)
+            row[0, :n] = prompts[0, start:start + n]
+            st, lg = api.prefill_chunk(params, st, row.to(d), 2, start, n)
+        logits.append(lg[:, -1].cpu())
+        assert not any(launch_counts().values())
+        out[d] = logits
+    for a, b in zip(out["cpu"], out["cuda"]):
+        assert (a - b).abs().max() <= 1e-4 * a.abs().max()
+        assert torch.equal(a.argmax(-1), b.argmax(-1))
+
+
+def test_hybrid_cuda_matches_cpu_and_launches_k1_k3(dev):
+    """Reduced recurrentgemma in f32 on CUDA against the CPU: a 40-token
+    prefill (ring of 32: rolled) and 30 decode steps that wrap the ring,
+    logits at every step within 1e-4 of max|logit|; every decode step
+    launches K1 once per attention layer per head run and K3 once per
+    layer."""
+    cfg = get_config("recurrentgemma-9b").reduced().replace(dtype="float32")
+    src = build_model(cfg, device="cpu").init(0)
+    prompts = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 40), dtype=np.int64))
+    out = {}
+    for d in ("cpu", "cuda"):
+        api = build_model(cfg, device=d)
+        params = to_device(src, api.device)
+        caches, lg = api.prefill(params, prompts.to(d))
+        logits = [lg[:, -1].cpu()]
+        tok = lg[:, -1].argmax(-1).to(torch.int32)
+        reset_launch_counts()
+        for _ in range(30):
+            caches, lg = api.decode(params, caches, tok)
+            logits.append(lg[:, 0].cpu())
+            tok = lg[:, 0].argmax(-1).to(torch.int32)
+        out[d] = (logits, launch_counts())
+    for a, b in zip(out["cpu"][0], out["cuda"][0]):
+        assert (a - b).abs().max() <= 1e-4 * a.abs().max()
+        assert torch.equal(a.argmax(-1), b.argmax(-1))
+    counts = out["cuda"][1]
+    runs = fd_ops.head_runs(cfg.n_heads // cfg.n_kv_heads, cfg.head_dim)
+    assert counts["flash_decode"] == 30 * 1 * runs      # one ring layer
+    assert counts["fused_ffn"] == 30 * cfg.n_layers
+    assert counts["gemv_int8"] == 0
+
+
+def test_recurrent_decode_makes_no_synchronising_call(dev):
+    """A mamba2 decode block and two recurrentgemma drain steps (reduced,
+    bf16) run under PyTorch's sync debug mode set to raise."""
+    for arch in ("mamba2-1.3b", "recurrentgemma-9b"):
+        cfg = get_config(arch).reduced()
+        api = build_model(cfg, device="cuda")
+        params = api.init(0)
+        prompts = torch.zeros((4, 40), dtype=torch.long, device="cuda")
+        caches, lg = api.prefill(params, prompts)
+        tok = lg[:, -1].argmax(-1).to(torch.int32)
+
+        def run():
+            if api.decode_block is not None:
+                z = torch.zeros(4, dtype=torch.int32, device="cuda")
+                api.decode_block(params, caches, tok, z + 40, z == 0,
+                                 z + 4, z - 1, block_size=4)
+            else:
+                c, lg = api.decode(params, caches, tok)
+                api.decode(params, c, lg[:, 0].argmax(-1))
+        run()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()

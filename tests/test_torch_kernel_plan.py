@@ -262,8 +262,10 @@ def test_decode_plan_overrides_and_refusals():
 
 
 # K1 groups wider than the kernel's n8 side and 1,024 columns: (G, hd) ->
-# launches (qwen3-moe: 64 query heads over 4 KV heads, hd 128)
+# launches (qwen3-moe: 64 query heads over 4 KV heads, hd 128;
+# recurrentgemma-9b: 16 query heads over one KV head, hd 256)
 HEAD_RUNS = {(16, 128): 2, (16, 64): 2, (8, 256): 2, (12, 128): 2,
+             (16, 256): 4, (24, 128): 3, (32, 128): 4, (4, 256): 1,
              (8, 128): 1, (4, 128): 1, (3, 128): 1, (1, 128): 1}
 
 
@@ -286,11 +288,27 @@ def test_decode_plan_wide_groups_take_head_runs(G, hd, S):
             B * 4 * p.splits * p.heads * (hd + 2) if p.splits > 1 else 0)
 
 
-@pytest.mark.parametrize("G,hd", [(16, 256), (11, 64), (24, 128),
-                                  (32, 128)])
+@pytest.mark.parametrize("G,hd", [(36, 256), (11, 64), (40, 128),
+                                  (64, 128)])
 def test_head_runs_refuse_groups_past_two_launches(G, hd):
+    """Groups that need more than MAX_HEAD_RUNS (4) launches, or that no
+    equal runs of at most 8 heads cover (11 is prime), raise."""
+    assert fd.MAX_HEAD_RUNS == 4
     with pytest.raises(ValueError, match="does not split"):
         fd.decode_plan(8, 4, G, 200, hd, 2)
+
+
+def test_recurrentgemma_group_takes_four_runs():
+    """recurrentgemma-9b: 16 query heads on one KV head of 256 are four
+    runs of 4 heads (1,024 columns each), and the plan's shared memory
+    fits for B 1-8 over ring extents 64, 256 and 2,048, bf16 and int8."""
+    assert fd.head_runs(16, 256) == 4
+    for B in (1, 2, 4, 8):
+        for S in (64, 256, 2048):
+            for isz in (2, 1):
+                p = fd.decode_plan(B, 1, 16, S, 256, isz)
+                assert (p.runs, p.heads) == (4, 4)
+                assert p.smem <= SMEM_BYTES
 
 
 def test_by_head_runs_interleaves_heads_back_in_place():
