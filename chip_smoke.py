@@ -27,7 +27,13 @@ phases; any failure exits non-zero before the result line:
    0, mid-ring, the last slot and wrapped (the windowed mask of
    ``slot_valid_mask``), bf16 and int8 KV (f32 at B 1 and 2); K3 in its
    gelu mode at recurrentgemma's FFN (D=4096, F=12288) at 1 to 1,024
-   rows; every kernel must give the same bits on a second call);
+   rows; K1 at whisper's heads (G=1, hd 64, 16 KV heads; B 1, 2 and 8)
+   over the cross K/V of 1,500 frames (all-true mask, kv_limit S, bf16
+   and f32) and the self cache at extents 160 and 288 with kv_limit edges
+   (bf16 and int8 KV); K3 at internvl2's FFN (D=8,192, F=28,672) at 1, 8,
+   128 and 768 bf16 rows and 576 f32 rows (32-row tiles); K4 at whisper's
+   1024x1024, 1024x4096 and 4096x1024 at 1 to 8 rows; every kernel must
+   give the same bits on a second call);
 3. model parity at full qwen2-0.5b width, depth cut to 2 layers, float32:
    the same seeded weights on the CPU (plain versions) and on CUDA
    (kernels) give equal tokens and logits within 1e-3 of max|logit|, for
@@ -59,6 +65,12 @@ phases; any failure exits non-zero before the result line:
    superblock and a tail layer, window cut to 64, vocabulary to 32,000
    for the CPU side; a 96-token prefill rolls the ring, 48 decode steps
    wrap it) give the CPU's tokens and logits within 1e-3 at every step;
+   whisper at full width, 2 encoder + 2 decoder layers over 1,500 frames
+   (f32; int8 weights + int8 KV with the card's quantized activations
+   replayed on the CPU) and internvl2 at full width, 2 layers (vocabulary
+   cut to 32,000, 256 vision embeddings before a 32-token text) give the
+   CPU's tokens and logits within 1e-3 at every step and its caches
+   (whisper's self and cross K/V);
 4. the serving engine at full qwen2-0.5b width (24 layers, runs (e), (f)
    and (h) cut to 12 to keep the script's time; seeded random bf16
    weights): (a) chunked admission + macro-step decode + KV buckets,
@@ -107,7 +119,16 @@ phases; any failure exits non-zero before the result line:
    drain (no slotted API), complete with no admission while another
    request decodes, and launch K1 and K3 (and not K4); one decode block
    of (o) and three drain steps of (p) are traced, with no synchronising
-   call;
+   call; then (q) internvl2-76b at full width cut to 8 of 80 layers,
+   text-only through the engine on (a)'s plan with monolithic admission
+   (the family has no chunk lane), which must resolve to continuous,
+   complete, launch K1 and K3 once a layer each decode step and never K4,
+   and make the host syncs of its plan on the CPU; and (r) whisper-medium
+   at full width and depth at the model level (the engine refuses the
+   family): a prefill of 8 rows with 1,500 seeded frames and 64 decode
+   steps, exactly 48 K1 launches a step (self and cross, 24 layers) and
+   no K3; one decode block of (q) and three decode steps of (r) are
+   traced, with no synchronising call;
 5. time each kernel at the main path's shapes (K1 at B=8 over S=200 and
    at a long context of S=4096, bf16 and int8 KV, in partial mode at one
    shard of 48, the whole split attention of a layer at bucket 192 and the
@@ -125,7 +146,10 @@ phases; any failure exits non-zero before the result line:
    (B=8, 16 heads on one KV head of 256, ring 256 and 2,048) against
    SDPA, K3 gelu at D=4096 F=12288 at 8 and 1,024 rows against three
    matmuls and gelu, and one SSD decode layer and one RG-LRU residual
-   block at 8 rows (plain PyTorch, for the record).
+   block at 8 rows (plain PyTorch, for the record); K1 at whisper's
+   cross-attention (B=8, S=1,500) and internvl2's decode shape (B=8,
+   S=200) against SDPA, K3 at internvl2's FFN at 8 and 384 rows against
+   three matmuls and silu.
 
 It then prints the card (nvidia-smi name, power limit), a ``kernels`` JSON
 line, and last the JSON result line. Without a GPU, or without the rest of
@@ -134,6 +158,7 @@ the repository beside it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -2144,6 +2169,7 @@ def phase_timing(dev, launches, runs, per_step, errs):
                      time_ms(fused_ffn_ref, var, 20), b_ms, b_by, lib,
                      host_ms(fused_ffn, var)))
     rows += recurrent_timing_rows(dev, bound, sdpa_args)
+    rows += vlm_encdec_timing_rows(dev, bound, sdpa_args)
     for name, shape, ms, plain, b_ms, b_by, lib, host in rows:
         libs = ", ".join(("not measured" if v is None else
                           f"{v * 1e3:.2f} us") + f" ({k})"
@@ -2645,17 +2671,18 @@ def rehearse_host_syncs(arch, kw, n_req, max_new) -> int:
     return stats["host_syncs"]
 
 
-def trace_drain_steps(api, params, n_steps=3, B=8, S=128):
+def trace_drain_steps(api, params, n_steps=3, B=8, S=128, prefill=None):
     """Profile ``n_steps`` shared-cursor decode steps after a batch
-    prefill of B x S (drain serving): synchronising calls (counted on an
-    untraced step), kernels per token step, device busy time and idle
-    share. Returns the synchronising calls."""
+    prefill of B x S (drain serving; ``prefill(tokens)`` when given, else
+    the model's): synchronising calls (counted on untraced steps), kernels
+    per token step, device busy time and idle share. Returns the
+    synchronising calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     dev = api.device
     toks = torch.randint(0, api.config.vocab_size, (B, S), device=dev,
                          generator=torch.Generator(device=dev).manual_seed(0))
-    caches, lg = api.prefill(params, toks)
+    caches, lg = (prefill or (lambda t: api.prefill(params, t)))(toks)
     tok = lg[:, -1].argmax(-1).to(torch.int32)
 
     def steps(n):
@@ -2686,7 +2713,7 @@ def trace_drain_steps(api, params, n_steps=3, B=8, S=128):
             "measured)")
         return syncs
     n_kern = sum(e.count for e in kern)
-    log(f"    trace of {n_steps} drain decode steps (8 rows, ring cursor "
+    log(f"    trace of {n_steps} drain decode steps ({B} rows, cursor "
         f"{S + 1}): untraced wall {wall_plain * 1e3:.2f} ms, device busy "
         f"{busy_us / 1e3:.2f} ms in {n_kern} kernels "
         f"({n_kern / n_steps:.1f} per token step), idle share "
@@ -2886,6 +2913,435 @@ def recurrent_timing_rows(dev, bound, sdpa_args):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the VLM (internvl2's backbone: K1 at 64 query heads on 8 KV heads of 128,
+# K3 at D=8,192 F=28,672) and the enc-dec family (whisper: K1 at 16 query
+# heads on 16 KV heads of 64 over the self cache and the cross K/V of 1,500
+# frames, K4 at its linears with int8 weights; its gelu_mlp has no kernel)
+# ---------------------------------------------------------------------------
+
+WHISPER_K1 = dict(Hq=16, n_kv=16, hd=64)
+INTERNVL2_K1 = dict(Hq=64, n_kv=8, hd=128)
+WHISPER_K4 = ((1024, 1024), (1024, 4096), (4096, 1024))
+INTERNVL2_FFN = dict(D=8192, F=28672)
+
+
+def phase_compare_vlm_encdec(dev, errs):
+    """K1 at G=1, hd 64, 16 KV heads, B 1/2/8: the cross-attention over
+    1,500 frames (all-true mask, the limit at the last frame, as
+    ``encdec.decode_step`` passes it; bf16 and f32) and the self
+    cache at extents 160 and 288 (prompt + 128) with kv_limit at 0, inside
+    a split, on a split edge and at S (bf16 and int8 KV); K3 at internvl2's
+    D=8,192 F=28,672 at 1, 8, 128 and 768 rows in bf16 and at phase 3's
+    f32 prefill of 576 rows (32-row tiles); K4 at whisper's 1024x1024,
+    1024x4096 and 4096x1024 at 1, 2, 4 and 8 rows (bit-exact). Tolerances
+    as in ``phase_compare``; every case repeats bit for bit."""
+    from repro_torch.kernels.flash_decode.ops import decode_plan
+    from repro_torch.kernels.fused_ffn.ops import ffn_plan, fused_ffn
+    from repro_torch.kernels.fused_ffn.ref import fused_ffn_ref
+    from repro_torch.kernels.gemv.ops import gemv_int8_q
+    from repro_torch.kernels.gemv.ref import gemv_int8_ref
+    cases = [(B, 1500, pair, True) for B in (1, 2, 8)
+             for pair in (("bfloat16", "bfloat16"), ("float32", "float32"))]
+    cases += [(B, S, pair, False) for B in (1, 2, 8) for S in (160, 288)
+              for pair in (("bfloat16", "bfloat16"), ("bfloat16", "int8"))]
+    for B, S, pair, cross in cases:
+        isz = torch.empty(0, dtype=getattr(torch, pair[1])).element_size()
+        plan = decode_plan(B, 16, 1, S, 64, isz)
+        edge = plan.split if plan.splits > 1 else S
+        # None: every position live, kv_limit S (the cross-attention's)
+        lims = [None] if cross else \
+            sorted({0, max(1, plan.split // 2 + 3), edge, S}) + [None]
+        err = err_p = ratio = 0.0
+        same = True
+        for lim in lims:
+            args = k1_inputs(dev, B, S, pair, lim, seed=S + B + (lim or 0),
+                             **WHISPER_K1)
+            e, e_p, r, sm = check_k1(args, S if lim is None else lim)
+            err, err_p = max(err, e), max(err_p, e_p)
+            ratio, same = max(ratio, r), same and sm
+        errs["flash_decode"] = max(errs["flash_decode"], err)
+        errs["flash_decode_partial"] = max(errs["flash_decode_partial"],
+                                           err_p)
+        what = "cross, all-true mask, kv_limit S" if cross \
+            else f"self, kv_limit {lims[:-1]} and every row live"
+        log(f"  K1 whisper B={B} S={S} G=1 hd=64 n_kv=16 q={pair[0]} "
+            f"kv={pair[1]} ({plan.runs} x {plan.heads} heads, "
+            f"{plan.splits} splits of {plan.split}, smem {plan.smem} B), "
+            f"{what}: max|d|={err:.3g} normalised, {err_p:.3g} partial, "
+            f"max|d|/tol={ratio:.3g}, repeat identical={same}")
+        require(ratio <= 1.0, f"K1 whisper disagrees at B={B} S={S} {pair}")
+        require(same, f"K1 whisper not deterministic at B={B} S={S}")
+    for R, dtype in ((1, torch.bfloat16), (8, torch.bfloat16),
+                     (128, torch.bfloat16), (768, torch.bfloat16),
+                     (576, torch.float32)):
+        args, _ = k3_inputs(dev, R, seed=R, dtype=dtype, **INTERNVL2_FFN)
+        plan = ffn_plan(R, 8192, 28672, args[0].element_size())
+        got = fused_ffn(*args)
+        want = fused_ffn_ref(*args)
+        e, tol = max_err(got, want), 1e-4 * max(1, max_abs(want))
+        same = torch.equal(fused_ffn(*args), got)
+        errs["fused_ffn"] = max(errs["fused_ffn"], e)
+        log(f"  K3 internvl2 D=8192 F=28672 {str(dtype)[6:]} rows={R} "
+            f"({plan.rows}-row tiles, {plan.d_splits} D chunks, "
+            f"{plan.f_splits} F chunks, scratch "
+            f"{plan.scratch * 4 / 2 ** 30:.2f} GiB): max|d|={e:.3g} "
+            f"(tol {tol:.3g}), repeat identical={same}")
+        require(e <= tol, f"K3 internvl2 disagrees at rows={R} {dtype}")
+        require(same, f"K3 internvl2 not deterministic at rows={R}")
+        del args, got, want
+    torch.cuda.empty_cache()
+    for K, N in WHISPER_K4:
+        for R in (1, 2, 4, 8):
+            args, _ = k4_inputs(dev, R, K, N, seed=K + N + R)
+            got = gemv_int8_q(*args)
+            exact = torch.equal(got, gemv_int8_ref(*args))
+            same = torch.equal(gemv_int8_q(*args), got)
+            log(f"  K4 whisper K={K} N={N} rows={R}: exact={exact}, "
+                f"repeat identical={same}")
+            require(exact and same, f"K4 not exact at {K}x{N} rows={R}")
+    torch.cuda.synchronize()
+
+
+def _caches_close(name, a, b, tol=1e-3):
+    """Two sides' caches (the card's, then the CPU's, as dicts of named
+    tensors on the CPU): float tensors within ``tol`` of their largest
+    magnitude; int8 bytes counted where they differ, each by one step at
+    most and in at most 1e-3 of them."""
+    for key in b:
+        x, y = a[key], b[key]
+        if x.dtype == torch.int8:
+            d = (x.int() - y.int()).abs()
+            n = int((d > 0).sum())
+            log(f"  {name} cache {key}: {n} of {y.numel()} int8 bytes differ"
+                f" (max step {int(d.max())})")
+            require(int(d.max()) <= 1 and n <= 1e-3 * y.numel(),
+                    f"{name} cache {key}: cpu and cuda disagree")
+        else:
+            rel = rel_err(x.float(), y.float())
+            log(f"  {name} cache {key}: max|d|/max = {rel:.3g} (tol {tol:g})")
+            require(np.isfinite(rel) and rel <= tol,
+                    f"{name} cache {key}: cpu and cuda disagree")
+
+
+def parity_encdec(cfg, B=2, prompt=16, steps=16, devs=("cuda", "cpu")):
+    """whisper CPU against CUDA on the same seeded weights (made on the
+    card, copied): prefill with seeded frames, then ``steps`` decode
+    steps; logits at every step and tokens (``_close_steps``), then the
+    self cache (values, or int8 bytes and scales) and the cross K/V. With
+    int8 weights the card runs first and records its quantized
+    activations, and the CPU multiplies the card's (``recorded_act_quant``
+    with ``replay``): both sides' K4 then see the same int8 inputs; the
+    flips are counted."""
+    from repro_torch.interop import to_device
+    from repro_torch.models.registry import build_model
+    rng = np.random.default_rng(7)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, prompt)))
+    frames = torch.from_numpy(rng.standard_normal(
+        (B, cfg.encoder.n_frames, cfg.d_model)).astype(np.float32))
+    src = to_device(build_model(cfg, device=devs[0]).init(0), "cpu")
+    res, caches_out, recs = [], [], []
+    for d in devs:
+        t0 = time.monotonic()
+        api = build_model(cfg, device=d)
+        params = to_device(src, api.device)
+        rows = []
+        ctx = recorded_act_quant(rows, recs[0] if recs else None) \
+            if cfg.weight_int8 else contextlib.nullcontext()
+        with ctx:
+            caches, lg = api.prefill(params, toks.to(d), frames.to(d))
+            logits, out = [lg[:, -1].float().cpu()], []
+            tok = lg[:, -1].argmax(-1).to(torch.int32)
+            out.append(tok.cpu())
+            for _ in range(steps):
+                caches, lg = api.decode(params, caches, tok)
+                logits.append(lg[:, 0].float().cpu())
+                tok = lg[:, 0].argmax(-1).to(torch.int32)
+                out.append(tok.cpu())
+        recs.append(rows)
+        res.append({"prefill+decode": (torch.stack(logits),
+                                       torch.stack(out))})
+        s = caches["self"]
+        caches_out.append({
+            **{f"self.{f}": getattr(s, f).cpu() for f in
+               ("k", "v", "k_scale", "v_scale") if getattr(s, f) is not None},
+            "cross.k": caches["cross"]["k"].cpu(),
+            "cross.v": caches["cross"]["v"].cpu()})
+        log(f"  whisper on {d}: {cfg.encoder.n_layers} encoder + "
+            f"{cfg.n_layers} decoder layers, {cfg.encoder.n_frames} frames, "
+            f"prompt {prompt}, {steps} steps, self cache {tuple(s.k.shape)} "
+            f"{s.k.dtype} ({time.monotonic() - t0:.1f}s)")
+        del params, api, caches
+    if cfg.weight_int8:
+        log(f"  whisper int8 weights: {len(recs[0])} activation "
+            f"quantizations, the CPU's own rounding differs from the card's "
+            f"in {int8_flips(recs[0], recs[1])} elements (replayed)")
+    _close_steps("whisper", res)
+    _caches_close("whisper", *caches_out)
+
+
+def parity_vlm(cfg, B=2, prompt=32, steps=16, devs=("cuda", "cpu")):
+    """internvl2 CPU against CUDA on the same seeded weights: prefill of
+    ``n_vision_tokens`` seeded vision embeddings before a ``prompt``-token
+    text, then ``steps`` shared-cursor decode steps; logits at every step,
+    tokens, and the cache."""
+    from repro_torch.interop import to_device
+    from repro_torch.models.registry import build_model
+    rng = np.random.default_rng(8)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, prompt)))
+    vis = torch.from_numpy(rng.standard_normal(
+        (B, cfg.n_vision_tokens, cfg.d_model)).astype(np.float32))
+    src = to_device(build_model(cfg, device=devs[0]).init(0), "cpu")
+    res, caches_out = [], []
+    for d in devs:
+        t0 = time.monotonic()
+        api = build_model(cfg, device=d)
+        params = to_device(src, api.device)
+        caches, lg = api.prefill(params, toks.to(d), vision_embeds=vis.to(d))
+        logits, out = [lg[:, -1].float().cpu()], []
+        tok = lg[:, -1].argmax(-1).to(torch.int32)
+        out.append(tok.cpu())
+        for _ in range(steps):
+            caches, lg = api.decode(params, caches, tok)
+            logits.append(lg[:, 0].float().cpu())
+            tok = lg[:, 0].argmax(-1).to(torch.int32)
+            out.append(tok.cpu())
+        res.append({"prefill+decode": (torch.stack(logits),
+                                       torch.stack(out))})
+        caches_out.append({"k": caches.k.cpu(), "v": caches.v.cpu()})
+        log(f"  internvl2 on {d}: {cfg.n_layers} layers, "
+            f"{cfg.n_vision_tokens} vision + {prompt} text positions, "
+            f"{steps} steps to length {int(caches.length)} "
+            f"({time.monotonic() - t0:.1f}s)")
+        require(int(caches.length) == cfg.n_vision_tokens + prompt + steps,
+                "internvl2 cache length")
+        del params, api, caches
+    _close_steps("internvl2", res)
+    _caches_close("internvl2", *caches_out)
+
+
+def phase_parity_vlm_encdec():
+    from repro_torch.configs.registry import get_config
+    t0 = time.monotonic()
+    base = get_config("whisper-medium")
+    for over in (dict(dtype="float32"),
+                 dict(dtype="float32", weight_int8=True, kv_dtype="int8")):
+        cfg = base.replace(n_layers=2, encoder=dataclasses.replace(
+            base.encoder, n_layers=2), **over)
+        parity_encdec(cfg)
+    log(f"  whisper parity (full width, 2 + 2 layers, 1,500 frames, f32; "
+        f"int8 weights + int8 KV) took {time.monotonic() - t0:.1f}s")
+    t0 = time.monotonic()
+    parity_vlm(get_config("internvl2-76b").replace(
+        n_layers=2, dtype="float32", vocab_size=32000))
+    log(f"  internvl2 parity (full width, 2 layers, vocabulary cut to "
+        f"32,000 of 128,256 for the CPU side, 256 vision embeddings, f32) "
+        f"took {time.monotonic() - t0:.1f}s")
+
+
+# run (q): internvl2-76b at full width, depth cut to 8 of 80 layers (~17.9
+# GB of bf16 weights; 80 layers would be ~141 GB), served text-only as the
+# reference engine serves the family: ``auto`` resolves to continuous with
+# monolithic admission (the family has no chunk lane) on (a)'s plan
+# otherwise (8 slots, prompt 128, 12 x 64 tokens arriving every 4 steps,
+# T=8, KV buckets of 64): K1 and K3, never K4. Run (r): whisper-medium at
+# full width and depth (24 + 24 layers, ~1.6 GB) at the model level
+# (the engine refuses the family): 8 rows, 1,500 seeded frames, prompt 32,
+# 64 greedy steps through ``api.decode``: K1 48 times a step, no K3
+VLM_RUN = ("q_internvl2_8L_monolithic_T8", "internvl2-76b",
+           dict(n_layers=8), dict(block_size=8, kv_bucket_chunk=64,
+                                  max_new_cap=72), 12, 64,
+           ("flash_decode", "fused_ffn"))
+ENCDEC_RUN = ("r_whisper_model_level_64_steps", "whisper-medium", 8, 32, 64)
+
+
+def phase_engine_vlm_encdec(totals, runs, per_step):
+    """Runs (q) and (r), seeded random bf16 weights. (q): every request
+    completes with a well-formed stream, ``auto`` resolves to continuous
+    with monolithic admission, K1 and K3 launch (each once a layer in one
+    decode step) and K4 never, and the host syncs equal the CPU
+    rehearsal's of the same plan; one decode block is traced. (r): the
+    prefill with frames, then 64 decode steps with exactly 2 K1 launches
+    a decoder layer a step and no K3 or K4, tokens in the vocabulary; ms
+    a step; three decode steps are traced. The traced steps make no
+    synchronising call."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models.registry import build_model
+    from repro_torch.runtime.serving import ServingEngine
+    syncs = {}
+    name, arch, over, kw, n_req, max_new, needed = VLM_RUN
+    cfg = get_config(arch).replace(**over)
+    t0 = time.monotonic()
+    api = build_model(cfg)
+    params = api.init(0)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    reqs = make_requests(cfg, n_req, 128, max_new, seed=0, arrival_every=4)
+    eng = ServingEngine(api, 8, 128, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.monotonic()
+    stats = eng.run(params, reqs)
+    torch.cuda.synchronize()
+    serve_s = time.monotonic() - t0
+    counts = launch_counts()
+    runs[name] = counts
+    for k, n in counts.items():
+        totals[k] += n
+    stats.pop("per_request")
+    runtime = stats.pop("runtime")
+    log(f"  run {name}: {arch} x {cfg.n_layers} layers, init {init_s:.1f}s, "
+        f"serve {serve_s:.1f}s, launches {counts}")
+    log(f"    stats: {json.dumps(stats)}")
+    log(f"    programs: " + ", ".join(
+        f"{k}={v['calls']}" for k, v in runtime.items() if v["calls"]))
+    log(f"    decode TPOT mean {stats['tpot_mean_ms']:.3f} ms, p50 "
+        f"{stats['tpot_p50_ms']:.3f} ms, p99 {stats['tpot_p99_ms']:.3f} ms; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    require(stats["completed"] == n_req, f"{name}: not all completed")
+    for r in reqs:
+        require(len(r.generated) == max_new and all(
+            0 <= t < cfg.vocab_size for t in r.generated),
+            f"{name}: request {r.rid} stream malformed")
+    require(eng.mode == stats["mode"] == "continuous"
+            and stats["prefill_mode"] == "monolithic",
+            f"{name}: served {stats['mode']}/{stats['prefill_mode']}")
+    require(all((n > 0) == (k in needed) for k, n in counts.items()),
+            f"{name}: launches {counts}, its path's kernels {needed}")
+    want = rehearse_host_syncs(arch, kw, n_req, max_new)
+    log(f"    host syncs {stats['host_syncs']} (the same plan on the CPU at "
+        f"the reduced config: {want})")
+    require(stats["host_syncs"] == want,
+            f"{name}: another number of host syncs than the plan")
+    syncs[name] = trace_decode_block(api, params, kw)
+    caches = api.init_caches(8, 200)
+    z = torch.zeros(8, dtype=torch.int32, device=api.device)
+    reset_launch_counts()
+    api.decode_slotted(params, caches, z, z + 100, z == 0, kv_bucket=128)
+    torch.cuda.synchronize()
+    per_step[name] = {k: n for k, n in launch_counts().items() if n}
+    log(f"    launches of one decode step: {per_step[name]}")
+    require(per_step[name] == {"flash_decode": cfg.n_layers,
+                               "fused_ffn": cfg.n_layers},
+            f"{name}: one decode step launched {per_step[name]}")
+    del params, eng, api, caches
+    torch.cuda.empty_cache()
+
+    name, arch, B, prompt, steps = ENCDEC_RUN
+    cfg = get_config(arch)
+    t0 = time.monotonic()
+    api = build_model(cfg)
+    params = api.init(0)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    g = torch.Generator(device=api.device).manual_seed(0)
+    frames = torch.randn(B, cfg.encoder.n_frames, cfg.d_model,
+                         device=api.device, generator=g)
+    toks = torch.randint(0, cfg.vocab_size, (B, prompt), device=api.device,
+                         generator=g)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    caches, lg = api.prefill(params, toks, frames)
+    torch.cuda.synchronize()
+    prefill_s = time.monotonic() - t0
+    tok = lg[:, -1].argmax(-1).to(torch.int32)
+    out = [tok]
+    reset_launch_counts()
+    t0 = time.monotonic()
+    for _ in range(steps):
+        caches, lg = api.decode(params, caches, tok)
+        tok = lg[:, 0].argmax(-1).to(torch.int32)
+        out.append(tok)
+    torch.cuda.synchronize()
+    step_ms = (time.monotonic() - t0) / steps * 1e3
+    counts = launch_counts()
+    runs[name] = counts
+    for k, n in counts.items():
+        totals[k] += n
+    out = torch.stack(out).cpu()
+    log(f"  run {name}: {arch} x {cfg.encoder.n_layers} + {cfg.n_layers} "
+        f"layers, {B} rows, {cfg.encoder.n_frames} frames, prompt {prompt}: "
+        f"init {init_s:.1f}s, prefill {prefill_s * 1e3:.1f} ms, {steps} "
+        f"decode steps at {step_ms:.3f} ms a step (host clock, one "
+        f"synchronise at the end), launches {counts}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; first "
+        f"row's tokens {out[:12, 0].tolist()}")
+    require(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+            f"{name}: tokens outside the vocabulary")
+    require(counts == {"flash_decode": 2 * cfg.n_layers * steps,
+                       "flash_decode_partial": 0, "fused_ffn": 0,
+                       "gemv_int8": 0},
+            f"{name}: launches {counts}, want K1 {2 * cfg.n_layers} a step")
+    require(int(caches["self"].length) == prompt + steps,
+            f"{name}: self cache length")
+    per_step[name] = {"flash_decode": 2 * cfg.n_layers}
+    syncs[name] = trace_drain_steps(
+        api, params, B=B, S=prompt,
+        prefill=lambda t: api.prefill(params, t, frames))
+    del params, api, caches, frames
+    torch.cuda.empty_cache()
+    require(all(n == 0 for n in syncs.values()),
+            f"a traced step of (q) or (r) synchronises with the host: "
+            f"{syncs}")
+    return syncs
+
+
+def vlm_encdec_timing_rows(dev, bound, sdpa_args):
+    """Phase 5 rows of the VLM and enc-dec families: K1 at whisper's
+    cross-attention (B=8, 16 heads on 16 KV heads of 64, S=1,500 frames,
+    bf16, all-true mask, the limit at S) and at internvl2's decode shape
+    (B=8, 64 heads on 8 KV heads of 128, S=200, bf16, every position
+    live), each against SDPA with ``enable_gqa``; K3 at internvl2's FFN
+    (D=8,192 F=28,672, bf16) at 8 and 384 rows against three matmuls and
+    silu."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode.ops import flash_decode
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+    from repro_torch.kernels.fused_ffn.ops import fused_ffn
+    from repro_torch.kernels.fused_ffn.ref import fused_ffn_ref
+    rows = []
+    for label, S, shape in (
+            ("whisper cross-attention, G=1: B=8 Hq=16 n_kv=16 hd=64 "
+             "S=1500 kv=bfloat16, all-true mask", 1500, WHISPER_K1),
+            ("internvl2 decode, G=8: B=8 Hq=64 n_kv=8 hd=128 S=200 "
+             "kv=bfloat16", 200, INTERNVL2_K1)):
+        def make(i, S=S, shape=shape):
+            return k1_inputs(dev, 8, S, seed=i, **shape), {}
+        q, k, v, mask, ks, vs, _ = make(0)[0]
+        nb = nbytes(q, k, v, mask) + q.numel() * 4
+        b_ms, b_by = bound(nb, 4 * 8 * shape["Hq"] * S * shape["hd"],
+                           torch.bfloat16)
+        var = variants_of(make, nb)
+        lib = {"sdpa(enable_gqa)": time_ms(F.scaled_dot_product_attention,
+                                           sdpa_args(var), 400)}
+        rows.append(("flash_decode", label, time_ms(flash_decode, var, 400),
+                     time_ms(flash_decode_ref, var, 50), b_ms, b_by, lib,
+                     host_ms(flash_decode, var)))
+    for R in (8, 384):
+        (x, wg, wu, wd), _ = k3_inputs(dev, R, **INTERNVL2_FFN)
+        D, F_ = wg.shape
+        nb = nbytes(x, wg, wu, wd) + R * D * 4
+        b_ms, b_by = bound(nb, 2 * R * D * F_ * 3, torch.bfloat16)
+        del x, wg, wu, wd
+        var = variants_of(lambda i, R=R: k3_inputs(dev, R, seed=i,
+                                                   **INTERNVL2_FFN), nb)
+
+        def lib_ffn(x, wg, wu, wd, act="silu"):
+            return torch.matmul(F.silu(torch.matmul(x, wg))
+                                * torch.matmul(x, wu), wd)
+        lib = {"3x torch.matmul + silu (bf16)": time_ms(lib_ffn, var, 40)}
+        rows.append(("fused_ffn", f"internvl2 FFN: rows={R} D=8192 F=28672 "
+                     f"bf16", time_ms(fused_ffn, var, 40),
+                     time_ms(fused_ffn_ref, var, 10), b_ms, b_by, lib,
+                     host_ms(fused_ffn, var, 20)))
+        del var
+        torch.cuda.empty_cache()
+    return rows
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2924,6 +3380,7 @@ def main() -> int:
     t0 = time.monotonic()
     errs = phase_compare(dev)
     phase_compare_recurrent(dev, errs)
+    phase_compare_vlm_encdec(dev, errs)
     log(f"  phase 2 took {time.monotonic() - t0:.1f}s")
 
     log("phase 3: model parity, full width, 2 layers, f32, cpu vs cuda")
@@ -2938,9 +3395,11 @@ def main() -> int:
     phase_moe_parity()
     log(f"  phase 3's MoE parity took {time.monotonic() - t0:.1f}s")
     phase_parity_recurrent()
+    phase_parity_vlm_encdec()
 
     log("phase 4: engine at full qwen2-0.5b, then qwen3-moe (4 layers), "
-        "phi3.5-moe (8 layers), Llama-2-7B, mamba2 and recurrentgemma")
+        "phi3.5-moe (8 layers), Llama-2-7B, mamba2, recurrentgemma, "
+        "internvl2 (8 layers) and whisper (model level)")
     launches = {"flash_decode": 0, "flash_decode_partial": 0,
                 "fused_ffn": 0, "gemv_int8": 0}
     runs = {}
@@ -2950,6 +3409,9 @@ def main() -> int:
     phase_engine_recurrent(launches, runs, per_step,
                            host_syncs["a_bf16_chunked_T8"])
     log(f"  runs (o) and (p) took {time.monotonic() - t1:.1f}s")
+    t1 = time.monotonic()
+    phase_engine_vlm_encdec(launches, runs, per_step)
+    log(f"  runs (q) and (r) took {time.monotonic() - t1:.1f}s")
     log(f"  main-path launches {launches}; per decode step {per_step}")
     log(f"  phase 4 took {time.monotonic() - t0:.1f}s")
 

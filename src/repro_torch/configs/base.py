@@ -2,16 +2,15 @@
 
 The field set and defaults equal the reference ``ModelConfig`` so a config
 compares field by field against its JAX counterpart. ``MoEConfig``,
-``SSMConfig`` and ``RGLRUConfig`` are copies of the reference's; the
-encoder sub-config of the families not yet ported (enc-dec, VLM) stays
-``None`` here, and the registry admits only ported architectures.
-``param_count`` lives in ``repro_torch.models.registry.count_params``.
+``SSMConfig``, ``RGLRUConfig`` and ``EncoderConfig`` (the enc-dec family's
+encoder stack) are copies of the reference's. ``param_count`` lives in
+``repro_torch.models.registry.count_params``.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Optional, Tuple
+from typing import Optional, Tuple
 
 # Block kinds of a decoder stack: recurrentgemma interleaves RG-LRU and
 # local attention, mamba2 is all SSD, every other family uniform attention
@@ -58,9 +57,17 @@ class RGLRUConfig:
 
 
 @dataclass(frozen=True)
+class EncoderConfig:
+    """Encoder stack of the enc-dec family (whisper)."""
+    n_layers: int = 0
+    n_frames: int = 1500            # precomputed frame embeddings (stub frontend)
+    is_causal: bool = False
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # dense | moe | ssm | hybrid (ported)
+    family: str                     # dense | moe | audio | vlm | hybrid | ssm
     n_layers: int
     d_model: int
     n_heads: int
@@ -79,8 +86,8 @@ class ModelConfig:
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     rglru: Optional[RGLRUConfig] = None
-    # --- sub-config of the families not yet ported (always None here) ---
-    encoder: Optional[Any] = None
+    encoder: Optional[EncoderConfig] = None
+    # --- vlm stub: precomputed patch embeddings put before the text ---
     n_vision_tokens: int = 0
     # --- numerics ---
     dtype: str = "bfloat16"         # activation/weight compute dtype
@@ -115,7 +122,8 @@ class ModelConfig:
     def reduced(self) -> "ModelConfig":
         """Same structure at tiny widths, for CPU tests (the reference's
         ``reduced()``: 4 experts, top ``min(k, 2)``, expert width 64; SSD
-        state 16, head 32, chunk 16; RG-LRU width d_model, window 32)."""
+        state 16, head 32, chunk 16; RG-LRU width d_model, window 32; an
+        encoder of 2 layers over 16 frames; 4 vision tokens)."""
         kw = {}
         if self.moe is not None:
             kw["moe"] = dataclasses.replace(
@@ -128,6 +136,11 @@ class ModelConfig:
         if self.rglru is not None:
             kw["rglru"] = dataclasses.replace(self.rglru, lru_width=0,
                                               window=32)
+        if self.encoder is not None:
+            kw["encoder"] = dataclasses.replace(self.encoder, n_layers=2,
+                                                n_frames=16)
+        if self.n_vision_tokens:
+            kw["n_vision_tokens"] = 4
         return self.replace(name=self.name + "-reduced",
                             n_layers=min(self.n_layers, 3), d_model=128,
                             n_heads=4, n_kv_heads=min(self.n_kv_heads, 2),

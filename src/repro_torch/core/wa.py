@@ -43,13 +43,13 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.pipeline import skewed_schedule
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kv.cache import KVCache, export_slot_kv, import_slot_kv
-from repro_torch.models import common
 from repro_torch.models.registry import make_decode_block
 from repro_torch.models.transformer import (attend_chunk,
                                             attend_decode_slotted,
                                             check_supported,
-                                            chunk_positions, final_logits,
-                                            post_attention, pre_attention)
+                                            chunk_positions, embed_tokens,
+                                            final_logits, post_attention,
+                                            pre_attention)
 from repro_torch.quant.int4 import quantize_kv_int4
 from repro_torch.quant.int8 import quantize_kv
 
@@ -274,7 +274,8 @@ class WADisaggregated:
                     continue
                 # -- W: finish layer j-1, start layer j -------------------
                 if j == 0:
-                    x = common.embed(params["embed"], tokens[sl])
+                    x = embed_tokens(params, tokens[sl], positions[sl],
+                                     self.cfg)
                 else:
                     (o, ev), backed[m] = backed[m], None
                     self._to_w(ev)

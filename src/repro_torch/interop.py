@@ -4,13 +4,15 @@
 arrays (layers stacked on a leading axis, a quantized weight as
 ``{"values", "scale"}``, bf16 leaves as float32 arrays, which is exact) and
 returns the port's parameters: the same tree with each stacked layer list
-(``blocks``; the hybrid's ``super`` and ``tail``) split into a list of
+(``blocks``; the hybrid's ``super`` and ``tail``; the enc-dec family's
+``enc_blocks`` and ``dec_blocks``) split into a list of
 per-layer dicts, float leaves in the config's compute dtype, and
 quantization scales and the leaves the reference keeps in float32 whatever
 the compute dtype (an MoE router, the SSD's dt_bias, A_log and D_skip, the
-RG-LRU's lam) in float32. ``kv_cache_from_numpy`` and
-``recurrent_state_from_numpy`` do the same for a cache and a recurrent
-state. Turning a JAX pytree into numpy is the caller's job (the tests' own
+RG-LRU's lam) in float32. ``kv_cache_from_numpy``,
+``recurrent_state_from_numpy`` and ``encdec_caches_from_numpy`` do the
+same for a cache, a recurrent state and the enc-dec family's caches.
+Turning a JAX pytree into numpy is the caller's job (the tests' own
 helper); this module imports no JAX.
 """
 from __future__ import annotations
@@ -40,7 +42,7 @@ def _leaf(a: np.ndarray, dtype, device) -> torch.Tensor:
 # RG-LRU's lam (``repro.models.rglru.make_rglru_params``)
 F32_SUBTREES = ("router", "dt_bias", "A_log", "D_skip", "lam")
 # stacked per-layer subtrees (layers on the leading axis)
-LAYER_STACKS = ("blocks", "super", "tail")
+LAYER_STACKS = ("blocks", "super", "tail", "enc_blocks", "dec_blocks")
 
 
 def _convert(node, dtype, device):
@@ -117,6 +119,18 @@ def recurrent_state_from_numpy(tree: Dict[str, Any],
     return RecurrentState(
         h=_leaf(np.asarray(tree["h"], np.float32), torch.float32, dev),
         conv=_leaf(np.asarray(tree["conv"], np.float32), torch.float32, dev))
+
+
+def encdec_caches_from_numpy(tree: Dict[str, Any], cfg,
+                             device: DeviceLike = None) -> Dict[str, Any]:
+    """``tree``: {"self": the ``kv_cache_from_numpy`` tree of the self
+    cache, "cross": {"k", "v"} numpy arrays (L,B,n_kv,F,hd)} -> the
+    enc-dec family's caches; the cross K/V take the compute dtype."""
+    dev = resolve_device(device)
+    dt = dtype_of(cfg)
+    return {"self": kv_cache_from_numpy(tree["self"], cfg, dev),
+            "cross": {n: _leaf(np.asarray(tree["cross"][n]), dt, dev)
+                      for n in ("k", "v")}}
 
 
 def to_device(tree, device):

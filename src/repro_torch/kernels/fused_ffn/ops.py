@@ -54,16 +54,11 @@ class FfnPlan:
                 self.grid_down[0] * self.grid_down[1] * self.grid_down[2])
 
 
-def ffn_plan(R: int, D: int, F: int, itemsize: int = 2) -> FfnPlan:
-    """Rows per CTA: 16, 32 or 64 (one weight pass serves up to 64 rows).
-    gate/up cuts D into 1, 2, 4 or 8 chunks, down cuts F into chunks of a
-    multiple of 16, each until its grid holds about CTAS_PER_SM CTAs per
-    SM and its tiles fit the byte budgets above. Raises ValueError where
-    a gate/up CTA's x rows exceed the shared memory even in eight D
-    chunks."""
-    rows = 16 if R <= 16 else 32 if R <= 32 else 64
+def _gate_up_split(R: int, D: int, F: int, rows: int, itemsize: int):
+    """The gate/up pass at a row tile: (tiles, d_splits, d_chunk, shared
+    memory of one CTA)."""
     tiles = cdiv(max(R, 1), rows)
-    strips_f, strips_d = cdiv(F, COLS), cdiv(D, COLS)
+    strips_f = cdiv(F, COLS)
     target = CTAS_PER_SM * SMS
     d_splits = 1
     while d_splits < MAX_CLUSTER and strips_f * tiles * d_splits < target:
@@ -77,11 +72,30 @@ def ffn_plan(R: int, D: int, F: int, itemsize: int = 2) -> FfnPlan:
     while gate_up_bytes(d_chunk) > GATE_UP_BYTES and d_splits < MAX_CLUSTER:
         d_splits *= 2
         d_chunk = 16 * cdiv(cdiv(D, d_splits), 16)
-    gate_up_smem = gate_up_bytes(d_chunk)
+    return tiles, d_splits, d_chunk, gate_up_bytes(d_chunk)
+
+
+def ffn_plan(R: int, D: int, F: int, itemsize: int = 2) -> FfnPlan:
+    """Rows per CTA: 16, 32 or 64 (one weight pass serves up to 64 rows;
+    past 32 rows a 32-row tile where a gate/up CTA's 64 x rows would not
+    fit its shared memory, as in f32 at D = 8,192). gate/up cuts D into
+    1, 2, 4 or 8 chunks, down cuts F into chunks of a multiple of 16, each
+    until its grid holds about CTAS_PER_SM CTAs per SM and its tiles fit
+    the byte budgets above. Raises ValueError where a gate/up CTA's x rows
+    exceed the shared memory even in eight D chunks."""
+    rows = 16 if R <= 16 else 32 if R <= 32 else 64
+    tiles, d_splits, d_chunk, gate_up_smem = _gate_up_split(R, D, F, rows,
+                                                            itemsize)
+    if gate_up_smem > SMEM_BYTES and rows == 64:
+        rows = 32
+        tiles, d_splits, d_chunk, gate_up_smem = _gate_up_split(
+            R, D, F, rows, itemsize)
     if gate_up_smem > SMEM_BYTES:
         raise ValueError(f"fused_ffn: D={D} at {rows} rows needs "
                          f"{gate_up_smem} bytes of shared memory per CTA, "
                          f"more than {SMEM_BYTES}")
+    strips_f, strips_d = cdiv(F, COLS), cdiv(D, COLS)
+    target = CTAS_PER_SM * SMS
     want = cdiv(target, strips_d * tiles)
     per_row = COLS * itemsize + 4 * rows      # bytes of Wd and h per F row
     cap = 16 * max(1, DOWN_BYTES // (16 * per_row))

@@ -9,9 +9,12 @@ one device.
          --kv-budget-bytes 7372800] [--backend wa --overlap 2]
 
 ``--arch`` takes every registered config (``configs/registry.py``: the
-dense and MoE models, mamba2-1.3b (SSM), recurrentgemma-9b (hybrid) and
-the paper's Llama/Qwen deployments); the default is the reference CLI's,
-internlm2-1.8b.
+dense and MoE models, mamba2-1.3b (SSM), recurrentgemma-9b (hybrid),
+internvl2-76b (VLM, served text-only with monolithic admission, as the
+reference engine serves it) and the paper's Llama/Qwen deployments); the
+default is the reference CLI's, internlm2-1.8b. ``--arch whisper-medium``
+(enc-dec) prints the engine's refusal and exits with status 1: the
+engine's prefill has no frames input.
 ``--mode`` is ``auto`` by default, as in the reference CLI: continuous
 where the family has slotted decode (every family but the hybrid, which
 ``auto`` serves in drain mode). ``--mode drain`` serves the
@@ -72,9 +75,6 @@ def serve(arch: str, n_requests: int, batch_slots: int, prompt_len: int,
         print("note: --prefill-chunk ignored (drain mode has no chunk lane)")
         prefill_chunk = 0
     api = build_model(cfg, device)
-    params = api.init(seed)
-    reqs = make_requests(cfg, n_requests, prompt_len, max_new, seed,
-                         arrival_every)
     eng = ServingEngine(api, batch_slots, prompt_len, mode=mode,
                         block_size=block_size,
                         kv_bucket_chunk=kv_bucket_chunk,
@@ -82,6 +82,9 @@ def serve(arch: str, n_requests: int, batch_slots: int, prompt_len: int,
                         backend=backend, overlap=overlap,
                         preemptible=preemptible, max_queue=max_queue,
                         kv_budget_bytes=kv_budget_bytes, device=api.device)
+    params = api.init(seed)
+    reqs = make_requests(cfg, n_requests, prompt_len, max_new, seed,
+                         arrival_every)
     return eng.run(params, reqs)
 
 
@@ -144,18 +147,24 @@ def main(argv=None):
                          "occupancy-priced live KV bytes exceed N "
                          "(0 = unbounded)")
     args = ap.parse_args(argv)
-    stats = serve(args.arch, args.requests, args.batch, args.prompt_len,
-                  args.max_new, reduced=not args.full_width, mode=args.mode,
-                  arrival_every=args.arrival_every,
-                  block_size=args.block_size,
-                  kv_bucket_chunk=args.kv_bucket_chunk,
-                  prefill_chunk=args.prefill_chunk, a_shards=args.a_shards,
-                  backend=args.backend, overlap=args.overlap,
-                  preemptible=args.preemptible, max_queue=args.max_queue,
-                  hot_window=args.hot_window,
-                  kv_cold_dtype=args.kv_cold_dtype,
-                  kv_cold_block=args.kv_cold_block,
-                  kv_budget_bytes=args.kv_budget_bytes, device=args.device)
+    try:
+        stats = serve(args.arch, args.requests, args.batch, args.prompt_len,
+                      args.max_new, reduced=not args.full_width,
+                      mode=args.mode, arrival_every=args.arrival_every,
+                      block_size=args.block_size,
+                      kv_bucket_chunk=args.kv_bucket_chunk,
+                      prefill_chunk=args.prefill_chunk,
+                      a_shards=args.a_shards, backend=args.backend,
+                      overlap=args.overlap, preemptible=args.preemptible,
+                      max_queue=args.max_queue, hot_window=args.hot_window,
+                      kv_cold_dtype=args.kv_cold_dtype,
+                      kv_cold_block=args.kv_cold_block,
+                      kv_budget_bytes=args.kv_budget_bytes,
+                      device=args.device)
+    except ValueError as e:
+        # a configuration the engine refuses (whisper-medium's family, an
+        # option the family lacks): its message, and exit status 1
+        raise SystemExit(f"serve: {e}")
     per_req = stats.pop("per_request")
     rt = stats.pop("runtime")
     rejected = stats.pop("rejected")

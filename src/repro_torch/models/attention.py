@@ -1,5 +1,6 @@
 """Attention: GQA projections, decode attention (K1 on CUDA), chunk-prefill
-attention and the causal attention of monolithic prefill.
+attention and the full-sequence attention of monolithic prefill (causal,
+or not: the enc-dec family's encoder and cross-attention).
 
 Port of ``repro.models.attention``. ``decode_attention`` routes through the
 flash-decode wrapper: the hand-written kernel on CUDA, its plain version on
@@ -47,11 +48,14 @@ def _masked_softmax_pv(s: torch.Tensor, mask: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    window: int = 0) -> torch.Tensor:
-    """Forward of the reference ``flash_attention`` for monolithic prefill,
-    as one causal masked softmax; ``window`` > 0 keeps the band of keys
-    (q - window, q] (local attention). q: (B,Sq,Hq,hd); k/v: (B,Sk,Hkv,hd)
-    -> (B,Sq,Hq,hd). Inference only: no backward in this port yet."""
+                    window: int = 0, causal: bool = True) -> torch.Tensor:
+    """Forward of the reference ``flash_attention`` (``_padded``: any Sq,
+    Sk) for monolithic prefill, as one masked softmax; ``causal`` keeps
+    keys at or before the query's position (both counted from 0),
+    ``window`` > 0 the band of keys (q - window, q] (local attention); no
+    mask at all for the encoder's and the cross-attention's
+    ``causal=False``. q: (B,Sq,Hq,hd); k/v: (B,Sk,Hkv,hd) ->
+    (B,Sq,Hq,hd). Inference only: no backward in this port yet."""
     B, Sq, Hq, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -59,10 +63,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = _f32_einsum("bqkgh,btkh->bkgqt", qg, k) / math.sqrt(hd)
     kpos = torch.arange(Sk, device=q.device)[None, :]
     qpos = torch.arange(Sq, device=q.device)[:, None]
-    mask = kpos <= qpos
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (kpos <= qpos)
     if window:
         mask = mask & (kpos > qpos - window)
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    if causal or window:
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     m = torch.amax(s, dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1)
@@ -241,8 +248,9 @@ def make_attn_params(gen, cfg) -> dict:
 
 def qkv_project(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x: (B,S,D) -> q (B,S,Hq,hd), k/v (B,S,Hkv,hd) with RoPE applied
-    (after the per-head q/k RMSNorm where the config has one)."""
+    """x: (B,S,D) -> q (B,S,Hq,hd), k/v (B,S,Hkv,hd), with RoPE applied
+    where the config's ``pos`` is ``rope`` (after the per-head q/k RMSNorm
+    where the config has one)."""
     B, S, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = common.linears([p["wq"], p["wk"], p["wv"]], x)
@@ -252,6 +260,7 @@ def qkv_project(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor
     if "q_norm" in p:
         q = common.apply_norm("rmsnorm", p["q_norm"], q, cfg.norm_eps)
         k = common.apply_norm("rmsnorm", p["k_norm"], k, cfg.norm_eps)
-    q = common.apply_rope(q, positions, cfg.rope_theta)
-    k = common.apply_rope(k, positions, cfg.rope_theta)
+    if cfg.pos == "rope":
+        q = common.apply_rope(q, positions, cfg.rope_theta)
+        k = common.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v

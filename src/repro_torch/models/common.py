@@ -1,5 +1,6 @@
-"""Building blocks: initializers, norms, RoPE, linear (float or int8
-weights), gated activations, embedding and the decode unembedding.
+"""Building blocks: initializers, norms, RoPE and sinusoidal positions,
+linear (float or int8 weights), gated activations, embedding and the
+decode unembedding.
 
 Port of ``repro.models.common``. Parameters are nested dicts of tensors.
 JAX's rounding points are kept: every ``linear`` accumulates in f32 and
@@ -102,7 +103,7 @@ def apply_norm(kind: str, p: Params, x: torch.Tensor, eps: float = 1e-6
 
 
 # ---------------------------------------------------------------------------
-# RoPE (rotate-half split)
+# Positions: RoPE (rotate-half split) and the sinusoidal table
 # ---------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -120,6 +121,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_pos(seq: int, d: int, device=None) -> torch.Tensor:
+    """(seq, d) f32 table: the sin half, then the cos half (concatenated,
+    not interleaved, as the reference's)."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / 10000.0 ** (dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

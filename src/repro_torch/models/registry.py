@@ -1,10 +1,14 @@
 """Model API of the port: ``build_model(cfg, device)`` -> ModelAPI.
 
-Port of ``repro.models.registry`` for the transformer (dense and MoE),
-SSM (Mamba-2) and hybrid (RecurrentGemma) families: the fields the serving
-engine uses (continuous and drain, colocated and WA), ``make_decode_block``
-and ``count_params``. As in the reference, the slotted fields are None for
-a family that serves in drain mode only (the hybrid).
+Port of ``repro.models.registry`` for every family of the reference: the
+transformer (dense, MoE and the VLM backbone), SSM (Mamba-2), hybrid
+(RecurrentGemma) and enc-dec (Whisper): the fields the serving engine uses
+(continuous and drain, colocated and WA), ``make_decode_block`` and
+``count_params``. As in the reference, the slotted fields are None for a
+family that serves in drain mode only (the hybrid) or has no slotted API
+(the enc-dec family, whose ``prefill`` also takes frames: the engine
+refuses it); the VLM has no chunk lane (its prompts put vision embeddings
+before the text) and no WA backend.
 Sharding contexts are gone (one device per engine in this slice).
 """
 from __future__ import annotations
@@ -26,7 +30,9 @@ class ModelAPI(NamedTuple):
     # init(seed) -> params on ``device``
     init: Callable
     # prefill(params, tokens (B,S)) -> (caches sized S + DECODE_SLACK,
-    #   last logits (B,1,V))
+    #   last logits (B,1,V)); the VLM's takes ``vision_embeds`` (B,N,D)
+    #   too (its caches then hold N more positions), the enc-dec family's
+    #   ``frames`` (B,F,D) as its third argument
     prefill: Callable
     # decode(params, caches, tokens) -> (caches, logits (B,1,V)): one
     #   shared-cursor step at caches.length (drain serving), in place
@@ -34,7 +40,8 @@ class ModelAPI(NamedTuple):
     # init_caches(batch, max_len, device=None) -> caches on ``device`` (the
     #   API's by default; "meta" gives their shapes without memory): a
     #   KVCache (flat, or tiered when the config's hot_window > 0), a
-    #   RecurrentState (ssm) or {"kv": ring KVCache, "state": ...} (hybrid)
+    #   RecurrentState (ssm), {"kv": ring KVCache, "state": ...} (hybrid)
+    #   or {"self": KVCache, "cross": {"k", "v"}} (enc-dec)
     init_caches: Callable
     # -- continuous-batching fields (None: the family serves in drain mode
     #    only, as the hybrid does) ----------------------------------------
@@ -103,13 +110,21 @@ def _seeded_init(module, cfg: ModelConfig, device: torch.device):
 
 
 def _build_transformer(cfg: ModelConfig, device: torch.device) -> ModelAPI:
+    """Dense, MoE and VLM. The VLM's prefill takes optional vision
+    embeddings and sizes its cache for them; it has no chunk lane and no
+    WA backend (its prompts put vision embeddings before the text, which
+    the token-only chunk walk cannot cover), so its admission is
+    monolithic."""
     from repro_torch.models import transformer as T
     T.check_supported(cfg)
+    is_vlm = cfg.family == "vlm"
 
-    def prefill(params, tokens):
+    def prefill(params, tokens, vision_embeds=None):
         cache = T.make_cache(cfg, tokens.shape[0],
-                             tokens.shape[1] + DECODE_SLACK, device)
-        return T.prefill(params, tokens, cfg, cache)
+                             tokens.shape[1] + DECODE_SLACK
+                             + (cfg.n_vision_tokens if is_vlm else 0),
+                             device)
+        return T.prefill(params, tokens, cfg, cache, vision_embeds)
 
     def decode(params, caches, tokens):
         return T.decode_step(params, caches, tokens, cfg)
@@ -130,8 +145,9 @@ def _build_transformer(cfg: ModelConfig, device: torch.device) -> ModelAPI:
     return ModelAPI(cfg, device, _seeded_init(T, cfg, device), prefill,
                     decode, init_caches, decode_slotted,
                     write_slot_kv, reset_slot,
-                    make_decode_block(decode_slotted), prefill_chunk,
-                    wa_servable=True)
+                    make_decode_block(decode_slotted),
+                    None if is_vlm else prefill_chunk,
+                    wa_servable=not is_vlm)
 
 
 def _build_ssm(cfg: ModelConfig, device: torch.device) -> ModelAPI:
@@ -178,23 +194,41 @@ def _build_hybrid(cfg: ModelConfig, device: torch.device) -> ModelAPI:
                                                             max_len, device))
 
 
+def _build_encdec(cfg: ModelConfig, device: torch.device) -> ModelAPI:
+    """Whisper: prefill(params, tokens, frames), shared-cursor decode and
+    caches only (no slotted API, as in the reference)."""
+    from repro_torch.models import encdec as E
+    E.check_supported(cfg)
+
+    return ModelAPI(
+        cfg, device, _seeded_init(E, cfg, device),
+        lambda params, tokens, frames: E.prefill(params, tokens, frames,
+                                                 cfg),
+        lambda params, caches, tokens: E.decode_step(params, caches, tokens,
+                                                     cfg),
+        lambda batch, max_len, device=device: E.make_caches(cfg, batch,
+                                                            max_len, device))
+
+
 def build_model(cfg: ModelConfig, device: DeviceLike = None) -> ModelAPI:
-    """The family's API (dense, moe, ssm, hybrid) on ``device`` (default
-    ``cuda``; raises without a GPU unless ``device="cpu"`` is passed)."""
+    """The family's API (dense, moe, vlm, ssm, hybrid, audio) on
+    ``device`` (default ``cuda``; raises without a GPU unless
+    ``device="cpu"`` is passed)."""
     dev = resolve_device(device)
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         return _build_transformer(cfg, dev)
     if cfg.family == "ssm":
         return _build_ssm(cfg, dev)
     if cfg.family == "hybrid":
         return _build_hybrid(cfg, dev)
-    raise ValueError(f"family {cfg.family!r} is not ported to repro_torch "
-                     "yet (dense, moe, ssm and hybrid only)")
+    if cfg.family == "audio":
+        return _build_encdec(cfg, dev)
+    raise ValueError(f"unknown family {cfg.family!r}")
 
 
-def _attn_block_params(cfg: ModelConfig) -> int:
-    """One transformer block: two norms, attention and the FFN (dense or
-    MoE, total experts)."""
+def _attn_params(cfg: ModelConfig) -> int:
+    """The q/k/v/o projections (with the q/k/v biases and per-head q/k
+    norms where the config has them)."""
     d, hd = cfg.d_model, cfg.head_dim
     hq, hkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
     attn = d * hq + 2 * d * hkv + hq * d
@@ -202,12 +236,24 @@ def _attn_block_params(cfg: ModelConfig) -> int:
         attn += hq + 2 * hkv
     if cfg.qk_norm:
         attn += 2 * hd
+    return attn
+
+
+def _ffn_params(cfg: ModelConfig) -> int:
+    """The FFN: MoE (router and total experts), gated or gelu_mlp (two
+    linears with biases)."""
+    d = cfg.d_model
     if cfg.moe is not None:
         m = cfg.moe
-        ffn = d * m.num_experts + 3 * m.num_experts * d * m.expert_d_ff
-    else:
-        ffn = 3 * d * cfg.d_ff
-    return 2 * _norm_params(cfg) + attn + ffn
+        return d * m.num_experts + 3 * m.num_experts * d * m.expert_d_ff
+    if cfg.act == "gelu_mlp":
+        return 2 * d * cfg.d_ff + cfg.d_ff + d
+    return 3 * d * cfg.d_ff
+
+
+def _attn_block_params(cfg: ModelConfig) -> int:
+    """One transformer block: two norms, attention and the FFN."""
+    return 2 * _norm_params(cfg) + _attn_params(cfg) + _ffn_params(cfg)
 
 
 def _norm_params(cfg: ModelConfig) -> int:
@@ -237,8 +283,16 @@ def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
     int8 quantization scales are not parameters; norm scales (q/k norms
     included), LayerNorm biases and the router are.
     ``active_only``: each expert tensor counts K of its E experts."""
+    from repro_torch.models.transformer import POS_EMBED_ROWS
     d = cfg.d_model
-    emb = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
+    pos = POS_EMBED_ROWS * d if cfg.pos == "learned" else 0
+    if cfg.family == "audio":
+        # no unembed: the logits read the embedding table
+        dec = _attn_block_params(cfg) + _attn_params(cfg) + _norm_params(cfg)
+        return (cfg.vocab_size * d + pos
+                + cfg.encoder.n_layers * _attn_block_params(cfg)
+                + cfg.n_layers * dec + 2 * _norm_params(cfg))
+    emb = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2) + pos
     if cfg.family == "ssm":
         return emb + cfg.n_layers * _ssd_block_params(cfg) + _norm_params(cfg)
     if cfg.family == "hybrid":

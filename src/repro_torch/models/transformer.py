@@ -1,7 +1,7 @@
-"""Decoder-only transformer (dense and MoE): parameters, prefill,
-shared-cursor and slotted decode (sequential or split-KV) and chunked
-prefill; and the hybrid family's local-attention block over a ring cache
-(banded prefill, ``block_decode`` at the shared cursor).
+"""Decoder-only transformer (dense, MoE and the VLM backbone): parameters,
+prefill, shared-cursor and slotted decode (sequential or split-KV) and
+chunked prefill; and the hybrid family's local-attention block over a ring
+cache (banded prefill, ``block_decode`` at the shared cursor).
 
 Port of the inference part of ``repro.models.transformer``. The
 reference's layer ``lax.scan`` over stacked parameters becomes a Python
@@ -10,15 +10,24 @@ updated in place (see ``repro_torch.kv.cache``). On CUDA the decode path
 launches K1 (attention over the stored bucket view, int8 dequantized inside
 the kernel; over a tiered cache, over the hot/cold image resolved in the
 compute dtype), K3 (the dense gated FFN with float weights) and K4 (every
-linear with int8 weights). An MoE layer replaces the dense FFN by
-``models/moe.py::moe_ffn`` in ``_mix_ffn``, the one branch point under
-every block path (full-sequence, slotted, chunk, tiered, split, WA).
+linear with int8 weights). The ungated ``gelu_mlp`` FFN (whisper's) has no
+kernel in the reference (two ``jnp.einsum``s): with float weights it is
+two ``torch.matmul``s here, with int8 weights two K4 linears. An MoE layer
+replaces the dense FFN by ``models/moe.py::moe_ffn`` in ``_mix_ffn``, the
+one branch point under every block path (full-sequence, slotted, chunk,
+tiered, split, WA).
+
+Positions: RoPE inside ``qkv_project``, or a learned table
+``params["pos_embed"]`` added to the embeddings (``embed_tokens``). The
+VLM puts its precomputed vision embeddings before the text in
+``forward_hidden``; positions then run over the whole sequence.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.fused_ffn.ops import fused_ffn
@@ -44,23 +53,37 @@ from repro_torch.quant.int8 import (QuantizedTensor, dequantize_kv,
 
 _FUSED_ACTS = {"swiglu": "silu", "geglu": "gelu"}
 # families whose attention blocks this module builds (the hybrid's local
-# attention layers are dense blocks over a ring cache, models/rglru.py)
-FAMILIES = ("dense", "moe", "hybrid")
+# attention layers are dense blocks over a ring cache, models/rglru.py;
+# the enc-dec family's blocks are models/encdec.py's, over these parts)
+FAMILIES = ("dense", "moe", "vlm", "hybrid", "audio")
+POSITIONS = ("rope", "learned")
+# the learned position table's rows (the reference sizes it for its
+# largest decode cell plus slack)
+POS_EMBED_ROWS = 32768 + 256
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for configurations whose attention blocks the port does not
-    serve yet."""
+    """Raise for configurations whose blocks the port does not build."""
     if cfg.family not in FAMILIES or (cfg.family == "moe") != (
             cfg.moe is not None):
-        raise ValueError(f"family {cfg.family!r} is not ported to "
-                         f"repro_torch yet (ported: {list(FAMILIES)})")
-    if cfg.act not in _FUSED_ACTS:
-        raise ValueError(f"activation {cfg.act!r} is not ported yet "
-                         f"(gated: {sorted(_FUSED_ACTS)})")
-    if cfg.pos != "rope" or cfg.norm not in ("rmsnorm", "layernorm"):
-        raise ValueError("only rope + rmsnorm/layernorm models are ported "
-                         "yet")
+        raise ValueError(f"family {cfg.family!r} has no attention blocks "
+                         f"in repro_torch (families: {list(FAMILIES)})")
+    if cfg.act not in _FUSED_ACTS and cfg.act != "gelu_mlp":
+        raise ValueError(f"activation {cfg.act!r} is unknown (gated: "
+                         f"{sorted(_FUSED_ACTS)}; ungated: gelu_mlp)")
+    if cfg.pos == "sinusoidal":
+        # the reference adds the table in its full-sequence forward and its
+        # chunk program but not in its decode steps, so its prefill and
+        # decode disagree on positions; no registered config uses it
+        raise ValueError(
+            "pos='sinusoidal' in a decoder-only model is not ported: the "
+            "reference adds sinusoidal positions at prefill but not at "
+            "decode (a gap of the reference; no registered config uses "
+            "it)")
+    if cfg.pos not in POSITIONS or cfg.norm not in ("rmsnorm", "layernorm"):
+        raise ValueError(f"positions {cfg.pos!r} with norm {cfg.norm!r} "
+                         "are not ported (rope or learned; rmsnorm or "
+                         "layernorm)")
     if cfg.kv_dtype not in ("bfloat16", "float32", "int8"):
         raise ValueError(f"kv_dtype {cfg.kv_dtype!r} unsupported")
 
@@ -72,6 +95,11 @@ def check_supported(cfg: ModelConfig) -> None:
 def make_ffn_params(gen, cfg: ModelConfig) -> dict:
     d, f = cfg.d_model, cfg.d_ff
     dt = common.dtype_of(cfg)
+    if cfg.act == "gelu_mlp":
+        return {"w_in": common.make_linear(gen, d, f, dt, bias=True,
+                                           int8=cfg.weight_int8),
+                "w_out": common.make_linear(gen, f, d, dt, bias=True,
+                                            int8=cfg.weight_int8)}
     return {"w_gate": common.make_linear(gen, d, f, dt, int8=cfg.weight_int8),
             "w_up": common.make_linear(gen, d, f, dt, int8=cfg.weight_int8),
             "w_down": common.make_linear(gen, f, d, dt,
@@ -81,7 +109,13 @@ def make_ffn_params(gen, cfg: ModelConfig) -> dict:
 def ffn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Gated FFN. Float weights: one fused call (K3 on CUDA, f32 through
     the intermediate, cast once at the end). int8 weights: the three
-    linears through K4 with the reference's rounding points."""
+    linears through K4 with the reference's rounding points. The ungated
+    ``gelu_mlp``: two linears with biases (K4 with int8 weights, else
+    plain products) around tanh-gelu in f32, rounded to x's dtype."""
+    if cfg.act == "gelu_mlp":
+        h = common.linear(p["w_in"], x)
+        h = F.gelu(h.to(torch.float32), approximate="tanh").to(x.dtype)
+        return common.linear(p["w_out"], h)
     if isinstance(p["w_gate"]["w"], QuantizedTensor):
         up, gate = common.linears([p["w_up"], p["w_gate"]], x)
         return common.linear(p["w_down"], common.gated_act(cfg.act, up, gate))
@@ -304,6 +338,9 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
     if not cfg.tie_embeddings:
         params["unembed"] = common.make_embedding(gen, cfg.vocab_size,
                                                   cfg.d_model, dt)
+    if cfg.pos == "learned":
+        params["pos_embed"] = common.dense_init(
+            gen, (POS_EMBED_ROWS, cfg.d_model), dt, fan_in=1)
     return params
 
 
@@ -317,19 +354,40 @@ def final_logits(params, x, cfg):
     return common.unembed_logits(unembed_table(params, cfg), x)
 
 
+def add_learned_pos(params, x: torch.Tensor, positions: torch.Tensor,
+                    cfg: ModelConfig) -> torch.Tensor:
+    """x (B,S,D) plus the learned positions of ``positions`` ((B,S) or
+    (S,) device ints) where the config has them; else x."""
+    if cfg.pos != "learned":
+        return x
+    return x + params["pos_embed"][positions.to(torch.long)].to(x.dtype)
+
+
+def embed_tokens(params, tokens: torch.Tensor, positions: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """Token embeddings (B,S,D) of tokens (B,S) at ``positions``."""
+    return add_learned_pos(params, common.embed(params["embed"], tokens),
+                           positions, cfg)
+
+
 # ---------------------------------------------------------------------------
 # Full-sequence forward (prefill, inference only)
 # ---------------------------------------------------------------------------
 
-def forward_hidden(params, tokens: torch.Tensor, cfg: ModelConfig):
-    """Inference forward of a prompt. tokens: (B,S) -> (hidden (B,S,D)
-    after the final norm, per-layer list of (k, v) each (B,S,n_kv,hd)).
-    int8-KV configs attend the quantized image of K/V, as the reference's
-    prefill does."""
+def forward_hidden(params, tokens: torch.Tensor, cfg: ModelConfig,
+                   vision_embeds=None):
+    """Inference forward of a prompt. tokens: (B,S_text); ``vision_embeds``
+    (B,N,D) go before the text (the VLM's stub frontend) -> (hidden (B,S,D)
+    after the final norm, S = N + S_text; per-layer list of (k, v) each
+    (B,S,n_kv,hd)). int8-KV configs attend the quantized image of K/V, as
+    the reference's prefill does."""
     x = common.embed(params["embed"], tokens)
+    if vision_embeds is not None:
+        x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None].expand(B, S)
+    x = add_learned_pos(params, x, positions[0], cfg)
     roundtrip = cfg.kv_dtype == "int8"
     kvs: List[Tuple[torch.Tensor, torch.Tensor]] = []
     for lp in params["blocks"]:
@@ -339,14 +397,15 @@ def forward_hidden(params, tokens: torch.Tensor, cfg: ModelConfig):
     return common.apply_norm(cfg.norm, params["ln_f"], x, cfg.norm_eps), kvs
 
 
-def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, cache: KVCache
-            ) -> Tuple[KVCache, torch.Tensor]:
-    """Encode the context, fill the cache, return last-position logits
+def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, cache: KVCache,
+            vision_embeds=None) -> Tuple[KVCache, torch.Tensor]:
+    """Encode the context (the vision embeddings, if any, then the text),
+    fill the cache over the whole sequence, return last-position logits
     (B,1,V) f32."""
-    x, kvs = forward_hidden(params, tokens, cfg)
+    x, kvs = forward_hidden(params, tokens, cfg, vision_embeds)
     k_all = torch.stack([k for k, _ in kvs]).transpose(2, 3)  # (L,B,n_kv,S,hd)
     v_all = torch.stack([v for _, v in kvs]).transpose(2, 3)
-    cache = write_prefill(cache, k_all, v_all, tokens.shape[1])
+    cache = write_prefill(cache, k_all, v_all, x.shape[1])
     logits = common.unembed_logits(unembed_table(params, cfg), x[:, -1:])
     return cache, logits
 
@@ -410,7 +469,7 @@ def decode_step_slotted(params, cache: KVCache, tokens: torch.Tensor,
     0..positions[b]. Returns (cache, logits (B,1,V) f32). Makes no host
     sync: the kernel's tile limit ``max(positions[active]) + 1`` stays on
     the device. ``kv_shards`` > 1: split-KV decode (block_decode_slotted)."""
-    x = common.embed(params["embed"], tokens[:, None])
+    x = embed_tokens(params, tokens[:, None], positions[:, None], cfg)
     live = torch.where(active, positions, torch.full_like(positions, -1))
     kv_limit = (live.max() + 1).to(torch.int32)
     for i, lp in enumerate(params["blocks"]):
@@ -434,7 +493,9 @@ def prefill_chunk(params, cache: KVCache, tokens: torch.Tensor, slot: int,
     if cache.window:
         raise ValueError("chunked prefill requires a non-windowed cache "
                          "(ring order has no per-position write offset)")
-    x = common.embed(params["embed"], tokens)
+    x = embed_tokens(params, tokens,
+                     chunk_positions(start, tokens.shape[1], tokens.device),
+                     cfg)
     for i, lp in enumerate(params["blocks"]):
         x = block_prefill_chunk(lp, x, cfg, cache.layer(i), slot, start,
                                 valid_len)

@@ -29,7 +29,12 @@ its two executor backends (colocated and weight–attention).
   (the hybrid) has no KV extent, so admission sets no length bound, the
   block programs have no buckets, and split-KV, preemption and the WA
   backend refuse; ``mode="auto"`` serves a family without slotted decode
-  or admission (the hybrid) in drain mode.
+  or admission (the hybrid) in drain mode,
+- the VLM serves text-only, as the reference engine does (its admission
+  passes no vision embeddings): continuous with monolithic admission
+  (the family has no chunk lane) on the colocated backend; the enc-dec
+  family is refused at construction (the engine's prefill has no frames
+  input).
 
 Serving under pressure (the failure model): requests carry a ``priority``
 and TTFT/TPOT deadlines; admission drains the queue in priority order, a
@@ -1023,6 +1028,16 @@ class ServingEngine:
                              f"{api.device}; build both on one device")
         if mode not in ("auto", "continuous", "drain"):
             raise ValueError(mode)
+        if api.config.family == "audio":
+            # the reference resolves this family to drain and then fails
+            # building its drain prefill, which passes tokens only
+            raise ValueError(
+                "the audio (enc-dec) family cannot be served by this "
+                "engine: its prefill has no frames input (the reference "
+                "engine fails the same plan with KeyError: 'frames' when "
+                "it builds the drain prefill); run it at the model level "
+                "through build_model(cfg).prefill(params, tokens, frames) "
+                "and .decode")
         if a_shards < 1:
             raise ValueError(f"a_shards must be >= 1, got {a_shards}")
         if backend not in BACKENDS:

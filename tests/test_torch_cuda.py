@@ -1022,3 +1022,131 @@ def test_recurrent_decode_makes_no_synchronising_call(dev):
         finally:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# the VLM and enc-dec families: K1 at whisper's heads (G=1, hd 64, 16 KV
+# heads) over the cross K/V of 1,500 frames and the self cache, K3 at
+# internvl2's width, and both models on CUDA against the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("pair", PAIRS)
+@pytest.mark.parametrize("B", [1, 2, 8])
+def test_flash_decode_kernel_whisper_shapes(dev, B, pair):
+    """16 query heads on 16 KV heads of 64: the cross-attention over 1,500
+    frames (all-true mask, no tile limit), and the self cache at extents
+    160 and 288 (prompt + 128) with kv_limit at 1, inside, and at S."""
+    args = _fd_case(dev, B, 1500, pair, Hq=16, n_kv=16, hd=64, seed=B)
+    q, k, v, _, ks, vs = args
+    ones = torch.ones((B, 1500), dtype=torch.bool, device=dev)
+    for partial in (False, True):
+        _check_k1((q, k, v, ones, ks, vs), 1500, partial)
+    for S in (160, 288):
+        for lim in (1, S // 2 + 3, S):
+            args = _fd_case(dev, B, S, pair, Hq=16, n_kv=16, hd=64,
+                            seed=S + B + lim, lim=lim)
+            for partial in (False, True):
+                _check_k1(args, lim, partial)
+
+
+@pytest.mark.parametrize("dtype,R", [(torch.bfloat16, 1), (torch.bfloat16, 8),
+                                     (torch.bfloat16, 128),
+                                     (torch.float32, 8), (torch.float32, 64),
+                                     (torch.float32, 576)])
+def test_fused_ffn_kernel_at_internvl2_width(dev, dtype, R):
+    """D=8,192, F=28,672: bf16 at decode and admission rows; f32 past 32
+    rows takes 32-row tiles (a 64-row tile's x rows do not fit shared
+    memory). Tolerance as in ``test_fused_ffn_kernel_matches_plain``."""
+    from repro_torch.kernels.fused_ffn.ops import ffn_plan
+    D, F = 8192, 28672
+    assert ffn_plan(R, D, F, torch.empty(0, dtype=dtype).element_size()) \
+        .rows == (16 if R <= 16 else 32 if dtype == torch.float32 or R <= 32
+                  else 64)
+    g = torch.Generator(device=dev).manual_seed(R)
+    x = torch.randn(R, D, device=dev, generator=g).to(dtype)
+    ws = [(torch.randn(s, device=dev, generator=g) / s[0] ** 0.5).to(dtype)
+          for s in ((D, F), (D, F), (F, D))]
+    got = fused_ffn(x, *ws, act="silu")
+    want = fused_ffn_ref(x, *ws, act="silu")
+    err = float((got - want).abs().max())
+    assert err <= 1e-4 * max(1.0, float(want.abs().max()))
+    assert torch.equal(fused_ffn(x, *ws, act="silu"), got)
+
+
+@pytest.mark.parametrize("over", [dict(dtype="float32"),
+                                  dict(dtype="float32", weight_int8=True,
+                                       kv_dtype="int8")])
+def test_encdec_cuda_matches_cpu_and_launches_k1_twice_a_layer(dev, over):
+    """Reduced whisper on CUDA against the CPU: prefill with frames and 12
+    decode steps, both sides fed the CPU's tokens; logits at every step
+    within 1e-4 of max|logit| and tokens equal in f32; within 2e-2 with
+    int8 weights (the two sides may round an activation to neighbouring
+    int8 steps, so a near tie may pick another argmax); each decode step
+    launches K1 twice a decoder layer (self and cross), K3 never, K4 for
+    every decoder linear with int8 weights."""
+    cfg = get_config("whisper-medium").reduced().replace(**over)
+    src = build_model(cfg, device="cpu").init(0)
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8)))
+    frames = torch.from_numpy(rng.standard_normal(
+        (2, cfg.encoder.n_frames, cfg.d_model)).astype(np.float32))
+    out, fed = {}, []
+    for d in ("cpu", "cuda"):
+        api = build_model(cfg, device=d)
+        params = to_device(src, api.device)
+        caches, lg = api.prefill(params, toks.to(d), frames.to(d))
+        logits = [lg[:, -1].cpu()]
+        reset_launch_counts()
+        for i in range(12):
+            if d == "cpu":
+                fed.append(logits[-1].argmax(-1).to(torch.int32))
+            caches, lg = api.decode(params, caches, fed[i].to(d))
+            logits.append(lg[:, 0].cpu())
+        out[d] = (logits, launch_counts())
+    tol = 2e-2 if cfg.weight_int8 else 1e-4
+    for a, b in zip(out["cpu"][0], out["cuda"][0]):
+        assert (a - b).abs().max() <= tol * a.abs().max()
+        if not cfg.weight_int8:
+            assert torch.equal(a.argmax(-1), b.argmax(-1))
+    counts = out["cuda"][1]
+    assert counts["flash_decode"] == 12 * 2 * cfg.n_layers
+    assert counts["fused_ffn"] == 0
+    # q/k/v, o, cross q and o, w_in and w_out
+    assert counts["gemv_int8"] == (12 * 8 * cfg.n_layers if cfg.weight_int8
+                                   else 0)
+
+
+def test_vlm_cuda_matches_cpu_and_launches_k1_k3(dev):
+    """Reduced internvl2 in f32 on CUDA against the CPU: prefill with 4
+    vision embeddings, then 8 slotted steps; logits within 1e-4 of
+    max|logit|, tokens equal; each step launches K1 and K3 once a
+    layer."""
+    cfg = get_config("internvl2-76b").reduced().replace(dtype="float32")
+    src = build_model(cfg, device="cpu").init(0)
+    rng = np.random.default_rng(4)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8)))
+    vis = torch.from_numpy(rng.standard_normal(
+        (2, cfg.n_vision_tokens, cfg.d_model)).astype(np.float32))
+    out = {}
+    for d in ("cpu", "cuda"):
+        api = build_model(cfg, device=d)
+        params = to_device(src, api.device)
+        caches, lg = api.prefill(params, toks.to(d), vision_embeds=vis.to(d))
+        logits = [lg[:, -1].cpu()]
+        tok = lg[:, -1].argmax(-1).to(torch.int32)
+        pos = torch.full((2,), 12, dtype=torch.int32, device=d)
+        on = torch.ones(2, dtype=torch.bool, device=d)
+        reset_launch_counts()
+        for _ in range(8):
+            caches, lg = api.decode_slotted(params, caches, tok, pos, on)
+            logits.append(lg[:, 0].cpu())
+            tok = lg[:, 0].argmax(-1).to(torch.int32)
+            pos = pos + 1
+        out[d] = (logits, launch_counts())
+    for a, b in zip(out["cpu"][0], out["cuda"][0]):
+        assert (a - b).abs().max() <= 1e-4 * a.abs().max()
+        assert torch.equal(a.argmax(-1), b.argmax(-1))
+    counts = out["cuda"][1]
+    assert counts["flash_decode"] == 8 * cfg.n_layers
+    assert counts["fused_ffn"] == 8 * cfg.n_layers
+    assert counts["gemv_int8"] == 0

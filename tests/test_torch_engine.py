@@ -207,8 +207,9 @@ def test_failure_model_request_fields_accepted(models):
 
 def test_unported_configs_raise():
     """A tiered config (the default int8 cold tier, blocks of 16) builds
-    and serves, demoting on the way; the enc-dec and VLM families still
-    raise."""
+    and serves, demoting on the way; the VLM builds and its engine
+    resolves to continuous; the enc-dec family builds and the engine
+    refuses it (its prefill has no frames input)."""
     tcfg = get_config("qwen2-0.5b").reduced().replace(hot_window=16)
     api = build_model(tcfg, device="cpu")
     eng = ServingEngine(api, 2, PROMPT_LEN, device="cpu", max_new_cap=32,
@@ -219,6 +220,10 @@ def test_unported_configs_raise():
     assert [len(r.generated) for r in reqs] == [28, 9]
     assert stats["tiered"]["cold_dtype"] == "int8"
     assert stats["tiered"]["demotions"] > 0
-    for arch in ("whisper-medium", "internvl2-76b"):
-        with pytest.raises(ValueError, match="not ported"):
-            get_config(arch)
+    vlm = build_model(get_config("internvl2-76b").reduced(), device="cpu")
+    assert ServingEngine(vlm, 2, PROMPT_LEN, device="cpu").mode == \
+        "continuous"
+    audio = build_model(get_config("whisper-medium").reduced(),
+                        device="cpu")
+    with pytest.raises(ValueError, match="has no frames input"):
+        ServingEngine(audio, 2, PROMPT_LEN, device="cpu")

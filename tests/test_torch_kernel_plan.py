@@ -123,6 +123,21 @@ def test_ffn_plan_covers_every_index_once(D, F, R, itemsize):
     assert max(p.gate_up_smem, p.down_smem) <= SMEM_BYTES
 
 
+@pytest.mark.parametrize("R", [33, 64, 576, 1024])
+def test_ffn_plan_takes_32_row_tiles_where_64_rows_do_not_fit(R):
+    """f32 at internvl2's (and llama2-70b's) D = 8,192: a gate/up CTA's 64
+    x rows of a 1,024-wide D chunk would take 313,344 bytes; 32-row tiles
+    take 181,248 and cover every row once. bf16 keeps 64-row tiles."""
+    D, F = 8192, 28672
+    p = ffn_plan(R, D, F, 4)
+    assert p.rows == 32 and p.grid_gate_up[1] == -(-R // 32)
+    assert covered_once(R, p.rows, p.grid_gate_up[1])
+    assert p.gate_up_smem == 4 * (2 * RING * COLS + 32 * (p.d_chunk + PAD))
+    assert p.gate_up_smem <= SMEM_BYTES and p.down_smem <= SMEM_BYTES
+    assert p.scratch == R * F + (p.f_splits * R * D if p.f_splits > 1 else 0)
+    assert ffn_plan(R, D, F, 2).rows == 64
+
+
 @pytest.mark.parametrize("R,D,itemsize", [(128, 32768, 4), (8, 131072, 2)])
 def test_ffn_plan_refuses_chunks_past_shared_memory(R, D, itemsize):
     with pytest.raises(ValueError, match="shared memory"):
