@@ -32,8 +32,13 @@ phases; any failure exits non-zero before the result line:
    and f32) and the self cache at extents 160 and 288 with kv_limit edges
    (bf16 and int8 KV); K3 at internvl2's FFN (D=8,192, F=28,672) at 1, 8,
    128 and 768 bf16 rows and 576 f32 rows (32-row tiles); K4 at whisper's
-   1024x1024, 1024x4096 and 4096x1024 at 1 to 8 rows; every kernel must
-   give the same bits on a second call);
+   1024x1024, 1024x4096 and 4096x1024 at 1 to 8 rows; K3 with a gradient
+   (the ``FusedFFN`` autograd.Function: the kernel's forward, the plain
+   f32 products of its backward) at the training shape (2,048 rows,
+   D=896, F=4,864) and at 17 rows, bf16 and f32, silu and gelu: dx and
+   the three weight gradients against autograd of the plain version on
+   the same CUDA tensors, one K3 launch a forward; every kernel must give
+   the same bits on a second call);
 3. model parity at full qwen2-0.5b width, depth cut to 2 layers, float32:
    the same seeded weights on the CPU (plain versions) and on CUDA
    (kernels) give equal tokens and logits within 1e-3 of max|logit|, for
@@ -70,10 +75,15 @@ phases; any failure exits non-zero before the result line:
    replayed on the CPU) and internvl2 at full width, 2 layers (vocabulary
    cut to 32,000, 256 vision embeddings before a 32-token text) give the
    CPU's tokens and logits within 1e-3 at every step and its caches
-   (whisper's self and cross K/V);
-4. the serving engine at full qwen2-0.5b width (24 layers, runs (e), (f)
-   and (h) cut to 12 to keep the script's time; seeded random bf16
-   weights): (a) chunked admission + macro-step decode + KV buckets,
+   (whisper's self and cross K/V); training at full width, 2 layers, f32:
+   the loss (``ModelAPI.loss``) and every gradient leaf of qwen2-0.5b
+   (batch 2 x 128; K3 twice a layer: forward and the remat recompute) and
+   mamba2-1.3b (2 x 512: two SSD chunks) on the CPU against CUDA, the
+   loss within 1e-5 relative, each leaf within 1e-3 of its largest
+   magnitude plus 1e-5 of the largest gradient;
+4. the serving engine at full qwen2-0.5b width (24 layers; runs (b),
+   (e)-(h), (j) and (k) cut to 12 to keep the script's time; seeded random
+   bf16 weights): (a) chunked admission + macro-step decode + KV buckets,
    (b) int8 weights and int8 KV with monolithic admission, (c) per-token
    decode, (d) drain mode (batch prefill of 8 x 128, shared-cursor
    decode), (e) run (a) with int8 KV and split-KV decode over 4 shards,
@@ -108,12 +118,12 @@ phases; any failure exits non-zero before the result line:
    on (a)'s plan (K1 only, two launches a layer), (m) phi3.5-moe-42b cut
    to 8 layers with int8 weights and KV through the WA backend at overlap
    2 on (j)'s plan, served twice, and (n) the paper's Llama-2-7B int8
-   deployment at full depth on (b)'s plan; each must complete, launch
+   deployment (16 of 32 layers) on (b)'s plan; each must complete, launch
    exactly its path's kernels (no K3 in any) and make its twin run's
    host syncs; one decode block of (l) and (n) is traced; then the
-   recurrent families at full width and depth: (o) mamba2-1.3b on (a)'s
-   plan, which must complete, launch no kernel of the port (the counts
-   stay 0: the SSD has none), make the host syncs of the same plan
+   recurrent families at full width: (o) mamba2-1.3b (24 of 48 layers)
+   on (a)'s plan, which must complete, launch no kernel of the port (the
+   counts stay 0: the SSD has none), make the host syncs of the same plan
    served on the CPU and register one decode-block program (no buckets),
    and (p) recurrentgemma-9b with ``mode="auto"``, which must resolve to
    drain (no slotted API), complete with no admission while another
@@ -128,7 +138,16 @@ phases; any failure exits non-zero before the result line:
    family): a prefill of 8 rows with 1,500 seeded frames and 64 decode
    steps, exactly 48 K1 launches a step (self and cross, 24 layers) and
    no K3; one decode block of (q) and three decode steps of (r) are
-   traced, with no synchronising call;
+   traced, with no synchronising call; and (s) training: qwen2-0.5b at
+   full width and depth (24 layers, bf16) through
+   ``repro_torch.launch.train.train``, batch 8 x seq 256, 20 steps: K3
+   exactly 48 launches a step and no other kernel, every loss finite and
+   the mean of the last 5 below the first, the loss of a held-out batch
+   down by at least 0.01 from the initial weights, ms a step and peak
+   memory, one step split into forward, backward and update and traced;
+   then 10 steps with a checkpoint at step 10, restored into a fresh
+   model and optimizer bit for bit, and the job resumed from it to step
+   20 with the uninterrupted run's losses within 1e-6 (relative);
 5. time each kernel at the main path's shapes (K1 at B=8 over S=200 and
    at a long context of S=4096, bf16 and int8 KV, in partial mode at one
    shard of 48, the whole split attention of a layer at bucket 192 and the
@@ -149,7 +168,8 @@ phases; any failure exits non-zero before the result line:
    block at 8 rows (plain PyTorch, for the record); K1 at whisper's
    cross-attention (B=8, S=1,500) and internvl2's decode shape (B=8,
    S=200) against SDPA, K3 at internvl2's FFN at 8 and 384 rows against
-   three matmuls and silu.
+   three matmuls and silu; K3 at the training shape (2,048 rows) against
+   three matmuls and silu, and its plain-product backward.
 
 It then prints the card (nvidia-smi name, power limit), a ``kernels`` JSON
 line, and last the JSON result line. Without a GPU, or without the rest of
@@ -1146,15 +1166,18 @@ def phase_moe_parity():
 # phase 4: the engine at full qwen2-0.5b
 # ---------------------------------------------------------------------------
 
-# runs (e), (f) and (h) at half of qwen2-0.5b's 24 layers
+# runs (b), (e)-(h), (j) and (k) and the WA block walls at half of
+# qwen2-0.5b's 24 layers
 SHORT = dict(n_layers=12)
 RUNS = {
     # name: (config overrides, engine kwargs, n_requests, max_new, kernels)
     "a_bf16_chunked_T8": (
         {}, dict(block_size=8, kv_bucket_chunk=64, prefill_chunk=32,
                  max_new_cap=72), 12, 64, ("flash_decode", "fused_ffn")),
+    # (b), (k) and (j) (the int8 runs, their streams compared with each
+    # other) at 12 layers since the training run (s) joined the script
     "b_int8w_int8kv_monolithic_T8": (
-        dict(weight_int8=True, kv_dtype="int8"),
+        dict(weight_int8=True, kv_dtype="int8", **SHORT),
         dict(block_size=8, kv_bucket_chunk=64, max_new_cap=72), 12, 32,
         ("flash_decode", "gemv_int8")),
     "c_bf16_T1": ({}, dict(block_size=1, max_new_cap=72), 2, 16,
@@ -1169,9 +1192,11 @@ RUNS = {
              max_new_cap=72, a_shards=4), 12, 64,
         ("flash_decode", "flash_decode_partial", "fused_ffn")),
     # run (a)'s plan over a tiered cache: the boundary moves from 64 to 128
-    # during decode (prompt 128, 64 new tokens)
+    # during decode (prompt 128, 64 new tokens); 12 layers since the
+    # training run (s) joined the script (its host syncs are the plan's,
+    # equal to (a)'s at any depth)
     "g_tiered_int4_chunked_T8": (
-        dict(kv_cold_dtype="int4", **G_TIERS),
+        dict(kv_cold_dtype="int4", **G_TIERS, **SHORT),
         dict(block_size=8, kv_bucket_chunk=64, prefill_chunk=32,
              max_new_cap=72), 12, 64, ("flash_decode", "fused_ffn")),
     # runs (a) and (b) through the WA backend: QKV/FFN on the current
@@ -1183,11 +1208,11 @@ RUNS = {
                  max_new_cap=72, backend="wa"), 12, 64,
         ("flash_decode", "fused_ffn")),
     "k_wa_int8w_int8kv_monolithic_T8": (
-        dict(weight_int8=True, kv_dtype="int8"),
+        dict(weight_int8=True, kv_dtype="int8", **SHORT),
         dict(block_size=8, kv_bucket_chunk=64, max_new_cap=72,
              backend="wa"), 12, 32, ("flash_decode", "gemv_int8")),
     "j_wa_int8w_int8kv_overlap2_T8": (
-        dict(weight_int8=True, kv_dtype="int8"),
+        dict(weight_int8=True, kv_dtype="int8", **SHORT),
         dict(block_size=8, kv_bucket_chunk=64, max_new_cap=72,
              backend="wa", overlap=2), 12, 32,
         ("flash_decode", "gemv_int8")),
@@ -1198,8 +1223,9 @@ RUNS = {
 # weights, on (a)'s plan; (m) phi3.5-moe with depth cut to 8 of 32 layers
 # (~21 GB), int8 weights (K4 on attention; the experts stay bf16) and int8
 # KV, monolithic, through WA at overlap 2 on (j)'s plan, served twice; (n)
-# the paper's Llama-2-7B deployment at full depth (32 layers, int8 weights
-# and KV, ~7 GB) on (b)'s plan. MoE layers have no dense FFN: no K3.
+# the paper's Llama-2-7B deployment (int8 weights and KV) at 16 of its 32
+# layers since the training run (s) joined the script, on (b)'s plan. MoE
+# layers have no dense FFN: no K3.
 FAMILY_RUNS = {
     # name: (arch, config overrides, engine kwargs, n_requests, max_new,
     #        kernels, the run whose plan and host syncs it repeats)
@@ -1213,7 +1239,8 @@ FAMILY_RUNS = {
         RUNS["j_wa_int8w_int8kv_overlap2_T8"][1], 12, 32,
         ("flash_decode", "gemv_int8"), "j_wa_int8w_int8kv_overlap2_T8"),
     "n_llama2_7b_int8_monolithic_T8": (
-        "llama2-7b", {}, RUNS["b_int8w_int8kv_monolithic_T8"][1], 12, 32,
+        "llama2-7b", dict(n_layers=16),
+        RUNS["b_int8w_int8kv_monolithic_T8"][1], 12, 32,
         ("flash_decode", "gemv_int8"), "b_int8w_int8kv_monolithic_T8"),
 }
 TRACED = ("a_bf16_chunked_T8", "b_int8w_int8kv_monolithic_T8",
@@ -1652,6 +1679,7 @@ def phase_engine(totals, runs):
              for name, spec in RUNS.items()]
     plans += [(name, *spec) for name, spec in FAMILY_RUNS.items()]
     for name, arch, over, kw, n_req, max_new, needed, twin in plans:
+        t_run = time.monotonic()
         cfg = get_config(arch).replace(**over)
         api = build_model(cfg)
         t0 = time.monotonic()
@@ -1767,6 +1795,8 @@ def phase_engine(totals, runs):
             per_step[name] = {k: n for k, n in launch_counts().items() if n}
         del params, eng, api
         torch.cuda.empty_cache()
+        log(f"    run {name} took {time.monotonic() - t_run:.1f}s (serve, "
+            f"checks, trace)")
     a, e, g = ("a_bf16_chunked_T8", "e_int8kv_split4_chunked_T8",
                "g_tiered_int4_chunked_T8")
     log(f"  host syncs: (a) {host_syncs[a]}, (e) {host_syncs[e]}, (g) "
@@ -1779,10 +1809,12 @@ def phase_engine(totals, runs):
     require(all(n == 0 for n in syncs.values()),
             "a traced decode block synchronises with the host")
     card = nvidia_smi()
-    run_budget(totals, runs, card)
-    run_failure(totals, runs, card)
-    block_walls()
-    wa_block_walls(card)
+    for fn in (lambda: run_budget(totals, runs, card),
+               lambda: run_failure(totals, runs, card), block_walls,
+               lambda: wa_block_walls(card)):
+        t_run = time.monotonic()
+        fn()
+        log(f"    took {time.monotonic() - t_run:.1f}s")
     return per_step, host_syncs
 
 
@@ -2170,6 +2202,7 @@ def phase_timing(dev, launches, runs, per_step, errs):
                      host_ms(fused_ffn, var)))
     rows += recurrent_timing_rows(dev, bound, sdpa_args)
     rows += vlm_encdec_timing_rows(dev, bound, sdpa_args)
+    rows += train_timing_rows(dev, bound)
     for name, shape, ms, plain, b_ms, b_by, lib, host in rows:
         libs = ", ".join(("not measured" if v is None else
                           f"{v * 1e3:.2f} us") + f" ({k})"
@@ -2355,11 +2388,11 @@ def phase_moe_timing(card):
 
 def wa_block_walls(card):
     """Wall time (host clock to a synchronise) of one decode block (T=8, 8
-    rows at 160, bucket 192) at full qwen2-0.5b through the colocated
-    programs and the WA backend at depths 1 and 2, bf16 and int8 weights +
-    int8 KV: 3 rounds, each timing every variant once in turn, median per
-    variant; with the kernels each variant launches per token step
-    (torch.profiler, one block)."""
+    rows at 160, bucket 192) at full qwen2-0.5b width, 12 layers, through
+    the colocated programs and the WA backend at depths 1 and 2, bf16 and
+    int8 weights + int8 KV: 3 rounds, each timing every variant once in
+    turn, median per variant; with the kernels each variant launches per
+    token step (torch.profiler, one block)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.registry import get_config
@@ -2368,7 +2401,7 @@ def wa_block_walls(card):
     for label, over in (("bf16", {}),
                         ("int8 weights + int8 KV",
                          dict(weight_int8=True, kv_dtype="int8"))):
-        cfg = get_config("qwen2-0.5b").replace(**over)
+        cfg = get_config("qwen2-0.5b").replace(**over, **SHORT)
         api = build_model(cfg)
         params = api.init(0)
         impls = {"colocated": None}
@@ -2639,18 +2672,21 @@ def phase_parity_recurrent():
         f"{time.monotonic() - t0:.1f}s")
 
 
-# phase 4's recurrent runs: (o) mamba2 at full width and depth on (a)'s
-# plan (no port kernel: the SSD has none, the reference never quantizes
+# phase 4's recurrent runs: (o) mamba2 at full width, 24 of 48 layers, on
+# (a)'s plan (no port kernel: the SSD has none, the reference never quantizes
 # its projections); (p) recurrentgemma at full width and depth, mode
 # "auto", which resolves to drain (no slotted API), 8 slots, prompt 128,
 # 12 x 32 tokens: K1 over the ring (256 slots: min(window, 128 + 128)) and
 # K3 in its gelu mode
 RECURRENT_RUNS = {
-    # name: (arch, engine kwargs, n_requests, max_new, kernels)
+    # name: (arch, config overrides, engine kwargs, n_requests, max_new,
+    #        kernels); (o) at 24 of mamba2's 48 layers since the training
+    # run (s) joined the script
     "o_mamba2_chunked_T8": (
-        "mamba2-1.3b", RUNS["a_bf16_chunked_T8"][1], 12, 64, ()),
+        "mamba2-1.3b", dict(n_layers=24), RUNS["a_bf16_chunked_T8"][1], 12,
+        64, ()),
     "p_recurrentgemma_auto_drain": (
-        "recurrentgemma-9b", dict(mode="auto", max_new_cap=72), 12, 32,
+        "recurrentgemma-9b", {}, dict(mode="auto", max_new_cap=72), 12, 32,
         ("flash_decode", "fused_ffn")),
 }
 
@@ -2749,8 +2785,10 @@ def phase_engine_recurrent(totals, runs, per_step, host_syncs_a):
     from repro_torch.models.registry import build_model
     from repro_torch.runtime.serving import ServingEngine
     syncs = {}
-    for name, (arch, kw, n_req, max_new, needed) in RECURRENT_RUNS.items():
-        cfg = get_config(arch)
+    for name, (arch, over, kw, n_req, max_new, needed) in \
+            RECURRENT_RUNS.items():
+        t_run = time.monotonic()
+        cfg = get_config(arch).replace(**over)
         t0 = time.monotonic()
         api = build_model(cfg)
         params = api.init(0)
@@ -2818,6 +2856,7 @@ def phase_engine_recurrent(totals, runs, per_step, host_syncs_a):
         log(f"    launches of one decode step: {per_step[name]}")
         del params, eng, api
         torch.cuda.empty_cache()
+        log(f"    run {name} took {time.monotonic() - t_run:.1f}s")
     require(all(n == 0 for n in syncs.values()),
             f"a traced recurrent step synchronises with the host: {syncs}")
     return syncs
@@ -3342,6 +3381,368 @@ def vlm_encdec_timing_rows(dev, bound, sdpa_args):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# training: phase 2's K3 gradient, phase 3's loss and gradients on the CPU
+# against CUDA, run (s) and phase 5's K3 at the training shape
+# ---------------------------------------------------------------------------
+
+# the train driver's defaults: batch 8 x seq 256 = 2,048 rows into K3 at
+# qwen2-0.5b's D=896, F=4,864
+TRAIN_ROWS, TRAIN_D, TRAIN_F = 8 * 256, 896, 4864
+K3_GRAD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 8e-3}
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_RTOL, TRAIN_GRAD_FLOOR = 1e-3, 1e-5
+# run (s): (name, arch, batch, seq, steps, the checkpointed step)
+TRAIN_RUN = ("s_qwen2_train_24L_b8_s256", "qwen2-0.5b", 8, 256, 20, 10)
+# the resumed job repeats the uninterrupted one: the same seeded data and
+# deterministic kernels (the embedding's backward sorts its indices), so
+# its losses are held to rounding, not to a training tolerance
+RESUME_RTOL = 1e-6
+# the loss of one batch the run never trains on, before and after its 20
+# steps, must fall by at least this many nats: a run whose updates do
+# nothing leaves it exactly where it was
+HELD_OUT_FALL = 1e-2
+
+
+def phase_compare_train(dev, errs):
+    """K3 with a gradient (``FusedFFN``: the kernel's forward, the plain
+    f32 products of ``fused_ffn_backward``) at the training shape (2,048
+    rows, D=896, F=4,864) and at 17 rows of D=200, F=700 (no tile
+    multiple), bf16 and f32, silu and gelu, against autograd of
+    ``fused_ffn_ref`` on the same CUDA tensors and output gradient. dx and
+    the three weight gradients within 1e-4 of their largest magnitude in
+    f32, 8e-3 in bf16 (each side rounds its f32 gradient to bf16 once, at
+    most one bf16 ulp apart); the forward within phase 2's 1e-4 and one K3
+    launch a forward."""
+    from repro_torch.kernels.fused_ffn.ops import fused_ffn
+    from repro_torch.kernels.fused_ffn.ref import fused_ffn_ref
+    for R, D, F in ((TRAIN_ROWS, TRAIN_D, TRAIN_F), (17, 200, 700)):
+        for dtype in (torch.bfloat16, torch.float32):
+            for act in ("silu", "gelu"):
+                args, _ = k3_inputs(dev, R, seed=R + 1, D=D, F=F,
+                                    dtype=dtype)
+                g = torch.Generator(device=dev).manual_seed(R + 2)
+                dout = torch.randn(R, D, device=dev, generator=g)
+                a1 = [a.clone().requires_grad_(True) for a in args]
+                n0 = fused_ffn.launches
+                out = fused_ffn(*a1, act=act)
+                launched = fused_ffn.launches - n0
+                got = torch.autograd.grad(out, a1, dout)
+                a2 = [a.clone().requires_grad_(True) for a in args]
+                ref = fused_ffn_ref(*a2, act=act)
+                want = torch.autograd.grad(ref, a2, dout)
+                e_fwd = max_err(out.detach(), ref.detach())
+                tol_fwd = 1e-4 * max(1, max_abs(ref.detach()))
+                ratios = [max_err(a, b) / (K3_GRAD_RTOL[dtype] * max_abs(b))
+                          for a, b in zip(got, want)]
+                errs["fused_ffn"] = max(errs["fused_ffn"], e_fwd)
+                log(f"  K3 autograd rows={R} D={D} F={F} "
+                    f"{str(dtype)[6:]} {act}: forward max|d|={e_fwd:.3g} "
+                    f"(tol {tol_fwd:.3g}), launches {launched}; gradients "
+                    f"max|d|/tol dx {ratios[0]:.3g}, dW_gate "
+                    f"{ratios[1]:.3g}, dW_up {ratios[2]:.3g}, dW_down "
+                    f"{ratios[3]:.3g} (tol {K3_GRAD_RTOL[dtype]:g} of max)")
+                require(launched == 1, "K3's autograd forward did not "
+                        "launch the kernel once")
+                require(e_fwd <= tol_fwd, f"K3 autograd forward disagrees "
+                        f"at rows={R} {dtype} {act}")
+                require(all(np.isfinite(r) and r <= 1 for r in ratios),
+                        f"K3 gradients disagree at rows={R} {dtype} {act}")
+
+
+def train_parity(cfg, B, S, devs=("cuda", "cpu")):
+    """The loss and every gradient leaf of ``ModelAPI.loss`` on one
+    seeded batch (``SyntheticLMData``), CPU (plain versions) against CUDA
+    (kernels), on the same seeded f32 weights: the loss within 1e-5
+    relative, each leaf within 1e-3 of its largest magnitude plus 1e-5 of
+    the largest gradient (the key biases' true gradient is 0: rounding
+    noise on both sides). Returns the CUDA side's K3 launches."""
+    from repro_torch.data.synthetic import SyntheticLMData
+    from repro_torch.interop import to_device
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.train import batch_to_torch
+    from repro_torch.models.registry import build_model
+    from repro_torch.tree import tree_leaves, tree_paths, tree_unflatten
+    src = to_device(build_model(cfg, device=devs[0]).init(0), "cpu")
+    host = SyntheticLMData(cfg, B, S, seed=0).batch_at(0)
+    paths = [p for p, _ in tree_paths(src)]
+    res = {}
+    for d in devs:
+        api = build_model(cfg, device=d)
+        leaves = [t.detach().requires_grad_(True)
+                  for t in tree_leaves(to_device(src, api.device))]
+        reset_launch_counts()
+        t0 = time.monotonic()
+        loss = api.loss(tree_unflatten(src, leaves),
+                        batch_to_torch(host, api.device))
+        grads = torch.autograd.grad(loss, leaves)
+        res[d] = (float(loss.detach()), [g.float().cpu() for g in grads],
+                  launch_counts(), time.monotonic() - t0)
+    (l_gpu, g_gpu, counts, t_gpu), (l_cpu, g_cpu, _, t_cpu) = \
+        res[devs[0]], res[devs[1]]
+    l_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    top = max(float(g.abs().max()) for g in g_cpu)
+    worst, where = 0.0, ""
+    for p, a, b in zip(paths, g_gpu, g_cpu):
+        require(bool(torch.isfinite(a).all()), f"{cfg.name}: gradient {p} "
+                "not finite on cuda")
+        r = float((a - b).abs().max()) / (
+            TRAIN_GRAD_RTOL * float(b.abs().max()) + TRAIN_GRAD_FLOOR * top)
+        if r > worst:
+            worst, where = r, p
+    log(f"  {cfg.name} training, full width, {cfg.n_layers} layers, f32, "
+        f"batch {B} x {S}: loss cpu {l_cpu:.7f} cuda {l_gpu:.7f}, "
+        f"|d|/loss {l_rel:.3g} (tol {TRAIN_LOSS_RTOL:g}); {len(paths)} "
+        f"gradient leaves, worst max|d|/tol {worst:.3g} at {where} (tol "
+        f"{TRAIN_GRAD_RTOL:g} of the leaf's max + {TRAIN_GRAD_FLOOR:g} of "
+        f"the largest, {top:.3g}); cuda launches {counts}; loss + gradient "
+        f"{t_gpu:.2f} s cuda, {t_cpu:.2f} s cpu")
+    require(l_rel <= TRAIN_LOSS_RTOL, f"{cfg.name}: training loss differs "
+            "between cpu and cuda")
+    require(worst <= 1, f"{cfg.name}: gradient {where} differs between cpu "
+            "and cuda")
+    return counts
+
+
+def phase_train_parity():
+    """qwen2-0.5b (its FFN through K3: forward plus the remat recompute, 2
+    launches a layer) and mamba2-1.3b (the SSD over two chunks of 256, no
+    port kernel) at full width, 2 layers, f32."""
+    from repro_torch.configs.registry import get_config
+    t0 = time.monotonic()
+    cfg = get_config("qwen2-0.5b").replace(n_layers=2, dtype="float32")
+    counts = train_parity(cfg, 2, 128)
+    require(counts["fused_ffn"] == 2 * cfg.n_layers
+            and counts["gemv_int8"] == counts["flash_decode"] == 0,
+            f"qwen2 training launched {counts}: want K3 twice a layer")
+    cfg = get_config("mamba2-1.3b").replace(n_layers=2, dtype="float32")
+    counts = train_parity(cfg, 2, 512)
+    require(not any(counts.values()), f"mamba2 training launched {counts}")
+    log(f"  training parity took {time.monotonic() - t0:.1f}s")
+
+
+def phase_train_run(totals, runs, card):
+    """Run (s): qwen2-0.5b at full width and depth (24 layers, bf16,
+    seeded random weights) through ``repro_torch.launch.train.train`` on
+    cuda, batch 8 x seq 256, 20 steps, one loss a step (``log_every=1``).
+    K3 launches 48 times a step (24 layers, forward and the remat
+    recompute) and no other kernel; every loss is finite, the mean of
+    the last 5 is below the first, and the loss of a held-out batch (the
+    pipeline's step 20, which the run does not train on) falls by
+    ``HELD_OUT_FALL`` from the initial weights to the trained ones. Then
+    10 steps with a checkpoint at step 10: restored into a fresh model
+    and optimizer it equals the returned state bit for bit (params, mu,
+    nu, step); the job resumed from it to step 20 gives the uninterrupted
+    run's losses within ``RESUME_RTOL`` (relative)."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import SyntheticLMData
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.train import batch_to_torch, train
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.runtime.static_runtime import StaticRuntime
+    from repro_torch.tree import tree_leaves
+    name, arch, B, S, steps, half = TRAIN_RUN
+    cfg = get_config(arch)
+    api = build_model(cfg)
+    held_out = batch_to_torch(
+        SyntheticLMData(cfg, B, S, seed=0).batch_at(steps), api.device)
+
+    def held_out_loss(params):
+        with torch.no_grad():
+            return float(api.loss(params, held_out))
+    # train()'s initial weights: the same seed (0)
+    init = api.init(0)
+    before = held_out_loss(init)
+    del init
+    rt = StaticRuntime()
+    starts = []
+    rt.set_interceptor(lambda _: starts.append(time.monotonic()))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.monotonic()
+    params, opt, full = train(arch, steps, B, S, reduced=False,
+                              log_every=1, runtime=rt)
+    torch.cuda.synchronize()
+    total_s = time.monotonic() - t0
+    counts = launch_counts()
+    runs[name] = counts
+    for k, n in counts.items():
+        totals[k] += n
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # one loss read a step (a host sync): dispatch to dispatch is a step
+    gaps = np.diff(np.asarray(starts)) * 1e3
+    losses = [v for _, v in full]
+    log(f"  run {name}: {arch} x {cfg.n_layers} layers, bf16, batch {B} x "
+        f"seq {S}, {steps} steps in {total_s:.1f}s (init included); "
+        f"{np.median(gaps[1:]):.1f} ms a step (median of steps 2-"
+        f"{steps - 1}, host clock, one sync a step; step 1 {gaps[0]:.1f} "
+        f"ms), peak "
+        f"memory {peak:.2f} GiB; launches {counts}; calls "
+        f"{rt.stats()['train']['calls']}; {card}")
+    log(f"    losses {[round(v, 4) for v in losses]}")
+    require(len(losses) == steps and all(np.isfinite(losses)),
+            f"{name}: a loss is not finite")
+    require(np.mean(losses[-5:]) < losses[0], f"{name}: the loss did not "
+            f"fall ({losses[0]:.4f} -> mean of the last 5 "
+            f"{np.mean(losses[-5:]):.4f})")
+    require(counts == {"flash_decode": 0, "flash_decode_partial": 0,
+                       "fused_ffn": 2 * cfg.n_layers * steps,
+                       "gemv_int8": 0},
+            f"{name}: launches {counts}, want K3 {2 * cfg.n_layers} a step")
+    require(rt.stats()["train"]["calls"] == steps, f"{name}: step calls")
+    after = held_out_loss(params)
+    log(f"    held-out batch (step {steps}'s, never trained on): loss "
+        f"{before:.6f} at the initial weights -> {after:.6f} after "
+        f"{steps} steps, fall {before - after:.6f} (need >= "
+        f"{HELD_OUT_FALL:g})")
+    require(before - after >= HELD_OUT_FALL, f"{name}: the held-out loss "
+            f"did not fall ({before:.6f} -> {after:.6f})")
+    trace_train_step(api, params, opt, B, S, steps)
+    del params, opt
+    torch.cuda.empty_cache()
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        t0 = time.monotonic()
+        p10, o10, first = train(arch, half, B, S, reduced=False,
+                                ckpt_dir=ckpt, ckpt_every=half, log_every=1)
+        half_s = time.monotonic() - t0
+        fresh = api.init(1)
+        t0 = time.monotonic()
+        step, state = Checkpointer(ckpt).restore(
+            {"params": fresh, "opt": adamw_init(fresh)})
+        restore_s = time.monotonic() - t0
+        pairs = list(zip(tree_leaves({"params": p10, "opt": o10}),
+                         tree_leaves(state)))
+        same = step == half and all(
+            a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+            for a, b in pairs)
+        del p10, o10, fresh, state, pairs
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        _, opt, resumed = train(arch, steps, B, S, reduced=False,
+                                ckpt_dir=ckpt, ckpt_every=10 * steps,
+                                log_every=1)
+        resume_s = time.monotonic() - t0
+        end_step = int(opt.step)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    head = max(abs(v - w) / abs(w) for (_, v), w in zip(first, losses))
+    tail = max(abs(v - w) / abs(w)
+               for (_, v), w in zip(resumed, losses[half:]))
+    log(f"    checkpointed run: {half} steps + save in {half_s:.1f}s, "
+        f"restore into a fresh model and optimizer {restore_s:.1f}s, "
+        f"bit-equal to the saved state: {same}; resumed to step {end_step} "
+        f"in {resume_s:.1f}s; largest |d|/loss against the uninterrupted "
+        f"run: steps 1-{half} {head:.3g}, resumed steps {half + 1}-{steps} "
+        f"{tail:.3g} (tol {RESUME_RTOL:g}; bit-equal: "
+        f"{[v for _, v in first + resumed] == losses})")
+    require(same, f"{name}: the restored state differs from the saved one")
+    require([s for s, _ in resumed] == list(range(half + 1, steps + 1))
+            and end_step == steps, f"{name}: did not resume at {half}")
+    require(head <= RESUME_RTOL and tail <= RESUME_RTOL,
+            f"{name}: resumed losses differ from the uninterrupted run's")
+    torch.cuda.empty_cache()
+
+
+def trace_train_step(api, params, opt, B, S, steps):
+    """Where a training step's time goes: three steps split on the host
+    clock (a synchronise after each part) into the loss forward, the
+    backward and the AdamW update; then one step under the profiler:
+    device busy time, kernels, the ops with the most device time and K3's
+    share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.synthetic import SyntheticLMData
+    from repro_torch.launch.train import batch_to_torch
+    from repro_torch.optim.adamw import adamw_update, cosine_lr
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    data = SyntheticLMData(api.config, B, S, seed=0)
+
+    def step(i, parts):
+        batch = batch_to_torch(data.batch_at(steps + i), api.device)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        leaves = [t.detach().requires_grad_(True)
+                  for t in tree_leaves(params)]
+        value = api.loss(tree_unflatten(params, leaves), batch)
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        grads = torch.autograd.grad(value, leaves)
+        torch.cuda.synchronize()
+        t2 = time.monotonic()
+        lr = cosine_lr(opt.step, 3e-4, warmup=20, total=100)
+        adamw_update(params, tree_unflatten(params, list(grads)), opt,
+                     lr=lr)
+        torch.cuda.synchronize()
+        t3 = time.monotonic()
+        parts.append((t1 - t0, t2 - t1, t3 - t2))
+
+    parts = []
+    for i in range(3):
+        step(i, parts)
+    f, b, u = (np.median([p[j] for p in parts]) * 1e3 for j in range(3))
+    log(f"    one step split (median of 3, host clock, synchronised): "
+        f"loss forward {f:.1f} ms, backward (remat recompute included) "
+        f"{b:.1f} ms, AdamW update {u:.1f} ms")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        step(3, [])
+        wall = time.monotonic() - t0
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    if busy <= 0:
+        log("    trace: profiler reported no device time (not measured)")
+        return
+    k3 = sum(e.self_device_time_total for e in kern
+             if "gate_up_kernel" in e.key or "down_kernel" in e.key) / 1e3
+    log(f"    trace of one step: wall {wall * 1e3:.1f} ms traced, device "
+        f"busy {busy:.1f} ms in {sum(e.count for e in kern)} kernels, "
+        f"idle share {1 - busy / (wall * 1e3):.3f}; K3 forward kernels "
+        f"{k3:.2f} ms")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"      {e.key[:64]:64s} {e.self_device_time_total / 1e3:8.3f} "
+            f"ms, {e.count} launches")
+
+
+def train_timing_rows(dev, bound):
+    """Phase 5 row of K3 at the training shape (2,048 rows, D=896, F=4,864,
+    bf16) against its bound and three matmuls and silu; the plain-product
+    backward (``fused_ffn_backward``, f32) timed for the record."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.fused_ffn.ops import fused_ffn
+    from repro_torch.kernels.fused_ffn.ref import (fused_ffn_backward,
+                                                   fused_ffn_ref)
+    R, D, Fd = TRAIN_ROWS, TRAIN_D, TRAIN_F
+    (x, wg, wu, wd), _ = k3_inputs(dev, R, D=D, F=Fd)
+    nb = nbytes(x, wg, wu, wd) + R * D * 4
+    b_ms, b_by = bound(nb, 2 * R * D * Fd * 3, torch.bfloat16)
+    var = variants_of(lambda i: k3_inputs(dev, R, seed=i, D=D, F=Fd), nb)
+
+    def lib_ffn(x, wg, wu, wd, act="silu"):
+        return torch.matmul(F.silu(torch.matmul(x, wg))
+                            * torch.matmul(x, wu), wd)
+    lib = {"3x torch.matmul + silu (bf16)": time_ms(lib_ffn, var, 50)}
+    row = ("fused_ffn", f"training: rows={R} D={D} F={Fd} bf16",
+           time_ms(fused_ffn, var, 50), time_ms(fused_ffn_ref, var, 10),
+           b_ms, b_by, lib, host_ms(fused_ffn, var))
+    dout = torch.randn(R, D, device=dev)
+    bwd = [((*a, dout), kw) for a, kw in var[:4]]
+    bwd_ms = time_ms(fused_ffn_backward, bwd, 10)
+    bwd_bound, bwd_by = bound(nb + nbytes(dout) + nbytes(x, wg, wu, wd),
+                              8 * 2 * R * D * Fd, torch.float32)
+    log(f"  K3 backward at the training shape (plain f32 products: gate "
+        f"and up recomputed, 8 products of 2 x {R} x {D} x {Fd}): "
+        f"{bwd_ms * 1e3:.2f} us, bound {bwd_bound * 1e3:.2f} us "
+        f"({bwd_by}, f32 CUDA-core peak)")
+    return [row]
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3381,6 +3782,7 @@ def main() -> int:
     errs = phase_compare(dev)
     phase_compare_recurrent(dev, errs)
     phase_compare_vlm_encdec(dev, errs)
+    phase_compare_train(dev, errs)
     log(f"  phase 2 took {time.monotonic() - t0:.1f}s")
 
     log("phase 3: model parity, full width, 2 layers, f32, cpu vs cuda")
@@ -3396,10 +3798,11 @@ def main() -> int:
     log(f"  phase 3's MoE parity took {time.monotonic() - t0:.1f}s")
     phase_parity_recurrent()
     phase_parity_vlm_encdec()
+    phase_train_parity()
 
     log("phase 4: engine at full qwen2-0.5b, then qwen3-moe (4 layers), "
         "phi3.5-moe (8 layers), Llama-2-7B, mamba2, recurrentgemma, "
-        "internvl2 (8 layers) and whisper (model level)")
+        "internvl2 (8 layers), whisper (model level) and training (s)")
     launches = {"flash_decode": 0, "flash_decode_partial": 0,
                 "fused_ffn": 0, "gemv_int8": 0}
     runs = {}
@@ -3412,6 +3815,9 @@ def main() -> int:
     t1 = time.monotonic()
     phase_engine_vlm_encdec(launches, runs, per_step)
     log(f"  runs (q) and (r) took {time.monotonic() - t1:.1f}s")
+    t1 = time.monotonic()
+    phase_train_run(launches, runs, card)
+    log(f"  run (s) took {time.monotonic() - t1:.1f}s")
     log(f"  main-path launches {launches}; per decode step {per_step}")
     log(f"  phase 4 took {time.monotonic() - t0:.1f}s")
 

@@ -11,9 +11,12 @@ quantization scales and the leaves the reference keeps in float32 whatever
 the compute dtype (an MoE router, the SSD's dt_bias, A_log and D_skip, the
 RG-LRU's lam) in float32. ``kv_cache_from_numpy``,
 ``recurrent_state_from_numpy`` and ``encdec_caches_from_numpy`` do the
-same for a cache, a recurrent state and the enc-dec family's caches.
-Turning a JAX pytree into numpy is the caller's job (the tests' own
-helper); this module imports no JAX.
+same for a cache, a recurrent state and the enc-dec family's caches;
+``adamw_state_from_numpy`` for the reference's optimizer state, and
+``tree_to_numpy`` turns the port's parameters, gradients or optimizer
+state back into the reference's layout (layers stacked), so the two can
+be compared leaf by leaf. Turning a JAX pytree into numpy is the caller's
+job (the tests' own helper); this module imports no JAX.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kv.cache import KVCache
 from repro_torch.kv.state import RecurrentState
 from repro_torch.models.common import dtype_of
+from repro_torch.optim.adamw import AdamWState
 from repro_torch.quant.int8 import QuantizedTensor
 
 
@@ -67,13 +71,57 @@ def _layer(node, i: int):
 def params_from_numpy(tree: Dict[str, Any], cfg,
                       device: DeviceLike = None) -> Dict[str, Any]:
     dev = resolve_device(device)
-    out = _convert(tree, dtype_of(cfg), dev)
+    return _split_layers(_convert(tree, dtype_of(cfg), dev))
+
+
+def _split_layers(out: Dict[str, Any]) -> Dict[str, Any]:
     for name in LAYER_STACKS:
         if name in out:
             stacked = out[name]
             n = _depth(stacked)
             out[name] = [_layer(stacked, i) for i in range(n)]
     return out
+
+
+def adamw_state_from_numpy(tree: Dict[str, Any],
+                           device: DeviceLike = None) -> AdamWState:
+    """The reference's ``AdamWState`` as numpy, {"step", "mu", "nu"} (the
+    moments stacked over layers, float32), -> the port's: the step a 0-d
+    int32 tensor, the moments float32 with the layer lists split."""
+    dev = resolve_device(device)
+    return AdamWState(
+        step=_leaf(np.asarray(tree["step"], np.int32), None, dev),
+        mu=_split_layers(_convert(tree["mu"], torch.float32, dev)),
+        nu=_split_layers(_convert(tree["nu"], torch.float32, dev)))
+
+
+def tree_to_numpy(tree) -> Any:
+    """The port's parameters or optimizer state back to numpy in the
+    reference's layout: each per-layer list stacked on a leading axis,
+    bf16 leaves as float32 (exact), a quantized weight as {"values",
+    "scale"}, an ``AdamWState`` as {"step", "mu", "nu"}. Gradients (a
+    parameter-shaped tree) convert the same way."""
+    if isinstance(tree, AdamWState):
+        return {"step": tree_to_numpy(tree.step),
+                "mu": tree_to_numpy(tree.mu), "nu": tree_to_numpy(tree.nu)}
+    if isinstance(tree, QuantizedTensor):
+        return {"values": tree_to_numpy(tree.values),
+                "scale": tree_to_numpy(tree.scale)}
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return _stack([tree_to_numpy(v) for v in tree])
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return t.numpy()
+
+
+def _stack(layers):
+    if isinstance(layers[0], dict):
+        return {k: _stack([layer[k] for layer in layers])
+                for k in layers[0]}
+    return np.stack(layers)
 
 
 def _depth(node) -> int:

@@ -1,7 +1,12 @@
 """K3 wrapper: the fused gated FFN on CUDA (hand-written kernel) or on the
 CPU (plain version). A CUDA tensor launches the kernel or raises.
 ``ffn_plan`` is the kernel's launch plan (grids, D and F splits, scratch),
-kept in Python so that the CPU tests can check it."""
+kept in Python so that the CPU tests can check it.
+
+Under autograd (an input that requires a gradient, grad mode on) the call
+goes through ``FusedFFN``: the same forward (the kernel on CUDA, the plain
+version on the CPU) and ``ref.fused_ffn_backward``, plain products written
+once for both devices."""
 from __future__ import annotations
 
 import ctypes
@@ -11,7 +16,8 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import CTAS_PER_SM, SMS, build, cdiv, tickets
-from repro_torch.kernels.fused_ffn.ref import activation, fused_ffn_ref
+from repro_torch.kernels.fused_ffn.ref import (activation, fused_ffn_backward,
+                                               fused_ffn_ref)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ACTS = {"silu": 0, "gelu": 1}
@@ -118,9 +124,33 @@ def _lib():
     return lib
 
 
+class FusedFFN(torch.autograd.Function):
+    """K3 with a gradient: the forward of ``fused_ffn``, the backward of
+    ``fused_ffn_backward`` from the saved x and weights."""
+
+    @staticmethod
+    def forward(ctx, x, w_gate, w_up, w_down, act):
+        ctx.save_for_backward(x, w_gate, w_up, w_down)
+        ctx.act = act
+        return _forward(x, w_gate, w_up, w_down, act)
+
+    @staticmethod
+    def backward(ctx, dout):
+        grads = fused_ffn_backward(*ctx.saved_tensors, dout, ctx.act)
+        return (*grads, None)
+
+
 def fused_ffn(x, w_gate, w_up, w_down, act: str = "silu"):
     """x: (R,D); w_gate/w_up: (D,F); w_down: (F,D), one float dtype, all
-    contiguous -> (R,D) f32."""
+    contiguous -> (R,D) f32. Differentiable (``FusedFFN``) where an input
+    requires a gradient."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, w_gate, w_up, w_down)):
+        return FusedFFN.apply(x, w_gate, w_up, w_down, act)
+    return _forward(x, w_gate, w_up, w_down, act)
+
+
+def _forward(x, w_gate, w_up, w_down, act):
     if x.device.type == "cpu":
         return fused_ffn_ref(x, w_gate, w_up, w_down, act)
     if x.device.type != "cuda":

@@ -55,7 +55,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``window`` > 0 the band of keys (q - window, q] (local attention); no
     mask at all for the encoder's and the cross-attention's
     ``causal=False``. q: (B,Sq,Hq,hd); k/v: (B,Sk,Hkv,hd) ->
-    (B,Sq,Hq,hd). Inference only: no backward in this port yet."""
+    (B,Sq,Hq,hd).
+
+    Training differentiates it by autograd, where the reference writes a
+    custom backward (FlashAttention-2 style: the blocks recomputed from
+    the saved log-sum-exp); the gradients are the same function's. The
+    (B,Hkv,G,Sq,Sk) weights are kept for the backward, a block's worth
+    under ``remat``. The max shift carries no gradient: the softmax does
+    not depend on it."""
     B, Sq, Hq, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -70,7 +77,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask = mask & (kpos > qpos - window)
     if causal or window:
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    m = torch.amax(s, dim=-1, keepdim=True)
+    m = torch.amax(s, dim=-1, keepdim=True).detach()
     p = torch.exp(s - m)
     l = p.sum(-1)
     o = _f32_einsum("bkgqt,btkh->bqkgh", p.to(v.dtype), v)

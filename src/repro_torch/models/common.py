@@ -1,6 +1,6 @@
 """Building blocks: initializers, norms, RoPE and sinusoidal positions,
-linear (float or int8 weights), gated activations, embedding and the
-decode unembedding.
+linear (float or int8 weights), gated activations, embedding, the decode
+unembedding, the training loss (chunked cross-entropy) and ``remat``.
 
 Port of ``repro.models.common``. Parameters are nested dicts of tensors.
 JAX's rounding points are kept: every ``linear`` accumulates in f32 and
@@ -14,6 +14,7 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.gemv.ops import gemv_int8_shared
 from repro_torch.quant.int8 import QuantizedTensor, quantize_int8
@@ -174,3 +175,61 @@ def unembed_logits(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         out = torch.mm(x2.to(table.dtype), table.t(),
                        out_dtype=torch.float32)
     return out.reshape(*lead, -1)
+
+
+# ---------------------------------------------------------------------------
+# Training: rematerialisation and the chunked cross-entropy loss
+# ---------------------------------------------------------------------------
+
+def remat(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward pass
+    instead of kept (the reference's ``jax.checkpoint(...,
+    nothing_saveable)`` around each block). Without autograd (serving,
+    ``torch.no_grad``) it is a plain call."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def ce_chunk(S: int, target: int = 512) -> int:
+    """Largest divisor of S that is <= target (vision-token offsets make S
+    no power of two)."""
+    for c in range(min(target, S), 0, -1):
+        if S % c == 0:
+            return c
+    return S
+
+
+def _ce_sum(table: torch.Tensor, xc: torch.Tensor, lc: torch.Tensor
+            ) -> torch.Tensor:
+    """Sum over one chunk of lse - gold: the (B,c,V) logits in f32 of the
+    f32 images of x and the table, as the reference's einsum."""
+    logits = torch.einsum("bcd,vd->bcv", xc.to(torch.float32),
+                          table.to(torch.float32))
+    # the shift only steadies the exponent: it has no gradient (the
+    # reference's flows through max and cancels exactly)
+    m = torch.amax(logits, dim=-1).detach()
+    lse = m + torch.log(torch.sum(torch.exp(logits - m[..., None]), dim=-1))
+    gold = torch.gather(logits, -1, lc.to(torch.long)[..., None])[..., 0]
+    return torch.sum(lse - gold)
+
+
+def chunked_ce_loss(table: torch.Tensor, x: torch.Tensor,
+                    labels: torch.Tensor, chunk: int = 512) -> torch.Tensor:
+    """Mean cross-entropy of x (B,S,D) against the (V,D) table, WITHOUT a
+    (B,S,V) logits tensor: the sequence goes in chunks of ``chunk``
+    positions; each chunk's (B,c,V) f32 logits are reduced to the sum of
+    lse - gold and dropped (and recomputed, under autograd, in the
+    backward: ``remat``). The sums are added in chunk order in f32 and
+    divided by B*S, as the reference's scan does."""
+    B, S, _ = x.shape
+    n = S // chunk
+    if n * chunk != S:
+        raise ValueError(f"chunked_ce_loss: chunk {chunk} does not divide "
+                         f"the sequence {S} (ce_chunk(S) does)")
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        total = total + remat(_ce_sum, table, x[:, sl], labels[:, sl])
+    return total / (B * S)

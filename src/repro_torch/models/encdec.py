@@ -1,9 +1,9 @@
 """Whisper-style encoder-decoder: parameters, encoder, prefill (tokens and
-frames) and the shared-cursor decode step.
+frames), the shared-cursor decode step and the training loss.
 
-Port of the inference part of ``repro.models.encdec``. The conv/mel
-frontend is a stub, as in the reference: the caller passes precomputed
-frame embeddings (B, n_frames, d_model). The encoder is a non-causal stack
+Port of ``repro.models.encdec``. The conv/mel frontend is a stub, as in
+the reference: the caller passes precomputed frame embeddings (B,
+n_frames, d_model). The encoder is a non-causal stack
 over the frames with sinusoidal positions; the decoder a causal stack with
 learned positions, each layer self-attention, then cross-attention to the
 encoder output, then the ungated ``gelu_mlp`` FFN. Layers are Python loops
@@ -104,39 +104,78 @@ def _mha(p, x: torch.Tensor, cfg: ModelConfig, kv_x=None, causal=True
     return common.linear(p["wo"], o.reshape(B, S, hq * hd)), (k, v)
 
 
-def encode(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _enc_block(lp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    y = common.apply_norm(cfg.norm, lp["ln1"], x, cfg.norm_eps)
+    o, _ = _mha(lp["attn"], y, cfg, causal=False)
+    x = x + o
+    y = common.apply_norm(cfg.norm, lp["ln2"], x, cfg.norm_eps)
+    return x + ffn_apply(lp["ffn"], y, cfg)
+
+
+def encode(params, frames: torch.Tensor, cfg: ModelConfig,
+           train: bool = False) -> torch.Tensor:
     """frames: (B,F,D) stub embeddings -> (B,F,D) after the encoder's
-    final norm."""
+    final norm. ``train``: every layer under ``remat``."""
     _, F, D = frames.shape
     x = frames.to(common.dtype_of(cfg))
     x = x + common.sinusoidal_pos(F, D, x.device)[None].to(x.dtype)
     for lp in params["enc_blocks"]:
-        y = common.apply_norm(cfg.norm, lp["ln1"], x, cfg.norm_eps)
-        o, _ = _mha(lp["attn"], y, cfg, causal=False)
-        x = x + o
-        y = common.apply_norm(cfg.norm, lp["ln2"], x, cfg.norm_eps)
-        x = x + ffn_apply(lp["ffn"], y, cfg)
+        x = (common.remat(_enc_block, lp, x, cfg) if train
+             else _enc_block(lp, x, cfg))
     return common.apply_norm(cfg.norm, params["enc_ln_f"], x, cfg.norm_eps)
+
+
+def _dec_block(lp, x: torch.Tensor, enc_out: torch.Tensor,
+               cfg: ModelConfig):
+    """One decoder layer: causal self-attention, cross-attention to the
+    encoder output, the FFN. Returns (x', (k, v) self, (k, v) cross)."""
+    y = common.apply_norm(cfg.norm, lp["ln1"], x, cfg.norm_eps)
+    o, self_kv = _mha(lp["attn"], y, cfg, causal=True)
+    x = x + o
+    y = common.apply_norm(cfg.norm, lp["ln_x"], x, cfg.norm_eps)
+    o, cross_kv = _mha(lp["xattn"], y, cfg, kv_x=enc_out)
+    x = x + o
+    y = common.apply_norm(cfg.norm, lp["ln2"], x, cfg.norm_eps)
+    return x + ffn_apply(lp["ffn"], y, cfg), self_kv, cross_kv
+
+
+def _dec_embed(params, tokens: torch.Tensor) -> torch.Tensor:
+    x = common.embed(params["embed"], tokens)
+    return x + params["pos_embed"][:tokens.shape[1]][None].to(x.dtype)
 
 
 def decode_full(params, tokens: torch.Tensor, enc_out: torch.Tensor,
                 cfg: ModelConfig):
     """The decoder over a whole prompt. tokens: (B,S) -> (hidden (B,S,D)
     after the final norm, per-layer list of ((k, v) self, (k, v) cross))."""
-    x = common.embed(params["embed"], tokens)
-    x = x + params["pos_embed"][:tokens.shape[1]][None].to(x.dtype)
+    x = _dec_embed(params, tokens)
     kvs = []
     for lp in params["dec_blocks"]:
-        y = common.apply_norm(cfg.norm, lp["ln1"], x, cfg.norm_eps)
-        o, self_kv = _mha(lp["attn"], y, cfg, causal=True)
-        x = x + o
-        y = common.apply_norm(cfg.norm, lp["ln_x"], x, cfg.norm_eps)
-        o, cross_kv = _mha(lp["xattn"], y, cfg, kv_x=enc_out)
-        x = x + o
-        y = common.apply_norm(cfg.norm, lp["ln2"], x, cfg.norm_eps)
-        x = x + ffn_apply(lp["ffn"], y, cfg)
+        x, self_kv, cross_kv = _dec_block(lp, x, enc_out, cfg)
         kvs.append((self_kv, cross_kv))
     return common.apply_norm(cfg.norm, params["ln_f"], x, cfg.norm_eps), kvs
+
+
+def decode_train(params, tokens: torch.Tensor, enc_out: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """The reference's ``decode_full(train=True)``: every decoder layer
+    under ``remat``, no K/V kept; the hidden (B,S,D) after the final
+    norm."""
+    x = _dec_embed(params, tokens)
+    for lp in params["dec_blocks"]:
+        x = common.remat(lambda p, h, e: _dec_block(p, h, e, cfg)[0], lp, x,
+                         enc_out)
+    return common.apply_norm(cfg.norm, params["ln_f"], x, cfg.norm_eps)
+
+
+def loss_fn(params, batch, cfg: ModelConfig) -> torch.Tensor:
+    """Encode the batch's frames, decode its tokens, chunked cross-entropy
+    against the embedding table."""
+    enc_out = encode(params, batch["frames"], cfg, train=True)
+    x = decode_train(params, batch["tokens"], enc_out, cfg)
+    return common.chunked_ce_loss(params["embed"]["table"], x,
+                                  batch["labels"],
+                                  chunk=common.ce_chunk(x.shape[1]))
 
 
 # ---------------------------------------------------------------------------

@@ -130,18 +130,24 @@ def combine(eo: torch.Tensor, order: torch.Tensor, slot: torch.Tensor,
     return contrib.view(T, K, -1).sum(1)
 
 
-def moe_ffn(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """x: (B,S,D) -> (B,S,D) in x's dtype. The reference also returns the
-    load-balance loss, a training term that serving drops: training calls
-    ``load_balance_loss`` on ``route``'s outputs itself."""
+def moe_ffn(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+            train: bool = False):
+    """x: (B,S,D) -> (B,S,D) in x's dtype; with ``train``, (out, the f32
+    load-balance loss), as the reference returns them. Serving drops the
+    loss and does not compute it. Under autograd the gradients flow
+    through the gates (top-k values of the softmax) and the kept tokens'
+    copies; a dropped assignment contributes nothing, as in the
+    reference."""
     m = cfg.moe
     B, S, D = x.shape
     T = B * S
     K, E = m.experts_per_token, m.num_experts
     C = capacity(T, cfg)
     xf = x.reshape(T, D)
-    _, gate_vals, gate_idx = route(p, xf, K)
+    probs, gate_vals, gate_idx = route(p, xf, K)
     order, slot, keep = dispatch(gate_idx, E, C)
     eo = expert_products(p, gather_tokens(xf, order, slot, K, E, C), cfg)
-    out = combine(eo, order, slot, keep, gate_vals)
-    return out.reshape(B, S, D)
+    out = combine(eo, order, slot, keep, gate_vals).reshape(B, S, D)
+    if train:
+        return out, load_balance_loss(probs, gate_idx, E)
+    return out

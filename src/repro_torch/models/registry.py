@@ -3,12 +3,12 @@
 Port of ``repro.models.registry`` for every family of the reference: the
 transformer (dense, MoE and the VLM backbone), SSM (Mamba-2), hybrid
 (RecurrentGemma) and enc-dec (Whisper): the fields the serving engine uses
-(continuous and drain, colocated and WA), ``make_decode_block`` and
-``count_params``. As in the reference, the slotted fields are None for a
-family that serves in drain mode only (the hybrid) or has no slotted API
-(the enc-dec family, whose ``prefill`` also takes frames: the engine
-refuses it); the VLM has no chunk lane (its prompts put vision embeddings
-before the text) and no WA backend.
+(continuous and drain, colocated and WA), the training ``loss``,
+``make_decode_block`` and ``count_params``. As in the reference, the
+slotted fields are None for a family that serves in drain mode only (the
+hybrid) or has no slotted API (the enc-dec family, whose ``prefill`` also
+takes frames: the engine refuses it); the VLM has no chunk lane (its
+prompts put vision embeddings before the text) and no WA backend.
 Sharding contexts are gone (one device per engine in this slice).
 """
 from __future__ import annotations
@@ -64,6 +64,11 @@ class ModelAPI(NamedTuple):
     # the family's KV decouples from its weights, so the WA backend
     # (``core/wa.py``) can serve it
     wa_servable: bool = False
+    # loss(params, batch) -> f32 scalar: the family's training loss
+    #   (chunked cross-entropy; + 0.01 x the MoE aux loss), blocks under
+    #   remat; ``batch`` holds tokens and labels (B,S), plus the VLM's
+    #   vision_embeds (B,N,D) or the enc-dec family's frames (B,F,D)
+    loss: Optional[Callable] = None
 
 
 def make_decode_block(decode_slotted: Callable) -> Callable:
@@ -147,7 +152,8 @@ def _build_transformer(cfg: ModelConfig, device: torch.device) -> ModelAPI:
                     write_slot_kv, reset_slot,
                     make_decode_block(decode_slotted),
                     None if is_vlm else prefill_chunk,
-                    wa_servable=not is_vlm)
+                    wa_servable=not is_vlm,
+                    loss=lambda params, batch: T.loss_fn(params, batch, cfg))
 
 
 def _build_ssm(cfg: ModelConfig, device: torch.device) -> ModelAPI:
@@ -174,7 +180,8 @@ def _build_ssm(cfg: ModelConfig, device: torch.device) -> ModelAPI:
         lambda batch, max_len, device=device: S.make_state(cfg, batch,
                                                            device),
         decode_slotted, write_slot_tree, reset_slot_tree,
-        make_decode_block(decode_slotted), prefill_chunk)
+        make_decode_block(decode_slotted), prefill_chunk,
+        loss=lambda params, batch: S.loss_fn(params, batch, cfg))
 
 
 def _build_hybrid(cfg: ModelConfig, device: torch.device) -> ModelAPI:
@@ -191,7 +198,8 @@ def _build_hybrid(cfg: ModelConfig, device: torch.device) -> ModelAPI:
         lambda params, caches, tokens: R.decode_step(params, caches, tokens,
                                                      cfg),
         lambda batch, max_len, device=device: R.make_caches(cfg, batch,
-                                                            max_len, device))
+                                                            max_len, device),
+        loss=lambda params, batch: R.loss_fn(params, batch, cfg))
 
 
 def _build_encdec(cfg: ModelConfig, device: torch.device) -> ModelAPI:
@@ -207,7 +215,8 @@ def _build_encdec(cfg: ModelConfig, device: torch.device) -> ModelAPI:
         lambda params, caches, tokens: E.decode_step(params, caches, tokens,
                                                      cfg),
         lambda batch, max_len, device=device: E.make_caches(cfg, batch,
-                                                            max_len, device))
+                                                            max_len, device),
+        loss=lambda params, batch: E.loss_fn(params, batch, cfg))
 
 
 def build_model(cfg: ModelConfig, device: DeviceLike = None) -> ModelAPI:

@@ -1,6 +1,6 @@
 """RecurrentGemma / Griffin hybrid: RG-LRU recurrent blocks interleaved with
 local (sliding-window) attention, pattern (R, R, A) repeating. The port of
-the inference part of ``repro.models.rglru``.
+``repro.models.rglru`` (inference, and the training forward and loss).
 
 The local attention layers keep a ring KV cache of min(window, max_len)
 slots (``kv/cache.py``); the RG-LRU layers an O(1) state
@@ -30,7 +30,8 @@ from repro_torch.kv.cache import init_kv_cache
 from repro_torch.kv.state import causal_conv, conv_step, init_rglru_state
 from repro_torch.models import common
 from repro_torch.models.transformer import (block_decode, block_full_seq,
-                                            ffn_apply, make_block_params,
+                                            block_train, ffn_apply,
+                                            make_block_params,
                                             make_ffn_params, write_prefill)
 
 C_RGLRU = 8.0
@@ -208,6 +209,38 @@ def _mix_residual(p, h, cfg, state=None):
     h = h + mix
     y = common.apply_norm(cfg.norm, p["ln2"], h, cfg.norm_eps)
     return h + ffn_apply(p["ffn"], y, cfg), new
+
+
+def forward_train(params, tokens: torch.Tensor, cfg: ModelConfig
+                  ) -> torch.Tensor:
+    """Training forward (the reference's ``forward_hidden(train=True)``):
+    each superblock (two RG-LRU residual blocks, then local attention over
+    the window's band) and each tail block under ``remat``; the hidden
+    (B,S,D) after the final norm."""
+    x = _embed(params, tokens, cfg)
+    B, S = tokens.shape
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device)[None].expand(B, S)
+
+    def superblock(sp, h):
+        h = _mix_residual(sp["r1"], h, cfg)[0]
+        h = _mix_residual(sp["r2"], h, cfg)[0]
+        return block_train(sp["attn"], h, cfg, positions,
+                           window=cfg.rglru.window)[0]
+
+    for sp in params["super"]:
+        x = common.remat(superblock, sp, x)
+    for tp in params.get("tail", []):
+        x = common.remat(lambda p, h: _mix_residual(p, h, cfg)[0], tp, x)
+    return common.apply_norm(cfg.norm, params["ln_f"], x, cfg.norm_eps)
+
+
+def loss_fn(params, batch, cfg: ModelConfig) -> torch.Tensor:
+    """Chunked cross-entropy against the embedding table."""
+    x = forward_train(params, batch["tokens"], cfg)
+    return common.chunked_ce_loss(params["embed"]["table"], x,
+                                  batch["labels"],
+                                  chunk=common.ce_chunk(x.shape[1]))
 
 
 def make_caches(cfg: ModelConfig, batch: int, max_len: int, device=None):

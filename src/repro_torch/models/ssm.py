@@ -1,5 +1,5 @@
-"""Mamba-2 (SSD, state-space duality) blocks: the port of the inference
-part of ``repro.models.ssm``.
+"""Mamba-2 (SSD, state-space duality) blocks: the port of
+``repro.models.ssm`` (inference, and the training forward and loss).
 
 Attention-free: the decode state is O(1) in the context. Prefill runs the
 chunked SSD algorithm (the quadratic form inside a chunk, a scan of the
@@ -17,6 +17,7 @@ PLACE (``kv/state.py``); ``jnp.repeat(..., axis)`` is ``repeat_interleave``.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -112,8 +113,13 @@ def ssd_full_seq(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     CB = torch.einsum("bcqgn,bcsgn->bcgqs", Cm, Bm)       # (B,nc,G,Q,Q)
     CBh = _rep(CB, nh // G, 2)                            # (B,nc,nh,Q,Q)
     Lt = L.permute(0, 1, 3, 2)                            # (B,nc,nh,Q)
-    decay = torch.exp(Lt[..., :, None] - Lt[..., None, :])
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    # the exponent masked BEFORE exp: above the diagonal L_t - L_s > 0 can
+    # overflow to inf, and inf x the masked zero gradient is a NaN in the
+    # backward (the reference masks after exp; its forward values are these)
+    decay = torch.exp(torch.where(tri, Lt[..., :, None] - Lt[..., None, :],
+                                  torch.full((), -math.inf,
+                                             device=x.device)))
     M = torch.where(tri, CBh * decay, torch.zeros((), device=x.device))
     M = M * dtc.permute(0, 1, 3, 2)[:, :, :, None, :]
     y_intra = torch.einsum("bchqs,bcshp->bcqhp", M, xh)
@@ -266,6 +272,29 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
                    for _ in range(cfg.n_layers)],
         "ln_f": common.make_norm(cfg.norm, cfg.d_model, dt, dev),
     }
+
+
+def forward_train(params, tokens: torch.Tensor, cfg: ModelConfig
+                  ) -> torch.Tensor:
+    """Training forward (the reference's ``forward_hidden(train=True)``):
+    every block (norm, SSD, residual) under ``remat``; the hidden (B,S,D)
+    after the final norm."""
+    def block(lp, h):
+        y = common.apply_norm(cfg.norm, lp["ln"], h, cfg.norm_eps)
+        return h + ssd_full_seq(lp["ssd"], y, cfg)
+
+    h = common.embed(params["embed"], tokens)
+    for lp in params["blocks"]:
+        h = common.remat(block, lp, h)
+    return common.apply_norm(cfg.norm, params["ln_f"], h, cfg.norm_eps)
+
+
+def loss_fn(params, batch, cfg: ModelConfig) -> torch.Tensor:
+    """Chunked cross-entropy against the embedding table (no aux term)."""
+    x = forward_train(params, batch["tokens"], cfg)
+    return common.chunked_ce_loss(params["embed"]["table"], x,
+                                  batch["labels"],
+                                  chunk=common.ce_chunk(x.shape[1]))
 
 
 def _logits(params, x, cfg):

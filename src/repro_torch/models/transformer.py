@@ -3,12 +3,14 @@ prefill, shared-cursor and slotted decode (sequential or split-KV) and
 chunked prefill; and the hybrid family's local-attention block over a ring
 cache (banded prefill, ``block_decode`` at the shared cursor).
 
-Port of the inference part of ``repro.models.transformer``. The
-reference's layer ``lax.scan`` over stacked parameters becomes a Python
-loop over the per-layer parameter dicts of ``params["blocks"]``; caches are
-updated in place (see ``repro_torch.kv.cache``). On CUDA the decode path
-launches K1 (attention over the stored bucket view, int8 dequantized inside
-the kernel; over a tiered cache, over the hot/cold image resolved in the
+Port of ``repro.models.transformer``: inference, and training
+(``forward_train`` and ``loss_fn``: every block rematerialised, K3 with
+its gradient in the dense FFN). The reference's layer ``lax.scan`` over
+stacked parameters becomes a Python loop over the per-layer parameter
+dicts of ``params["blocks"]``; caches are updated in place (see
+``repro_torch.kv.cache``). On CUDA the decode path launches K1
+(attention over the stored bucket view, int8 dequantized inside the
+kernel; over a tiered cache, over the hot/cold image resolved in the
 compute dtype), K3 (the dense gated FFN with float weights) and K4 (every
 linear with int8 weights). The ungated ``gelu_mlp`` FFN (whisper's) has no
 kernel in the reference (two ``jnp.einsum``s): with float weights it is
@@ -152,14 +154,12 @@ def _mix_ffn(p, x, cfg):
     return x + ffn_apply(p["ffn"], h, cfg)
 
 
-def block_full_seq(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                   positions: torch.Tensor,
-                   kv_quant_roundtrip: bool = False, window: int = 0):
-    """Full-sequence block (prefill). x: (B,S,D) -> (x', (k, v)).
-    ``kv_quant_roundtrip`` (int8-KV prefill): attend the quantize ->
-    dequantize image of K/V, the values the cache will hold; the original
-    K/V still go to the caller. ``window`` > 0: local attention over the
-    band (q - window, q]."""
+def _attention_full_seq(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                        positions: torch.Tensor, kv_quant_roundtrip: bool,
+                        window: int):
+    """The attention half of a full-sequence block: ln1, QKV, causal
+    attention (banded when ``window`` > 0), the output projection and the
+    residual. Returns (x', k, v)."""
     h = common.apply_norm(cfg.norm, p["ln1"], x, cfg.norm_eps)
     q, k, v = qkv_project(p["attn"], h, cfg, positions)
     k_att, v_att = k, v
@@ -168,7 +168,34 @@ def block_full_seq(p: dict, x: torch.Tensor, cfg: ModelConfig,
         v_att = dequantize_kv(*quantize_kv(v), dtype=v.dtype)
     o = flash_attention(q, k_att, v_att, window)
     o = common.linear(p["attn"]["wo"], o.reshape(x.shape[0], x.shape[1], -1))
-    return _mix_ffn(p, x + o, cfg), (k, v)
+    return x + o, k, v
+
+
+def block_full_seq(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                   positions: torch.Tensor,
+                   kv_quant_roundtrip: bool = False, window: int = 0):
+    """Full-sequence block (prefill). x: (B,S,D) -> (x', (k, v)).
+    ``kv_quant_roundtrip`` (int8-KV prefill): attend the quantize ->
+    dequantize image of K/V, the values the cache will hold; the original
+    K/V still go to the caller. ``window`` > 0: local attention over the
+    band (q - window, q]."""
+    x, k, v = _attention_full_seq(p, x, cfg, positions, kv_quant_roundtrip,
+                                  window)
+    return _mix_ffn(p, x, cfg), (k, v)
+
+
+def block_train(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                positions: torch.Tensor, window: int = 0):
+    """Training block (the reference's ``block_full_seq(train=True)``): no
+    K/V leave it and no int8-KV roundtrip. x: (B,S,D) -> (x', aux), aux
+    the MoE load-balance loss (0 for a dense FFN), f32."""
+    x, _, _ = _attention_full_seq(p, x, cfg, positions, False, window)
+    h = common.apply_norm(cfg.norm, p["ln2"], x, cfg.norm_eps)
+    if cfg.moe is not None:
+        f, aux = moe_ffn(p["moe"], h, cfg, train=True)
+        return x + f, aux
+    return x + ffn_apply(p["ffn"], h, cfg), torch.zeros(
+        (), dtype=torch.float32, device=x.device)
 
 
 def pre_attention(p: dict, x: torch.Tensor, positions: torch.Tensor,
@@ -371,7 +398,7 @@ def embed_tokens(params, tokens: torch.Tensor, positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Full-sequence forward (prefill, inference only)
+# Full-sequence forward (prefill)
 # ---------------------------------------------------------------------------
 
 def forward_hidden(params, tokens: torch.Tensor, cfg: ModelConfig,
@@ -395,6 +422,44 @@ def forward_hidden(params, tokens: torch.Tensor, cfg: ModelConfig,
                                kv_quant_roundtrip=roundtrip)
         kvs.append(kv)
     return common.apply_norm(cfg.norm, params["ln_f"], x, cfg.norm_eps), kvs
+
+
+# ---------------------------------------------------------------------------
+# Training forward and loss
+# ---------------------------------------------------------------------------
+
+def forward_train(params, tokens: torch.Tensor, cfg: ModelConfig,
+                  vision_embeds=None):
+    """Training forward (the reference's ``forward_hidden(train=True)``):
+    the vision embeddings, if any, before the text, learned positions where
+    the config has them, every block under ``remat``. Returns (hidden
+    (B,S,D) after the final norm, the f32 aux loss summed over layers)."""
+    x = common.embed(params["embed"], tokens)
+    if vision_embeds is not None:
+        x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device)[None].expand(B, S)
+    x = add_learned_pos(params, x, positions[0], cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp in params["blocks"]:
+        x, a = common.remat(block_train, lp, x, cfg, positions)
+        aux = aux + a
+    return common.apply_norm(cfg.norm, params["ln_f"], x, cfg.norm_eps), aux
+
+
+def loss_fn(params, batch, cfg: ModelConfig) -> torch.Tensor:
+    """``batch``: tokens and labels (B,S) (and the VLM's vision_embeds
+    (B,N,D)). Chunked cross-entropy over the text positions plus 0.01 x
+    the aux loss, as the reference's ``loss_fn``."""
+    vis = batch.get("vision_embeds")
+    x, aux = forward_train(params, batch["tokens"], cfg, vis)
+    if vis is not None:
+        x = x[:, vis.shape[1]:]                  # loss over text positions
+    ce = common.chunked_ce_loss(unembed_table(params, cfg), x,
+                                batch["labels"],
+                                chunk=common.ce_chunk(x.shape[1]))
+    return ce + 0.01 * aux
 
 
 def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, cache: KVCache,
