@@ -82,7 +82,8 @@ phases; any failure exits non-zero before the result line:
    loss within 1e-5 relative, each leaf within 1e-3 of its largest
    magnitude plus 1e-5 of the largest gradient;
 4. the serving engine at full qwen2-0.5b width (24 layers; runs (b),
-   (e)-(h), (j) and (k) cut to 12 to keep the script's time; seeded random
+   (f), (h), (j) and (k) cut to 12, (e) and (g) to 8, to keep the script's
+   time; seeded random
    bf16 weights): (a) chunked admission + macro-step decode + KV buckets,
    (b) int8 weights and int8 KV with monolithic admission, (c) per-token
    decode, (d) drain mode (batch prefill of 8 x 128, shared-cursor
@@ -121,7 +122,7 @@ phases; any failure exits non-zero before the result line:
    deployment (16 of 32 layers) on (b)'s plan; each must complete, launch
    exactly its path's kernels (no K3 in any) and make its twin run's
    host syncs; one decode block of (l) and (n) is traced; then the
-   recurrent families at full width: (o) mamba2-1.3b (24 of 48 layers)
+   recurrent families at full width: (o) mamba2-1.3b (12 of 48 layers)
    on (a)'s plan, which must complete, launch no kernel of the port (the
    counts stay 0: the SSD has none), make the host syncs of the same plan
    served on the CPU and register one decode-block program (no buckets),
@@ -148,6 +149,25 @@ phases; any failure exits non-zero before the result line:
    then 10 steps with a checkpoint at step 10, restored into a fresh
    model and optimizer bit for bit, and the job resumed from it to step
    20 with the uninterrupted run's losses within 1e-6 (relative);
+4b. serving on a (1, 2) ("data", "model") mesh of two ranks sharing the
+   card over gloo (``repro_torch.launch.mesh.launch``; the kernels built
+   above, the ranks load them), llama3.2-3b at full width: (t) at 8 of 28
+   layers, f32 weights and KV under sub_operator, a prefill of 2 x 64
+   and 16 greedy decode steps, whose tokens must equal the same weights
+   unsharded on the card and whose logits must agree within 1e-4 of
+   max|logit|, K1 and K3 launched on both ranks (12 query heads over 4 KV
+   heads of 128, half of F); (u) at 4 of 28 layers, int8 weights and KV
+   through the engine (``ctx=``) in continuous mode on (a)'s plan,
+   sub_operator then operator_centric: the two executors' streams must be
+   equal, the requests whose stream differs from the unsharded engine's
+   (served once, on rank 0) are counted and replayed
+   teacher-forced, within 2e-2 of max|logit| at every step, K1 and K4 on
+   both ranks; each executor's collective bytes per token step and TPOT
+   are printed; (v) WA ``device_put`` on a (2, 1) mesh, W on rank 0 and A
+   on rank 1, 8 layers: 4 staggered slotted steps equal colocated within
+   1e-4 (K3 on W, K1 on A); every rank resets the launch counts before
+   each run and reports them (phase 2 holds K1, K3 and K4 at one rank's
+   shapes of these runs against their plain versions);
 5. time each kernel at the main path's shapes (K1 at B=8 over S=200 and
    at a long context of S=4096, bf16 and int8 KV, in partial mode at one
    shard of 48, the whole split attention of a layer at bucket 192 and the
@@ -156,7 +176,8 @@ phases; any failure exits non-zero before the result line:
    for the four projection shapes) against its bound, its plain version
    and PyTorch calls for the same function (K1: SDPA with ``enable_gqa``;
    K3: three matmuls and silu; K4: a bf16 matmul on dequantized weights
-   and ``torch._int_mm``), the tiered append of a layer, a W->A->W hop
+   and ``torch._int_mm``), K1, K3 and K4 at one mesh rank's shapes of
+   phase 4b, the tiered append of a layer, a W->A->W hop
    pair of the WA backend against one colocated layer-step, and two spin
    kernels on one stream against one on each; then K1 at G=16 (S=200 and
    4096), K4 at the Llama projections and K3 at Llama-2-7B's FFN, an
@@ -357,12 +378,18 @@ def k3_inputs(dev, R, seed=0, D=896, F=4864, dtype=torch.bfloat16):
     return (x, *ws), dict(act="silu")
 
 
-def k4_inputs(dev, R, K, N, seed=0):
+def k4_inputs(dev, R, K, N, seed=0, unit=False):
+    """K4's operands: int8 rows and weights with their f32 scales, or
+    (``unit``) with scales of one, as a row-parallel layer on a mesh
+    launches it (``common.linear_partial``)."""
     from repro_torch.quant.int8 import quantize_int8
     g = torch.Generator(device=dev).manual_seed(seed)
     xq = quantize_int8(torch.randn(R, K, device=dev, generator=g), axis=-1)
     wq = quantize_int8(torch.randn(K, N, device=dev, generator=g), axis=0)
-    return (xq.values, xq.scale, wq.values, wq.scale.reshape(1, -1)), {}
+    xs, ws = xq.scale, wq.scale.reshape(1, -1)
+    if unit:
+        xs, ws = torch.ones_like(xs), torch.ones_like(ws)
+    return (xq.values, xs, wq.values, ws), {}
 
 
 def max_err(got, want) -> float:
@@ -411,6 +438,14 @@ def phase_compare(dev):
     cases += [(S, B, pair, Hq, n_kv, 128) for S in (1, *buckets, 4096)
               for B in (1, 8) for Hq, n_kv in ((24, 8), (32, 32))
               for pair in K1_PAIRS[2:]]
+    # one rank of phase 4b (llama3.2-3b on a 2-wide model axis: 12 query
+    # heads over 4 KV heads of 128): run (t)'s decode (B=2, f32 q and KV,
+    # the cache's 192 positions live up to 80, as phase 5 times it at 80)
+    # and run (u)'s (B=8, bf16 q, int8 KV, the buckets 64-200)
+    cases += [(S, B, pair, 12, 4, 128)
+              for B, S_all, pairs in ((2, (1, 64, 80, 192), K1_PAIRS[:1]),
+                                      (8, buckets, K1_PAIRS[3:]))
+              for S in S_all for pair in pairs]
     for S, B, pair, Hq, n_kv, hd in cases:
         isz = torch.empty(0, dtype=getattr(torch, pair[1])).element_size()
         plan = decode_plan(B, n_kv, Hq // n_kv, S, hd, isz)
@@ -483,6 +518,11 @@ def phase_compare(dev):
                  for R in (1, 8, 16, 17, 32, 128, 1024)]
     ffn_cases += [(4096, 11008, torch.bfloat16, R) for R in (8, 32, 128,
                                                              1024)]
+    # phase 4b's run (t): llama3.2-3b in f32 on one rank's half of F and
+    # unsharded, at its decode rows (2), a 16-row tile and its prefill
+    # rows (2 x 64 = 128)
+    ffn_cases += [(3072, F, torch.float32, R) for F in (4096, 8192)
+                  for R in (2, 16, 128)]
     for D, F, dtype, R in ffn_cases:
         args, _ = k3_inputs(dev, R, seed=R + D, D=D, F=F, dtype=dtype)
         for act in ("silu", "gelu"):
@@ -505,21 +545,32 @@ def phase_compare(dev):
     gemv_cases = [(K, N, R) for K in (100, 896, 4864)
                   for N in (128, 130, 896, 4864)
                   for R in (1, 2, 4, 8, 9, 17, 128)]
-    gemv_cases += [(K, N, R) for K, N in ((4096, 4096), (4096, 1024),
-                                          (4096, 11008), (11008, 4096),
-                                          (3072, 8192))
+    gemv_cases = [(K, N, R, False) for K, N, R in gemv_cases]
+    gemv_cases += [(K, N, R, False) for K, N in ((4096, 4096), (4096, 1024),
+                                                 (4096, 11008), (11008, 4096),
+                                                 (3072, 8192))
                    for R in (1, 2, 4, 8, 16, 32, 64, 128)]
-    for K, N, R in gemv_cases:
-        args, _ = k4_inputs(dev, R, K, N, seed=K + N + R)
+    # one rank of phase 4b's run (u) (llama3.2-3b int8 on a 2-wide model
+    # axis): wq 3072x1536, wk/wv 3072x512, gate/up 3072x4096 (real
+    # scales) and the row-parallel wo 1536x3072 and w_down 4096x3072 (unit
+    # scales: the rank's integer accumulator, scaled after the reduction),
+    # each both ways, at its decode rows (8) and a prefill chunk (32)
+    gemv_cases += [(K, N, R, unit)
+                   for K, N in ((3072, 1536), (3072, 512), (1536, 3072),
+                                (3072, 4096), (4096, 3072))
+                   for R in (8, 32) for unit in (False, True)]
+    for K, N, R, unit in gemv_cases:
+        args, _ = k4_inputs(dev, R, K, N, seed=K + N + R, unit=unit)
         got, want = gemv_int8_q(*args), gemv_int8_ref(*args)
         e = max_err(got, want)
         exact = torch.equal(got, want)
         same = torch.equal(gemv_int8_q(*args), got)
         errs["gemv_int8"] = max(errs["gemv_int8"], e)
-        log(f"  K4 K={K} N={N} rows={R}: max|d|={e:.3g} (tol 0, "
+        how = " unit scales" if unit else ""
+        log(f"  K4 K={K} N={N} rows={R}{how}: max|d|={e:.3g} (tol 0, "
             f"exact={exact}, repeat identical={same})")
-        require(exact, f"K4 not exact at {K}x{N} rows={R}")
-        require(same, f"K4 not deterministic at {K}x{N} rows={R}")
+        require(exact, f"K4 not exact at {K}x{N} rows={R}{how}")
+        require(same, f"K4 not deterministic at {K}x{N} rows={R}{how}")
     torch.cuda.synchronize()
     return errs
 
@@ -1169,6 +1220,10 @@ def phase_moe_parity():
 # runs (b), (e)-(h), (j) and (k) and the WA block walls at half of
 # qwen2-0.5b's 24 layers
 SHORT = dict(n_layers=12)
+# runs (e) and (g) at a third (8 layers) since the mesh phase 4b joined the
+# script: their checks are their plan's host syncs, equal to (a)'s at any
+# depth, and no stream is compared across depths
+SHORTER = dict(n_layers=8)
 RUNS = {
     # name: (config overrides, engine kwargs, n_requests, max_new, kernels)
     "a_bf16_chunked_T8": (
@@ -1187,7 +1242,7 @@ RUNS = {
     # cut to 12 of 24 layers (SHORT), as are (f) and (h): the other
     # configurations' runs below take their time
     "e_int8kv_split4_chunked_T8": (
-        dict(kv_dtype="int8", **SHORT),
+        dict(kv_dtype="int8", **SHORTER),
         dict(block_size=8, kv_bucket_chunk=64, prefill_chunk=32,
              max_new_cap=72, a_shards=4), 12, 64,
         ("flash_decode", "flash_decode_partial", "fused_ffn")),
@@ -1196,7 +1251,7 @@ RUNS = {
     # training run (s) joined the script (its host syncs are the plan's,
     # equal to (a)'s at any depth)
     "g_tiered_int4_chunked_T8": (
-        dict(kv_cold_dtype="int4", **G_TIERS, **SHORT),
+        dict(kv_cold_dtype="int4", **G_TIERS, **SHORTER),
         dict(block_size=8, kv_bucket_chunk=64, prefill_chunk=32,
              max_new_cap=72), 12, 64, ("flash_decode", "fused_ffn")),
     # runs (a) and (b) through the WA backend: QKV/FFN on the current
@@ -2203,6 +2258,7 @@ def phase_timing(dev, launches, runs, per_step, errs):
     rows += recurrent_timing_rows(dev, bound, sdpa_args)
     rows += vlm_encdec_timing_rows(dev, bound, sdpa_args)
     rows += train_timing_rows(dev, bound)
+    rows += mesh_timing_rows(dev, bound, sdpa_args)
     for name, shape, ms, plain, b_ms, b_by, lib, host in rows:
         libs = ", ".join(("not measured" if v is None else
                           f"{v * 1e3:.2f} us") + f" ({k})"
@@ -2672,7 +2728,7 @@ def phase_parity_recurrent():
         f"{time.monotonic() - t0:.1f}s")
 
 
-# phase 4's recurrent runs: (o) mamba2 at full width, 24 of 48 layers, on
+# phase 4's recurrent runs: (o) mamba2 at full width, 12 of 48 layers, on
 # (a)'s plan (no port kernel: the SSD has none, the reference never quantizes
 # its projections); (p) recurrentgemma at full width and depth, mode
 # "auto", which resolves to drain (no slotted API), 8 slots, prompt 128,
@@ -2681,9 +2737,9 @@ def phase_parity_recurrent():
 RECURRENT_RUNS = {
     # name: (arch, config overrides, engine kwargs, n_requests, max_new,
     #        kernels); (o) at 24 of mamba2's 48 layers since the training
-    # run (s) joined the script
+    # run (s) joined the script, 12 since the mesh phase 4b did
     "o_mamba2_chunked_T8": (
-        "mamba2-1.3b", dict(n_layers=24), RUNS["a_bf16_chunked_T8"][1], 12,
+        "mamba2-1.3b", dict(n_layers=12), RUNS["a_bf16_chunked_T8"][1], 12,
         64, ()),
     "p_recurrentgemma_auto_drain": (
         "recurrentgemma-9b", {}, dict(mode="auto", max_new_cap=72), 12, 32,
@@ -3754,6 +3810,427 @@ def _leaves(tree):
         yield tree
 
 
+# ---------------------------------------------------------------------------
+# phase 4b: serving on a mesh of two ranks sharing the card (gloo)
+# ---------------------------------------------------------------------------
+
+# llama3.2-3b (the paper's deployment) at full width, 8 of its 28 layers
+# in runs (t) and (v), 4 in run (u) (MESH_U_LAYERS):
+# at (1, 2) each rank holds 12 of 24 query heads over 4 of 8 KV heads (G=3,
+# hd 128), half of F=8192 and half of the vocabulary rows
+MESH_ARCH, MESH_LAYERS = "llama3.2-3b", 8
+MESH_PROMPT, MESH_STEPS, MESH_B = 64, 16, 2
+# run (u): run (a)'s plan (8 slots, prompt 128, 12 requests every 4 steps,
+# 64 new tokens, blocks of 8, buckets of 64, chunks of 32), at 4 of the 28
+# layers: its time is the gloo collectives between two time-sliced ranks
+# (a few ms each, six a layer a token step), which grows with the depth
+MESH_U = dict(block_size=8, kv_bucket_chunk=64, prefill_chunk=32,
+              max_new_cap=72)
+MESH_U_LAYERS = 4
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _mesh_f32(cfg):
+    return cfg.replace(n_layers=MESH_LAYERS, weight_int8=False,
+                       kv_dtype="float32", dtype="float32")
+
+
+def _mesh_run_t(mesh, full, cfg):
+    """Run (t): prefill and MESH_STEPS greedy decode steps under
+    sub_operator on (1, 2); rank 0 also runs the same weights unsharded.
+    Returns the rank's launch counts, its check and the logits error."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.param_specs import shard_params
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.sharding import ShardingCtx, sub_operator
+    dev = mesh.device
+    ctx = ShardingCtx(mesh, sub_operator())
+    api = build_model(cfg, dev, ctx)
+    params = shard_params(full, ctx)
+    g = torch.Generator(device=dev).manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (MESH_B, MESH_PROMPT),
+                         device=dev, generator=g)
+
+    def drive(api, params, gather):
+        cache, lg = api.prefill(params, toks)
+        outs, tok = [gather(lg[:, -1])], api.greedy(lg[:, -1])
+        seq = [tok]
+        for _ in range(MESH_STEPS):
+            cache, lg = api.decode(params, cache, tok)
+            outs.append(gather(lg[:, -1]))
+            tok = api.greedy(lg[:, -1])
+            seq.append(tok)
+        return torch.stack(outs), torch.stack(seq)
+    _sync(dev)
+    reset_launch_counts()
+    got, got_tok = drive(api, params, api.full_logits)
+    _sync(dev)
+    counts = launch_counts()
+    res = {"counts": counts}
+    if mesh.rank == 0:
+        api1 = build_model(cfg, dev)
+        want, want_tok = drive(api1, full, lambda x: x)
+        err = float((got - want).abs().max())
+        res.update(tokens_equal=bool(torch.equal(got_tok, want_tok)),
+                   err=err, scale=float(want.abs().max()))
+    return res
+
+
+def _mesh_run_u(mesh, cfg, executor, full, dev):
+    """Run (u): the engine in continuous mode on run (a)'s plan, int8
+    weights and KV, under ``executor`` on (1, 2)."""
+    from repro_torch.core.execution import make_rules
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models.param_specs import shard_params
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.sharding import ShardingCtx
+    from repro_torch.runtime.serving import ServingEngine
+    ctx = ShardingCtx(mesh, make_rules(executor, mesh)) if mesh else None
+    params = shard_params(full, ctx) if ctx else full
+    reqs = make_requests(cfg, 12, 128, 64, seed=0, arrival_every=4)
+    eng = ServingEngine(build_model(cfg, dev), 8, 128, device=dev, ctx=ctx,
+                        **MESH_U)
+    _sync(dev)
+    reset_launch_counts()
+    t0 = time.monotonic()
+    st = eng.run(params, reqs)
+    _sync(dev)
+    wall = time.monotonic() - t0
+    steps = st["macro_steps"] * MESH_U["block_size"]
+    out = {"counts": launch_counts(), "streams": [r.generated for r in reqs],
+           "completed": st["completed"], "host_syncs": st["host_syncs"],
+           "tpot_mean_ms": st["tpot_mean_ms"], "wall_s": wall,
+           "token_steps": steps}
+    if ctx:
+        m = st["mesh"]
+        out.update(bytes_per_token_step=m["bytes_total"] / max(steps, 1),
+                   bytes_per_site=m["bytes_per_site"],
+                   control_calls=m["control_calls"])
+    return out
+
+
+def _mesh_replay(mesh, cfg, full, rid, stream):
+    """The int8 rule for a request whose (u) stream flipped: its prompt,
+    then the UNSHARDED stream teacher-forced, through the sharded model
+    (sub_operator) and, on rank 0, the unsharded one. Returns (rank 0) the
+    per-step max |dlogit| / max |logit|."""
+    from repro_torch.core.execution import make_rules
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models.param_specs import shard_params
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.sharding import ShardingCtx
+    dev = mesh.device
+    prompt = make_requests(cfg, 12, 128, 64, seed=0,
+                           arrival_every=4)[rid].prompt
+    toks = torch.tensor(np.asarray(prompt, np.int64)[None], device=dev)
+    steps = torch.tensor(np.asarray(stream, np.int32), device=dev)
+
+    def drive(api, params, gather):
+        cache, lg = api.prefill(params, toks)
+        out = [gather(lg[:, -1])]
+        for t in steps[:-1]:
+            cache, lg = api.decode(params, cache, t.reshape(1))
+            out.append(gather(lg[:, -1]))
+        return torch.stack(out)
+    ctx = ShardingCtx(mesh, make_rules("sub_operator", mesh))
+    api = build_model(cfg, dev, ctx)
+    got = drive(api, shard_params(full, ctx), api.full_logits)
+    if mesh.rank != 0:
+        return None
+    want = drive(build_model(cfg, dev), full, lambda x: x)
+    scale = want.abs().amax(dim=(1, 2))
+    rel = ((got - want).abs().amax(dim=(1, 2)) / scale).tolist()
+    return {"rid": rid, "rel": rel}
+
+
+def _mesh_run_v(mesh2, full, cfg):
+    """Run (v): WA device_put with W on rank 0 and A on rank 1 of a (2, 1)
+    mesh: staggered slotted decode (slot 0 at MESH_PROMPT, slot 1 admitted
+    at 40) for 4 steps; rank 0 also runs the colocated steps. Returns the
+    rank's role, launch counts and (W) the logits error."""
+    from repro_torch.core.wa import WADisaggregated, WAPlan
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kv.cache import write_slot_kv
+    from repro_torch.models.registry import build_model
+    dev = mesh2.device
+    api = build_model(cfg, dev)
+    g = torch.Generator(device=dev).manual_seed(6)
+    toks = torch.randint(0, cfg.vocab_size, (2, MESH_PROMPT), device=dev,
+                         generator=g)
+    caches, lg = api.prefill(full, toks)
+    c1, l1 = api.prefill(full, toks[1:, :40])
+    caches = write_slot_kv(caches, c1, 1)
+    cur = torch.stack([torch.argmax(lg[0, -1]),
+                       torch.argmax(l1[0, -1])]).to(torch.int32)
+    pos0 = torch.tensor([MESH_PROMPT, 40], dtype=torch.int32, device=dev)
+    act = torch.ones(2, dtype=torch.bool, device=dev)
+    wa = WADisaggregated(cfg, dev, mesh=mesh2, plan=WAPlan(True, 1, 1, "v"),
+                         routing="device_put")
+    ref_cache = dataclasses.replace(
+        caches, k=caches.k.clone(), v=caches.v.clone(),
+        length=caches.length.clone()) if wa.role == "w" else None
+    _sync(dev)
+    reset_launch_counts()
+    tok, pos, got = cur, pos0, []
+    for _ in range(4):
+        if wa.role == "w":
+            _, lg = wa.decode_step_slotted(full, None, tok, pos, act)
+            got.append(lg[:, 0])
+            tok = torch.argmax(lg[:, 0], -1).to(torch.int32)
+        else:
+            caches, _ = wa.decode_step_slotted(None, caches, tok, pos, act)
+        pos = pos + 1
+    _sync(dev)
+    res = {"role": wa.role, "counts": launch_counts()}
+    if wa.role == "w":
+        tok, pos, want = cur, pos0, []
+        for _ in range(4):
+            ref_cache, lg = api.decode_slotted(full, ref_cache, tok, pos, act)
+            want.append(lg[:, 0])
+            tok = torch.argmax(lg[:, 0], -1).to(torch.int32)
+            pos = pos + 1
+        got, want = torch.stack(got), torch.stack(want)
+        res.update(err=float((got - want).abs().max()),
+                   scale=float(want.abs().max()))
+    return res
+
+
+def mesh_timing_rows(dev, bound, sdpa_args):
+    """Phase 5 rows of K1, K3 and K4 at the shapes one rank of phase 4b
+    gives them (llama3.2-3b cut over a 2-wide model axis): K1 over 12 query
+    heads on 4 KV heads of 128 at run (u)'s decode (B=8, bf16 q, int8 KV,
+    S=200) and run (t)'s (B=2, f32, S=80); K3 on half of F (D=3072
+    F=4096, f32) at (t)'s decode and prefill rows; K4 at (u)'s local
+    projections (wq 3072x1536, wk/wv 3072x512, wo rows 1536x3072,
+    gate/up 3072x4096, w_down rows 4096x3072) at decode rows (8) and one
+    prefill chunk (32)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode.ops import flash_decode
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+    from repro_torch.kernels.fused_ffn.ops import fused_ffn
+    from repro_torch.kernels.fused_ffn.ref import fused_ffn_ref
+    from repro_torch.kernels.gemv.ops import gemv_int8_q
+    from repro_torch.kernels.gemv.ref import gemv_int8_ref
+    rows = []
+    heads = dict(Hq=12, n_kv=4, hd=128)
+    for B, S, pair, dt in ((8, 200, ("bfloat16", "int8"), torch.bfloat16),
+                           (2, 80, ("float32", "float32"), torch.float32)):
+        q, k, v, mask, ks, vs, lim = k1_inputs(dev, B, S, pair, **heads)
+        nb = nbytes(q, k, v, mask, ks, vs) + q.numel() * 4
+        b_ms, b_by = bound(nb, 4 * B * 12 * S * 128, dt)
+        var = variants_of(lambda i: (k1_inputs(dev, B, S, pair, seed=i,
+                                               **heads), {}), nb)
+        lib = {"sdpa(enable_gqa)": time_ms(F.scaled_dot_product_attention,
+                                           sdpa_args(var), 400)}
+        rows.append(("flash_decode", f"mesh rank: B={B} Hq=12 n_kv=4 "
+                     f"hd=128 S={S} {pair[0]}/{pair[1]}",
+                     time_ms(flash_decode, var, 400),
+                     time_ms(flash_decode_ref, var, 50), b_ms, b_by, lib,
+                     host_ms(flash_decode, var)))
+    for R in (2, 128):
+        (x, wg, wu, wd), _ = k3_inputs(dev, R, D=3072, F=4096,
+                                       dtype=torch.float32)
+        nb = nbytes(x, wg, wu, wd) + R * 3072 * 4
+        b_ms, b_by = bound(nb, 2 * R * 3072 * 4096 * 3, torch.float32)
+        var = variants_of(lambda i: k3_inputs(dev, R, seed=i, D=3072,
+                                              F=4096, dtype=torch.float32),
+                          nb)
+
+        def lib_ffn(x, wg, wu, wd, act="silu"):
+            return torch.matmul(F.silu(torch.matmul(x, wg))
+                                * torch.matmul(x, wu), wd)
+        lib = {"3x torch.matmul + silu (f32)": time_ms(lib_ffn, var, 100)}
+        rows.append(("fused_ffn", f"mesh rank: rows={R} D=3072 F=4096 f32",
+                     time_ms(fused_ffn, var, 100),
+                     time_ms(fused_ffn_ref, var, 20), b_ms, b_by, lib,
+                     host_ms(fused_ffn, var)))
+    for R in (8, 32):
+        for K, N in ((3072, 1536), (3072, 512), (1536, 3072), (3072, 4096),
+                     (4096, 3072)):
+            (xq, xs, wq, ws), _ = k4_inputs(dev, R, K, N)
+            nb = nbytes(xq, xs, wq, ws) + R * N * 4
+            b_ms, b_by = bound(nb, 2 * R * K * N, torch.int8)
+            var = variants_of(lambda i: k4_inputs(dev, R, K, N, seed=i), nb)
+            dq = [((a[0].to(torch.bfloat16),
+                    (a[2].float() * a[3]).to(torch.bfloat16)), {})
+                  for a, _ in var]
+            lib = {"bf16 torch.matmul on dequantized weights":
+                   time_ms(torch.matmul, dq, 400)}
+            rows.append(("gemv_int8", f"mesh rank: rows={R} K={K} N={N}",
+                         time_ms(gemv_int8_q, var, 400),
+                         time_ms(gemv_int8_ref, var, 50), b_ms, b_by, lib,
+                         host_ms(gemv_int8_q, var)))
+    return rows
+
+
+def _mesh_collective_ms(mesh, n=100):
+    """Host ms a call of the collectives (1, 2) runs take a token step on
+    (8 rows of llama3.2-3b's residual: all-gather of a bf16 (8, 1536)
+    half, reduce-scatter of an f32 (8, 3072) partial), on CUDA tensors
+    (gloo straight through) and on CPU tensors (gloo alone), each call
+    synchronised: what one collective costs the lock-step loop."""
+    from repro_torch.core import collectives as C
+    out = {}
+    for dev in (mesh.device, torch.device("cpu")):
+        half = torch.randn(8, 1536, device=dev).to(torch.bfloat16)
+        part = torch.randn(8, 3072, device=dev)
+        for name, fn in (("all_gather", lambda: C.all_gather(
+                half, mesh, ("model",), 1)),
+                ("reduce_scatter", lambda: C.reduce_scatter(
+                    part, mesh, ("model",), 1))):
+            fn()
+            _sync(dev)
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+                _sync(dev)
+            out[f"{name}_{dev.type}"] = (time.perf_counter() - t0) / n * 1e3
+    return out
+
+
+def mesh_rank(mesh, reduced=False):
+    """One rank of phase 4b (runs (t), (u), (v)) on the shared card.
+    ``reduced``: the reduced config, for a rehearsal on the CPU."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.registry import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.monotonic()
+    base = get_config(MESH_ARCH)
+    if reduced:
+        base = base.reduced()
+    cfg_t = _mesh_f32(base)
+    full = build_model(cfg_t, mesh.device).init(0)
+    out = {"t": _mesh_run_t(mesh, full, cfg_t)}
+    out["t_s"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    mesh2 = Mesh((2, 1), ("data", "model"), mesh.device)
+    out["v"] = _mesh_run_v(mesh2, full, cfg_t)
+    out["v_s"] = time.monotonic() - t0
+    out["coll_ms"] = _mesh_collective_ms(mesh)
+    del full
+    if mesh.device.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    cfg_u = base.replace(n_layers=MESH_U_LAYERS)
+    full = build_model(cfg_u, mesh.device).init(0)
+    out["u"] = {ex: _mesh_run_u(mesh, cfg_u, ex, full, mesh.device)
+                for ex in ("sub_operator", "operator_centric")}
+    # the unsharded run once, on rank 0, which sends the other ranks the
+    # unsharded streams of (at most two) requests whose sharded stream
+    # differs; all ranks then replay them under the int8 rule
+    from repro_torch.core.collectives import control_broadcast
+    flips = torch.full((2, 65), -1, dtype=torch.int64)
+    if mesh.rank == 0:
+        un = out["u"]["unsharded"] = _mesh_run_u(None, cfg_u, None, full,
+                                                 mesh.device)
+        flipped = [i for i, (a, b) in enumerate(zip(
+            out["u"]["sub_operator"]["streams"], un["streams"])) if a != b]
+        for n, i in enumerate(flipped[:2]):
+            flips[n, 0] = i
+            flips[n, 1:1 + len(un["streams"][i])] = torch.tensor(
+                un["streams"][i])
+    flips = control_broadcast(flips, mesh, 0)
+    out["u_replay"] = [_mesh_replay(mesh, cfg_u, full, int(f[0]),
+                                    [int(t) for t in f[1:] if t >= 0])
+                       for f in flips if f[0] >= 0]
+    out["u_s"] = time.monotonic() - t0
+    out["rank"] = mesh.rank
+    return out
+
+
+def phase_mesh(totals, runs):
+    """Runs (t)-(v) on two ranks sharing the card over gloo (the kernels
+    are built already: the ranks load them). Every rank resets the launch
+    counts before each run and reports them; a rank that never launched a
+    kernel of its path fails the phase."""
+    from repro_torch.launch.mesh import launch
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    res = launch(mesh_rank, (1, 2), ("data", "model"), device="cuda",
+                 share_device=True, threads=4, timeout_s=600).join()
+    log(f"  ranks joined after {time.monotonic() - t0:.1f}s")
+    r0 = res[0]
+    for r in res:
+        log(f"  rank {r['rank']}: (t) {r['t_s']:.1f}s {r['t']['counts']}, "
+            f"(v) {r['v_s']:.1f}s {r['v']['role']} {r['v']['counts']}, "
+            f"(u) {r['u_s']:.1f}s")
+        require(r["t"]["counts"]["flash_decode"] > 0
+                and r["t"]["counts"]["fused_ffn"] > 0,
+                f"(t) rank {r['rank']}: K1 or K3 never launched")
+        need = "fused_ffn" if r["v"]["role"] == "w" else "flash_decode"
+        require(r["v"]["counts"][need] > 0,
+                f"(v) rank {r['rank']} ({r['v']['role']}): {need} never "
+                "launched")
+        for ex in ("sub_operator", "operator_centric"):
+            u = r["u"][ex]
+            require(u["counts"]["flash_decode"] > 0
+                    and u["counts"]["gemv_int8"] > 0,
+                    f"(u) {ex} rank {r['rank']}: K1 or K4 never launched")
+            require(u["completed"] == 12, f"(u) {ex}: not all completed")
+    log(f"  one collective, host ms a call (synchronised, 100 calls, "
+        f"rank 0): {json.dumps(r0['coll_ms'])}")
+    t = r0["t"]
+    log(f"  (t) f32 sub_operator (1,2): tokens equal unsharded "
+        f"{t['tokens_equal']}, max|dlogit| {t['err']:.3e} of max|logit| "
+        f"{t['scale']:.3f}")
+    require(t["tokens_equal"], "(t): tokens differ from the unsharded run")
+    require(t["err"] <= 1e-4 * t["scale"], "(t): logits differ")
+    v = r0["v"]
+    require(v["role"] == "w", "(v): rank 0 is not the W rank")
+    log(f"  (v) WA device_put W=rank 0, A=rank 1: max|dlogit| "
+        f"{v['err']:.3e} of max|logit| {v['scale']:.3f}")
+    require(v["err"] <= 1e-4 * v["scale"], "(v): logits differ from "
+            "colocated")
+    un = r0["u"]["unsharded"]
+    flips = {}
+    for ex in ("sub_operator", "operator_centric"):
+        u = r0["u"][ex]
+        flips[ex] = sum(a != b for a, b in zip(u["streams"],
+                                               un["streams"]))
+        log(f"  (u) {ex}: collective bytes per token step "
+            f"{u['bytes_per_token_step']:.0f} (per rank; "
+            f"{json.dumps(u['bytes_per_site'])}), control calls "
+            f"{u['control_calls']}, host syncs {u['host_syncs']}, TPOT "
+            f"mean {u['tpot_mean_ms']:.3f} ms, serve {u['wall_s']:.1f}s, "
+            f"requests whose stream differs from unsharded "
+            f"{flips[ex]} of 12")
+    log(f"  (u) unsharded: host syncs {un['host_syncs']}, TPOT mean "
+        f"{un['tpot_mean_ms']:.3f} ms, serve {un['wall_s']:.1f}s")
+    require(r0["u"]["sub_operator"]["streams"]
+            == r0["u"]["operator_centric"]["streams"],
+            "(u): the two executors' streams differ")
+    # the int8 rule: a flip is counted, and the flipped request replayed
+    # teacher-forced along the unsharded stream stays within 2e-2 of
+    # max|logit| at every step (steps over 1e-4 counted)
+    for rep in r0["u_replay"]:
+        over = sum(x > 1e-4 for x in rep["rel"])
+        log(f"  (u) replay of flipped request {rep['rid']}: max "
+            f"|dlogit|/max|logit| {max(rep['rel']):.3e} over "
+            f"{len(rep['rel'])} steps, {over} steps above 1e-4")
+        require(max(rep["rel"]) <= 2e-2, f"(u) request {rep['rid']}: "
+                "logits beyond the int8 rule's 2e-2")
+    require(flips["sub_operator"] == len(r0["u_replay"])
+            or len(r0["u_replay"]) == 2,
+            "(u): a flipped request was not replayed")
+    for r in res:
+        for name, c in (("t_mesh_f32_sub_operator", r["t"]["counts"]),
+                        ("v_mesh_wa_device_put", r["v"]["counts"]),
+                        ("u_mesh_int8_sub_operator",
+                         r["u"]["sub_operator"]["counts"]),
+                        ("u_mesh_int8_operator_centric",
+                         r["u"]["operator_centric"]["counts"])):
+            key = f"{name}_rank{r['rank']}"
+            runs[key] = c
+            for k, n in c.items():
+                totals[k] += n
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -3820,6 +4297,12 @@ def main() -> int:
     log(f"  run (s) took {time.monotonic() - t1:.1f}s")
     log(f"  main-path launches {launches}; per decode step {per_step}")
     log(f"  phase 4 took {time.monotonic() - t0:.1f}s")
+
+    log("phase 4b: serving on a (1, 2) mesh of two ranks sharing the card "
+        "(gloo): runs (t), (u), (v)")
+    t0 = time.monotonic()
+    phase_mesh(launches, runs)
+    log(f"  phase 4b took {time.monotonic() - t0:.1f}s")
 
     log("phase 5: kernel timing")
     kernels = phase_timing(dev, launches, runs, per_step, errs)

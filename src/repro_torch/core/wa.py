@@ -28,9 +28,27 @@ batch, so the split is token-exact.
 
 This is the reference's ``routing="sharding"`` serving path with
 ``mesh=None`` (the hops there are no-ops and the math is the colocated
-math). ``routing="device_put"`` (two disjoint device sets) and the
-reference's ``split_mesh`` / ``WAPlan`` / ``wa_plan`` arrive with the
-multi-device slice of the port.
+math).
+
+On a mesh of ranks (``mesh=``) both routings of the reference run, with no
+second stream:
+
+- ``routing="sharding"`` (what the serving engine uses): every rank is in
+  both domains, two rules tables over one mesh. W keeps ``sub_operator``
+  (weights and heads on ``model``); A keeps ``seq_sharded_kv`` (each rank
+  holds a block of every slot's positions; split-KV shards ride the same
+  axis). The W -> A hop all-gathers q/k/v's heads, the A -> W hop slices
+  the attention output back to W's heads, and only the (o, m, l) triples
+  cross ranks in the attention's LSE merge.
+- ``routing="device_put"``: ``split_mesh`` cuts the data rows into a W
+  submesh and an A submesh of disjoint ranks (``WAPlan``). Each layer's
+  q/k/v go from a W rank to the A rank of its column, and the attention
+  output comes back, as point-to-point sends counted in the routing
+  bytes. W holds the weights and returns the logits; A holds the cache.
+  Per step only, as in the reference (no block or chunk program).
+
+``wa_plan`` decides the split from ``core/residency.py``'s report (WA only
+pays under cache pressure).
 """
 from __future__ import annotations
 
@@ -39,19 +57,82 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
+from dataclasses import dataclass
+
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.shapes import ShapeConfig
+from repro_torch.core.collectives import exchange
 from repro_torch.core.pipeline import skewed_schedule
+from repro_torch.core.residency import FAST_BYTES, HBM_BYTES
+from repro_torch.core.residency import plan as residency_plan
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kv.cache import KVCache, export_slot_kv, import_slot_kv
+from repro_torch.models.common import greedy as greedy_ids
 from repro_torch.models.registry import make_decode_block
+from repro_torch.models.sharding import (NULL_CTX, MeshLayout, ShardingCtx,
+                                         entry_of, layout, seq_sharded_kv,
+                                         sub_operator)
 from repro_torch.models.transformer import (attend_chunk,
+                                            attend_chunk_seq,
+                                            attend_decode_seq,
                                             attend_decode_slotted,
+                                            check_mesh_cache,
                                             check_supported,
                                             chunk_positions, embed_tokens,
-                                            final_logits, post_attention,
-                                            pre_attention)
+                                            final_logits, make_cache,
+                                            post_attention, pre_attention)
 from repro_torch.quant.int4 import quantize_kv_int4
 from repro_torch.quant.int8 import quantize_kv
+
+
+# ---------------------------------------------------------------------------
+# Mesh split + policy
+# ---------------------------------------------------------------------------
+
+def split_mesh(mesh, weight_rows: int):
+    """Collective: the first ``weight_rows`` data rows as the weight
+    submesh, the rest as the attention submesh (the paper's weight socket
+    and attention socket). Returns (W, A), each a ``SubMesh`` for the ranks
+    inside it and None for the others."""
+    from repro_torch.launch.mesh import submesh
+    if len(mesh.axis_names) != 2:
+        raise ValueError("split on the single-pod (data, model) mesh")
+    rows = mesh.devices_shape[0]
+    return submesh(mesh, 0, weight_rows), submesh(mesh, weight_rows, rows)
+
+
+@dataclass(frozen=True)
+class WAPlan:
+    separate: bool
+    weight_rows: int
+    attention_rows: int
+    reason: str
+
+
+def wa_plan(cfg: ModelConfig, shape: ShapeConfig, mesh,
+            fast_bytes: float = FAST_BYTES,
+            hbm_bytes: float = HBM_BYTES) -> WAPlan:
+    """Separate W and A only where the residency planner finds the
+    co-located hot set over budget (paper Fig 9); then half the data rows
+    each. Reads ``mesh.devices_shape``; the budgets default to the
+    H100's."""
+    dims = mesh.devices_shape
+    n_rows = dims[0]
+    n_chips = 1
+    for d in dims:
+        n_chips *= d
+    if cfg.family == "ssm":
+        return WAPlan(False, n_rows, 0,
+                      "attention-free: no growing KV to decouple "
+                      "(DESIGN.md §6 — WA inapplicable)")
+    rep = residency_plan(cfg, shape, n_chips, fast_bytes=fast_bytes,
+                         hbm_bytes=hbm_bytes)
+    if not rep.wa_profitable:
+        return WAPlan(False, n_rows, 0,
+                      "co-located hot set within budget; separation would "
+                      "waste sockets (paper Fig 9 small-model regime)")
+    half = n_rows // 2
+    return WAPlan(True, half, n_rows - half, rep.notes)
 
 
 def routing_bytes(cfg: ModelConfig, batch: int, bytes_per_el: int = 2) -> int:
@@ -119,25 +200,64 @@ class WADisaggregated:
     """
 
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None, *,
+                 mesh=None, plan: Optional[WAPlan] = None,
                  routing: str = "sharding", a_shards: int = 1,
                  overlap: int = 1):
-        if routing != "sharding":
-            raise ValueError(
-                f"routing={routing!r}: on one card the W and A domains are "
-                "two CUDA streams (routing='sharding'); routing='device_put' "
-                "(two disjoint device sets) arrives with the multi-device "
-                "slice of the port")
+        if routing not in ("sharding", "device_put"):
+            raise ValueError(routing)
+        if routing == "device_put":
+            if a_shards > 1 or overlap > 1:
+                raise ValueError(
+                    "device_put routing is per step: split-KV (a_shards > "
+                    "1) and the overlap schedule need routing='sharding'")
+            if mesh is None or plan is None:
+                raise ValueError(
+                    "routing='device_put' is the multi-device slice's W/A "
+                    "routing between two disjoint sets of ranks: give it a "
+                    "mesh and a WAPlan (the row split); on one card the two "
+                    "domains are two CUDA streams (routing='sharding')")
         if a_shards < 1:
             raise ValueError(f"a_shards must be >= 1, got {a_shards}")
         if overlap < 1:
             raise ValueError(f"overlap must be >= 1, got {overlap}")
+        if mesh is not None and overlap > 1:
+            raise ValueError("overlap > 1 pipelines two CUDA streams of one "
+                             "card; on a mesh it is not ported (overlap=1)")
         check_supported(cfg)
         self.cfg = cfg
+        self.routing = routing
+        self.plan = plan
         self.a_shards = a_shards
         self.overlap = overlap
         self.device = resolve_device(device)
+        self.mesh = mesh
         self._a: Optional[torch.cuda.Stream] = None
-        if self.device.type == "cuda":
+        self.role = "both"
+        self.w_ctx = self.a_ctx = NULL_CTX
+        if mesh is not None and routing == "sharding":
+            self.w_ctx = ShardingCtx(mesh, sub_operator(False))
+            self.a_ctx = ShardingCtx(mesh, seq_sharded_kv(sub_operator(False)))
+        elif mesh is not None:
+            w_mesh, a_mesh = split_mesh(mesh, plan.weight_rows)
+            if plan.weight_rows != plan.attention_rows:
+                raise ValueError("device_put pairs each W rank with the A "
+                                 "rank of its column: the plan must split "
+                                 "the rows evenly")
+            self.role = "w" if w_mesh is not None else "a"
+            sub = w_mesh if w_mesh is not None else a_mesh
+            ctx = ShardingCtx(sub, sub_operator(False))
+            if self.role == "w":
+                self.w_ctx = ctx
+            else:
+                self.a_ctx = ctx
+            # the partner: the same column, the other half's row
+            row = mesh.coords[mesh.axis_names[0]]
+            other = row + plan.weight_rows if self.role == "w" \
+                else row - plan.weight_rows
+            self.partner = mesh.rank_at(**{mesh.axis_names[0]: other})
+        self.w_lay = layout(cfg, self.w_ctx)
+        self.a_lay = layout(cfg, self.a_ctx)
+        if self.device.type == "cuda" and mesh is None:
             self._a = torch.cuda.Stream(self.device)
             # W: the caller's current stream, taken at each program entry
             self._w = torch.cuda.current_stream(self.device)
@@ -151,7 +271,29 @@ class WADisaggregated:
             z = torch.zeros((1, 1, 2), device=self.device)
             quantize_kv(z)
             quantize_kv_int4(z)
-        self.decode_block = make_decode_block(self._decode_slotted_api)
+        vocab = self.w_lay.vocab
+        self.greedy = lambda lg: greedy_ids(lg, self.w_ctx, vocab)
+        self.decode_block = make_decode_block(self._decode_slotted_api,
+                                              self.greedy)
+
+    def init_cache(self, batch: int, max_len: int) -> KVCache:
+        """The A domain's slot cache (this rank's part on a mesh: its block
+        of positions under routing='sharding', its KV heads under
+        device_put)."""
+        return make_cache(self.cfg, batch, max_len, self.device, self.a_ctx)
+
+    # -- hops on a mesh ---------------------------------------------------
+    def _mesh_hop(self, t: torch.Tensor, src: MeshLayout, dst: MeshLayout,
+                  site: str) -> torch.Tensor:
+        """routing='sharding': move a (..., H, hd) tensor from one domain's
+        head placement to the other's (an all-gather W -> A, a slice A ->
+        W); nothing without a mesh."""
+        if not self.w_ctx.active:
+            return t
+        lead = (None,) * (t.ndim - 2)
+        return self.w_ctx.reshard(t, lead + (entry_of(src.kv_heads), None),
+                                  lead + (entry_of(dst.kv_heads), None),
+                                  site=site)
 
     # -- the two streams ------------------------------------------------
     def _event(self, site) -> torch.cuda.Event:
@@ -275,14 +417,19 @@ class WADisaggregated:
                 # -- W: finish layer j-1, start layer j -------------------
                 if j == 0:
                     x = embed_tokens(params, tokens[sl], positions[sl],
-                                     self.cfg)
+                                     self.cfg, self.w_lay)
                 else:
                     (o, ev), backed[m] = backed[m], None
                     self._to_w(ev)
-                    x = post_attention(blocks[j - 1], xs[m], o, self.cfg)
+                    o = self._mesh_hop(o, self.a_lay, self.w_lay,
+                                       WA_HOP_TO_W)
+                    x = post_attention(blocks[j - 1], xs[m], o, self.cfg,
+                                       self.w_lay)
                 if j < L:
                     q, k, v = pre_attention(blocks[j], x, positions[sl],
-                                            self.cfg)
+                                            self.cfg, self.w_lay)
+                    q, k, v = (self._mesh_hop(t, self.w_lay, self.a_lay,
+                                              WA_HOP_TO_A) for t in (q, k, v))
                     routed[m] = ((q, k, v), self._to_a(m, q, k, v))
                     xs[m] = x
                 else:
@@ -298,7 +445,14 @@ class WADisaggregated:
         over the first ``kv_bucket`` positions (0: all). Returns (cache,
         logits (B,1,V) f32); the cache is updated in place. Each
         micro-batch's tile limit ``max(positions[active]) + 1`` is computed
-        on A at the fork. No host sync."""
+        on A at the fork. No host sync. On a mesh the rows are this data
+        row's (the caller cuts them), except under device_put, which takes
+        the global batch (``_decode_device_put``)."""
+        if self.routing == "device_put":
+            return self._decode_device_put(params, cache, tokens, positions,
+                                           active, kv_bucket)
+        if self.mesh is not None:
+            check_mesh_cache(cache, self.a_ctx)
         slices = micro_batch_slices(tokens.shape[0], self.overlap)
         with self._program():
             with self._on_a():
@@ -313,18 +467,76 @@ class WADisaggregated:
                 # append at the per-slot cursors and attend the bucket
                 # prefix (split-KV with a_shards > 1; tiered slices resolve
                 # the hot/cold image); the reference's shared-cursor
-                # _a_attend is this with every row at one cursor
+                # _a_attend is this with every row at one cursor. On a mesh
+                # this rank holds a block of positions: K1 partials merged
+                # across the A domain's ranks
                 pos, act, lim = a_side[m]
+                if cache.seq_axes:
+                    return attend_decode_seq(
+                        q, k, v, kv, pos, act, self.cfg, kv_bucket, lim,
+                        self.a_shards, self.a_ctx, cache.seq_axes,
+                        cache.seq_lo)
                 return attend_decode_slotted(q, k, v, kv, pos, act, self.cfg,
                                              kv_bucket, lim, self.a_shards)
 
             logits = self._layer_loop(
                 params, cache, tokens[:, None], positions[:, None], slices,
-                attend, lambda x: final_logits(params, x, self.cfg))
+                attend, lambda x: final_logits(params, x, self.cfg,
+                                               self.w_lay))
         cache.length = torch.maximum(
             cache.length, (torch.where(active, positions, 0).max() + 1)
             .to(torch.int32))
         return cache, logits
+
+    def _decode_device_put(self, params, cache: Optional[KVCache], tokens,
+                           positions, active, kv_bucket: int = 0):
+        """routing='device_put': W ranks (``params``: their shards) run
+        embed, ln1/QKV, wo/FFN and the logits; A ranks (``cache``: their
+        part) append and attend. Per layer each W rank sends q, k, v to the
+        A rank of its column and receives the attention output back.
+        tokens/positions/active are the GLOBAL batch; each side cuts its
+        data row's rows. Returns (cache on A / None on W, logits on W / None
+        on A (this rank's vocabulary rows))."""
+        cfg, hd = self.cfg, self.cfg.head_dim
+        if self.role == "w":
+            ctx, lay = self.w_ctx, self.w_lay
+        else:
+            ctx, lay = self.a_ctx, self.a_lay
+        tok, pos, act = (ctx.batch_local(t) for t in (tokens, positions,
+                                                      active))
+        B = tok.shape[0]
+        nh = ctx.n(entry_of(lay.kv_heads))
+        shape_q = (B, 1, cfg.n_heads // nh, hd)
+        shape_kv = (B, 1, cfg.n_kv_heads // nh, hd)
+        dt = torch.float32 if cfg.dtype == "float32" else torch.bfloat16
+        mesh = self.mesh
+        if self.role == "w":
+            x = embed_tokens(params, tok[:, None], pos[:, None], cfg, lay)
+            for lp in params["blocks"]:
+                q, k, v = pre_attention(lp, x, pos[:, None], cfg, lay)
+                exchange([(q, self.partner), (k, self.partner),
+                          (v, self.partner)], [], mesh, "wa", WA_HOP_TO_A)
+                o = torch.empty(shape_q[:1] + shape_q[2:], dtype=dt,
+                                device=x.device)
+                exchange([], [(o, self.partner)], mesh, "wa", WA_HOP_TO_W)
+                x = post_attention(lp, x, o, cfg, lay)
+            return None, final_logits(params, x, cfg, lay)
+        live = torch.where(act, pos, torch.full_like(pos, -1))
+        lim = (live.max() + 1).to(torch.int32)
+        dev = cache.k.device
+        for j in range(cfg.n_layers):
+            q = torch.empty(shape_q, dtype=dt, device=dev)
+            k = torch.empty(shape_kv, dtype=dt, device=dev)
+            v = torch.empty(shape_kv, dtype=dt, device=dev)
+            exchange([], [(q, self.partner), (k, self.partner),
+                          (v, self.partner)], mesh, "wa", WA_HOP_TO_A)
+            o = attend_decode_slotted(q, k, v, cache.layer(j), pos, act, cfg,
+                                      kv_bucket, lim)
+            exchange([(o, self.partner)], [], mesh, "wa", WA_HOP_TO_W)
+        cache.length = torch.maximum(
+            cache.length, (torch.where(act, pos, 0).max() + 1)
+            .to(torch.int32))
+        return cache, None
 
     def decode_step(self, params, cache: KVCache, tokens):
         """Shared-cursor decode step: every row live at ``cache.length``
@@ -352,12 +564,22 @@ class WADisaggregated:
         chunk's K/V at the slot's offset, reads the stored prefix back and
         runs chunk attention (its positions and masks made on A). Returns
         (cache, logits (1,1,V)) at the chunk's last valid position."""
+        if self.routing == "device_put":
+            raise ValueError(
+                "prefill_chunk must run as one program over both domains; "
+                "device_put routing is per decode step — build "
+                "WADisaggregated(routing='sharding') for the serving path")
         C = tokens.shape[1]
         with self._program():
             with self._on_a():
                 a_pos = chunk_positions(start, C, self.device)
 
             def attend(m, kv, q, k, v):
+                if cache.seq_axes:
+                    return attend_chunk_seq(q, k, v, kv, slot, start,
+                                            valid_len, a_pos, self.cfg,
+                                            self.a_ctx, cache.seq_axes,
+                                            cache.seq_lo)
                 return attend_chunk(q, k, v, kv, slot, start, valid_len,
                                     a_pos, self.cfg)
 
@@ -365,6 +587,6 @@ class WADisaggregated:
                 params, cache, tokens, chunk_positions(start, C, self.device),
                 (slice(0, 1),), attend,
                 lambda x: final_logits(params, x[:, valid_len - 1:valid_len],
-                                       self.cfg))
+                                       self.cfg, self.w_lay))
         cache.length = torch.clamp_min(cache.length, start + valid_len)
         return cache, logits

@@ -30,7 +30,7 @@ ring order.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -53,6 +53,11 @@ class KVCache:
     cold_block: int = 0             # demotion granularity (tokens)
     cold_dtype: str = "bfloat16"    # bfloat16 | int8 | int4
     window: int = 0                 # 0: full context; > 0: ring buffer
+    # on a mesh whose rules cut the sequence (``kv_seq``): the mesh axes
+    # the positions are cut over and the first position this rank holds
+    # (its block is [seq_lo, seq_lo + S) of the global extent)
+    seq_axes: Tuple[str, ...] = ()
+    seq_lo: int = 0
 
     @property
     def is_quantized(self) -> bool:
@@ -171,6 +176,30 @@ def init_kv_cache(n_layers: int, batch: int, n_kv: int, max_len: int,
                    mk(sshape, torch.float32) if quantized else None,
                    mk(sshape, torch.float32) if quantized else None,
                    length, window=window)
+
+
+def init_kv_cache_sharded(ctx, n_layers: int, batch: int, n_kv: int,
+                          max_len: int, head_dim: int, dtype=torch.bfloat16,
+                          quantized: bool = False, device=None) -> KVCache:
+    """This rank's part of a flat (float or int8) cache of ``batch`` slots
+    and ``max_len`` positions under ``ctx``'s rules (``cache_specs``):
+    its slots (batch over the data axes), its KV heads (``kv_heads``) or,
+    when the rules cut the sequence (``kv_seq``, +seqkv and the WA
+    attention domain), its block of positions. Tiered and ring caches are
+    not cut (they raise); without a mesh this is ``init_kv_cache``."""
+    from repro_torch.models.param_specs import cache_logical
+    from repro_torch.models.sharding import axes_of
+    shape = (n_layers, batch, n_kv, max_len, head_dim)
+    if not ctx.active:
+        return init_kv_cache(*shape, dtype=dtype, quantized=quantized,
+                             device=device)
+    spec = ctx.spec(cache_logical(("k",), shape), shape)
+    local = [d // ctx.n(e) for d, e in zip(shape, spec)]
+    cache = init_kv_cache(*local, dtype=dtype, quantized=quantized,
+                          device=device)
+    cache.seq_axes = axes_of(spec[3])
+    cache.seq_lo = ctx.index(spec[3]) * local[3] if cache.seq_axes else 0
+    return cache
 
 
 # ---------------------------------------------------------------------------

@@ -30,6 +30,18 @@ stream), ``--overlap D`` pipelines D micro-batches across it. Prints the
 engine's stats, the tiered cache's ``tiered kv:`` and ``arbiter:`` lines,
 the WA backend's ``wa routing:`` and ``wa overlap:`` lines, a per-request
 table and the per-program call counts.
+
+``--mesh DxM`` serves on a ("data", "model") mesh of D*M ranks, one
+process each (``repro_torch.launch.mesh.launch``), under ``--executor``
+(``sub_operator`` by default, ``operator_centric`` or
+``sub_operator+seqkv``): every rank runs the same engine loop on its share
+(its slots, heads, F columns and vocabulary rows), and rank 0 prints, with
+a ``mesh:`` line of collective bytes per axis and site and the control
+group's calls. With ``--device cuda`` each rank takes its own card
+(nccl), and a machine with fewer cards than ranks raises unless
+``--share-device`` asks for every rank on ``cuda:0`` over gloo (one H100:
+``--mesh 1x2 --share-device``); ``--device cpu`` runs gloo ranks on the
+CPU.
 """
 from __future__ import annotations
 
@@ -38,7 +50,10 @@ import argparse
 import numpy as np
 
 from repro_torch.configs.registry import REGISTRY, get_config
+from repro_torch.core.execution import EXECUTORS, make_rules
+from repro_torch.models.param_specs import shard_params
 from repro_torch.models.registry import build_model
+from repro_torch.models.sharding import ShardingCtx
 from repro_torch.runtime.serving import Request, ServingEngine
 
 
@@ -62,7 +77,8 @@ def serve(arch: str, n_requests: int, batch_slots: int, prompt_len: int,
           backend: str = "colocated", overlap: int = 1,
           preemptible: bool = False, max_queue: int = 0,
           hot_window: int = 0, kv_cold_dtype: str = "int8",
-          kv_cold_block: int = 16, kv_budget_bytes: int = 0, device=None):
+          kv_cold_block: int = 16, kv_budget_bytes: int = 0, device=None,
+          mesh=None, executor: str = "sub_operator"):
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
@@ -74,18 +90,42 @@ def serve(arch: str, n_requests: int, batch_slots: int, prompt_len: int,
     if mode == "drain" and prefill_chunk:
         print("note: --prefill-chunk ignored (drain mode has no chunk lane)")
         prefill_chunk = 0
-    api = build_model(cfg, device)
+    ctx = None
+    api = build_model(cfg, device if mesh is None else mesh.device)
+    params = api.init(seed)
+    if mesh is not None:
+        # this rank's share: the full seeded weights cut to its part
+        ctx = ShardingCtx(mesh, make_rules(executor, mesh))
+        params = shard_params(params, ctx)
     eng = ServingEngine(api, batch_slots, prompt_len, mode=mode,
                         block_size=block_size,
                         kv_bucket_chunk=kv_bucket_chunk,
                         prefill_chunk=prefill_chunk, a_shards=a_shards,
                         backend=backend, overlap=overlap,
                         preemptible=preemptible, max_queue=max_queue,
-                        kv_budget_bytes=kv_budget_bytes, device=api.device)
-    params = api.init(seed)
+                        kv_budget_bytes=kv_budget_bytes, device=api.device,
+                        ctx=ctx)
     reqs = make_requests(cfg, n_requests, prompt_len, max_new, seed,
                          arrival_every)
     return eng.run(params, reqs)
+
+
+def _rank_serve(mesh, kwargs, executor):
+    """One rank of ``--mesh``: the stats of its engine."""
+    return serve(**kwargs, mesh=mesh, executor=executor)
+
+
+def serve_on_mesh(shape, executor: str, kwargs: dict, device: str = "cuda",
+                  share_device: bool = False):
+    """Start the ranks of a ("data", "model") mesh of ``shape``, serve on
+    each, and return rank 0's stats. ``share_device``: every rank on
+    ``cuda:0`` over gloo; without it each rank needs a card of its own
+    (``launch`` raises otherwise)."""
+    from repro_torch.launch.mesh import launch
+    res = launch(_rank_serve, shape, ("data", "model"), (kwargs, executor),
+                 device=device, share_device=share_device,
+                 timeout_s=3600).join()
+    return res[0]
 
 
 def main(argv=None):
@@ -146,21 +186,39 @@ def main(argv=None):
                          "(with --preemptible) or hold admissions while the "
                          "occupancy-priced live KV bytes exceed N "
                          "(0 = unbounded)")
+    ap.add_argument("--mesh", default=None,
+                    help="serve on a DxM (data x model) mesh of ranks, one "
+                         "process each (e.g. 1x2)")
+    ap.add_argument("--executor", default=None, choices=EXECUTORS,
+                    help="the mesh's rules table (with --mesh; default "
+                         "sub_operator)")
+    ap.add_argument("--share-device", action="store_true",
+                    help="with --mesh and --device cuda: put every rank on "
+                         "cuda:0 over gloo (one card for all ranks); "
+                         "without it each rank needs a card of its own")
     args = ap.parse_args(argv)
+    if (args.executor or args.share_device) and not args.mesh:
+        raise SystemExit("serve: --executor and --share-device need --mesh")
+    kwargs = dict(arch=args.arch, n_requests=args.requests,
+                  batch_slots=args.batch, prompt_len=args.prompt_len,
+                  max_new=args.max_new, reduced=not args.full_width,
+                  mode=args.mode, arrival_every=args.arrival_every,
+                  block_size=args.block_size,
+                  kv_bucket_chunk=args.kv_bucket_chunk,
+                  prefill_chunk=args.prefill_chunk, a_shards=args.a_shards,
+                  backend=args.backend, overlap=args.overlap,
+                  preemptible=args.preemptible, max_queue=args.max_queue,
+                  hot_window=args.hot_window,
+                  kv_cold_dtype=args.kv_cold_dtype,
+                  kv_cold_block=args.kv_cold_block,
+                  kv_budget_bytes=args.kv_budget_bytes)
     try:
-        stats = serve(args.arch, args.requests, args.batch, args.prompt_len,
-                      args.max_new, reduced=not args.full_width,
-                      mode=args.mode, arrival_every=args.arrival_every,
-                      block_size=args.block_size,
-                      kv_bucket_chunk=args.kv_bucket_chunk,
-                      prefill_chunk=args.prefill_chunk,
-                      a_shards=args.a_shards, backend=args.backend,
-                      overlap=args.overlap, preemptible=args.preemptible,
-                      max_queue=args.max_queue, hot_window=args.hot_window,
-                      kv_cold_dtype=args.kv_cold_dtype,
-                      kv_cold_block=args.kv_cold_block,
-                      kv_budget_bytes=args.kv_budget_bytes,
-                      device=args.device)
+        if args.mesh:
+            shape = tuple(int(n) for n in args.mesh.lower().split("x"))
+            stats = serve_on_mesh(shape, args.executor or "sub_operator",
+                                  kwargs, args.device, args.share_device)
+        else:
+            stats = serve(**kwargs, device=args.device)
     except ValueError as e:
         # a configuration the engine refuses (whisper-medium's family, an
         # option the family lacks): its message, and exit status 1
@@ -170,7 +228,16 @@ def main(argv=None):
     rejected = stats.pop("rejected")
     tiered = stats.pop("tiered", None)
     wa = stats.pop("wa", None)
+    mesh = stats.pop("mesh", None)
     print("serve stats:", stats)
+    if mesh:
+        # rank 0's collective bytes (ring algorithms: what it sends) and
+        # the control group's CPU broadcasts and gathers (no device syncs)
+        print(f"mesh: {mesh['shape']} rules={mesh['rules']} bytes/axis "
+              f"{mesh['bytes_per_axis']} total {mesh['bytes_total']:.0f} B "
+              f"in {mesh['calls']} collectives; control calls "
+              f"{mesh['control_calls']} ({mesh['control_bytes']} B); "
+              f"bytes/site {mesh['bytes_per_site']}")
     if tiered:
         # the KVArbiter's view: tier occupancy, in-program demotions
         # counted off cursor watermarks, bytes

@@ -17,8 +17,9 @@ started again with the same ``ckpt_dir``; the elastic controller
 simulated failure.
 
 Runs on ``cuda`` unless ``device="cpu"`` is passed (``--device cpu``).
-The reference's ``mesh`` and ``--executor`` (multi-device execution)
-belong to the multi-device slice of the port; given here, they raise.
+The reference's ``mesh`` and ``--executor`` (multi-device training) wait
+for the multi-device training slice of the port, and pipeline
+parallelism for its own; given here, they raise.
 Configs with int8 weights raise too: the reference's ``train`` cannot
 train them either (``jax.grad`` refuses their int8 leaves).
 """
@@ -43,9 +44,13 @@ from repro_torch.tree import tree_leaves, tree_unflatten
 
 BASE_LR = 3e-4
 WARMUP = 20
-MULTI_DEVICE = ("multi-device execution (a mesh, an executor) is not "
-                "ported yet: it belongs to the multi-device slice of the "
-                "port (ROADMAP Queue 1, 'Multi-device')")
+MULTI_DEVICE = ("multi-device training (a mesh, an executor: fsdp and "
+                "grad_sync in the step, the elastic re-mesh) is not ported "
+                "yet: it waits for the multi-device training slice of the "
+                "port, and pipeline parallelism (core/pipeline.py's "
+                "stage_params / make_pp_step) for the slice after it "
+                "(ROADMAP Queue 1); serving on a mesh is ported "
+                "(repro_torch.launch.serve --mesh)")
 
 
 def batch_to_torch(batch, device) -> dict:

@@ -25,6 +25,7 @@ from repro_torch.kernels.flash_decode.ops import (flash_decode,
                                                   flash_decode_partial)
 from repro_torch.kv.cache import shard_kv_limits, shard_view
 from repro_torch.models import common
+from repro_torch.models.sharding import NULL_LAYOUT, MeshLayout, entry_of
 
 NEG_INF = -1e30
 
@@ -253,21 +254,43 @@ def make_attn_params(gen, cfg) -> dict:
     return p
 
 
-def qkv_project(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor
+def _split_heads(y: torch.Tensor, n_heads: int, hd: int, cols, ctx,
+                 site: str):
+    """A projection's local columns (B,S,cols) as heads (B,S,h,hd) and the
+    axes the heads are cut over: where the columns' cut splits a head
+    (e.g. 14 heads of 64 over 4 ranks), the columns are all-gathered
+    first and the heads are whole."""
+    n = ctx.n(entry_of(cols)) if cols else 1
+    if n > 1 and n_heads % n:
+        from repro_torch.core.collectives import all_gather
+        y = all_gather(y, ctx.mesh, cols, y.ndim - 1, site)
+        cols = ()
+    return y.reshape(*y.shape[:-1], -1, hd), cols
+
+
+def qkv_project(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
+                lay: MeshLayout = NULL_LAYOUT
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (B,S,D) -> q (B,S,Hq,hd), k/v (B,S,Hkv,hd), with RoPE applied
     where the config's ``pos`` is ``rope`` (after the per-head q/k RMSNorm
-    where the config has one)."""
-    B, S, _ = x.shape
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    where the config has one). On a mesh (``lay``) x is whole and q/k/v
+    come from the local columns (K4 on them with int8 weights), the norms
+    and RoPE run on the local heads, then the sites: q to ``act_heads``
+    (an all-gather under operator_centric) and to the attention's heads,
+    k/v to ``kv_heads``."""
+    hd, ctx = cfg.head_dim, lay.ctx
     q, k, v = common.linears([p["wq"], p["wk"], p["wv"]], x)
-    q = q.reshape(B, S, hq, hd)
-    k = k.reshape(B, S, hkv, hd)
-    v = v.reshape(B, S, hkv, hd)
+    q, qa = _split_heads(q, cfg.n_heads, hd, lay.q_cols, ctx, "q_cols")
+    k, ka = _split_heads(k, cfg.n_kv_heads, hd, lay.kv_cols, ctx, "kv_cols")
+    v, _ = _split_heads(v, cfg.n_kv_heads, hd, lay.kv_cols, ctx, "kv_cols")
     if "q_norm" in p:
         q = common.apply_norm("rmsnorm", p["q_norm"], q, cfg.norm_eps)
         k = common.apply_norm("rmsnorm", p["k_norm"], k, cfg.norm_eps)
     if cfg.pos == "rope":
         q = common.apply_rope(q, positions, cfg.rope_theta)
         k = common.apply_rope(k, positions, cfg.rope_theta)
+    q = lay.heads(q, qa, lay.act_heads, "q_act_heads")
+    q = lay.heads(q, lay.act_heads, lay.kv_heads, "q_attn")
+    k = lay.heads(k, ka, lay.kv_heads, "kv_heads")
+    v = lay.heads(v, ka, lay.kv_heads, "kv_heads")
     return q, k, v

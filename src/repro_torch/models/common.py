@@ -3,6 +3,12 @@ linear (float or int8 weights), gated activations, embedding, the decode
 unembedding, the training loss (chunked cross-entropy) and ``remat``.
 
 Port of ``repro.models.common``. Parameters are nested dicts of tensors.
+On a mesh (a ``ShardingCtx`` with more than one rank) the embedding is a
+masked gather of this rank's vocabulary rows followed by one reduction,
+the logits stay vocabulary-sharded (``greedy`` takes the argmax across the
+shards, ties to the lowest index as a whole-row argmax), and a
+row-parallel linear (``linear_partial``) returns this rank's f32 partial
+sum for the caller to reduce, after which the bias is added once.
 JAX's rounding points are kept: every ``linear`` accumulates in f32 and
 returns the compute dtype, and ``gated_act`` rounds ``silu(gate)`` to the
 compute dtype before the multiply.
@@ -16,8 +22,11 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.kernels.gemv.ops import gemv_int8_shared
-from repro_torch.quant.int8 import QuantizedTensor, quantize_int8
+from repro_torch.kernels.gemv.ops import gemv_int8_q, gemv_int8_shared
+from repro_torch.models.sharding import (NULL_CTX, ShardingCtx, axes_of,
+                                         entry_of)
+from repro_torch.quant.int8 import (QuantizedTensor, quantize_int8,
+                                    quantize_with_amax)
 
 Params = Dict[str, Any]
 
@@ -36,8 +45,9 @@ def dense_init(gen: torch.Generator, shape, dtype, fan_in: Optional[int] = None
                ) -> torch.Tensor:
     fan_in = fan_in if fan_in is not None else shape[0]
     std = 1.0 / math.sqrt(max(fan_in, 1))
-    w = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
-                    device=gen.device)
+    w = torch.randn(tuple(shape), dtype=torch.float32, device=gen.device,
+                    generator=gen if isinstance(gen, torch.Generator)
+                    else None)
     return (w * std).to(dtype)
 
 
@@ -75,6 +85,68 @@ def linears(ps, x: torch.Tensor, out_dtype=None):
             y = y + p["b"].to(y.dtype)
         out.append(y)
     return out
+
+
+def linear_partial(p: Params, x: torch.Tensor, ctx: ShardingCtx, rows):
+    """Row-parallel x @ w without bias: x holds this rank's slice of the
+    input dim, w the matching rows (cut over the mesh axes ``rows``).
+    Returns (this rank's f32 partial sum, ``finish``): the caller reduces
+    the partial over ``rows`` and applies ``finish(sum, ctx, cut)`` to it
+    (``cut``: the axes the sum's last dim lies cut over), then casts and
+    adds any bias once.
+
+    Float weights: the partial product in f32; ``finish`` is the identity.
+    int8 weights: x is quantized per row with the WHOLE row's absolute
+    maximum (``row_quantize``), so its scales and values are the unsharded
+    ones; K4 runs with unit scales, so the partial is the float of this
+    rank's integer accumulator, and ``finish`` scales the reduced
+    accumulator as K4 does, ``(acc * x_scale) * w_scale``. While every
+    accumulator stays below 2^24 in magnitude its float is exact, and the
+    result is the unsharded layer's to the bit (the weight's column scales
+    are whole: cut from the already quantized tensor).
+
+    Rows not cut (one device, or a layer the rules leave whole): the
+    product ``linear`` takes (K4 with the real scales, or a matmul in x's
+    dtype), and ``finish`` is the identity."""
+    w = p["w"]
+    if not (ctx.active and axes_of(rows)):
+        if isinstance(w, QuantizedTensor):
+            return gemv_int8_shared(x, [w])[0], _identity
+        return torch.matmul(x, w), _identity
+    if not isinstance(w, QuantizedTensor):
+        return torch.matmul(x.to(torch.float32), w.to(torch.float32)), \
+            _identity
+    lead = x.shape[:-1]
+    xq = row_quantize(x, ctx, rows)
+    acc = gemv_int8_q(xq.values, torch.ones_like(xq.scale), w.values,
+                      torch.ones((1, w.values.shape[1]), dtype=torch.float32,
+                                 device=x.device))
+    xs, ws = xq.scale, w.scale.reshape(1, -1)
+
+    def finish(y, ctx=NULL_CTX, cut=()):
+        # y: the reduced accumulator, its last dim cut over ``cut``
+        w_s = ctx.local(ws, (None, entry_of(cut))) if cut else ws
+        return ((y.reshape(-1, y.shape[-1]) * xs) * w_s).reshape(y.shape)
+    return acc.reshape(*lead, -1), finish
+
+
+def _identity(y, ctx=NULL_CTX, cut=()):
+    return y
+
+
+def row_quantize(x: torch.Tensor, ctx: ShardingCtx, rows
+                 ) -> QuantizedTensor:
+    """Per-row int8 quantization of this rank's slice x (..., K) of rows
+    cut over ``rows``, flattened to (R, K): each row's absolute maximum is
+    the maximum of the slices' (all-gathered), so the scales, and the
+    values of the slice, are the unsharded quantization's."""
+    from repro_torch.core.collectives import all_gather
+    xf = x.reshape(-1, x.shape[-1]).to(torch.float32)
+    amax = torch.amax(xf.abs(), dim=-1, keepdim=True)
+    if ctx.active and axes_of(rows):
+        amax = torch.amax(all_gather(amax, ctx.mesh, axes_of(rows), 1,
+                                     "int8_row_amax"), dim=1, keepdim=True)
+    return quantize_with_amax(xf, amax)
 
 
 # ---------------------------------------------------------------------------
@@ -155,8 +227,22 @@ def make_embedding(gen, vocab: int, d: int, dtype) -> Params:
     return {"table": dense_init(gen, (vocab, d), dtype, fan_in=d)}
 
 
-def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return p["table"][tokens]
+def embed(p: Params, tokens: torch.Tensor, ctx: ShardingCtx = NULL_CTX,
+          vocab=(), to=None) -> torch.Tensor:
+    """Token embeddings. On a mesh the table holds this rank's block of
+    vocabulary rows (cut over ``vocab``): tokens outside it read zeros, and
+    the partial sums are reduced onto the placement ``to`` (a spec of
+    (B,S,D)): a reduce-scatter onto a sharded residual, an all-reduce onto
+    a replicated one."""
+    if not ctx.active:
+        return p["table"][tokens]
+    table = p["table"]
+    Vl = table.shape[0]
+    rel = tokens.to(torch.long) - ctx.index(vocab) * Vl
+    inb = (rel >= 0) & (rel < Vl)
+    x = table[rel.clamp(0, Vl - 1)]
+    x = torch.where(inb[..., None], x, torch.zeros_like(x))
+    return ctx.reshard(x, (), to, partial=axes_of(vocab), site="embed")
 
 
 def unembed_logits(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -175,6 +261,38 @@ def unembed_logits(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         out = torch.mm(x2.to(table.dtype), table.t(),
                        out_dtype=torch.float32)
     return out.reshape(*lead, -1)
+
+
+def greedy(logits: torch.Tensor, ctx: ShardingCtx = NULL_CTX,
+           vocab=()) -> torch.Tensor:
+    """The greedy token (int32) of logits (..., V): ``argmax`` over the
+    last dim. On a mesh the logits hold this rank's vocabulary block (cut
+    over ``vocab``): each block's maximum and its global index are
+    all-gathered and the first block holding the overall maximum wins, so
+    ties go to the lowest index, as a whole-row argmax breaks them."""
+    if not ctx.active or not axes_of(vocab):
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    from repro_torch.core.collectives import all_gather
+    Vl = logits.shape[-1]
+    lf = logits.to(torch.float32)
+    idx = torch.argmax(lf, dim=-1, keepdim=True)
+    val = torch.gather(lf, -1, idx)[..., 0]
+    idx = (idx[..., 0] + ctx.index(vocab) * Vl).to(torch.float32)
+    both = all_gather(torch.stack([val, idx])[None], ctx.mesh,
+                      axes_of(vocab), 0, "greedy")        # (n,2,...)
+    win = torch.argmax(both[:, 0], dim=0, keepdim=True)
+    return torch.gather(both[:, 1], 0, win)[0].to(torch.int32)
+
+
+def gather_logits(logits: torch.Tensor, ctx: ShardingCtx = NULL_CTX,
+                  vocab=()) -> torch.Tensor:
+    """Whole-vocabulary logits on every rank (for checks and callers that
+    want full rows); unchanged without a mesh."""
+    if not ctx.active or not axes_of(vocab):
+        return logits
+    from repro_torch.core.collectives import all_gather
+    return all_gather(logits, ctx.mesh, axes_of(vocab), logits.ndim - 1,
+                      "gather_logits")
 
 
 # ---------------------------------------------------------------------------

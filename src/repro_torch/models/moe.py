@@ -1,8 +1,9 @@
 """Mixture-of-Experts FFN: f32 router, top-k, capacity-bounded dispatch.
 
 Port of ``repro.models.moe`` (``make_moe_params``, ``capacity``,
-``moe_ffn``) for one device: the reference's multi-device dispatch
-(``_moe_ffn_sharded``) arrives with the multi-device slice. Each token's
+``moe_ffn``, and on a mesh ``_moe_ffn_sharded``; its training on a mesh
+waits for the multi-device training slice, pipeline parallelism for its
+own). Each token's
 expert assignment is sorted by expert (stable), ranked within its expert's
 segment and kept while its rank is below the capacity C; kept tokens are
 copied into an (E, C, D) bucket tensor, every expert's products run over
@@ -16,6 +17,16 @@ and sums them in a fixed order. That is the same function, and unlike
 ``index_add_`` on CUDA (atomics) it gives the same bits on every call.
 Nothing here synchronises with the host: the drop rule, slots and gathers
 stay on the device.
+
+On a mesh (``moe_ffn_mesh``) the experts are cut over ``model`` (EP) and
+their F columns over ``data`` (``mlp_shard``). The router runs on every
+rank (its weights are whole); each rank dispatches only to its own experts
+and its combine is a partial sum over the expert axes. With several data
+rows and at least 512 tokens a row (and not training), each row dispatches
+its own tokens with the capacity counted on them, as the reference's
+``_moe_ffn_sharded``: a row's output can then differ from the unsharded
+one where tokens overflow, as in the reference. Otherwise the rows' tokens
+are all-gathered and dispatched together with the global capacity.
 """
 from __future__ import annotations
 
@@ -151,3 +162,106 @@ def moe_ffn(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     if train:
         return out, load_balance_loss(probs, gate_idx, E)
     return out
+
+
+# ---------------------------------------------------------------------------
+# On a mesh
+# ---------------------------------------------------------------------------
+
+def _local_experts(slot, keep, C: int, e0: int, El: int):
+    """Slots relative to this rank's experts [e0, e0 + El): the spare row
+    El*C for a dropped assignment or another rank's expert."""
+    mine = keep & (slot >= e0 * C) & (slot < (e0 + El) * C)
+    return torch.where(mine, slot - e0 * C, torch.full_like(slot, El * C)), \
+        mine
+
+
+def _moe_core_mesh(p: Dict, x: torch.Tensor, cfg: ModelConfig, ctx,
+                   experts, mlp_shard, rows_differ: bool):
+    """Route, dispatch to the local experts, expert products on the local F
+    columns, combine. x (B,S,D) whole over ``model``. ``mlp_shard``: the
+    axes the F columns are cut over; when the buckets differ between those
+    ranks (``rows_differ``: each data row dispatched its own tokens) they
+    are all-gathered there and the partial outputs reduce-scattered back,
+    else the output stays partial over them. Returns (f32 (B,S,D) partial
+    over ``experts`` (and over ``mlp_shard`` unless ``rows_differ``), the
+    f32 aux loss of these tokens)."""
+    from repro_torch.core.collectives import all_gather, reduce_scatter
+    m = cfg.moe
+    B, S, D = x.shape
+    T = B * S
+    K, E = m.experts_per_token, m.num_experts
+    C = capacity(T, cfg)
+    xf = x.reshape(T, D)
+    probs, gate_vals, gate_idx = route(p, xf, K)
+    order, slot, keep = dispatch(gate_idx, E, C)
+    El = p["w_gate"].shape[0]
+    e0 = ctx.index(tuple(experts)) * El if experts else 0
+    slot_l, mine = _local_experts(slot, keep, C, e0, El)
+    disp = torch.zeros((El * C + 1, D), dtype=x.dtype, device=x.device)
+    disp.index_copy_(0, slot_l, xf[torch.div(order, K,
+                                             rounding_mode="floor")])
+    disp = disp[:El * C].view(El, C, D)
+    if mlp_shard and rows_differ:
+        n = ctx.n(tuple(mlp_shard))
+        disp = all_gather(disp, ctx.mesh, mlp_shard, 0, "moe_buckets")
+        eo = expert_products(p, disp.view(n, El, C, D).transpose(0, 1)
+                             .reshape(El, n * C, D), cfg)
+        eo = eo.view(El, n, C, D).transpose(0, 1).reshape(n * El * C, D)
+        eo = reduce_scatter(eo.to(torch.float32), ctx.mesh, mlp_shard, 0,
+                            "moe_expert_out")
+    else:
+        eo = expert_products(p, disp, cfg).to(torch.float32)
+    eo = torch.cat([eo, eo.new_zeros((1, D))])
+    tok_slot = torch.empty_like(slot_l).index_copy_(0, order, slot_l)
+    tok_mine = torch.empty_like(mine).index_copy_(0, order, mine)
+    w = (gate_vals.reshape(-1) * tok_mine).to(torch.float32)
+    out = (eo[tok_slot] * w[:, None]).view(T, K, D).sum(1)
+    return out.view(B, S, D), load_balance_loss(probs, gate_idx, E)
+
+
+def _moe_ffn_sharded(p: Dict, x: torch.Tensor, cfg: ModelConfig, ctx,
+                     experts, mlp_shard, train: bool = False):
+    """Each data row dispatches its own tokens (capacity on the row's
+    tokens); the aux loss is averaged over the data axes. Returns the f32
+    output partial over ``experts`` (and the aux loss with ``train``)."""
+    from repro_torch.core.collectives import all_reduce
+    out, aux = _moe_core_mesh(p, x, cfg, ctx, experts, mlp_shard,
+                              rows_differ=True)
+    dp = ctx.batch_axes
+    aux = all_reduce(aux, ctx.mesh, dp, "moe_aux") / ctx.n(tuple(dp)) \
+        if dp else aux
+    return (out, aux) if train else out
+
+
+def moe_ffn_mesh(p: Dict, x: torch.Tensor, cfg: ModelConfig, ctx,
+                 experts, mlp_shard, train: bool = False):
+    """``moe_ffn`` on a mesh: x (B,S,D) this data row's tokens, whole over
+    ``model``. Returns the f32 output partial over ``experts`` (and the aux
+    loss with ``train``). Several data rows: per-row dispatch
+    (``_moe_ffn_sharded``) from 512 tokens a row when serving, else the
+    rows' tokens gathered and dispatched together."""
+    from repro_torch.core.collectives import all_gather, reduce_scatter
+    dp = tuple(a for a in ctx.batch_axes if ctx.mesh.shape[a] > 1)
+    B, S, _ = x.shape
+    if dp and not train and B * S >= 512:
+        return _moe_ffn_sharded(p, x, cfg, ctx, experts, mlp_shard, train)
+    if not dp:
+        out, aux = _moe_core_mesh(p, x, cfg, ctx, experts, mlp_shard,
+                                  rows_differ=False)
+        if mlp_shard:
+            from repro_torch.core.collectives import all_reduce
+            out = all_reduce(out, ctx.mesh, mlp_shard, "moe_expert_out")
+        return (out, aux) if train else out
+    xg = all_gather(x, ctx.mesh, dp, 0, "moe_tokens")
+    out, aux = _moe_core_mesh(p, xg, cfg, ctx, experts, mlp_shard,
+                              rows_differ=False)
+    if tuple(mlp_shard) == dp:
+        # the F partial sums and the row cut in one reduce-scatter
+        out = reduce_scatter(out, ctx.mesh, dp, 0, "moe_tokens_back")
+    else:
+        if mlp_shard:
+            from repro_torch.core.collectives import all_reduce
+            out = all_reduce(out, ctx.mesh, mlp_shard, "moe_expert_out")
+        out = ctx.local(out, (dp if len(dp) > 1 else dp[0],))
+    return (out, aux) if train else out

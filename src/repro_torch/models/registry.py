@@ -9,7 +9,15 @@ slotted fields are None for a family that serves in drain mode only (the
 hybrid) or has no slotted API (the enc-dec family, whose ``prefill`` also
 takes frames: the engine refuses it); the VLM has no chunk lane (its
 prompts put vision embeddings before the text) and no WA backend.
-Sharding contexts are gone (one device per engine in this slice).
+
+On a mesh (``build_model(cfg, device, ctx)`` with a ``ShardingCtx`` of
+more than one rank) the transformer family's fields run on this rank's
+share: params from ``param_specs.shard_params``, the rows of this data row
+(the caller cuts a batch over the rules' batch axes; a batch-1 program
+runs on the data row that owns its slot), this rank's cache
+(``init_caches`` takes the GLOBAL slot count), logits over this rank's
+vocabulary rows (``greedy`` and ``full_logits`` read them). The recurrent
+and enc-dec families on a mesh wait for a later slice and raise.
 """
 from __future__ import annotations
 
@@ -20,6 +28,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kv.cache import reset_slot, write_slot_kv
+from repro_torch.models.sharding import NULL_CTX, ShardingCtx, layout
 
 DECODE_SLACK = 128      # cache headroom beyond the prompt
 
@@ -69,9 +78,20 @@ class ModelAPI(NamedTuple):
     #   remat; ``batch`` holds tokens and labels (B,S), plus the VLM's
     #   vision_embeds (B,N,D) or the enc-dec family's frames (B,F,D)
     loss: Optional[Callable] = None
+    # the sharding context the fields run under (NULL_CTX: one device)
+    ctx: ShardingCtx = NULL_CTX
+    # greedy(logits) -> int32 ids: argmax over the last dim, across the
+    #   vocabulary shards on a mesh; full_logits(logits): whole rows
+    greedy: Optional[Callable] = None
+    full_logits: Optional[Callable] = None
 
 
-def make_decode_block(decode_slotted: Callable) -> Callable:
+def _argmax(logits):
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def make_decode_block(decode_slotted: Callable,
+                      greedy: Callable = _argmax) -> Callable:
     """Lift ``decode_slotted`` into a macro-step ``decode_block``: T greedy
     micro-steps as a Python loop over device tensors, with per-slot halting
     on device. No host sync inside the block: tokens, cursors, budgets and
@@ -89,7 +109,7 @@ def make_decode_block(decode_slotted: Callable) -> Callable:
             caches, logits = decode_slotted(params, caches, tok, pos, act,
                                             kv_bucket=kv_bucket,
                                             kv_shards=kv_shards)
-            nxt = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
+            nxt = greedy(logits[:, 0])
             nxt = torch.where(act, nxt, torch.zeros_like(nxt))
             emits.append(act)
             step = act.to(torch.int32)
@@ -114,46 +134,56 @@ def _seeded_init(module, cfg: ModelConfig, device: torch.device):
     return init
 
 
-def _build_transformer(cfg: ModelConfig, device: torch.device) -> ModelAPI:
+def _build_transformer(cfg: ModelConfig, device: torch.device,
+                       ctx: ShardingCtx = NULL_CTX) -> ModelAPI:
     """Dense, MoE and VLM. The VLM's prefill takes optional vision
     embeddings and sizes its cache for them; it has no chunk lane and no
     WA backend (its prompts put vision embeddings before the text, which
     the token-only chunk walk cannot cover), so its admission is
     monolithic."""
+    from repro_torch.models import common
     from repro_torch.models import transformer as T
     T.check_supported(cfg)
     is_vlm = cfg.family == "vlm"
+    rows = ctx.n(ctx.batch_axes) if ctx.active else 1
+    vocab = layout(cfg, ctx).vocab
 
     def prefill(params, tokens, vision_embeds=None):
-        cache = T.make_cache(cfg, tokens.shape[0],
+        cache = T.make_cache(cfg, tokens.shape[0] * rows,
                              tokens.shape[1] + DECODE_SLACK
                              + (cfg.n_vision_tokens if is_vlm else 0),
-                             device)
-        return T.prefill(params, tokens, cfg, cache, vision_embeds)
+                             device, ctx)
+        return T.prefill(params, tokens, cfg, cache, vision_embeds, ctx)
 
     def decode(params, caches, tokens):
-        return T.decode_step(params, caches, tokens, cfg)
+        return T.decode_step(params, caches, tokens, cfg, ctx)
 
     def init_caches(batch, max_len, device=device):
-        return T.make_cache(cfg, batch, max_len, device)
+        return T.make_cache(cfg, batch, max_len, device, ctx)
 
     def decode_slotted(params, caches, tokens, positions, active,
                        kv_bucket: int = 0, kv_shards: int = 1):
         return T.decode_step_slotted(params, caches, tokens, positions,
                                      active, cfg, kv_bucket=kv_bucket,
-                                     kv_shards=kv_shards)
+                                     kv_shards=kv_shards, ctx=ctx)
 
     def prefill_chunk(params, caches, tokens, slot, start, valid_len):
         return T.prefill_chunk(params, caches, tokens, slot, start,
-                               valid_len, cfg)
+                               valid_len, cfg, ctx)
+
+    def greedy(logits):
+        return common.greedy(logits, ctx, vocab)
 
     return ModelAPI(cfg, device, _seeded_init(T, cfg, device), prefill,
                     decode, init_caches, decode_slotted,
                     write_slot_kv, reset_slot,
-                    make_decode_block(decode_slotted),
+                    make_decode_block(decode_slotted, greedy),
                     None if is_vlm else prefill_chunk,
                     wa_servable=not is_vlm,
-                    loss=lambda params, batch: T.loss_fn(params, batch, cfg))
+                    loss=lambda params, batch: T.loss_fn(params, batch, cfg),
+                    ctx=ctx, greedy=greedy,
+                    full_logits=lambda lg: common.gather_logits(lg, ctx,
+                                                                vocab))
 
 
 def _build_ssm(cfg: ModelConfig, device: torch.device) -> ModelAPI:
@@ -219,13 +249,20 @@ def _build_encdec(cfg: ModelConfig, device: torch.device) -> ModelAPI:
         loss=lambda params, batch: E.loss_fn(params, batch, cfg))
 
 
-def build_model(cfg: ModelConfig, device: DeviceLike = None) -> ModelAPI:
+def build_model(cfg: ModelConfig, device: DeviceLike = None,
+                ctx: ShardingCtx = NULL_CTX) -> ModelAPI:
     """The family's API (dense, moe, vlm, ssm, hybrid, audio) on
     ``device`` (default ``cuda``; raises without a GPU unless
-    ``device="cpu"`` is passed)."""
+    ``device="cpu"`` is passed). ``ctx``: this rank's sharding context on
+    a mesh (the transformer family only)."""
     dev = resolve_device(device)
     if cfg.family in ("dense", "moe", "vlm"):
-        return _build_transformer(cfg, dev)
+        return _build_transformer(cfg, dev, ctx)
+    if ctx.active:
+        raise NotImplementedError(
+            f"the {cfg.family} family on a mesh is not ported yet: the "
+            "recurrent and enc-dec families on a mesh wait for a later "
+            "slice of the port (ROADMAP Queue 1)")
     if cfg.family == "ssm":
         return _build_ssm(cfg, dev)
     if cfg.family == "hybrid":

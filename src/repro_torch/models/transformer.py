@@ -23,9 +23,25 @@ Positions: RoPE inside ``qkv_project``, or a learned table
 ``params["pos_embed"]`` added to the embeddings (``embed_tokens``). The
 VLM puts its precomputed vision embeddings before the text in
 ``forward_hidden``; positions then run over the whole sequence.
+
+On a mesh (``ctx``, a ``ShardingCtx``) every function runs on this rank's
+share: the batch rows of its data row (the caller cuts them), the KV heads
+or sequence block of its cache (``init_kv_cache_sharded``), its weight
+columns and rows (``param_specs.shard_params``). ``MeshLayout`` resolves,
+once per call, where each tensor lives, and every reference ``ctx.ann``
+site becomes the collective (or nothing) that moves a tensor from where it
+arrives to where the rules put it (the site table in
+``models/sharding.py``). One device and a mesh run the same functions:
+without a mesh (``NULL_LAYOUT``) every site returns its tensor and a
+row-parallel layer is the plain linear. K1 runs over the local heads (or,
+when the rules
+cut the cache's sequence, over the local block of positions, the blocks'
+(o, m, l) merged across ranks), K3 over the local slice of F (a partial D
+output), K4 over the local columns or rows.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Tuple
 
 import torch
@@ -33,9 +49,13 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.fused_ffn.ops import fused_ffn
+from repro_torch.kernels.flash_decode.combine import (NEG_INF,
+                                                      combine_partial_stats)
+from repro_torch.kernels.flash_decode.ops import flash_decode_partial
 from repro_torch.kv.cache import (KVCache, batch_valid_mask, bucket_view,
                                   chunk_hot_image, cold_boundary,
-                                  init_kv_cache, layer_append_slotted,
+                                  init_kv_cache, init_kv_cache_sharded,
+                                  layer_append_slotted,
                                   layer_append_ring, layer_append_tiered,
                                   layer_read_slot, layer_read_slot_cold,
                                   layer_read_tiered,
@@ -49,7 +69,9 @@ from repro_torch.models.attention import (chunk_attention,
                                           decode_attention_split,
                                           flash_attention, make_attn_params,
                                           qkv_project)
-from repro_torch.models.moe import make_moe_params, moe_ffn
+from repro_torch.models.moe import make_moe_params, moe_ffn, moe_ffn_mesh
+from repro_torch.models.sharding import (NULL_CTX, NULL_LAYOUT, MeshLayout,
+                                         ShardingCtx, entry_of, layout)
 from repro_torch.quant.int8 import (QuantizedTensor, dequantize_kv,
                                     quantize_kv)
 
@@ -108,24 +130,31 @@ def make_ffn_params(gen, cfg: ModelConfig) -> dict:
                                          int8=cfg.weight_int8)}
 
 
-def ffn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def ffn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
+              lay: MeshLayout = NULL_LAYOUT) -> torch.Tensor:
     """Gated FFN. Float weights: one fused call (K3 on CUDA, f32 through
     the intermediate, cast once at the end). int8 weights: the three
     linears through K4 with the reference's rounding points. The ungated
     ``gelu_mlp``: two linears with biases (K4 with int8 weights, else
-    plain products) around tanh-gelu in f32, rounded to x's dtype."""
+    plain products) around tanh-gelu in f32, rounded to x's dtype.
+
+    On a mesh x is whole and the FFN runs over the local slice of F (K3's
+    output, or w_down's, a partial sum of D) and lands on the residual's
+    placement (reduce-scatter | all-reduce) in x's dtype."""
     if cfg.act == "gelu_mlp":
         h = common.linear(p["w_in"], x)
         h = F.gelu(h.to(torch.float32), approximate="tanh").to(x.dtype)
-        return common.linear(p["w_out"], h)
+        return row_linear(p["w_out"], h, lay, lay.mlp, "ffn_out")
     if isinstance(p["w_gate"]["w"], QuantizedTensor):
         up, gate = common.linears([p["w_up"], p["w_gate"]], x)
-        return common.linear(p["w_down"], common.gated_act(cfg.act, up, gate))
+        return row_linear(p["w_down"], common.gated_act(cfg.act, up, gate),
+                          lay, lay.mlp, "ffn_out")
     lead = x.shape[:-1]
     out = fused_ffn(x.reshape(-1, x.shape[-1]), p["w_gate"]["w"],
                     p["w_up"]["w"], p["w_down"]["w"],
                     act=_FUSED_ACTS[cfg.act])
-    return out.reshape(*lead, -1).to(x.dtype)
+    return lay.to_res(out.reshape(*lead, -1), lay.mlp, "ffn_out") \
+        .to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -145,43 +174,47 @@ def make_block_params(gen, cfg: ModelConfig) -> dict:
     return p
 
 
-def _mix_ffn(p, x, cfg):
-    """The FFN half of a block: ln2, then the MoE or the dense FFN, and the
-    residual."""
-    h = common.apply_norm(cfg.norm, p["ln2"], x, cfg.norm_eps)
-    if cfg.moe is not None:
+def _mix_ffn(p, x, cfg, lay: MeshLayout = NULL_LAYOUT):
+    """The FFN half of a block: ln2 (of the whole residual), then the MoE
+    or the dense FFN, and the residual."""
+    h = lay.to_full(x, "ln2_in")
+    h = common.apply_norm(cfg.norm, p["ln2"], h, cfg.norm_eps)
+    if cfg.moe is None:
+        return x + ffn_apply(p["ffn"], h, cfg, lay)
+    if not lay.active:
         return x + moe_ffn(p["moe"], h, cfg)
-    return x + ffn_apply(p["ffn"], h, cfg)
+    f = moe_ffn_mesh(p["moe"], h, cfg, lay.ctx, lay.experts, lay.mlp_shard)
+    return x + lay.to_res(f, lay.experts, "ffn_out").to(x.dtype)
 
 
 def _attention_full_seq(p: dict, x: torch.Tensor, cfg: ModelConfig,
                         positions: torch.Tensor, kv_quant_roundtrip: bool,
-                        window: int):
+                        window: int, lay: MeshLayout = NULL_LAYOUT):
     """The attention half of a full-sequence block: ln1, QKV, causal
     attention (banded when ``window`` > 0), the output projection and the
     residual. Returns (x', k, v)."""
-    h = common.apply_norm(cfg.norm, p["ln1"], x, cfg.norm_eps)
-    q, k, v = qkv_project(p["attn"], h, cfg, positions)
+    q, k, v = pre_attention(p, x, positions, cfg, lay)
     k_att, v_att = k, v
     if kv_quant_roundtrip:
         k_att = dequantize_kv(*quantize_kv(k), dtype=k.dtype)
         v_att = dequantize_kv(*quantize_kv(v), dtype=v.dtype)
     o = flash_attention(q, k_att, v_att, window)
-    o = common.linear(p["attn"]["wo"], o.reshape(x.shape[0], x.shape[1], -1))
-    return x + o, k, v
+    return x + attention_out(p, x, o, cfg, lay), k, v
 
 
 def block_full_seq(p: dict, x: torch.Tensor, cfg: ModelConfig,
                    positions: torch.Tensor,
-                   kv_quant_roundtrip: bool = False, window: int = 0):
+                   kv_quant_roundtrip: bool = False, window: int = 0,
+                   lay: MeshLayout = NULL_LAYOUT):
     """Full-sequence block (prefill). x: (B,S,D) -> (x', (k, v)).
     ``kv_quant_roundtrip`` (int8-KV prefill): attend the quantize ->
     dequantize image of K/V, the values the cache will hold; the original
     K/V still go to the caller. ``window`` > 0: local attention over the
-    band (q - window, q]."""
+    band (q - window, q]. On a mesh x is the residual's slice and the
+    attention runs over the attention's heads (k, v leave in them)."""
     x, k, v = _attention_full_seq(p, x, cfg, positions, kv_quant_roundtrip,
-                                  window)
-    return _mix_ffn(p, x, cfg), (k, v)
+                                  window, lay)
+    return _mix_ffn(p, x, cfg, lay), (k, v)
 
 
 def block_train(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -199,20 +232,42 @@ def block_train(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 def pre_attention(p: dict, x: torch.Tensor, positions: torch.Tensor,
-                  cfg: ModelConfig):
+                  cfg: ModelConfig, lay: MeshLayout = NULL_LAYOUT):
     """The layer before attention: ln1 and the QKV projection with per-row
-    RoPE phases ``positions`` (B,S). x: (B,S,D); returns q, k, v."""
-    h = common.apply_norm(cfg.norm, p["ln1"], x, cfg.norm_eps)
-    return qkv_project(p["attn"], h, cfg, positions)
+    RoPE phases ``positions`` (B,S). x: (B,S,D); returns q, k, v. On a
+    mesh x arrives as the residual (``lay.res``) and q, k, v leave in the
+    attention's head placement (``lay.kv_heads``)."""
+    h = lay.to_full(x, "ln1_in")
+    h = common.apply_norm(cfg.norm, p["ln1"], h, cfg.norm_eps)
+    return qkv_project(p["attn"], h, cfg, positions, lay)
+
+
+def attention_out(p: dict, x: torch.Tensor, o: torch.Tensor,
+                  cfg: ModelConfig, lay: MeshLayout = NULL_LAYOUT
+                  ) -> torch.Tensor:
+    """The output projection of o (B,S,h,hd) or (B,h,hd) over the
+    attention's heads, onto the residual's placement. On a mesh o goes to
+    ``act_heads`` (an all-gather under operator_centric), to wo's rows (a
+    slice), through the row-parallel wo and onto the residual
+    (reduce-scatter | all-reduce)."""
+    B, S = x.shape[0], x.shape[1]
+    if lay.active:
+        o = lay.heads(o.reshape(B, S, -1, cfg.head_dim), lay.kv_heads,
+                      lay.act_heads, "o_act_heads")
+        o = lay.ctx.reshard(o.reshape(B, S, -1),
+                            (None, None, entry_of(lay.act_heads)),
+                            (None, None, entry_of(lay.wo_rows)),
+                            site="wo_rows")
+    return row_linear(p["attn"]["wo"], o.reshape(B, S, -1), lay,
+                      lay.wo_rows, "attn_out")
 
 
 def post_attention(p: dict, x: torch.Tensor, o: torch.Tensor,
-                   cfg: ModelConfig) -> torch.Tensor:
+                   cfg: ModelConfig, lay: MeshLayout = NULL_LAYOUT
+                   ) -> torch.Tensor:
     """The layer after attention: output projection, residual, ln2 and the
     FFN half. x: (B,S,D); o: (B,S,Hq,hd) or (B,Hq,hd) for S = 1."""
-    B, S = x.shape[0], x.shape[1]
-    o = common.linear(p["attn"]["wo"], o.reshape(B, S, -1))
-    return _mix_ffn(p, x + o, cfg)
+    return _mix_ffn(p, x + attention_out(p, x, o, cfg, lay), cfg, lay)
 
 
 def attend_decode_slotted(q: torch.Tensor, k: torch.Tensor,
@@ -264,14 +319,21 @@ def attend_decode_slotted(q: torch.Tensor, k: torch.Tensor,
 def block_decode_slotted(p: dict, x: torch.Tensor, cfg: ModelConfig,
                          kv_slices: Tuple, positions: torch.Tensor,
                          active: torch.Tensor, kv_bucket: int = 0,
-                         kv_limit=None, kv_shards: int = 1) -> torch.Tensor:
+                         kv_limit=None, kv_shards: int = 1,
+                         lay: MeshLayout = NULL_LAYOUT, seq=None
+                         ) -> torch.Tensor:
     """One decode layer with per-row cursors. x: (B,1,D):
-    ``pre_attention``, the KV side (``attend_decode_slotted``), then
-    ``post_attention``."""
-    q, k, v = pre_attention(p, x, positions[:, None], cfg)
-    o = attend_decode_slotted(q, k, v, kv_slices, positions, active, cfg,
-                              kv_bucket, kv_limit, kv_shards)
-    return post_attention(p, x, o, cfg)
+    ``pre_attention``, the KV side (``attend_decode_slotted``, or
+    ``attend_decode_seq`` where this rank holds a block of positions:
+    ``seq`` = ``cache_seq(cache)``), then ``post_attention``."""
+    q, k, v = pre_attention(p, x, positions[:, None], cfg, lay)
+    if seq:
+        o = attend_decode_seq(q, k, v, kv_slices, positions, active, cfg,
+                              kv_bucket, kv_limit, kv_shards, lay.ctx, *seq)
+    else:
+        o = attend_decode_slotted(q, k, v, kv_slices, positions, active,
+                                  cfg, kv_bucket, kv_limit, kv_shards)
+    return post_attention(p, x, o, cfg, lay)
 
 
 def block_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -337,15 +399,152 @@ def attend_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def block_prefill_chunk(p: dict, x: torch.Tensor, cfg: ModelConfig,
                         kv_slices: Tuple, slot: int, start: int,
-                        valid_len: int) -> torch.Tensor:
+                        valid_len: int, lay: MeshLayout = NULL_LAYOUT,
+                        seq=None) -> torch.Tensor:
     """Chunk-prefill layer: x (1,C,D) is slot ``slot``'s prompt chunk at
     absolute positions [start, start+C): ``pre_attention``, the KV side
-    (``attend_chunk``), then ``post_attention``."""
+    (``attend_chunk``, or ``attend_chunk_seq`` where this rank holds a
+    block of positions), then ``post_attention``."""
     positions = chunk_positions(start, x.shape[1], x.device)
-    q, k, v = pre_attention(p, x, positions, cfg)
-    o = attend_chunk(q, k, v, kv_slices, slot, start, valid_len, positions,
-                     cfg)
-    return post_attention(p, x, o, cfg)
+    q, k, v = pre_attention(p, x, positions, cfg, lay)
+    if seq:
+        o = attend_chunk_seq(q, k, v, kv_slices, slot, start, valid_len,
+                             positions, cfg, lay.ctx, *seq)
+    else:
+        o = attend_chunk(q, k, v, kv_slices, slot, start, valid_len,
+                         positions, cfg)
+    return post_attention(p, x, o, cfg, lay)
+
+
+# ---------------------------------------------------------------------------
+# On a mesh: placements and the sites' collectives
+# ---------------------------------------------------------------------------
+
+def row_linear(p: dict, x: torch.Tensor, lay: MeshLayout, rows,
+               site: str) -> torch.Tensor:
+    """A row-parallel linear (wo, w_down, w_out) onto the residual's
+    placement, in x's dtype: this rank's partial product over its rows
+    (``common.linear_partial``), reduced over ``rows`` (reduce-scatter |
+    all-reduce), int8's scales applied to the reduced sum, the bias added
+    once after the reduction. Without a mesh: ``common.linear``."""
+    y, finish = common.linear_partial(p, x, lay.ctx, rows)
+    y = lay.to_res(y, rows, site)
+    if finish is not common._identity:
+        y = finish(y, lay.ctx, lay.res)
+    y = y.to(x.dtype)
+    b = p.get("b")
+    return y if b is None else y + lay.res_local(b).to(y.dtype)
+
+
+def _merge_blocks(o, m, l, ctx: ShardingCtx, axes, site: str):
+    """LSE merge of per-rank partial statistics (o (B,H,hd), m/l (B,H)) of
+    disjoint blocks of positions: the (o, m, l) triples are all-gathered
+    over ``axes`` and combined in f32 (only they cross ranks)."""
+    from repro_torch.core.collectives import all_gather
+    hd = o.shape[-1]
+    packed = torch.cat([o, m[..., None], l[..., None]], dim=-1)[None]
+    got = all_gather(packed, ctx.mesh, axes, 0, site)
+    return combine_partial_stats(got[..., :hd], got[..., hd],
+                                 got[..., hd + 1], axis=0)
+
+
+def attend_decode_seq(q, k, v, kv_slices: Tuple, positions, active,
+                      cfg: ModelConfig, kv_bucket: int, kv_limit,
+                      kv_shards: int, ctx: ShardingCtx, seq_axes, lo: int):
+    """The KV side of a decode layer when this rank holds positions
+    [lo, lo + S) of every slot (the rules cut ``kv_seq``): the rows whose
+    cursor falls in the block append here; K1 in partial-statistics mode
+    walks the block's part of the bucket (in ``kv_shards`` // ranks
+    sub-blocks when they divide it), and the blocks merge across ranks.
+    q (B,1,H,hd) over all heads. Returns o (B,H,hd) in q's dtype."""
+    k_l, v_l, ks_l, vs_l = kv_slices[:4]
+    S = k_l.shape[2]
+    rel = positions - lo
+    mine = active & (rel >= 0) & (rel < S)
+    layer_append_slotted(k_l, v_l, ks_l, vs_l, k[:, 0], v[:, 0], rel, mine)
+    nb = S if not kv_bucket else max(0, min(S, kv_bucket - lo))
+    B, H, hd = q.shape[0], q.shape[2], q.shape[3]
+    if nb == 0:
+        o = torch.zeros((B, H, hd), dtype=torch.float32, device=q.device)
+        m = torch.full((B, H), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((B, H), dtype=torch.float32, device=q.device)
+    else:
+        kc, vc, ksc, vsc = bucket_view(k_l, v_l, ks_l, vs_l, nb)
+        mask = (lo + torch.arange(nb, device=q.device))[None, :] \
+            <= positions[:, None]
+        lim = torch.clamp(torch.as_tensor(kv_limit, device=q.device) - lo,
+                          0, nb).to(torch.int32)
+        n = max(1, kv_shards // ctx.n(entry_of(seq_axes)))
+        if n > 1 and nb % n == 0:
+            Sb = nb // n
+            parts = []
+            for s in range(n):
+                cut = slice(s * Sb, (s + 1) * Sb)
+                parts.append(flash_decode_partial(
+                    q[:, 0].contiguous(), kc[:, :, cut], vc[:, :, cut],
+                    mask[:, cut], None if ksc is None else ksc[:, :, cut],
+                    None if vsc is None else vsc[:, :, cut],
+                    kv_limit=torch.clamp(lim - s * Sb, 0, Sb)))
+            o, m, l = (torch.stack(t) for t in zip(*parts))
+            from repro_torch.kernels.flash_decode.combine import \
+                merge_partial_stats
+            o, m, l = merge_partial_stats(o, m, l, axis=0)
+        else:
+            o, m, l = flash_decode_partial(q[:, 0].contiguous(), kc, vc,
+                                           mask, ksc, vsc, kv_limit=lim)
+    return _merge_blocks(o, m, l, ctx, seq_axes, "kv_seq_merge") \
+        .to(q.dtype)
+
+
+def attend_chunk_seq(q, k, v, kv_slices: Tuple, slot: int, start: int,
+                     valid_len: int, positions, cfg: ModelConfig,
+                     ctx: ShardingCtx, seq_axes, lo: int):
+    """``attend_chunk`` when this rank holds positions [lo, lo + S): the
+    chunk's positions that fall in the block are written here (int8
+    quantized per position), the slot's block is read back and each
+    query's partial softmax statistics over it merge across ranks (the
+    reference's weights rounded to the value dtype before the PV
+    product)."""
+    k_l, v_l, ks_l, vs_l = kv_slices[:4]
+    S = k_l.shape[2]
+    a, b = max(start, lo), min(start + valid_len, lo + S)
+    if a < b:
+        k_ch = k[0, a - start:b - start].transpose(0, 1)   # (n_kv,c,hd)
+        v_ch = v[0, a - start:b - start].transpose(0, 1)
+        layer_write_chunk(k_l, v_l, ks_l, vs_l, k_ch, v_ch, slot, a - lo,
+                          b - a)
+    kc, vc = layer_read_slot(k_l, v_l, ks_l, vs_l, slot, dtype=q.dtype)
+    _, C, Hq, hd = q.shape
+    n_kv = kc.shape[1]
+    qg = q.reshape(1, C, n_kv, Hq // n_kv, hd)
+    sc = torch.einsum("bqkgh,bksh->bkgqs", qg.to(torch.float32),
+                      kc.to(torch.float32)) / math.sqrt(hd)
+    mask = (lo + torch.arange(S, device=q.device))[None, :] \
+        <= positions[0][:, None]                                   # (C,S)
+    sc = torch.where(mask[None, None, None], sc, torch.full_like(sc, NEG_INF))
+    m = torch.amax(sc, dim=-1)                                # (1,kv,G,C)
+    p = torch.exp(sc - m[..., None])
+    l = p.sum(-1)
+    o = torch.einsum("bkgqs,bksh->bkgqh", p.to(vc.dtype).to(torch.float32),
+                     vc.to(torch.float32))
+    out = _merge_blocks(o.reshape(-1, C, hd), m.reshape(-1, C),
+                        l.reshape(-1, C), ctx, seq_axes, "kv_seq_merge")
+    out = out.reshape(n_kv, Hq // n_kv, C, hd).permute(2, 0, 1, 3)
+    return out.reshape(1, C, Hq, hd).to(q.dtype)
+
+
+def cache_seq(cache: KVCache):
+    """(the mesh axes, this rank's first position) of a cache whose
+    positions the rules cut over ranks, else None."""
+    return (cache.seq_axes, cache.seq_lo) if cache.seq_axes else None
+
+
+def check_mesh_cache(cache: KVCache, ctx: ShardingCtx):
+    if ctx.active and (cache.is_tiered or cache.window):
+        raise NotImplementedError(
+            "tiered and ring KV caches are not cut over a mesh in this "
+            "slice of the port (flat float or int8 caches are)")
 
 
 # ---------------------------------------------------------------------------
@@ -376,25 +575,35 @@ def unembed_table(params, cfg: ModelConfig) -> torch.Tensor:
             else params["unembed"])["table"]
 
 
-def final_logits(params, x, cfg):
+def final_logits(params, x, cfg, lay: MeshLayout = NULL_LAYOUT):
+    """f32 logits of the residual x after the final norm; on a mesh x is
+    gathered whole first and the logits cover this rank's vocabulary
+    rows."""
+    x = lay.to_full(x, "ln_f_in")
     x = common.apply_norm(cfg.norm, params["ln_f"], x, cfg.norm_eps)
     return common.unembed_logits(unembed_table(params, cfg), x)
 
 
 def add_learned_pos(params, x: torch.Tensor, positions: torch.Tensor,
-                    cfg: ModelConfig) -> torch.Tensor:
+                    cfg: ModelConfig, lay: MeshLayout = NULL_LAYOUT
+                    ) -> torch.Tensor:
     """x (B,S,D) plus the learned positions of ``positions`` ((B,S) or
-    (S,) device ints) where the config has them; else x."""
+    (S,) device ints) where the config has them; else x. On a mesh the
+    table's rows are sliced to the residual's D."""
     if cfg.pos != "learned":
         return x
-    return x + params["pos_embed"][positions.to(torch.long)].to(x.dtype)
+    pe = params["pos_embed"][positions.to(torch.long)]
+    return x + lay.res_local(pe).to(x.dtype)
 
 
 def embed_tokens(params, tokens: torch.Tensor, positions: torch.Tensor,
-                 cfg: ModelConfig) -> torch.Tensor:
-    """Token embeddings (B,S,D) of tokens (B,S) at ``positions``."""
-    return add_learned_pos(params, common.embed(params["embed"], tokens),
-                           positions, cfg)
+                 cfg: ModelConfig, lay: MeshLayout = NULL_LAYOUT
+                 ) -> torch.Tensor:
+    """Token embeddings (B,S,D) of tokens (B,S) at ``positions`` (on a
+    mesh: onto the residual's placement)."""
+    x = common.embed(params["embed"], tokens, lay.ctx, lay.vocab,
+                     lay.res_spec())
+    return add_learned_pos(params, x, positions, cfg, lay)
 
 
 # ---------------------------------------------------------------------------
@@ -402,25 +611,28 @@ def embed_tokens(params, tokens: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def forward_hidden(params, tokens: torch.Tensor, cfg: ModelConfig,
-                   vision_embeds=None):
+                   vision_embeds=None, ctx: ShardingCtx = NULL_CTX):
     """Inference forward of a prompt. tokens: (B,S_text); ``vision_embeds``
     (B,N,D) go before the text (the VLM's stub frontend) -> (hidden (B,S,D)
     after the final norm, S = N + S_text; per-layer list of (k, v) each
     (B,S,n_kv,hd)). int8-KV configs attend the quantized image of K/V, as
-    the reference's prefill does."""
-    x = common.embed(params["embed"], tokens)
+    the reference's prefill does. On a mesh the hidden state is whole and
+    each (k, v) holds the attention's heads."""
+    lay = layout(cfg, ctx)
+    x = common.embed(params["embed"], tokens, ctx, lay.vocab, lay.res_spec())
     if vision_embeds is not None:
-        x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
+        x = torch.cat([lay.res_local(vision_embeds).to(x.dtype), x], dim=1)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None].expand(B, S)
-    x = add_learned_pos(params, x, positions[0], cfg)
+    x = add_learned_pos(params, x, positions[0], cfg, lay)
     roundtrip = cfg.kv_dtype == "int8"
     kvs: List[Tuple[torch.Tensor, torch.Tensor]] = []
     for lp in params["blocks"]:
         x, kv = block_full_seq(lp, x, cfg, positions,
-                               kv_quant_roundtrip=roundtrip)
+                               kv_quant_roundtrip=roundtrip, lay=lay)
         kvs.append(kv)
+    x = lay.to_full(x, "ln_f_in")
     return common.apply_norm(cfg.norm, params["ln_f"], x, cfg.norm_eps), kvs
 
 
@@ -463,11 +675,12 @@ def loss_fn(params, batch, cfg: ModelConfig) -> torch.Tensor:
 
 
 def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, cache: KVCache,
-            vision_embeds=None) -> Tuple[KVCache, torch.Tensor]:
+            vision_embeds=None, ctx: ShardingCtx = NULL_CTX
+            ) -> Tuple[KVCache, torch.Tensor]:
     """Encode the context (the vision embeddings, if any, then the text),
     fill the cache over the whole sequence, return last-position logits
-    (B,1,V) f32."""
-    x, kvs = forward_hidden(params, tokens, cfg, vision_embeds)
+    (B,1,V) f32 (on a mesh: this rank's vocabulary rows)."""
+    x, kvs = forward_hidden(params, tokens, cfg, vision_embeds, ctx)
     k_all = torch.stack([k for k, _ in kvs]).transpose(2, 3)  # (L,B,n_kv,S,hd)
     v_all = torch.stack([v for _, v in kvs]).transpose(2, 3)
     cache = write_prefill(cache, k_all, v_all, x.shape[1])
@@ -487,6 +700,12 @@ def write_prefill(cache: KVCache, k_all, v_all, S: int) -> KVCache:
             "program (full-width), which stages both tiers")
     size = cache.k.shape[3]
     n = S
+    if cache.seq_axes:
+        # this rank's block [seq_lo, seq_lo + size) of the positions
+        lo = cache.seq_lo
+        n = max(0, min(size, S - lo))
+        k_all = k_all[..., lo:lo + n, :]
+        v_all = v_all[..., lo:lo + n, :]
     if cache.window and S > size:
         shift = (S - size) % size
         k_all = torch.roll(k_all[..., S - size:, :], shift, dims=3)
@@ -512,7 +731,8 @@ def write_prefill(cache: KVCache, k_all, v_all, S: int) -> KVCache:
 # ---------------------------------------------------------------------------
 
 def decode_step(params, cache: KVCache, tokens: torch.Tensor,
-                cfg: ModelConfig) -> Tuple[KVCache, torch.Tensor]:
+                cfg: ModelConfig, ctx: ShardingCtx = NULL_CTX
+                ) -> Tuple[KVCache, torch.Tensor]:
     """Shared-cursor decode step (drain serving). tokens: (B,) last emitted
     ids; every row appends at ``cache.length`` and attends the whole
     extent up to it; the length is bumped. Returns (cache, logits (B,1,V)
@@ -521,34 +741,41 @@ def decode_step(params, cache: KVCache, tokens: torch.Tensor,
     B = tokens.shape[0]
     return decode_step_slotted(
         params, cache, tokens, cache.length.expand(B),
-        torch.ones(B, dtype=torch.bool, device=tokens.device), cfg)
+        torch.ones(B, dtype=torch.bool, device=tokens.device), cfg,
+        ctx=ctx)
 
 
 def decode_step_slotted(params, cache: KVCache, tokens: torch.Tensor,
                         positions: torch.Tensor, active: torch.Tensor,
                         cfg: ModelConfig, kv_bucket: int = 0,
-                        kv_shards: int = 1
+                        kv_shards: int = 1, ctx: ShardingCtx = NULL_CTX
                         ) -> Tuple[KVCache, torch.Tensor]:
     """Continuous-batching decode step. tokens/positions/active: (B,)
     device tensors. Row b appends at positions[b] and attends
     0..positions[b]. Returns (cache, logits (B,1,V) f32). Makes no host
     sync: the kernel's tile limit ``max(positions[active]) + 1`` stays on
-    the device. ``kv_shards`` > 1: split-KV decode (block_decode_slotted)."""
-    x = embed_tokens(params, tokens[:, None], positions[:, None], cfg)
+    the device. ``kv_shards`` > 1: split-KV decode (block_decode_slotted).
+    On a mesh: this data row's slots, this rank's cache; the logits cover
+    this rank's vocabulary rows."""
+    check_mesh_cache(cache, ctx)
+    lay, seq = layout(cfg, ctx), cache_seq(cache)
+    x = embed_tokens(params, tokens[:, None], positions[:, None], cfg, lay)
     live = torch.where(active, positions, torch.full_like(positions, -1))
     kv_limit = (live.max() + 1).to(torch.int32)
     for i, lp in enumerate(params["blocks"]):
         x = block_decode_slotted(lp, x, cfg, cache.layer(i), positions,
                                  active, kv_bucket=kv_bucket,
-                                 kv_limit=kv_limit, kv_shards=kv_shards)
+                                 kv_limit=kv_limit, kv_shards=kv_shards,
+                                 lay=lay, seq=seq)
     cache.length = torch.maximum(
         cache.length, (torch.where(active, positions, 0).max() + 1)
         .to(torch.int32))
-    return cache, final_logits(params, x, cfg)
+    return cache, final_logits(params, x, cfg, lay)
 
 
 def prefill_chunk(params, cache: KVCache, tokens: torch.Tensor, slot: int,
-                  start: int, valid_len: int, cfg: ModelConfig
+                  start: int, valid_len: int, cfg: ModelConfig,
+                  ctx: ShardingCtx = NULL_CTX
                   ) -> Tuple[KVCache, torch.Tensor]:
     """Chunked prefill: tokens (1,C) are slot ``slot``'s prompt chunk at
     positions [start, start+valid_len); positions >= valid_len are padding,
@@ -558,21 +785,35 @@ def prefill_chunk(params, cache: KVCache, tokens: torch.Tensor, slot: int,
     if cache.window:
         raise ValueError("chunked prefill requires a non-windowed cache "
                          "(ring order has no per-position write offset)")
+    check_mesh_cache(cache, ctx)
+    lay, seq = layout(cfg, ctx), cache_seq(cache)
     x = embed_tokens(params, tokens,
                      chunk_positions(start, tokens.shape[1], tokens.device),
-                     cfg)
+                     cfg, lay)
     for i, lp in enumerate(params["blocks"]):
         x = block_prefill_chunk(lp, x, cfg, cache.layer(i), slot, start,
-                                valid_len)
+                                valid_len, lay=lay, seq=seq)
     cache.length = torch.clamp_min(cache.length, start + valid_len)
-    return cache, final_logits(params, x[:, valid_len - 1:valid_len], cfg)
+    return cache, final_logits(params, x[:, valid_len - 1:valid_len], cfg,
+                               lay)
 
 
-def make_cache(cfg: ModelConfig, batch: int, max_len: int, device
-               ) -> KVCache:
-    """The config's slot cache: flat, or tiered when ``hot_window`` > 0."""
+def make_cache(cfg: ModelConfig, batch: int, max_len: int, device,
+               ctx: ShardingCtx = NULL_CTX) -> KVCache:
+    """The config's slot cache: flat, or tiered when ``hot_window`` > 0. On
+    a mesh, this rank's part of a flat cache of ``batch`` slots
+    (``init_kv_cache_sharded``)."""
     check_supported(cfg)
     tiered = cfg.hot_window > 0
+    if ctx.active:
+        if tiered:
+            raise NotImplementedError(
+                "a tiered KV cache is not cut over a mesh in this slice of "
+                "the port")
+        return init_kv_cache_sharded(
+            ctx, cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim,
+            dtype=common.dtype_of(cfg), quantized=(cfg.kv_dtype == "int8"),
+            device=device)
     return init_kv_cache(cfg.n_layers, batch, cfg.n_kv_heads, max_len,
                          cfg.head_dim, dtype=common.dtype_of(cfg),
                          quantized=(cfg.kv_dtype == "int8"), device=device,

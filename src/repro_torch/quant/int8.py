@@ -57,7 +57,16 @@ def quantize_int8(x: torch.Tensor,
     """``axis`` = reduction axes for the scale (one scale per remaining
     channel); ``None`` is per-tensor."""
     xf = x.to(torch.float32)
-    amax = torch.amax(xf.abs(), dim=_axes(x, axis), keepdim=True)
+    return quantize_with_amax(
+        xf, torch.amax(xf.abs(), dim=_axes(x, axis), keepdim=True))
+
+
+def quantize_with_amax(xf: torch.Tensor, amax: torch.Tensor
+                       ) -> QuantizedTensor:
+    """``quantize_int8`` of the f32 ``xf`` given its (keepdim) absolute
+    maximum, which may come from more than ``xf``: a row-parallel layer
+    quantizes its slice of a row with the whole row's maximum, so the scale
+    and every value equal the unsharded quantization's."""
     scale = torch.clamp_min(amax, 1e-8) / divisor(127.0, amax)
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return QuantizedTensor(q, scale)

@@ -62,11 +62,13 @@ from __future__ import annotations
 import time
 import warnings
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core.collectives import (control_all_gather,
+                                          control_broadcast, meter)
 from repro_torch.core.pipeline import wa_schedule_occupancy
 from repro_torch.core.wa import (WADisaggregated, micro_batch_slices,
                                  routing_bytes)
@@ -74,7 +76,8 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kv.cache import KVCache, export_slot_kv, import_slot_kv
 from repro_torch.models.attention import bucket_for, kv_buckets
 from repro_torch.models.common import dtype_of
-from repro_torch.models.registry import DECODE_SLACK, ModelAPI
+from repro_torch.models.registry import DECODE_SLACK, ModelAPI, build_model
+from repro_torch.models.sharding import NULL_CTX, ShardingCtx
 from repro_torch.runtime.static_runtime import DispatchError, StaticRuntime
 
 
@@ -425,6 +428,12 @@ class ExecutorBackend:
                  preemptible: bool, kv_extent: Optional[int] = None,
                  tiered: bool = False):
         self.api, self.rt = api, rt
+        # on a mesh: this rank's share of the slots is the block of its
+        # row along the batch axes (``slot_rows`` rows of ``local_slots``)
+        self.ctx = ctx = api.ctx
+        self.slot_rows = ctx.n(ctx.batch_axes) if ctx.active else 1
+        self.local_slots = slots // self.slot_rows
+        self.my_row = ctx.index(ctx.batch_axes) if ctx.active else 0
         # the slot caches' KV extent (None: no length axis, a recurrent
         # state or a ring) and whether they are tiered
         self.kv_extent, self.tiered = kv_extent, tiered
@@ -481,9 +490,12 @@ class ExecutorBackend:
         self._swap_in_p = self.rt.compile_step(
             f"{self.program_prefix}swap_in", self._swap_import_fn)
 
-    @staticmethod
-    def _postprocess(logits, positions, active):
-        nxt = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
+    def _greedy(self, logits):
+        return self.api.greedy(logits) if self.api.greedy is not None \
+            else torch.argmax(logits, dim=-1).to(torch.int32)
+
+    def _postprocess(self, logits, positions, active):
+        nxt = self._greedy(logits[:, 0])
         return torch.where(active, nxt, torch.zeros_like(nxt)), \
             positions + active.to(torch.int32)
 
@@ -526,10 +538,34 @@ class ExecutorBackend:
         return self._reset is not None
 
     def _to_device(self, *rows: np.ndarray) -> List[torch.Tensor]:
-        """Host operands in ONE host-to-device copy, unpacked on device."""
-        packed = torch.from_numpy(np.stack([np.asarray(r, np.int32)
-                                            for r in rows]))
+        """Host operands in ONE host-to-device copy, unpacked on device (on
+        a mesh, this rank's block of slots)."""
+        packed = np.stack([np.asarray(r, np.int32) for r in rows])
+        if self.slot_rows > 1:
+            lo = self.my_row * self.local_slots
+            packed = packed[:, lo:lo + self.local_slots]
+        packed = torch.from_numpy(np.ascontiguousarray(packed))
         return list(packed.to(self.device).unbind(0))
+
+    def on_owner(self, slot: int, fn: Callable) -> torch.Tensor:
+        """Run ``fn(local_slot)`` -> a device token tensor where the slot
+        lives and return the token as a (1,) tensor. On a mesh the ranks
+        of the slot's row run ``fn`` (a batch-1 program: admission), the
+        others skip it, and the token is broadcast from the row's first
+        rank over the control group (a CPU tensor) to every rank."""
+        if self.slot_rows == 1:
+            return fn(slot)
+        row, local = divmod(slot, self.local_slots)
+        tok = torch.zeros(1, dtype=torch.int64)
+        if row == self.my_row:
+            tok = fn(local).reshape(-1)[:1].to(torch.int64).cpu()
+        mesh = self.ctx.mesh
+        axes = self.ctx.batch_axes
+        coords = np.unravel_index(row, [mesh.shape[a] for a in axes])
+        src = mesh.rank_at(**{a: int(c) for a, c in zip(axes, coords)},
+                           **{a: 0 for a in mesh.axis_names
+                              if a not in axes})
+        return control_broadcast(tok, mesh, src)
 
     def fresh(self):
         self.caches = self.api.init_caches(self.slots,
@@ -543,9 +579,12 @@ class ExecutorBackend:
         """One fixed-(1,C) chunk at the slot's offset; returns the device
         tensor holding the chunk's last-valid-position argmax."""
         toks = torch.from_numpy(row[None]).to(self.device)
-        self.caches, tok = self._chunk(params, self.caches, toks, slot,
-                                       start, valid)
-        return tok
+
+        def chunk(local):
+            self.caches, tok = self._chunk(params, self.caches, toks, local,
+                                           start, valid)
+            return tok
+        return self.on_owner(slot, chunk)
 
     def decode_step(self, params, last_tok, positions, active):
         tok, pos, act = self._to_device(last_tok, positions, active)
@@ -563,7 +602,9 @@ class ExecutorBackend:
         return toks, emitted, last_d, pos_d, act_d, rem_d
 
     def reset(self, slot: int):
-        self.caches = self._reset(self.caches, slot)
+        row, local = divmod(slot, self.local_slots)
+        if row == self.my_row:
+            self.caches = self._reset(self.caches, local)
 
     def swap_out(self, slot: int):
         """Export one slot's stored KV (device tensors; the caller hosts
@@ -590,7 +631,7 @@ class ColocatedBackend(ExecutorBackend):
             def chunk_fn(p, caches, toks, slot, start, valid):
                 caches, logits = api.prefill_chunk(p, caches, toks, slot,
                                                    start, valid)
-                return caches, torch.argmax(logits[:, -1], dim=-1)
+                return caches, self._greedy(logits[:, -1])
 
             self._chunk = self.rt.compile_step(
                 "serve_prefill_chunk" if prefill_chunk else "serve_admit",
@@ -598,7 +639,7 @@ class ColocatedBackend(ExecutorBackend):
         else:
             def prefill1_fn(p, toks):
                 caches, logits = api.prefill(p, toks)
-                return caches, torch.argmax(logits[:, -1], dim=-1)
+                return caches, self._greedy(logits[:, -1])
 
             self._prefill1 = self.rt.compile_step("serve_prefill1",
                                                   prefill1_fn)
@@ -638,10 +679,13 @@ class ColocatedBackend(ExecutorBackend):
         token."""
         if self._prefill1 is None:
             return self.run_chunk(params, row, slot, 0, self.prompt_len)
-        single, first = self._prefill1(
-            params, torch.from_numpy(row[None]).to(self.device))
-        self.caches = self._admit(self.caches, single, slot)
-        return first
+
+        def admit(local):
+            single, first = self._prefill1(
+                params, torch.from_numpy(row[None]).to(self.device))
+            self.caches = self._admit(self.caches, single, local)
+            return first
+        return self.on_owner(slot, admit)
 
     def drain_prefill(self, params, toks: np.ndarray):
         """Full-batch prefill of the (slots, prompt_len) prompt rows: fresh
@@ -682,7 +726,8 @@ class WABackend(ExecutorBackend):
                           debug_reset_slots):
         T = self.block_size
         self.wa = WADisaggregated(self.api.config, self.device,
-                                  a_shards=self.a_shards,
+                                  mesh=self.ctx.mesh if self.ctx.active
+                                  else None, a_shards=self.a_shards,
                                   overlap=self.overlap)
         self._el = dtype_of(self.api.config).itemsize
         self._calls0: Dict[str, int] = {}
@@ -690,7 +735,7 @@ class WABackend(ExecutorBackend):
         def chunk_fn(p, caches, toks, slot, start, valid):
             caches, logits = self.wa.prefill_chunk(p, caches, toks, slot,
                                                    start, valid)
-            return caches, torch.argmax(logits[:, -1], dim=-1)
+            return caches, self.wa.greedy(logits[:, -1])
 
         self._chunk = self.rt.compile_step(
             "serve_wa_prefill_chunk" if prefill_chunk else "serve_wa_admit",
@@ -733,8 +778,13 @@ class WABackend(ExecutorBackend):
                 routing_bytes(self.api.config, rows, self._el)
         return total
 
+    def _greedy(self, logits):
+        return self.wa.greedy(logits)
+
     def fresh(self):
-        super().fresh()
+        # the A domain's cache (on a mesh: its blocks of positions)
+        self.caches = self.wa.init_cache(self.slots,
+                                         self.prompt_len + self.max_new_cap)
         self._calls0 = {n: r["calls"] for n, r in self.rt.stats().items()}
 
     def admit_full(self, params, row: np.ndarray, slot: int):
@@ -1004,6 +1054,12 @@ class ServingEngine:
     and peak bytes, the bytes the cold tier saves and a recommendation.
     ``device``: must be the api's device; ``None`` means ``cuda`` (raises
     without a GPU unless ``device="cpu"`` is passed).
+    ``ctx``: serve on a mesh, ``ShardingCtx(mesh, rules)`` of this rank
+    (``api`` is the one-device API of the config; the engine builds the
+    mesh's from it). Every rank runs the same loop in lock step on its
+    share (its data row's slots; ``run``'s params are this rank's,
+    ``param_specs.shard_params``); rank 0 decides TTFT shedding and the
+    control group carries host results (``stats()["mesh"]``).
 
     A ``run()`` may be repeated: per-run accumulators reset and the slot
     caches are allocated fresh, while the registered programs persist.
@@ -1021,8 +1077,17 @@ class ServingEngine:
                  retry_backoff_s: float = 0.0, watchdog_s: float = 0.0,
                  strict_invariants: bool = False,
                  fault_injector: Optional[Any] = None,
-                 kv_budget_bytes: int = 0, device: DeviceLike = None):
+                 kv_budget_bytes: int = 0, device: DeviceLike = None,
+                 ctx: Optional[ShardingCtx] = None):
         dev = resolve_device(device)
+        if api.ctx.active:
+            raise ValueError("the engine takes the one-device ModelAPI and "
+                             "the mesh as ctx=ShardingCtx(mesh, rules)")
+        self.ctx = ctx if ctx is not None else NULL_CTX
+        one_device = api
+        if self.ctx.active:
+            # serve this rank's share: the API under the mesh's rules
+            api = build_model(api.config, api.device, self.ctx)
         if dev != api.device:
             raise ValueError(f"engine device {dev} differs from the model's "
                              f"{api.device}; build both on one device")
@@ -1109,6 +1174,9 @@ class ServingEngine:
                 if mode == "auto" else mode
         if max_retries < 0:
             raise ValueError(f"max_retries must be >= 0, got {max_retries}")
+        if self.ctx.active:
+            self._check_mesh(api, resolved, batch_slots, prefill_chunk,
+                             backend, preemptible, overlap, kv_budget_bytes)
         self.api = api
         self.slots = batch_slots
         self.prompt_len = prompt_len
@@ -1134,9 +1202,8 @@ class ServingEngine:
         # the arbiter's byte model read off them (the tiered geometry is
         # validated here). No extent (None): no length axis to bound, a
         # recurrent state or a ring window
-        caches_meta = api.init_caches(batch_slots,
-                                      prompt_len + self.max_new_cap,
-                                      device="meta")
+        caches_meta = one_device.init_caches(
+            batch_slots, prompt_len + self.max_new_cap, device="meta")
         is_kv = isinstance(caches_meta, KVCache)
         self._kv_extent = caches_meta.k.shape[3] \
             if is_kv and not caches_meta.window else None
@@ -1208,7 +1275,48 @@ class ServingEngine:
         self._ex: Optional[ExecutorBackend] = None
         self._reset_per_run()
 
+    def _mesh_stats(self) -> Optional[Dict[str, Any]]:
+        """Collective bytes per axis and per site, and the control group's
+        broadcasts and gathers (no device syncs), since the meter was last
+        reset; None off a mesh."""
+        if not self.ctx.active:
+            return None
+        mesh = self.ctx.mesh
+        return dict(meter(mesh).stats(), shape=dict(mesh.shape),
+                    rules=self.ctx.rules.name, rank=mesh.rank)
+
+    def _check_mesh(self, api, mode, slots, prefill_chunk, backend,
+                    preemptible, overlap, kv_budget_bytes):
+        """What this slice serves on a mesh: the continuous scheduler, the
+        colocated or WA (routing='sharding') backend, flat caches, slots
+        cut evenly over the batch axes; an MoE only with one data row (its
+        experts' columns are cut over data, so a batch-1 admission on one
+        row would need the others)."""
+        ctx = self.ctx
+        rows = ctx.n(ctx.batch_axes)
+        why = None
+        if mode != "continuous":
+            why = "drain mode"
+        elif preemptible or kv_budget_bytes or api.config.hot_window:
+            why = "preemption, tiered KV and KV budgets"
+        elif overlap > 1:
+            why = "the overlap schedule (two streams of one card)"
+        elif slots % rows:
+            why = f"{slots} slots over {rows} data rows (must divide)"
+        elif api.config.moe is not None and rows > 1:
+            why = "an MoE with more than one data row"
+        elif backend == "colocated" and not prefill_chunk \
+                and ctx.rules.rules.get("kv_seq"):
+            why = ("monolithic admission under a sequence-cut cache "
+                   "(+seqkv; use prefill_chunk)")
+        if why:
+            raise NotImplementedError(
+                f"serving on a mesh does not run {why} in this slice of the "
+                "port")
+
     def _reset_per_run(self):
+        if self.ctx.active:
+            meter(self.ctx.mesh).reset()
         self.tpot_samples: List[float] = []
         self.host_syncs = 0
         self._decode_tokens = 0
@@ -1297,12 +1405,24 @@ class ServingEngine:
         come back as numpy arrays of their own shapes."""
         self.host_syncs += 1
         flat = torch.cat([t.reshape(-1).to(torch.int32) for t in tensors])
-        host = flat.cpu().numpy()
+        host = flat.cpu()
+        rows = None
+        if self.ctx.active and self._ex.slot_rows > 1:
+            # every data row's slots: the local results all-gathered over
+            # the control group (CPU; not a device sync), slot axis last
+            rows = control_all_gather(host, self.ctx.mesh,
+                                      self.ctx.batch_axes).numpy()
+        host = host.numpy()
         out, o = [], 0
         for t in tensors:
-            a = host[o:o + t.numel()].reshape(tuple(t.shape))
+            n = t.numel()
+            if rows is None:
+                a = host[o:o + n].reshape(tuple(t.shape))
+            else:
+                a = np.concatenate([r[o:o + n].reshape(tuple(t.shape))
+                                    for r in rows], axis=-1)
             out.append(a.astype(bool) if t.dtype == torch.bool else a)
-            o += t.numel()
+            o += n
         return tuple(out) if len(out) > 1 else out[0]
 
     def _validate_request(self, r: Request):
@@ -1435,15 +1555,28 @@ class ServingEngine:
     def _shed_deadlines(self, sched: SlotScheduler):
         """A queued request whose TTFT deadline has passed can only miss:
         shed it now as deadline_missed. A preempted request already has its
-        first token and is never TTFT-shed."""
+        first token and is never TTFT-shed. On a mesh the clocks of the
+        ranks differ: rank 0 decides and broadcasts the shed ids over the
+        control group, so every rank sheds the same requests."""
         now = time.monotonic()
-        for r in list(sched.queue):
-            if r.ttft_deadline_ms > 0 and not r.generated \
-                    and (now - r.t_enqueue) * 1e3 > r.ttft_deadline_ms:
-                sched.queue.remove(r)
-                self._miss_deadline(
-                    r, f"ttft_deadline_ms={r.ttft_deadline_ms:g} expired "
-                       "in queue")
+        shed = [r for r in sched.queue
+                if r.ttft_deadline_ms > 0 and not r.generated
+                and (now - r.t_enqueue) * 1e3 > r.ttft_deadline_ms]
+        if self.ctx.active:
+            mesh = self.ctx.mesh
+            n = control_broadcast(torch.tensor([len(shed)]), mesh, 0)
+            if int(n[0]):
+                ids = control_broadcast(torch.tensor(
+                    [r.rid for r in shed] or [0] * int(n[0])), mesh, 0)
+                keep = set(ids.tolist())
+                shed = [r for r in sched.queue if r.rid in keep]
+            else:
+                shed = []
+        for r in shed:
+            sched.queue.remove(r)
+            self._miss_deadline(
+                r, f"ttft_deadline_ms={r.ttft_deadline_ms:g} expired "
+                   "in queue")
 
     def _bound_queue(self, sched: SlotScheduler):
         """Shed the lowest-priority (then most recently enqueued) request
@@ -1976,6 +2109,8 @@ class ServingEngine:
         if self._arbiter is not None:
             # tier occupancy, demotions, live/peak bytes and the budget
             out["tiered"] = self._arbiter.stats()
+        if self.ctx.active:
+            out["mesh"] = self._mesh_stats()
         if self.backend == "wa" and self._ex is not None:
             # the routed W<->A bytes ("only embeddings move") and the
             # per-domain stall accounting of the overlap schedule

@@ -1212,3 +1212,24 @@ def test_train_step_cuda_matches_cpu(dev):
         assert float((a - b).abs().max()) <= \
             1e-4 * float(a.abs().max()) + 1e-6 * top
     assert out["cuda"][3]["fused_ffn"] == 2 * cfg.n_layers
+
+
+# ---------------------------------------------------------------------------
+# The collectives on CUDA tensors: two ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+def test_collectives_on_cuda_tensors_match_the_cpu(dev):
+    """``core/collectives.py`` on CUDA tensors of two gloo ranks sharing
+    the card (all-reduce, all-gather, reduce-scatter straight through;
+    send/recv and the ring staged through pinned host memory) give the CPU
+    ranks' results bit for bit."""
+    import torch_mesh_ranks as ranks
+    from repro_torch.launch.mesh import spawn
+    cuda = spawn(ranks.collectives_on, (1, 2), ("data", "model"),
+                 device="cuda", share_device=True, timeout_s=300)
+    cpu = spawn(ranks.collectives_on, (1, 2), ("data", "model"),
+                timeout_s=300)
+    for a, b in zip(cuda, cpu):
+        assert a.keys() == b.keys()
+        for k in a:
+            assert torch.equal(a[k], b[k]), k

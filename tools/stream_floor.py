@@ -15,6 +15,13 @@ rows of one split of its plan (and of smaller splits); the int8 scales
 floor is its own work; the floor itself is the card's, for that many bytes
 in one launch. Prints the card (nvidia-smi name, power limit) and one line
 per layout.
+
+    python3 tools/stream_floor.py --l2
+
+times the same load-only kernel over ONE buffer of 4 to 32 MB read again
+and again (warm: after the first launch it sits in the 50 MB L2), and over
+a 512 MB buffer for comparison: the L2's read bandwidth that
+``repro_torch.core.analytical.H100_SXM`` records.
 """
 from __future__ import annotations
 
@@ -77,6 +84,8 @@ def main() -> int:
     dev = torch.device("cuda")
     out = torch.empty(1 << 16, device=dev)
     print(f"card: {chip_smoke.nvidia_smi()}")
+    if "--l2" in sys.argv[1:]:
+        return l2(fn, out, dev)
     for what, K, N, cases in LAYOUTS:
         nb = K * N
         var = [((torch.randint(0, 255, (nb,), dtype=torch.uint8,
@@ -95,6 +104,26 @@ def main() -> int:
             print(f"  strips of {CB} B x {KC} rows, {ctas} CTAs of "
                   f"{CB * KC / 1024:.1f} KB: {ms * 1e3:.2f} us, "
                   f"{nb / ms / 1e9:.2f} TB/s", flush=True)
+    return 0
+
+
+def l2(fn, out, dev) -> int:
+    """Warm reads of one buffer: rows of 4 KB, strips of 128 B x 64 rows
+    (8 KB a CTA), so even 4 MB is 512 CTAs."""
+    from repro_torch.kernels import build
+    N, CB, KC = 4096, 128, 64
+    for mb in (4, 8, 16, 24, 32, 512):
+        nb = mb << 20
+        K = nb // N
+        w = torch.randint(0, 255, (nb,), dtype=torch.uint8, device=dev)
+
+        def run(w, K=K):
+            err = fn(w.data_ptr(), out.data_ptr(), K, N, CB, KC,
+                     torch.cuda.current_stream().cuda_stream)
+            build.check(err, "stream_floor")
+        ms = chip_smoke.time_ms(run, [((w,), {})], 200)
+        print(f"  l2 warm read of one {mb} MB buffer: {ms * 1e3:.2f} us, "
+              f"{nb / ms / 1e9:.2f} TB/s", flush=True)
     return 0
 
 
