@@ -117,32 +117,33 @@ phases; any failure exits non-zero before the result line:
    beside the schedule's ``overlap_efficiency``; then the other
    configurations at full width: (l) qwen3-moe-235b-a22b cut to 4 layers
    on (a)'s plan (K1 only, two launches a layer), (m) phi3.5-moe-42b cut
-   to 8 layers with int8 weights and KV through the WA backend at overlap
+   to 4 layers with int8 weights and KV through the WA backend at overlap
    2 on (j)'s plan, served twice, and (n) the paper's Llama-2-7B int8
-   deployment (16 of 32 layers) on (b)'s plan; each must complete, launch
+   deployment (8 of 32 layers) on (b)'s plan; each must complete, launch
    exactly its path's kernels (no K3 in any) and make its twin run's
    host syncs; one decode block of (l) and (n) is traced; then the
-   recurrent families at full width: (o) mamba2-1.3b (12 of 48 layers)
+   recurrent families at full width: (o) mamba2-1.3b (6 of 48 layers)
    on (a)'s plan, which must complete, launch no kernel of the port (the
    counts stay 0: the SSD has none), make the host syncs of the same plan
    served on the CPU and register one decode-block program (no buckets),
    and (p) recurrentgemma-9b with ``mode="auto"``, which must resolve to
    drain (no slotted API), complete with no admission while another
-   request decodes, and launch K1 and K3 (and not K4); one decode block
+   request decodes, and launch K1 and K3 (and not K4) (19 of 38 layers:
+   6 superblocks and a tail layer); one decode block
    of (o) and three drain steps of (p) are traced, with no synchronising
    call; then (q) internvl2-76b at full width cut to 8 of 80 layers,
    text-only through the engine on (a)'s plan with monolithic admission
    (the family has no chunk lane), which must resolve to continuous,
    complete, launch K1 and K3 once a layer each decode step and never K4,
    and make the host syncs of its plan on the CPU; and (r) whisper-medium
-   at full width and depth at the model level (the engine refuses the
-   family): a prefill of 8 rows with 1,500 seeded frames and 64 decode
-   steps, exactly 48 K1 launches a step (self and cross, 24 layers) and
-   no K3; one decode block of (q) and three decode steps of (r) are
-   traced, with no synchronising call; and (s) training: qwen2-0.5b at
-   full width and depth (24 layers, bf16) through
+   at full width, 12 + 12 of its 24 + 24 layers, at the model level (the
+   engine refuses the family): a prefill of 8 rows with 1,500 seeded
+   frames and 64 decode steps, exactly 2 K1 launches a decoder layer a
+   step (self and cross) and no K3; one decode block of (q) and three
+   decode steps of (r) are traced, with no synchronising call; and (s)
+   training: qwen2-0.5b at full width, 12 of 24 layers, bf16, through
    ``repro_torch.launch.train.train``, batch 8 x seq 256, 20 steps: K3
-   exactly 48 launches a step and no other kernel, every loss finite and
+   exactly 24 launches a step and no other kernel, every loss finite and
    the mean of the last 5 below the first, the loss of a held-out batch
    down by at least 0.01 from the initial weights, ms a step and peak
    memory, one step split into forward, backward and update and traced;
@@ -168,6 +169,20 @@ phases; any failure exits non-zero before the result line:
    1e-4 (K3 on W, K1 on A); every rank resets the launch counts before
    each run and reports them (phase 2 holds K1, K3 and K4 at one rank's
    shapes of these runs against their plain versions);
+4c. training on meshes of two ranks sharing the card over gloo,
+   qwen2-0.5b at full width, 8 of 24 layers, bf16, seeded weights, a
+   global batch of 4 x 256 from ``launch.train``'s synthetic data,
+   ``make_step(mode="train")``: (w) on (2, 1) under sub_operator+fsdp and
+   (x) on (1, 2) under sub_operator, 4 steps each, every step's loss
+   within 1e-2 (relative) and its grad norm within 5e-2 of the same
+   weights' unsharded step on rank 0, K3 launched on every rank; (w)
+   writes a checkpoint at step 2 (rank 0, the whole tree); then data
+   domain 1 fails, the elastic controller re-meshes to (1, 1) (a new rank,
+   ``runtime.elastic.remesh``), which restores it and runs steps 3-4
+   within 1e-2 of (w)'s; per rank: ms a step, collective calls and bytes
+   a step by site, peak memory, launches (phase 2 holds K3 with its
+   gradient at one rank's shapes, 512 rows of F=4,864 and 1,024 rows of
+   F=2,432, against its plain version);
 5. time each kernel at the main path's shapes (K1 at B=8 over S=200 and
    at a long context of S=4096, bf16 and int8 KV, in partial mode at one
    shard of 48, the whole split attention of a layer at bucket 192 and the
@@ -190,7 +205,9 @@ phases; any failure exits non-zero before the result line:
    cross-attention (B=8, S=1,500) and internvl2's decode shape (B=8,
    S=200) against SDPA, K3 at internvl2's FFN at 8 and 384 rows against
    three matmuls and silu; K3 at the training shape (2,048 rows) against
-   three matmuls and silu, and its plain-product backward.
+   three matmuls and silu, and its plain-product backward; K3 at one rank's
+   training shapes of phase 4c (512 rows of F=4,864, 1,024 rows of
+   F=2,432) against three matmuls and silu.
 
 It then prints the card (nvidia-smi name, power limit), a ``kernels`` JSON
 line, and last the JSON result line. Without a GPU, or without the rest of
@@ -1275,12 +1292,13 @@ RUNS = {
 # the other families and configurations at full width, after the qwen2
 # runs: (l) qwen3-moe (64/4 heads: K1 in two launches of 8 heads, 128
 # experts x 1536, top-8) with depth cut to 4 of 94 layers, ~22 GB of bf16
-# weights, on (a)'s plan; (m) phi3.5-moe with depth cut to 8 of 32 layers
-# (~21 GB), int8 weights (K4 on attention; the experts stay bf16) and int8
-# KV, monolithic, through WA at overlap 2 on (j)'s plan, served twice; (n)
-# the paper's Llama-2-7B deployment (int8 weights and KV) at 16 of its 32
-# layers since the training run (s) joined the script, on (b)'s plan. MoE
-# layers have no dense FFN: no K3.
+# weights, on (a)'s plan; (m) phi3.5-moe with depth cut to 4 of 32 layers
+# (8 until the training mesh phase 4c joined), int8 weights (K4 on
+# attention; the experts stay bf16) and int8 KV, monolithic, through WA at
+# overlap 2 on (j)'s plan, served twice; (n) the paper's Llama-2-7B
+# deployment (int8 weights and KV) at 8 of its 32 layers (16 since the
+# training run (s) joined the script, 8 since phase 4c did), on (b)'s
+# plan. MoE layers have no dense FFN: no K3.
 FAMILY_RUNS = {
     # name: (arch, config overrides, engine kwargs, n_requests, max_new,
     #        kernels, the run whose plan and host syncs it repeats)
@@ -1288,13 +1306,13 @@ FAMILY_RUNS = {
         "qwen3-moe-235b-a22b", dict(n_layers=4),
         RUNS["a_bf16_chunked_T8"][1], 12, 64, ("flash_decode",),
         "a_bf16_chunked_T8"),
-    "m_phi35moe_8L_int8_wa_overlap2_T8": (
+    "m_phi35moe_4L_int8_wa_overlap2_T8": (
         "phi3.5-moe-42b-a6.6b",
-        dict(n_layers=8, weight_int8=True, kv_dtype="int8"),
+        dict(n_layers=4, weight_int8=True, kv_dtype="int8"),
         RUNS["j_wa_int8w_int8kv_overlap2_T8"][1], 12, 32,
         ("flash_decode", "gemv_int8"), "j_wa_int8w_int8kv_overlap2_T8"),
     "n_llama2_7b_int8_monolithic_T8": (
-        "llama2-7b", dict(n_layers=16),
+        "llama2-7b", dict(n_layers=8),
         RUNS["b_int8w_int8kv_monolithic_T8"][1], 12, 32,
         ("flash_decode", "gemv_int8"), "b_int8w_int8kv_monolithic_T8"),
 }
@@ -1316,7 +1334,7 @@ WA_TWINS = {
         "b_int8w_int8kv_monolithic_T8",
         {"b_int8w_int8kv_monolithic_T8": False,
          "k_wa_int8w_int8kv_monolithic_T8": False}),
-    "m_phi35moe_8L_int8_wa_overlap2_T8": (
+    "m_phi35moe_4L_int8_wa_overlap2_T8": (
         "j_wa_int8w_int8kv_overlap2_T8", {}),
 }
 
@@ -2259,6 +2277,7 @@ def phase_timing(dev, launches, runs, per_step, errs):
     rows += vlm_encdec_timing_rows(dev, bound, sdpa_args)
     rows += train_timing_rows(dev, bound)
     rows += mesh_timing_rows(dev, bound, sdpa_args)
+    rows += train_mesh_timing_rows(dev, bound)
     for name, shape, ms, plain, b_ms, b_by, lib, host in rows:
         libs = ", ".join(("not measured" if v is None else
                           f"{v * 1e3:.2f} us") + f" ({k})"
@@ -2728,21 +2747,24 @@ def phase_parity_recurrent():
         f"{time.monotonic() - t0:.1f}s")
 
 
-# phase 4's recurrent runs: (o) mamba2 at full width, 12 of 48 layers, on
+# phase 4's recurrent runs: (o) mamba2 at full width, 6 of 48 layers, on
 # (a)'s plan (no port kernel: the SSD has none, the reference never quantizes
-# its projections); (p) recurrentgemma at full width and depth, mode
+# its projections); (p) recurrentgemma at full width, 19 of 38 layers, mode
 # "auto", which resolves to drain (no slotted API), 8 slots, prompt 128,
 # 12 x 32 tokens: K1 over the ring (256 slots: min(window, 128 + 128)) and
 # K3 in its gelu mode
 RECURRENT_RUNS = {
     # name: (arch, config overrides, engine kwargs, n_requests, max_new,
     #        kernels); (o) at 24 of mamba2's 48 layers since the training
-    # run (s) joined the script, 12 since the mesh phase 4b did
+    # run (s) joined the script, 12 since the mesh phase 4b did, 6 since
+    # the training mesh phase 4c did; (p) at 19 of recurrentgemma's 38 (6
+    # superblocks and a tail layer) since phase 4c did
     "o_mamba2_chunked_T8": (
-        "mamba2-1.3b", dict(n_layers=12), RUNS["a_bf16_chunked_T8"][1], 12,
+        "mamba2-1.3b", dict(n_layers=6), RUNS["a_bf16_chunked_T8"][1], 12,
         64, ()),
     "p_recurrentgemma_auto_drain": (
-        "recurrentgemma-9b", {}, dict(mode="auto", max_new_cap=72), 12, 32,
+        "recurrentgemma-9b", dict(n_layers=19),
+        dict(mode="auto", max_new_cap=72), 12, 32,
         ("flash_decode", "fused_ffn")),
 }
 
@@ -3247,7 +3269,9 @@ VLM_RUN = ("q_internvl2_8L_monolithic_T8", "internvl2-76b",
            dict(n_layers=8), dict(block_size=8, kv_bucket_chunk=64,
                                   max_new_cap=72), 12, 64,
            ("flash_decode", "fused_ffn"))
+# (r) at 12 + 12 of whisper's 24 + 24 layers since phase 4c joined
 ENCDEC_RUN = ("r_whisper_model_level_64_steps", "whisper-medium", 8, 32, 64)
+ENCDEC_LAYERS = 12
 
 
 def phase_engine_vlm_encdec(totals, runs, per_step):
@@ -3326,6 +3350,8 @@ def phase_engine_vlm_encdec(totals, runs, per_step):
 
     name, arch, B, prompt, steps = ENCDEC_RUN
     cfg = get_config(arch)
+    cfg = cfg.replace(n_layers=ENCDEC_LAYERS, encoder=dataclasses.replace(
+        cfg.encoder, n_layers=ENCDEC_LAYERS))
     t0 = time.monotonic()
     api = build_model(cfg)
     params = api.init(0)
@@ -3449,7 +3475,9 @@ K3_GRAD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 8e-3}
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GRAD_RTOL, TRAIN_GRAD_FLOOR = 1e-3, 1e-5
 # run (s): (name, arch, batch, seq, steps, the checkpointed step)
-TRAIN_RUN = ("s_qwen2_train_24L_b8_s256", "qwen2-0.5b", 8, 256, 20, 10)
+TRAIN_RUN = ("s_qwen2_train_12L_b8_s256", "qwen2-0.5b", 8, 256, 20, 10)
+# (s) at 12 of qwen2-0.5b's 24 layers since phase 4c joined
+TRAIN_RUN_LAYERS = 12
 # the resumed job repeats the uninterrupted one: the same seeded data and
 # deterministic kernels (the embedding's backward sorts its indices), so
 # its losses are held to rounding, not to a training tolerance
@@ -3472,7 +3500,10 @@ def phase_compare_train(dev, errs):
     launch a forward."""
     from repro_torch.kernels.fused_ffn.ops import fused_ffn
     from repro_torch.kernels.fused_ffn.ref import fused_ffn_ref
-    for R, D, F in ((TRAIN_ROWS, TRAIN_D, TRAIN_F), (17, 200, 700)):
+    # the training shape, no tile multiple, and one rank's shapes in
+    # phase 4c ((w): 512 rows of all of F; (x): 1,024 rows of half of F)
+    for R, D, F in ((TRAIN_ROWS, TRAIN_D, TRAIN_F), (17, 200, 700),
+                    (512, TRAIN_D, TRAIN_F), (1024, TRAIN_D, TRAIN_F // 2)):
         for dtype in (torch.bfloat16, torch.float32):
             for act in ("silu", "gelu"):
                 args, _ = k3_inputs(dev, R, seed=R + 1, D=D, F=F,
@@ -3578,10 +3609,10 @@ def phase_train_parity():
 
 
 def phase_train_run(totals, runs, card):
-    """Run (s): qwen2-0.5b at full width and depth (24 layers, bf16,
+    """Run (s): qwen2-0.5b at full width, 12 of its 24 layers (bf16,
     seeded random weights) through ``repro_torch.launch.train.train`` on
     cuda, batch 8 x seq 256, 20 steps, one loss a step (``log_every=1``).
-    K3 launches 48 times a step (24 layers, forward and the remat
+    K3 launches 24 times a step (12 layers, forward and the remat
     recompute) and no other kernel; every loss is finite, the mean of
     the last 5 is below the first, and the loss of a held-out batch (the
     pipeline's step 20, which the run does not train on) falls by
@@ -3602,7 +3633,7 @@ def phase_train_run(totals, runs, card):
     from repro_torch.runtime.static_runtime import StaticRuntime
     from repro_torch.tree import tree_leaves
     name, arch, B, S, steps, half = TRAIN_RUN
-    cfg = get_config(arch)
+    cfg = get_config(arch).replace(n_layers=TRAIN_RUN_LAYERS)
     api = build_model(cfg)
     held_out = batch_to_torch(
         SyntheticLMData(cfg, B, S, seed=0).batch_at(steps), api.device)
@@ -3620,7 +3651,7 @@ def phase_train_run(totals, runs, card):
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.monotonic()
-    params, opt, full = train(arch, steps, B, S, reduced=False,
+    params, opt, full = train(cfg, steps, B, S, reduced=False,
                               log_every=1, runtime=rt)
     torch.cuda.synchronize()
     total_s = time.monotonic() - t0
@@ -3663,7 +3694,7 @@ def phase_train_run(totals, runs, card):
     ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
         t0 = time.monotonic()
-        p10, o10, first = train(arch, half, B, S, reduced=False,
+        p10, o10, first = train(cfg, half, B, S, reduced=False,
                                 ckpt_dir=ckpt, ckpt_every=half, log_every=1)
         half_s = time.monotonic() - t0
         fresh = api.init(1)
@@ -3679,7 +3710,7 @@ def phase_train_run(totals, runs, card):
         del p10, o10, fresh, state, pairs
         torch.cuda.empty_cache()
         t0 = time.monotonic()
-        _, opt, resumed = train(arch, steps, B, S, reduced=False,
+        _, opt, resumed = train(cfg, steps, B, S, reduced=False,
                                 ckpt_dir=ckpt, ckpt_every=10 * steps,
                                 log_every=1)
         resume_s = time.monotonic() - t0
@@ -4231,6 +4262,251 @@ def phase_mesh(totals, runs):
                 totals[k] += n
 
 
+# ---------------------------------------------------------------------------
+# phase 4c: training on a mesh of two ranks sharing the card (gloo)
+# ---------------------------------------------------------------------------
+
+# qwen2-0.5b at full width (D 896, 14/2 heads, F 4,864, V 151,936), 8 of
+# its 24 layers, bf16, seeded weights; a global batch of 4 x 256 from the
+# synthetic data of ``launch.train`` (steps 1-4 take its batches 0-3). At
+# (2, 1) a rank trains 2 x 256 = 512 rows on the whole F; at (1, 2) all
+# 1,024 rows on half of F (2,432)
+TRAIN_MESH_ARCH, TRAIN_MESH_LAYERS = "qwen2-0.5b", 8
+TRAIN_MESH_B, TRAIN_MESH_S, TRAIN_MESH_STEPS = 4, 256, 4
+TRAIN_MESH_CKPT = 2
+TRAIN_MESH_LOSS_RTOL, TRAIN_MESH_GNORM_RTOL = 1e-2, 5e-2
+
+
+def _train_mesh_cfg(reduced):
+    from repro_torch.configs.registry import get_config
+    base = get_config(TRAIN_MESH_ARCH)
+    return (base.reduced() if reduced else base).replace(
+        n_layers=TRAIN_MESH_LAYERS)
+
+
+def _train_mesh_batches(cfg, dev):
+    from repro_torch.data.synthetic import SyntheticLMData
+    from repro_torch.launch.train import batch_to_torch
+    data = SyntheticLMData(cfg, TRAIN_MESH_B, TRAIN_MESH_S, seed=0)
+    return [batch_to_torch(data.batch_at(i), dev)
+            for i in range(TRAIN_MESH_STEPS)]
+
+
+def _train_mesh_steps(bundle, cfg, params, opt, batches, first=1,
+                      ckpt=None):
+    """``make_step(mode="train")``'s steps ``first``.. over ``batches``
+    on this rank: per step (loss, grad_norm), ms a step (synchronised),
+    the launch counts, the collective calls and bytes a step by site and
+    the peak memory. ``ckpt``: save the state after step
+    ``TRAIN_MESH_CKPT`` there (rank 0 writes the whole tree)."""
+    from repro_torch.core import collectives as C
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.train import save_state
+    mesh, dev = bundle.ctx.mesh, bundle.ctx.mesh.device
+    meter = C.meter(mesh)
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    meter.reset()
+    out, t_steps = [], 0.0
+    for i, batch in enumerate(batches, start=first):
+        t0 = time.monotonic()
+        params, opt, info = bundle.fn(params, opt, batch)
+        out.append((float(info["loss"]), float(info["grad_norm"])))
+        t_steps += time.monotonic() - t0
+        if ckpt is not None and i == TRAIN_MESH_CKPT:
+            save_state(ckpt, i, params, opt, cfg, bundle.ctx)
+    counts = launch_counts()
+    n = len(batches)
+    sites = {}
+    for (k, site), b in meter.bytes.items():
+        if site == "gather_params":         # the checkpoint's, not a step's
+            continue
+        c, b0 = sites.get(site, (0, 0.0))
+        sites[site] = (c + meter.calls[(k, site)] / n, b0 + b / n)
+    return {"steps": out, "ms_per_step": t_steps / n * 1e3,
+            "counts": counts, "sites": sites,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30
+            if dev.type == "cuda" else 0.0}
+
+
+def train_mesh_rank(mesh, ckpt_dir, reduced=False):
+    """One rank of phase 4c's runs (w) and (x) on the shared card, and on
+    rank 0 the same steps unsharded. ``reduced``: the reduced config, for a
+    rehearsal on the CPU."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.core.execution import make_step, train_update
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.param_specs import shard_params
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import adamw_init, cosine_lr
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _train_mesh_cfg(reduced)
+    dev = mesh.device
+    full = build_model(cfg, dev).init(0)
+    batches = _train_mesh_batches(cfg, dev)
+    shape = ShapeConfig("t", TRAIN_MESH_S, TRAIN_MESH_B, "train")
+    out = {"rank": mesh.rank}
+    for name, grid in (("w", (2, 1)), ("x", (1, 2))):
+        t0 = time.monotonic()
+        m = mesh if grid == mesh.devices_shape else Mesh(
+            grid, ("data", "model"), dev)
+        bundle = make_step(cfg, shape, m, "sub_operator")
+        params = shard_params(full, bundle.ctx)
+        out[name] = _train_mesh_steps(
+            bundle, cfg, params, adamw_init(params), batches,
+            ckpt=Checkpointer(ckpt_dir) if name == "w" else None)
+        out[name]["wall_s"] = time.monotonic() - t0
+        del params, bundle
+    if mesh.rank == 0:
+        api = build_model(cfg, dev)
+        params, opt, steps = full, adamw_init(full), []
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        for batch in batches:
+            params, opt, info = train_update(
+                params, opt, batch, loss=api.loss,
+                lr_t=cosine_lr(opt.step, 3e-4, warmup=100, total=10_000))
+            steps.append((float(info["loss"]), float(info["grad_norm"])))
+        out["unsharded"] = {"steps": steps, "peak_gib":
+                            torch.cuda.max_memory_allocated() / 2 ** 30
+                            if dev.type == "cuda" else 0.0}
+    return out
+
+
+def train_resume_rank(mesh, ckpt_dir, reduced=False):
+    """Run (y) on the re-meshed ranks: the step built on the new mesh,
+    the latest checkpoint restored and cut to this rank, the steps after
+    it on their batches."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.core.execution import make_step
+    from repro_torch.launch.train import restore_state
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _train_mesh_cfg(reduced)
+    dev = mesh.device
+    bundle = make_step(cfg, ShapeConfig("t", TRAIN_MESH_S, TRAIN_MESH_B,
+                                        "train"), mesh, "sub_operator")
+    step, params, opt = restore_state(Checkpointer(ckpt_dir), cfg,
+                                      bundle.ctx, dev)
+    res = _train_mesh_steps(bundle, cfg, params, opt,
+                            _train_mesh_batches(cfg, dev)[step:],
+                            first=step + 1)
+    res.update(restored=step, opt_step=int(opt.step))
+    return res
+
+
+def phase_train_mesh(totals, runs, device="cuda", reduced=False):
+    """Runs (w), (x) and (y) (the module's constants above): (w) and (x)
+    on two ranks sharing the card over gloo, each step's loss held to the
+    unsharded step's within 1e-2 and its grad norm within 5e-2
+    (relative), K3 launched on every rank; then data domain 1 fails, the
+    elastic controller re-meshes to (1, 1), whose rank restores (w)'s
+    step-2 checkpoint and runs steps 3-4 within 1e-2 of (w)'s."""
+    import shutil
+    import tempfile
+    from repro_torch.launch.mesh import launch
+    from repro_torch.runtime.elastic import ElasticController, remesh
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    ckpt_dir = tempfile.mkdtemp(prefix="train-mesh-")
+    kw = dict(device=device, share_device=device == "cuda", threads=4,
+              timeout_s=600)
+    try:
+        t0 = time.monotonic()
+        res = launch(train_mesh_rank, (2, 1), ("data", "model"),
+                     (ckpt_dir, reduced), **kw).join()
+        log(f"  (w), (x): ranks joined after {time.monotonic() - t0:.1f}s")
+        ec = ElasticController(n_data=2, n_model=1)
+        ec.inject_failure(1, "injected after the step-2 checkpoint")
+        t0 = time.monotonic()
+        shape, step, resumed = remesh(ec, lambda shape: launch(
+            train_resume_rank, shape, ("data", "model"),
+            (ckpt_dir, reduced), **kw), ckpt_dir)
+        log(f"  (y): re-mesh to {shape} from step {step} took "
+            f"{time.monotonic() - t0:.1f}s; events {ec.events}")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    un = res[0]["unsharded"]
+    log(f"  unsharded (rank 0): losses "
+        f"{[round(x, 5) for x, _ in un['steps']]}, grad norms "
+        f"{[round(g, 4) for _, g in un['steps']]}, peak memory "
+        f"{un['peak_gib']:.2f} GiB")
+    for name, what in (("w", "(2,1) sub_operator+fsdp"),
+                       ("x", "(1,2) sub_operator")):
+        for r in res:
+            run = r[name]
+            log(f"  ({name}) {what} rank {r['rank']}: "
+                f"{run['ms_per_step']:.1f} ms a step, "
+                f"peak memory {run['peak_gib']:.2f} GiB, launches "
+                f"{run['counts']}, wall {run['wall_s']:.1f}s")
+            log(f"    collectives a step by site (calls, bytes): "
+                + ", ".join(f"{s} {c:g} / {b:.0f}" for s, (c, b) in
+                            sorted(run["sites"].items())))
+            require(device != "cuda" or run["counts"]["fused_ffn"] > 0,
+                    f"({name}) rank {r['rank']}: K3 never launched")
+            key = f"{name}_train_mesh_rank{r['rank']}"
+            runs[key] = run["counts"]
+            for k, n in run["counts"].items():
+                totals[k] += n
+        got = res[0][name]["steps"]
+        log(f"  ({name}) losses {[round(x, 5) for x, _ in got]}, grad "
+            f"norms {[round(g, 4) for _, g in got]}")
+        for i, ((gl, gn), (wl, wn)) in enumerate(zip(got, un["steps"]), 1):
+            require(np.isfinite(gl) and abs(gl - wl) <= TRAIN_MESH_LOSS_RTOL
+                    * abs(wl), f"({name}) step {i}: loss {gl} vs "
+                    f"unsharded {wl}")
+            require(abs(gn - wn) <= TRAIN_MESH_GNORM_RTOL * abs(wn),
+                    f"({name}) step {i}: grad norm {gn} vs unsharded {wn}")
+    y = resumed[0]
+    log(f"  (y) rank 0 of {shape}: restored step {y['restored']} "
+        f"(optimizer step {y['opt_step']}), losses "
+        f"{[round(x, 5) for x, _ in y['steps']]}, {y['ms_per_step']:.1f} ms "
+        f"a step, launches {y['counts']}")
+    require(shape == (1, 1) and step == TRAIN_MESH_CKPT
+            and y["opt_step"] == TRAIN_MESH_CKPT,
+            "(y): not re-meshed to (1, 1) from the step-2 checkpoint")
+    require(device != "cuda" or y["counts"]["fused_ffn"] > 0,
+            "(y): K3 never launched")
+    want = res[0]["w"]["steps"][TRAIN_MESH_CKPT:]
+    require(len(y["steps"]) == len(want), "(y): not every step ran")
+    for (gl, _), (wl, _) in zip(y["steps"], want):
+        require(abs(gl - wl) <= TRAIN_MESH_LOSS_RTOL * abs(wl),
+                f"(y): loss {gl} vs (w)'s {wl}")
+    runs["y_train_remesh_1x1"] = y["counts"]
+    for k, n in y["counts"].items():
+        totals[k] += n
+
+
+def train_mesh_timing_rows(dev, bound):
+    """Phase 5 rows of K3 at the shapes one rank of phase 4c gives it
+    (bf16, D=896): 512 rows at F=4,864 ((w): half the batch, all of F) and
+    1,024 rows at F=2,432 ((x): the whole batch, half of F), against their
+    bounds and three matmuls and silu."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.fused_ffn.ops import fused_ffn
+    from repro_torch.kernels.fused_ffn.ref import fused_ffn_ref
+    rows = []
+    for R, Fd in ((512, 4864), (1024, 2432)):
+        (x, wg, wu, wd), _ = k3_inputs(dev, R, D=896, F=Fd)
+        nb = nbytes(x, wg, wu, wd) + R * 896 * 4
+        b_ms, b_by = bound(nb, 2 * R * 896 * Fd * 3, torch.bfloat16)
+        var = variants_of(lambda i: k3_inputs(dev, R, seed=i, D=896, F=Fd),
+                          nb)
+
+        def lib_ffn(x, wg, wu, wd, act="silu"):
+            return torch.matmul(F.silu(torch.matmul(x, wg))
+                                * torch.matmul(x, wu), wd)
+        lib = {"3x torch.matmul + silu (bf16)": time_ms(lib_ffn, var, 100)}
+        rows.append(("fused_ffn", f"training mesh rank: rows={R} D=896 "
+                     f"F={Fd} bf16", time_ms(fused_ffn, var, 100),
+                     time_ms(fused_ffn_ref, var, 20), b_ms, b_by, lib,
+                     host_ms(fused_ffn, var)))
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -4278,7 +4554,7 @@ def main() -> int:
     phase_train_parity()
 
     log("phase 4: engine at full qwen2-0.5b, then qwen3-moe (4 layers), "
-        "phi3.5-moe (8 layers), Llama-2-7B, mamba2, recurrentgemma, "
+        "phi3.5-moe (4 layers), Llama-2-7B, mamba2, recurrentgemma, "
         "internvl2 (8 layers), whisper (model level) and training (s)")
     launches = {"flash_decode": 0, "flash_decode_partial": 0,
                 "fused_ffn": 0, "gemv_int8": 0}
@@ -4303,6 +4579,12 @@ def main() -> int:
     t0 = time.monotonic()
     phase_mesh(launches, runs)
     log(f"  phase 4b took {time.monotonic() - t0:.1f}s")
+
+    log("phase 4c: training on meshes of two ranks sharing the card "
+        "(gloo): runs (w), (x), (y)")
+    t0 = time.monotonic()
+    phase_train_mesh(launches, runs)
+    log(f"  phase 4c took {time.monotonic() - t0:.1f}s")
 
     log("phase 5: kernel timing")
     kernels = phase_timing(dev, launches, runs, per_step, errs)

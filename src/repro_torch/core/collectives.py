@@ -9,8 +9,8 @@ reduce-scatters within the fast axis, all-reduces the 1/|fast| shard across
 the slow axis and all-gathers within the fast axis, so the slow axis
 carries |fast| times fewer bytes. ``ring_all_gather`` is the explicit ring
 built from ``batch_isend_irecv`` (the reference's ``ppermute``);
-``grad_sync`` is the training path's gradient mean (ported and tested
-here, used in training later).
+``grad_sync`` is the training path's gradient reduction over the batch
+axes (the train step's, ``core/execution.py``).
 
 Which tensors a backend carries is decided once per (backend, device
 type), in ``CARRIES``, never by a retry after a failure:
@@ -133,34 +133,26 @@ def _staged(x: torch.Tensor) -> torch.Tensor:
 # Thin wrappers: every sharded site calls these
 # ---------------------------------------------------------------------------
 
-def all_reduce(x: torch.Tensor, mesh, axes: Sequence[str],
-               site: str = "") -> torch.Tensor:
-    """Sum of x over the ranks of this rank's line along ``axes`` (a new
-    tensor)."""
-    axes = _key(mesh, axes)
+def _size(mesh, axes: Tuple[str, ...]) -> int:
     n = 1
     for a in axes:
         n *= mesh.shape[a]
-    if n == 1:
-        return x
+    return n
+
+
+def _all_reduce(x, mesh, axes, site, op="sum"):
     _route(x, mesh, "all_reduce")
+    n = _size(mesh, axes)
     out = x.contiguous().clone()
-    dist.all_reduce(out, group=mesh.group(axes))
+    dist.all_reduce(out, op=dist.ReduceOp.MAX if op == "max"
+                    else dist.ReduceOp.SUM, group=mesh.group(axes))
     meter(mesh).add("+".join(axes), site, 2 * (n - 1) / n * _nbytes(x))
     return out
 
 
-def all_gather(x: torch.Tensor, mesh, axes: Sequence[str], dim: int = 0,
-               site: str = "") -> torch.Tensor:
-    """Concatenation along ``dim`` of every rank's x on this rank's line
-    along ``axes``, in index order."""
-    axes = _key(mesh, axes)
-    n = 1
-    for a in axes:
-        n *= mesh.shape[a]
-    if n == 1:
-        return x
+def _all_gather(x, mesh, axes, dim, site):
     _route(x, mesh, "all_gather")
+    n = _size(mesh, axes)
     xt = x.movedim(dim, 0).contiguous()
     out = torch.empty((n * xt.shape[0],) + tuple(xt.shape[1:]),
                       dtype=x.dtype, device=x.device)
@@ -169,17 +161,9 @@ def all_gather(x: torch.Tensor, mesh, axes: Sequence[str], dim: int = 0,
     return out.movedim(0, dim).contiguous()
 
 
-def reduce_scatter(x: torch.Tensor, mesh, axes: Sequence[str],
-                   dim: int = 0, site: str = "") -> torch.Tensor:
-    """This rank's 1/n block along ``dim`` of the sum of x over this rank's
-    line along ``axes`` (x.shape[dim] divisible by n)."""
-    axes = _key(mesh, axes)
-    n = 1
-    for a in axes:
-        n *= mesh.shape[a]
-    if n == 1:
-        return x
+def _reduce_scatter(x, mesh, axes, dim, site):
     _route(x, mesh, "reduce_scatter")
+    n = _size(mesh, axes)
     xt = x.movedim(dim, 0).contiguous()
     if xt.shape[0] % n:
         raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} "
@@ -189,6 +173,134 @@ def reduce_scatter(x: torch.Tensor, mesh, axes: Sequence[str],
     dist.reduce_scatter_tensor(out, xt, group=mesh.group(axes))
     meter(mesh).add("+".join(axes), site, (n - 1) / n * _nbytes(x))
     return out.movedim(0, dim).contiguous()
+
+
+# Under autograd each collective is a ``torch.autograd.Function`` whose
+# backward is its transpose, run on the same line of ranks and metered at
+# the site's name + ".grad". Every rank differentiates its own share of
+# the objective (the sum of the shares over the ranks is the loss): the
+# gradient of a replicated tensor is then this rank's part of the whole,
+# and the transposes are exact: all-reduce <-> all-reduce, all-gather <->
+# reduce-scatter, a local slice <-> autograd's own zero-padding. Megatron's
+# f and g pair (``copy_to``, ``reduce_from``) carry values that every rank
+# computes identically: their backward sums the ranks' parts (f) or takes
+# the one it is handed (g).
+
+def _grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, site, grad_op):
+        ctx.args = (mesh, axes, site + ".grad", grad_op)
+        return _all_reduce(x, mesh, axes, site)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, site, grad_op = ctx.args
+        if grad_op == "sum":
+            g = _all_reduce(g, mesh, axes, site)
+        return g, None, None, None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, site):
+        ctx.args = (mesh, axes, site + ".grad")
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, site = ctx.args
+        return _all_reduce(g, mesh, axes, site), None, None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim, site):
+        ctx.args = (mesh, axes, dim, site + ".grad")
+        return _all_gather(x, mesh, axes, dim, site)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, *ctx.args), None, None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim, site):
+        ctx.args = (mesh, axes, dim, site + ".grad")
+        return _reduce_scatter(x, mesh, axes, dim, site)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, *ctx.args), None, None, None, None
+
+
+def all_reduce(x: torch.Tensor, mesh, axes: Sequence[str],
+               site: str = "", op: str = "sum") -> torch.Tensor:
+    """Sum (``op="max"``: maximum, no gradient) of x over the ranks of
+    this rank's line along ``axes`` (a new tensor). Its gradient is the
+    all-reduced gradient."""
+    axes = _key(mesh, axes)
+    if _size(mesh, axes) == 1:
+        return x
+    if _grad(x):
+        if op != "sum":
+            raise ValueError(f"all_reduce: op={op!r} has no gradient")
+        return _AllReduce.apply(x, mesh, axes, site, "sum")
+    return _all_reduce(x, mesh, axes, site, op)
+
+
+def reduce_from(x: torch.Tensor, mesh, axes: Sequence[str],
+                site: str = "") -> torch.Tensor:
+    """Megatron's g: the sum over ``axes`` of parts that each rank
+    computed from its own share, consumed identically on every rank (a
+    loss's statistics); the backward hands each part the gradient of the
+    sum unchanged, so the value is counted once, not once per rank."""
+    axes = _key(mesh, axes)
+    if _size(mesh, axes) == 1:
+        return x
+    if _grad(x):
+        return _AllReduce.apply(x, mesh, axes, site, "identity")
+    return _all_reduce(x, mesh, axes, site)
+
+
+def copy_to(x: torch.Tensor, mesh, axes: Sequence[str],
+            site: str = "") -> torch.Tensor:
+    """Megatron's f: x (the same on every rank of ``axes``) unchanged; the
+    backward all-reduces the ranks' partial gradients over ``axes``, so
+    every rank holds the whole gradient of its replica."""
+    axes = _key(mesh, axes)
+    if _size(mesh, axes) == 1 or not _grad(x):
+        return x
+    return _CopyTo.apply(x, mesh, axes, site)
+
+
+def all_gather(x: torch.Tensor, mesh, axes: Sequence[str], dim: int = 0,
+               site: str = "") -> torch.Tensor:
+    """Concatenation along ``dim`` of every rank's x on this rank's line
+    along ``axes``, in index order. Its gradient is reduce-scattered."""
+    axes = _key(mesh, axes)
+    if _size(mesh, axes) == 1:
+        return x
+    if _grad(x):
+        return _AllGather.apply(x, mesh, axes, dim, site)
+    return _all_gather(x, mesh, axes, dim, site)
+
+
+def reduce_scatter(x: torch.Tensor, mesh, axes: Sequence[str],
+                   dim: int = 0, site: str = "") -> torch.Tensor:
+    """This rank's 1/n block along ``dim`` of the sum of x over this rank's
+    line along ``axes`` (x.shape[dim] divisible by n). Its gradient is
+    all-gathered."""
+    axes = _key(mesh, axes)
+    if _size(mesh, axes) == 1:
+        return x
+    if _grad(x):
+        return _ReduceScatter.apply(x, mesh, axes, dim, site)
+    return _reduce_scatter(x, mesh, axes, dim, site)
 
 
 def exchange(sends: Sequence[Tuple[torch.Tensor, int]],
@@ -265,19 +377,23 @@ def ring_all_gather(x: torch.Tensor, mesh, axis: str, concat_dim: int = 0,
 
 
 def grad_sync(grads, mesh, dp_axes: Sequence[str],
-              pod_axis: Optional[str] = None, site: str = "grad_sync"):
-    """Gradient mean over the data-parallel axes: hierarchical (fast
-    ``dp_axes[0]``, slow ``pod_axis``) when a pod axis exists, else flat.
-    ``grads``: a nested dict/list of tensors; returns the same structure."""
+              pod_axis: Optional[str] = None, site: str = "grad_sync",
+              mean: bool = True):
+    """Gradient mean over the data-parallel axes (``mean=False``: their
+    sum, as the train step takes it: each rank's gradient is its part of
+    the whole): hierarchical (fast ``dp_axes[0]``, slow ``pod_axis``) when
+    both exist, else flat. ``grads``: a nested dict/list of tensors;
+    returns the same structure."""
     from repro_torch.tree import tree_map
-    total = 1
-    for a in tuple(dp_axes) + ((pod_axis,) if pod_axis else ()):
-        total *= mesh.shape[a]
+    axes = _key(mesh, tuple(dp_axes) + ((pod_axis,) if pod_axis else ()))
+    total = _size(mesh, axes)
 
     def one(g):
-        if pod_axis is None:
-            return all_reduce(g, mesh, tuple(dp_axes), site) / total
-        return hierarchical_pmean(g, mesh, dp_axes[0], pod_axis, 0, site)
+        if pod_axis is None or not dp_axes:
+            s = all_reduce(g, mesh, axes, site)
+        else:
+            s = hierarchical_psum(g, mesh, dp_axes[0], pod_axis, 0, site)
+        return s / total if mean else s
     return tree_map(one, grads)
 
 

@@ -9,6 +9,10 @@ for the audio family, ``vision_embeds`` for the VLM). ``start`` runs a
 prefetch thread that keeps up to ``prefetch`` batches ready; nothing runs
 until it is called, and ``stop`` joins the thread.
 
+On a mesh each rank takes its rows of the global batch (``rows``, the
+data axes' cut: ``ShardingCtx.batch_rows``): the global stream is the same
+at any mesh shape, so a run resumes on another mesh with the same data.
+
 The reference's ``make_batch_specs`` returns JAX shape structs for its
 ahead-of-time compiler; eager PyTorch needs no input specs, so it has no
 counterpart here.
@@ -17,7 +21,7 @@ from __future__ import annotations
 
 import threading
 from queue import Empty, Full, Queue
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -31,15 +35,18 @@ class SyntheticLMData:
     """tokens[t+1] ~ affine permutation of tokens[t] + noise: learnable."""
 
     def __init__(self, cfg: ModelConfig, batch: int, seq: int,
-                 seed: int = 0, noise: float = 0.1, prefetch: int = 2):
+                 seed: int = 0, noise: float = 0.1, prefetch: int = 2,
+                 rows: Optional[Tuple[int, int]] = None):
         self.cfg, self.batch, self.seq = cfg, batch, seq
         self.seed, self.noise = seed, noise
+        self.rows = rows
         self._q: Queue = Queue(maxsize=prefetch)
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
 
     # -- deterministic batch construction --------------------------------
     def batch_at(self, step: int) -> Dict[str, np.ndarray]:
+        """The batch of ``step`` (its ``rows`` only, when given)."""
         v = self.cfg.vocab_size
         rng = np.random.Generator(
             np.random.Philox(key=self.seed + (step << 20)))
@@ -61,6 +68,8 @@ class SyntheticLMData:
             out["vision_embeds"] = rng.standard_normal(
                 (self.batch, self.cfg.n_vision_tokens, self.cfg.d_model),
                 dtype=np.float32)
+        if self.rows is not None:
+            out = {k: v[self.rows[0]:self.rows[1]] for k, v in out.items()}
         return out
 
     # -- async prefetch ---------------------------------------------------

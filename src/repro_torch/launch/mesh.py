@@ -261,9 +261,24 @@ def _rank_main(rank, fn, shape, axes, device, share_device, tmp, threads,
     os.replace(out + ".part", out)
 
 
-# seconds every rank has to join its process groups (spawn, import torch,
-# rendezvous); a slower start counts as a failed rendezvous
+# seconds without progress (no rank used CPU time) after which a mesh
+# whose ranks have not all joined their process groups counts as a failed
+# rendezvous
 INIT_S = 120.0
+
+
+def cpu_seconds(pids) -> float:
+    """User + system CPU seconds of the processes ``pids`` (from
+    ``/proc/<pid>/stat``; a process that has ended counts 0)."""
+    ticks = 0
+    for pid in pids:
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+            ticks += int(fields[11]) + int(fields[12])
+        except (OSError, IndexError, ValueError):
+            pass
+    return ticks / os.sysconf("SC_CLK_TCK")
 
 
 class RendezvousFailed(RuntimeError):
@@ -275,7 +290,9 @@ class Launch:
     their results in rank order. A rendezvous that fails (a rank whose
     process groups did not connect, or not within ``INIT_S``) is started
     once more from a fresh store, as an elastic agent restarts a failed
-    rendezvous; a failure after every rank has joined is never retried."""
+    rendezvous; a failure after every rank has joined is never retried,
+    and the first rank that raises stops the others (as an elastic agent
+    stops a job's workers when one fails)."""
 
     def __init__(self, start: Callable, shape, world: int,
                  timeout_s: float):
@@ -290,41 +307,64 @@ class Launch:
             p.join(5)
         shutil.rmtree(self.tmp, ignore_errors=True)
 
+    def _failed(self, errors: dict) -> RuntimeError:
+        return RuntimeError(f"mesh {self.shape}: rank(s) {sorted(errors)} "
+                            "failed:\n" + "\n".join(
+                                f"-- rank {r}:\n{errors[r]}"
+                                for r in sorted(errors)))
+
     def _wait(self) -> list:
-        t0 = time.monotonic()
+        # the limits count time in which no rank made progress (used CPU
+        # time), not wall time: a machine loaded by other work slows the
+        # ranks down without failing them, while a hung mesh still fails
+        # (a collective that waits past the process groups' timeout
+        # raises in its rank)
+        pids = [p.pid for p in self.ctx.processes]
+        cpu, t0 = cpu_seconds(pids), time.monotonic()
         ready = lambda: all(os.path.exists(  # noqa: E731
             os.path.join(self.tmp, f"ready{r}")) for r in range(self.world))
-        while not self.ctx.join(timeout=1):
+        results, errors, failed_at = {}, {}, None
+        while True:
+            finished = self.ctx.join(timeout=1)
             for r in range(self.world):
                 path = os.path.join(self.tmp, f"rank{r}.pkl")
-                if os.path.exists(path) and not ready():
-                    with open(path, "rb") as f:
-                        status, val = pickle.load(f)
-                    if status == "init_error":
-                        raise RendezvousFailed(val)
-            waited = time.monotonic() - t0
-            if waited > INIT_S and not ready():
+                if r in results or r in errors or not os.path.exists(path):
+                    continue
+                with open(path, "rb") as f:
+                    status, val = pickle.load(f)
+                if status == "init_error":
+                    raise RendezvousFailed(val)
+                if status == "ok":
+                    results[r] = val
+                else:
+                    errors[r] = val
+                    failed_at = failed_at or time.monotonic()
+            if finished:
+                break
+            # one rank failed: the others fail in their next collective
+            # or wait in it until the process groups time out; their
+            # errors are collected for a moment, then the mesh is stopped
+            if failed_at is not None and time.monotonic() - failed_at > 5:
+                raise self._failed(errors)
+            now = cpu_seconds(pids)
+            if now > cpu + 0.05:
+                cpu, t0 = now, time.monotonic()
+            idle = time.monotonic() - t0
+            if idle > INIT_S and not ready():
                 raise RendezvousFailed(
-                    f"not every rank joined within {INIT_S:.0f} s")
-            if waited > self.timeout_s:
+                    f"not every rank joined, and none made progress for "
+                    f"{INIT_S:.0f} s")
+            if idle > self.timeout_s:
                 raise TimeoutError(
-                    f"mesh {self.shape}: ranks still running after "
+                    f"mesh {self.shape}: no rank made progress for "
                     f"{self.timeout_s:.0f} s")
-        results = []
-        for r in range(self.world):
-            path = os.path.join(self.tmp, f"rank{r}.pkl")
-            if not os.path.exists(path):
-                raise RuntimeError(f"mesh {self.shape}: rank {r} left no "
-                                   "result")
-            with open(path, "rb") as f:
-                status, val = pickle.load(f)
-            if status == "init_error":
-                raise RendezvousFailed(val)
-            if status != "ok":
-                raise RuntimeError(f"mesh {self.shape}: rank {r} "
-                                   f"failed:\n{val}")
-            results.append(val)
-        return results
+        if errors:
+            raise self._failed(errors)
+        missing = [r for r in range(self.world) if r not in results]
+        if missing:
+            raise RuntimeError(f"mesh {self.shape}: rank(s) {missing} left "
+                               "no result")
+        return [results[r] for r in range(self.world)]
 
     def join(self) -> list:
         """Raises if a rank raised, died or outlived the timeout (its
@@ -360,8 +400,9 @@ def launch(fn: Callable, shape: Sequence[int],
     return at once; ``Launch.join`` collects the results (pickled through
     files). Each rank runs ``threads`` intra-op threads. The process
     groups time out after ``timeout_s``, so a hung collective fails
-    instead of hanging; the ranks must all have joined within
-    ``INIT_S``."""
+    instead of hanging, and ``join`` gives up after ``timeout_s`` in
+    which no rank made progress (used CPU time); the ranks must all have
+    joined before ``INIT_S`` passes without progress."""
     world = int(np.prod(shape))
     if device == "cuda" and not share_device and \
             torch.cuda.device_count() < world:

@@ -5,6 +5,7 @@ unembedding, the training loss (chunked cross-entropy) and ``remat``.
 Port of ``repro.models.common``. Parameters are nested dicts of tensors.
 On a mesh (a ``ShardingCtx`` with more than one rank) the embedding is a
 masked gather of this rank's vocabulary rows followed by one reduction,
+the training loss is vocabulary-parallel (``chunked_ce_loss``),
 the logits stay vocabulary-sharded (``greedy`` takes the argmax across the
 shards, ties to the lowest index as a whole-row argmax), and a
 row-parallel linear (``linear_partial``) returns this rank's f32 partial
@@ -319,35 +320,84 @@ def ce_chunk(S: int, target: int = 512) -> int:
     return S
 
 
-def _ce_sum(table: torch.Tensor, xc: torch.Tensor, lc: torch.Tensor
+def _ce_sum(table: torch.Tensor, xc: torch.Tensor, lc: torch.Tensor,
+            ctx: ShardingCtx = NULL_CTX, vocab=(), weight=None
             ) -> torch.Tensor:
     """Sum over one chunk of lse - gold: the (B,c,V) logits in f32 of the
-    f32 images of x and the table, as the reference's einsum."""
+    f32 images of x and the table, as the reference's einsum. ``weight``
+    (on a mesh) gathers the table's fsdp shards first, here inside the
+    chunk's ``remat``, so the recompute gathers again.
+
+    On a mesh whose rules cut the vocabulary over ``vocab``, the table
+    holds this rank's block of rows: the row maximum is all-reduced (max;
+    it carries no gradient), and the sums of exponentials and the gold
+    logits (each from the rank whose block holds the label, 0 elsewhere)
+    are summed over ``vocab`` by ``reduce_from``: every rank then holds
+    the chunk's whole loss, and each rank's logits get the gradient of
+    it once."""
+    from repro_torch.core import collectives as C
+    if weight is not None:
+        table = weight(table)
     logits = torch.einsum("bcd,vd->bcv", xc.to(torch.float32),
                           table.to(torch.float32))
     # the shift only steadies the exponent: it has no gradient (the
     # reference's flows through max and cancels exactly)
     m = torch.amax(logits, dim=-1).detach()
-    lse = m + torch.log(torch.sum(torch.exp(logits - m[..., None]), dim=-1))
-    gold = torch.gather(logits, -1, lc.to(torch.long)[..., None])[..., 0]
-    return torch.sum(lse - gold)
+    split = ctx.active and axes_of(vocab)
+    if split:
+        m = C.all_reduce(m, ctx.mesh, axes_of(vocab), "ce_max", op="max")
+        Vl = table.shape[0]
+        rel = lc.to(torch.long) - ctx.index(vocab) * Vl
+        inb = (rel >= 0) & (rel < Vl)
+        gold = torch.gather(logits, -1, rel.clamp(0, Vl - 1)[..., None])
+        gold = torch.where(inb, gold[..., 0], torch.zeros_like(gold[..., 0]))
+    else:
+        gold = torch.gather(logits, -1, lc.to(torch.long)[..., None])[..., 0]
+    se = torch.sum(torch.exp(logits - m[..., None]), dim=-1)
+    if split:
+        se, gold = C.reduce_from(torch.stack([se, gold]), ctx.mesh,
+                                 axes_of(vocab), "ce_stats")
+    return torch.sum(m + torch.log(se) - gold)
 
 
 def chunked_ce_loss(table: torch.Tensor, x: torch.Tensor,
-                    labels: torch.Tensor, chunk: int = 512) -> torch.Tensor:
+                    labels: torch.Tensor, ctx: ShardingCtx = NULL_CTX,
+                    chunk: int = 512, vocab=(), weight=None
+                    ) -> torch.Tensor:
     """Mean cross-entropy of x (B,S,D) against the (V,D) table, WITHOUT a
     (B,S,V) logits tensor: the sequence goes in chunks of ``chunk``
     positions; each chunk's (B,c,V) f32 logits are reduced to the sum of
     lse - gold and dropped (and recomputed, under autograd, in the
     backward: ``remat``). The sums are added in chunk order in f32 and
-    divided by B*S, as the reference's scan does."""
+    divided by B*S, as the reference's scan does.
+
+    On a mesh (``ctx``) x holds this rank's rows of the global batch,
+    whole over the other axes, and the table this rank's vocabulary rows
+    (cut over ``vocab``; ``_ce_sum``); the result is this rank's share of
+    the global mean: its rows' sum over the GLOBAL count of positions, so
+    the shares summed over the batch axes give the reference's loss.
+    Where the rules leave the vocabulary whole, the ranks that would
+    compute the same chunks take every n-th chunk and ``reduce_from`` sums
+    them, so each chunk's loss counts once."""
+    from repro_torch.core import collectives as C
     B, S, _ = x.shape
     n = S // chunk
     if n * chunk != S:
         raise ValueError(f"chunked_ce_loss: chunk {chunk} does not divide "
                          f"the sequence {S} (ce_chunk(S) does)")
+    rows, rep = B, ()
+    if ctx.active:
+        rows = B * ctx.n(entry_of(ctx.batch_axes))
+        rep = tuple(a for a in ctx.mesh.axis_names
+                    if a not in ctx.batch_axes and a not in axes_of(vocab)
+                    and ctx.mesh.shape[a] > 1)
+    n_rep, me = (ctx.n(entry_of(rep)), ctx.index(entry_of(rep))) if rep \
+        else (1, 0)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(n):
+    for i in range(me, n, n_rep):
         sl = slice(i * chunk, (i + 1) * chunk)
-        total = total + remat(_ce_sum, table, x[:, sl], labels[:, sl])
-    return total / (B * S)
+        total = total + remat(_ce_sum, table, x[:, sl], labels[:, sl], ctx,
+                              vocab, weight)
+    if rep:
+        total = C.reduce_from(total, ctx.mesh, rep, "ce_chunks")
+    return total / (rows * S)

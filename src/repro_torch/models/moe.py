@@ -1,9 +1,8 @@
 """Mixture-of-Experts FFN: f32 router, top-k, capacity-bounded dispatch.
 
 Port of ``repro.models.moe`` (``make_moe_params``, ``capacity``,
-``moe_ffn``, and on a mesh ``_moe_ffn_sharded``; its training on a mesh
-waits for the multi-device training slice, pipeline parallelism for its
-own). Each token's
+``moe_ffn``, and on a mesh ``_moe_ffn_sharded``, serving and training).
+Each token's
 expert assignment is sorted by expert (stable), ranked within its expert's
 segment and kept while its rank is below the capacity C; kept tokens are
 copied into an (E, C, D) bucket tensor, every expert's products run over
@@ -27,6 +26,9 @@ its own tokens with the capacity counted on them, as the reference's
 ``_moe_ffn_sharded``: a row's output can then differ from the unsharded
 one where tokens overflow, as in the reference. Otherwise the rows' tokens
 are all-gathered and dispatched together with the global capacity.
+Training takes that path, so its dispatch and its load-balance loss are
+the unsharded model's; every collective on it carries its gradient
+(``core/collectives.py``).
 """
 from __future__ import annotations
 
@@ -185,7 +187,7 @@ def _moe_core_mesh(p: Dict, x: torch.Tensor, cfg: ModelConfig, ctx,
     are all-gathered there and the partial outputs reduce-scattered back,
     else the output stays partial over them. Returns (f32 (B,S,D) partial
     over ``experts`` (and over ``mlp_shard`` unless ``rows_differ``), the
-    f32 aux loss of these tokens)."""
+    router's probabilities (T, E) and top-k ids (T, K) of these tokens)."""
     from repro_torch.core.collectives import all_gather, reduce_scatter
     m = cfg.moe
     B, S, D = x.shape
@@ -217,7 +219,33 @@ def _moe_core_mesh(p: Dict, x: torch.Tensor, cfg: ModelConfig, ctx,
     tok_mine = torch.empty_like(mine).index_copy_(0, order, mine)
     w = (gate_vals.reshape(-1) * tok_mine).to(torch.float32)
     out = (eo[tok_slot] * w[:, None]).view(T, K, D).sum(1)
-    return out.view(B, S, D), load_balance_loss(probs, gate_idx, E)
+    return out.view(B, S, D), probs, gate_idx
+
+
+def _aux_share(probs: torch.Tensor, gate_idx: torch.Tensor, E: int, ctx
+               ) -> torch.Tensor:
+    """This rank's share of the load-balance loss of tokens that every
+    rank of the mesh routed alike (one data row's, or every row's
+    gathered): the router probabilities' per-expert sum is cut over the
+    ranks of the non-batch axes (each sums its block of tokens) and
+    summed with ``reduce_from``, so each token's probabilities get their
+    gradient once there; and the loss is divided by the batch axes' rank
+    count, so the shares summed over the batch axes give the unsharded
+    loss (as the cross-entropy's shares do)."""
+    from repro_torch.core.collectives import reduce_from
+    from repro_torch.models.sharding import entry_of
+    T = probs.shape[0]
+    rep = tuple(a for a in ctx.mesh.axis_names if a not in ctx.batch_axes
+                and ctx.mesh.shape[a] > 1)
+    p_sum = probs
+    if rep:
+        p_sum = torch.tensor_split(probs, ctx.n(entry_of(rep)))[
+            ctx.index(entry_of(rep))]
+    p_sum = reduce_from(p_sum.sum(0), ctx.mesh, rep, "moe_aux")
+    share = (gate_idx[..., None] == torch.arange(E, device=probs.device)
+             ).to(torch.float32).sum(1)
+    aux = E * torch.sum((p_sum / T) * (share.sum(0) / T))
+    return aux / ctx.n(entry_of(ctx.batch_axes))
 
 
 def _moe_ffn_sharded(p: Dict, x: torch.Tensor, cfg: ModelConfig, ctx,
@@ -226,8 +254,9 @@ def _moe_ffn_sharded(p: Dict, x: torch.Tensor, cfg: ModelConfig, ctx,
     tokens); the aux loss is averaged over the data axes. Returns the f32
     output partial over ``experts`` (and the aux loss with ``train``)."""
     from repro_torch.core.collectives import all_reduce
-    out, aux = _moe_core_mesh(p, x, cfg, ctx, experts, mlp_shard,
-                              rows_differ=True)
+    out, probs, gate_idx = _moe_core_mesh(p, x, cfg, ctx, experts, mlp_shard,
+                                          rows_differ=True)
+    aux = load_balance_loss(probs, gate_idx, cfg.moe.num_experts)
     dp = ctx.batch_axes
     aux = all_reduce(aux, ctx.mesh, dp, "moe_aux") / ctx.n(tuple(dp)) \
         if dp else aux
@@ -237,31 +266,28 @@ def _moe_ffn_sharded(p: Dict, x: torch.Tensor, cfg: ModelConfig, ctx,
 def moe_ffn_mesh(p: Dict, x: torch.Tensor, cfg: ModelConfig, ctx,
                  experts, mlp_shard, train: bool = False):
     """``moe_ffn`` on a mesh: x (B,S,D) this data row's tokens, whole over
-    ``model``. Returns the f32 output partial over ``experts`` (and the aux
-    loss with ``train``). Several data rows: per-row dispatch
-    (``_moe_ffn_sharded``) from 512 tokens a row when serving, else the
-    rows' tokens gathered and dispatched together."""
-    from repro_torch.core.collectives import all_gather, reduce_scatter
+    ``model``. Returns the f32 output partial over ``experts`` (and with
+    ``train`` this rank's share of the aux loss, ``_aux_share``). Several
+    data rows: per-row dispatch (``_moe_ffn_sharded``) from 512 tokens a
+    row when serving, else the rows' tokens gathered and dispatched
+    together."""
+    from repro_torch.core.collectives import (all_gather, all_reduce,
+                                              reduce_scatter)
     dp = tuple(a for a in ctx.batch_axes if ctx.mesh.shape[a] > 1)
     B, S, _ = x.shape
     if dp and not train and B * S >= 512:
         return _moe_ffn_sharded(p, x, cfg, ctx, experts, mlp_shard, train)
-    if not dp:
-        out, aux = _moe_core_mesh(p, x, cfg, ctx, experts, mlp_shard,
-                                  rows_differ=False)
-        if mlp_shard:
-            from repro_torch.core.collectives import all_reduce
-            out = all_reduce(out, ctx.mesh, mlp_shard, "moe_expert_out")
-        return (out, aux) if train else out
-    xg = all_gather(x, ctx.mesh, dp, 0, "moe_tokens")
-    out, aux = _moe_core_mesh(p, xg, cfg, ctx, experts, mlp_shard,
-                              rows_differ=False)
-    if tuple(mlp_shard) == dp:
+    xg = all_gather(x, ctx.mesh, dp, 0, "moe_tokens") if dp else x
+    out, probs, gate_idx = _moe_core_mesh(p, xg, cfg, ctx, experts,
+                                          mlp_shard, rows_differ=False)
+    if dp and tuple(mlp_shard) == dp:
         # the F partial sums and the row cut in one reduce-scatter
         out = reduce_scatter(out, ctx.mesh, dp, 0, "moe_tokens_back")
     else:
         if mlp_shard:
-            from repro_torch.core.collectives import all_reduce
             out = all_reduce(out, ctx.mesh, mlp_shard, "moe_expert_out")
-        out = ctx.local(out, (dp if len(dp) > 1 else dp[0],))
-    return (out, aux) if train else out
+        if dp:
+            out = ctx.local(out, (dp if len(dp) > 1 else dp[0],))
+    if train:
+        return out, _aux_share(probs, gate_idx, cfg.moe.num_experts, ctx)
+    return out

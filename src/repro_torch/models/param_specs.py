@@ -11,7 +11,10 @@ quantized weight is two leaves, ``values`` and ``scale``, as the reference's
 
 ``shard_params`` cuts each full leaf to this rank's part; it works on the
 port's parameters from ``interop``, so the reference's own parameters reach
-every rank. An int8 weight is cut from the ALREADY quantized tensor: its
+every rank. ``gather_params`` is its inverse (whole leaves on every rank,
+for a checkpoint). Under the fsdp rules (training) the same tables cut the
+weights' embed dim over the data axis, and AdamW's moments take their
+parameters' specs. An int8 weight is cut from the ALREADY quantized tensor: its
 per-column scales stay whole on a row-parallel cut (the reference
 quantizes over the full ``d_in`` before it shards); requantizing a shard
 would give other values.
@@ -145,6 +148,33 @@ def shard_params(params, ctx: ShardingCtx):
     if ctx.mesh is None:
         return params
     return _cut(params, (), ctx)
+
+
+def gather_params(params, ctx: ShardingCtx, cfg):
+    """The whole leaves of this rank's ``params`` (a tree of ``cfg``'s
+    parameters as ``shard_params`` cut it, or AdamW moments of that
+    structure), on every rank: each leaf all-gathered over the axes its
+    spec cuts it by, the inverse of ``shard_params``. Collective: every
+    rank of the mesh calls it. Without a mesh, ``params`` itself."""
+    if not ctx.active:
+        return params
+    from repro_torch.core.collectives import all_gather
+    from repro_torch.models.sharding import axes_of
+    shapes = {k: t.shape for k, t in walk(abstract_params(cfg))}
+
+    def go(node, keys):
+        if isinstance(node, dict):
+            return {k: go(v, keys + (str(k),)) for k, v in node.items()}
+        if isinstance(node, list):
+            return [go(v, keys + (str(i),)) for i, v in enumerate(node)]
+        spec = ctx.spec(leaf_logical(keys, node.ndim), shapes[keys])
+        for d, e in enumerate(spec):
+            if axes_of(e):
+                node = all_gather(node, ctx.mesh, axes_of(e), d,
+                                  "gather_params")
+        return node
+    with torch.no_grad():
+        return go(params, ())
 
 
 def cache_logical(keys: Tuple[str, ...], shape) -> Tuple:

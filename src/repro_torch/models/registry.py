@@ -76,7 +76,9 @@ class ModelAPI(NamedTuple):
     # loss(params, batch) -> f32 scalar: the family's training loss
     #   (chunked cross-entropy; + 0.01 x the MoE aux loss), blocks under
     #   remat; ``batch`` holds tokens and labels (B,S), plus the VLM's
-    #   vision_embeds (B,N,D) or the enc-dec family's frames (B,F,D)
+    #   vision_embeds (B,N,D) or the enc-dec family's frames (B,F,D); on a
+    #   mesh this rank's rows and shards, and the result is this rank's
+    #   share of the loss (summed over the batch axes it is the loss)
     loss: Optional[Callable] = None
     # the sharding context the fields run under (NULL_CTX: one device)
     ctx: ShardingCtx = NULL_CTX
@@ -146,7 +148,8 @@ def _build_transformer(cfg: ModelConfig, device: torch.device,
     T.check_supported(cfg)
     is_vlm = cfg.family == "vlm"
     rows = ctx.n(ctx.batch_axes) if ctx.active else 1
-    vocab = layout(cfg, ctx).vocab
+    # fsdp rules (training) are refused by the serving fields' own layout
+    vocab = layout(cfg, ctx, train=True).vocab
 
     def prefill(params, tokens, vision_embeds=None):
         cache = T.make_cache(cfg, tokens.shape[0] * rows,
@@ -180,7 +183,8 @@ def _build_transformer(cfg: ModelConfig, device: torch.device,
                     make_decode_block(decode_slotted, greedy),
                     None if is_vlm else prefill_chunk,
                     wa_servable=not is_vlm,
-                    loss=lambda params, batch: T.loss_fn(params, batch, cfg),
+                    loss=lambda params, batch: T.loss_fn(params, batch, cfg,
+                                                         ctx),
                     ctx=ctx, greedy=greedy,
                     full_logits=lambda lg: common.gather_logits(lg, ctx,
                                                                 vocab))

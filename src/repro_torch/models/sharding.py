@@ -172,8 +172,10 @@ def sub_operator(pod_is_dp: bool = True) -> ExecutionRules:
 
 
 def fsdp(base: ExecutionRules) -> ExecutionRules:
-    """Training variant: the non-TP weight dim and embedding rows spread
-    over the data axis (a table only in this slice of the port)."""
+    """Training variant (ZeRO-3): the non-TP weight dim (``embed_w``) and
+    the embedding rows spread over the data axis, AdamW's moments with
+    them; a layer's weights are all-gathered just before it uses them
+    (``MeshLayout.weights``) and their gradients reduce-scattered back."""
     rules = dict(base.rules)
     rules["embed_w"] = ("data",)
     return ExecutionRules(base.name + "+fsdp", rules)
@@ -232,6 +234,16 @@ class ShardingCtx:
             return ()
         return tuple(a for a in self.rules.rules.get("batch") or ()
                      if a in self.mesh.shape)
+
+    def batch_rows(self, n: int) -> Tuple[int, int]:
+        """[lo, hi): this rank's rows of a global batch of ``n`` rows (the
+        rows ``batch_local`` keeps)."""
+        k = self.n(entry_of(self.batch_axes))
+        if n % k:
+            raise ValueError(f"a batch of {n} rows does not cut over the "
+                             f"{k} ranks of {self.batch_axes}")
+        i = self.index(entry_of(self.batch_axes))
+        return i * (n // k), (i + 1) * (n // k)
 
     def batch_local(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's rows (dim 0) of a global batch."""
@@ -331,15 +343,18 @@ class MeshLayout:
     tensor unchanged (``NULL_LAYOUT``): the model code runs one path on one
     device and on a mesh."""
 
-    def __init__(self, cfg, ctx: ShardingCtx):
+    def __init__(self, cfg, ctx: ShardingCtx, train: bool = False):
         self.ctx = ctx
         self.active = ctx.active
         self.res = self.vocab = self.q_cols = self.kv_cols = ()
         self.wo_rows = self.act_heads = self.kv_heads = self.mlp = ()
         self.experts = self.mlp_shard = ()
+        self.fsdp: Dict[str, Dict[Tuple[str, ...], Tuple]] = {}
         if not self.active:
             return
-        if ctx.rules.rules.get("embed_w"):
+        fsdp_axes = tuple(a for a in ctx.rules.rules.get("embed_w") or ()
+                          if ctx.mesh.shape.get(a, 1) > 1)
+        if ctx.rules.rules.get("embed_w") and not train:
             raise ValueError(f"{ctx.rules.name}: fsdp rules shard the "
                              "weights' embed dim for training; serving "
                              "runs the operator_centric / sub_operator "
@@ -363,6 +378,33 @@ class MeshLayout:
             self.experts = ax(("experts", "embed_w", "mlp_shard"), shape, 0)
             self.mlp_shard = ax(("experts", "embed_w", "mlp_shard"), shape,
                                 2)
+        if fsdp_axes:
+            self.fsdp = _fsdp_gathers(cfg, ctx, set(fsdp_axes))
+
+    def weights(self, p: dict, where: str = "block") -> dict:
+        """``p`` (a layer's parameters, or with ``where="top"`` the
+        model's) with every leaf that fsdp cuts over the data axes
+        all-gathered whole: the one weight-gather site, called inside the
+        rematerialised block (the recompute gathers again; the gathered
+        weights are not kept) and by the embedding and the loss. The
+        gather's gradient is reduce-scattered back to the shards."""
+        if not self.fsdp:
+            return p
+
+        def go(node, keys):
+            if isinstance(node, dict):
+                return {k: go(v, keys + (str(k),)) for k, v in node.items()}
+            return self.weight(node, keys, where)
+        return go(p, ())
+
+    def weight(self, t: torch.Tensor, keys, where: str = "top"
+               ) -> torch.Tensor:
+        """One leaf (at ``keys`` of a layer's or the model's tree) gathered
+        whole over the fsdp axes (``weights``)."""
+        from repro_torch.core.collectives import all_gather
+        for d, axes in self.fsdp.get(where, {}).get(tuple(keys), ()):
+            t = all_gather(t, self.ctx.mesh, axes, d, "fsdp_gather")
+        return t
 
     def res_spec(self):
         return (None, None, entry_of(self.res))
@@ -404,6 +446,29 @@ class MeshLayout:
 NULL_LAYOUT = MeshLayout(None, NULL_CTX)
 
 
-def layout(cfg, ctx: ShardingCtx) -> MeshLayout:
-    """``cfg``'s placements on ``ctx`` (``NULL_LAYOUT`` without a mesh)."""
-    return MeshLayout(cfg, ctx) if ctx.active else NULL_LAYOUT
+def layout(cfg, ctx: ShardingCtx, train: bool = False) -> MeshLayout:
+    """``cfg``'s placements on ``ctx`` (``NULL_LAYOUT`` without a mesh);
+    ``train``: fsdp rules allowed."""
+    return MeshLayout(cfg, ctx, train) if ctx.active else NULL_LAYOUT
+
+
+def _fsdp_gathers(cfg, ctx: ShardingCtx, fsdp_axes) -> Dict:
+    """{"block": {leaf keys in a layer's dict: ((dim, axes), ...)}, "top":
+    {leaf keys in the model's tree: ...}}: the dims of every leaf that the
+    rules cut over the fsdp axes (``embed_w``'s, and an expert's F where
+    ``mlp_shard`` takes the data axis first), from the specs of a one-layer
+    model's global shapes."""
+    from repro_torch.models.param_specs import (abstract_params,
+                                                leaf_logical, walk)
+    out: Dict[str, Dict] = {"block": {}, "top": {}}
+    for keys, t in walk(abstract_params(cfg.replace(n_layers=1))):
+        spec = ctx.spec(leaf_logical(keys, t.ndim), t.shape)
+        dims = tuple((d, axes_of(e)) for d, e in enumerate(spec)
+                     if set(axes_of(e)) & fsdp_axes)
+        if not dims:
+            continue
+        if keys[0] == "blocks":
+            out["block"][keys[2:]] = dims
+        else:
+            out["top"][keys] = dims
+    return out

@@ -5,9 +5,10 @@ cache (banded prefill, ``block_decode`` at the shared cursor).
 
 Port of ``repro.models.transformer``: inference, and training
 (``forward_train`` and ``loss_fn``: every block rematerialised, K3 with
-its gradient in the dense FFN). The reference's layer ``lax.scan`` over
-stacked parameters becomes a Python loop over the per-layer parameter
-dicts of ``params["blocks"]``; caches are updated in place (see
+its gradient in the dense FFN; on a mesh too, through the same sites,
+the layers' fsdp shards gathered inside the remat). The reference's layer
+``lax.scan`` over stacked parameters becomes a Python loop over the
+per-layer parameter dicts of ``params["blocks"]``; caches are updated in place (see
 ``repro_torch.kv.cache``). On CUDA the decode path launches K1
 (attention over the stored bucket view, int8 dequantized inside the
 kernel; over a tiered cache, over the hot/cold image resolved in the
@@ -174,17 +175,29 @@ def make_block_params(gen, cfg: ModelConfig) -> dict:
     return p
 
 
-def _mix_ffn(p, x, cfg, lay: MeshLayout = NULL_LAYOUT):
+def _mix_ffn(p, x, cfg, lay: MeshLayout = NULL_LAYOUT, train: bool = False):
     """The FFN half of a block: ln2 (of the whole residual), then the MoE
-    or the dense FFN, and the residual."""
+    or the dense FFN, and the residual. ``train``: returns (x', the f32
+    MoE load-balance loss: 0 for a dense FFN; on a mesh this rank's share
+    of it)."""
     h = lay.to_full(x, "ln2_in")
     h = common.apply_norm(cfg.norm, p["ln2"], h, cfg.norm_eps)
+    aux = None
     if cfg.moe is None:
-        return x + ffn_apply(p["ffn"], h, cfg, lay)
-    if not lay.active:
-        return x + moe_ffn(p["moe"], h, cfg)
-    f = moe_ffn_mesh(p["moe"], h, cfg, lay.ctx, lay.experts, lay.mlp_shard)
-    return x + lay.to_res(f, lay.experts, "ffn_out").to(x.dtype)
+        out = x + ffn_apply(p["ffn"], h, cfg, lay)
+    elif not lay.active:
+        f = moe_ffn(p["moe"], h, cfg, train=train)
+        f, aux = f if train else (f, None)
+        out = x + f
+    else:
+        f = moe_ffn_mesh(p["moe"], h, cfg, lay.ctx, lay.experts,
+                         lay.mlp_shard, train)
+        f, aux = f if train else (f, None)
+        out = x + lay.to_res(f, lay.experts, "ffn_out").to(x.dtype)
+    if not train:
+        return out
+    return out, aux if aux is not None else torch.zeros(
+        (), dtype=torch.float32, device=x.device)
 
 
 def _attention_full_seq(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -218,17 +231,17 @@ def block_full_seq(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 def block_train(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                positions: torch.Tensor, window: int = 0):
+                positions: torch.Tensor, window: int = 0,
+                lay: MeshLayout = NULL_LAYOUT):
     """Training block (the reference's ``block_full_seq(train=True)``): no
     K/V leave it and no int8-KV roundtrip. x: (B,S,D) -> (x', aux), aux
-    the MoE load-balance loss (0 for a dense FFN), f32."""
-    x, _, _ = _attention_full_seq(p, x, cfg, positions, False, window)
-    h = common.apply_norm(cfg.norm, p["ln2"], x, cfg.norm_eps)
-    if cfg.moe is not None:
-        f, aux = moe_ffn(p["moe"], h, cfg, train=True)
-        return x + f, aux
-    return x + ffn_apply(p["ffn"], h, cfg), torch.zeros(
-        (), dtype=torch.float32, device=x.device)
+    the MoE load-balance loss (0 for a dense FFN), f32. On a mesh the
+    layer's fsdp shards are gathered here first (``lay.weights``: under
+    ``remat`` the recompute gathers them again) and the block runs
+    serving's sites."""
+    p = lay.weights(p)
+    x, _, _ = _attention_full_seq(p, x, cfg, positions, False, window, lay)
+    return _mix_ffn(p, x, cfg, lay, train=True)
 
 
 def pre_attention(p: dict, x: torch.Tensor, positions: torch.Tensor,
@@ -641,36 +654,52 @@ def forward_hidden(params, tokens: torch.Tensor, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 def forward_train(params, tokens: torch.Tensor, cfg: ModelConfig,
-                  vision_embeds=None):
+                  vision_embeds=None, ctx: ShardingCtx = NULL_CTX, lay=None):
     """Training forward (the reference's ``forward_hidden(train=True)``):
     the vision embeddings, if any, before the text, learned positions where
     the config has them, every block under ``remat``. Returns (hidden
-    (B,S,D) after the final norm, the f32 aux loss summed over layers)."""
-    x = common.embed(params["embed"], tokens)
+    (B,S,D) after the final norm, the f32 aux loss summed over layers).
+    On a mesh (``ctx``; ``lay`` its training layout) tokens are this
+    rank's rows, the hidden state is whole over the other axes and the aux
+    loss is this rank's share."""
+    lay = layout(cfg, ctx, train=True) if lay is None else lay
+    top = lay.weights({k: params[k] for k in ("embed", "pos_embed")
+                       if k in params}, "top")
+    x = common.embed(top["embed"], tokens, ctx, lay.vocab, lay.res_spec())
     if vision_embeds is not None:
-        x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
+        x = torch.cat([lay.res_local(vision_embeds).to(x.dtype), x], dim=1)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None].expand(B, S)
-    x = add_learned_pos(params, x, positions[0], cfg)
+    x = add_learned_pos(top, x, positions[0], cfg, lay)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in params["blocks"]:
-        x, a = common.remat(block_train, lp, x, cfg, positions)
+        x, a = common.remat(block_train, lp, x, cfg, positions, 0, lay)
         aux = aux + a
+    x = lay.to_full(x, "ln_f_in")
     return common.apply_norm(cfg.norm, params["ln_f"], x, cfg.norm_eps), aux
 
 
-def loss_fn(params, batch, cfg: ModelConfig) -> torch.Tensor:
+def loss_fn(params, batch, cfg: ModelConfig, ctx: ShardingCtx = NULL_CTX
+            ) -> torch.Tensor:
     """``batch``: tokens and labels (B,S) (and the VLM's vision_embeds
     (B,N,D)). Chunked cross-entropy over the text positions plus 0.01 x
-    the aux loss, as the reference's ``loss_fn``."""
+    the aux loss, as the reference's ``loss_fn``. On a mesh: this rank's
+    rows of the batch and its parameter shards; returns this rank's share
+    of the loss (summed over the batch axes it is the reference's), the
+    cross-entropy vocabulary-parallel over the unembedding's rows."""
+    lay = layout(cfg, ctx, train=True)
     vis = batch.get("vision_embeds")
-    x, aux = forward_train(params, batch["tokens"], cfg, vis)
+    x, aux = forward_train(params, batch["tokens"], cfg, vis, ctx, lay)
     if vis is not None:
         x = x[:, vis.shape[1]:]                  # loss over text positions
+    key = ("embed" if cfg.tie_embeddings else "unembed", "table")
     ce = common.chunked_ce_loss(unembed_table(params, cfg), x,
-                                batch["labels"],
-                                chunk=common.ce_chunk(x.shape[1]))
+                                batch["labels"], ctx,
+                                chunk=common.ce_chunk(x.shape[1]),
+                                vocab=lay.vocab,
+                                weight=(lambda t: lay.weight(t, key))
+                                if lay.fsdp else None)
     return ce + 0.01 * aux
 
 

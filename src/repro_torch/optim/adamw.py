@@ -45,24 +45,43 @@ def cosine_lr(step: torch.Tensor, base_lr: float, warmup: int, total: int,
     return base_lr * torch.where(s < warmup, warm, cos)
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's f32 sum of squares."""
-    sums = [torch.sum(torch.square(x.to(torch.float32)))
-            for x in tree_leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(sums)))
+def global_norm(tree, mesh=None, sharded=None) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's f32 sum of squares. On a
+    mesh, ``sharded`` is a tree of ``tree``'s structure naming, per leaf,
+    the mesh axes its shards are cut over (joined with "+", "" for none):
+    the sums of the leaves cut over the same axes are added, each group
+    all-reduced over its axes once, and a leaf replicated on an axis is
+    counted once (its replicas hold one gradient)."""
+    leaves = tree_leaves(tree)
+    if mesh is None:
+        sums = [torch.sum(torch.square(x.to(torch.float32)))
+                for x in leaves]
+        return torch.sqrt(torch.sum(torch.stack(sums)))
+    from repro_torch.core.collectives import all_reduce
+    groups: dict = {}
+    for x, key in zip(leaves, tree_leaves(sharded)):
+        sq = torch.sum(torch.square(x.to(torch.float32)))
+        groups[key] = groups[key] + sq if key in groups else sq
+    total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    for key in sorted(groups):
+        total = total + (all_reduce(groups[key], mesh, key.split("+"),
+                                    "grad_norm") if key else groups[key])
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
 def adamw_update(params, grads, state: AdamWState, *,
                  lr: Union[float, torch.Tensor], b1: float = 0.9,
                  b2: float = 0.95, eps: float = 1e-8,
-                 weight_decay: float = 0.1, clip_norm: float = 1.0
-                 ) -> Tuple[Any, AdamWState, dict]:
+                 weight_decay: float = 0.1, clip_norm: float = 1.0,
+                 mesh=None, sharded=None) -> Tuple[Any, AdamWState, dict]:
     """One AdamW step at the reference's defaults: the gradients scaled by
     min(1, clip_norm / global_norm), bias-corrected moments, decoupled
     weight decay. Returns (new params, new state, {"grad_norm": the
-    unclipped norm})."""
-    gnorm = global_norm(grads)
+    unclipped norm}). On a mesh the trees are this rank's shards (the
+    moments cut as their parameters) and ``global_norm`` takes ``mesh``
+    and ``sharded``."""
+    gnorm = global_norm(grads, mesh, sharded)
     scale = torch.clamp_max(clip_norm / torch.clamp_min(gnorm, 1e-12), 1.0)
     step = state.step + 1
     t = step.to(torch.float32)

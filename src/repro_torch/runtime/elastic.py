@@ -15,17 +15,21 @@ step's duration feeds an EWMA; a step slower than ``straggler_factor`` x
 the EWMA marks its domain suspect, and after ``patience`` marks in a row
 the domain is treated as failed and excluded.
 
-The device set is simulated: failures are injected (``inject_failure``)
-and ``recover`` calls the caller's ``make_mesh``, ``recompile`` and
-``restore``: a restore from the port's checkpointer, after which the
-train driver, started again on the same checkpoint directory, resumes
-the data from the restored step. Real meshes over several cards arrive
-with the multi-device slice.
+Failures are injected (``inject_failure``), and ``recover`` calls the
+caller's ``make_mesh``, ``recompile`` and ``restore``. On one device
+they rebuild the step and restore from the port's checkpointer, after
+which ``launch.train.train``, started again on the same checkpoint
+directory, resumes the data from the restored step. On real ranks
+(``remesh``) the
+new mesh is a new set of ``torch.distributed`` ranks at ``mesh_shape()``
+(``repro_torch.launch.mesh``), each of which builds its step, restores the
+latest checkpoint (whole, written by rank 0 of the old mesh) and cuts its
+own shards from it.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 
 class NodeFailure(RuntimeError):
@@ -106,3 +110,24 @@ class ElasticController:
         step, state = restore(mesh)
         self.events.append(f"RESUME step={step}")
         return mesh, step, state, compiled
+
+
+def remesh(controller: ElasticController,
+           start: Callable[[Tuple[int, ...]], Any], ckpt_dir: str):
+    """``controller.recover`` on real ranks: ``make_mesh`` is
+    ``start(shape)``, which launches the ranks of the new mesh (a
+    ``launch.mesh.Launch`` whose ranks restore the latest checkpoint in
+    ``ckpt_dir`` and resume); each rank builds its own step
+    (``recompile`` hands the launch on); ``restore`` joins the ranks.
+    Returns (the new mesh's shape, the checkpoint's step it resumed from,
+    the ranks' results in rank order)."""
+    from repro_torch.checkpoint.checkpointer import latest_step
+    step = latest_step(ckpt_dir)
+    if step is None:
+        raise RuntimeError(f"elastic: no checkpoint in {ckpt_dir} to "
+                           "restore the new mesh from")
+    shape = controller.mesh_shape()
+    _, step, results, _ = controller.recover(
+        make_mesh=start, recompile=lambda launched: launched,
+        restore=lambda launched: (step, launched.join()))
+    return shape, step, results

@@ -10,6 +10,11 @@ four gloo ranks (one launch, one intra-op thread each):
   gather give what they must, and the control calls are counted apart;
 - ``make_test_mesh`` lays ranks out row-major, ``make_production_mesh``
   refuses a world of the wrong size;
+- under autograd each collective's backward is its transpose over the
+  ranks (all-gather <-> reduce-scatter, all-reduce <-> all-reduce), and
+  Megatron's f (``copy_to``: identity, the gradient all-reduced) and g
+  (``reduce_from``: an all-reduce, the gradient passed on), metered at
+  the site's ".grad";
 
 and, without processes, the routing table: which (backend, device type)
 pairs carry which collectives straight through, which are staged, and
@@ -157,3 +162,36 @@ def test_a_failed_rendezvous_is_started_once_more():
     res = M.Launch(start(lambda: next(flaky)), (1, 2), 2, 120).join()
     assert tries and res == [{"data": 0, "model": 0},
                              {"data": 0, "model": 1}]
+
+
+def _line(res, r):
+    """The ranks of r's "model" line, in index order."""
+    return [q for q in res if q["coords"]["data"] == r["coords"]["data"]]
+
+
+def test_collectives_backward_is_their_transpose(res):
+    for r in res:
+        line = [q["grads"] for q in _line(res, r)]
+        me = r["coords"]["model"]
+        g = r["grads"]
+        rows = g["x"].shape[0]
+        want = {
+            # y = cat(x_0, x_1) on both: x_j's gradient sums their blocks j
+            "all_gather": sum(q["all_gather"]["w"][me * rows:(me + 1)
+                                                   * rows] for q in line),
+            # y_r = block r of x_0 + x_1: x_j's gradient is every w_r
+            "reduce_scatter": torch.cat([q["reduce_scatter"]["w"]
+                                         for q in line]),
+            "all_reduce": sum(q["all_reduce"]["w"] for q in line),
+            "copy_to": sum(q["copy_to"]["w"] for q in line),
+            "reduce_from": g["reduce_from"]["w"],
+        }
+        xs = [q["x"] for q in line]
+        torch.testing.assert_close(g["all_gather"]["y"], torch.cat(xs))
+        torch.testing.assert_close(g["copy_to"]["y"], g["x"])
+        torch.testing.assert_close(g["reduce_from"]["y"], sum(xs))
+        for name, dx in want.items():
+            torch.testing.assert_close(g[name]["dx"], dx, rtol=1e-6,
+                                       atol=1e-6)
+            assert g[name]["grad_calls"] == (0 if name == "reduce_from"
+                                             else 1), name

@@ -234,15 +234,22 @@ def test_residency_defaults_are_the_h100s():
 
 
 def test_make_step_refuses_train_and_pipeline():
-    """Training and the pod axis as a pipeline wait for their slices."""
+    """Training on a mesh is ported; the pod axis as a pipeline waits for
+    its slice, and so do the recurrent families on a mesh."""
     from repro_torch.configs.shapes import SHAPES
     from repro_torch.core.execution import make_rules, make_step
-    mesh = types.SimpleNamespace(axis_names=("pod", "data", "model"))
+    mesh = types.SimpleNamespace(axis_names=("pod", "data", "model"),
+                                 shape={"pod": 2, "data": 2, "model": 2},
+                                 devices_shape=(2, 2, 2), size=8,
+                                 device=torch.device("cpu"))
     cfg = get_config("qwen2-0.5b").reduced()
-    with pytest.raises(NotImplementedError, match="multi-device training"):
-        make_step(cfg, SHAPES["train_4k"], mesh)
+    with pytest.raises(NotImplementedError, match="pipeline-parallel"):
+        make_step(cfg, SHAPES["train_4k"], mesh, pod_strategy="pp")
     with pytest.raises(NotImplementedError, match="pipeline-parallel"):
         make_step(cfg, SHAPES["decode_32k"], mesh, pod_strategy="pp")
+    with pytest.raises(NotImplementedError, match="ssm family on a mesh"):
+        make_step(get_config("mamba2-1.3b").reduced(), SHAPES["train_4k"],
+                  mesh)
     assert make_rules("sub_operator", mesh).rules["batch"] == ("pod", "data")
     with pytest.raises(ValueError, match="unknown executor"):
         make_rules("gspmd", mesh)

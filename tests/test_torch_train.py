@@ -444,15 +444,30 @@ def test_train_and_example_raise_without_cuda(no_cuda):
 
 def test_train_refuses_int8_weights_and_multi_device():
     """The reference's train raises TypeError on an int8-weight config
-    (jax.grad of int8 leaves); the port says so in a ValueError. A mesh or
-    an executor belongs to the multi-device slice."""
+    (jax.grad of int8 leaves); the port says so in a ValueError. Training
+    on a mesh is ported: an executor needs a mesh, and the recurrent
+    families on a mesh wait for their slice."""
     with pytest.raises(ValueError, match="int8 weights cannot be trained"):
         ttrain.train("llama2-7b", steps=1, batch=1, seq=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    with pytest.raises(ValueError, match="an executor needs a mesh"):
         ttrain.train("qwen2-0.5b", steps=1, batch=1, seq=8, device="cpu",
-                     mesh=object())
-    with pytest.raises(NotImplementedError, match="multi-device"):
+                     executor="sub_operator")
+    with pytest.raises(SystemExit, match="need --mesh"):
         ttrain.main(["--executor", "sub_operator", "--device", "cpu"])
+    mesh = _FakeMesh()
+    with pytest.raises(NotImplementedError, match="ssm family on a mesh"):
+        ttrain.train("mamba2-1.3b", steps=1, batch=2, seq=8, mesh=mesh)
+
+
+class _FakeMesh:
+    """A (2, 2) mesh's shape, for calls that raise before any
+    collective."""
+    axis_names = ("data", "model")
+    shape = {"data": 2, "model": 2}
+    devices_shape = (2, 2)
+    size = 4
+    rank = 0
+    device = torch.device("cpu")
 
 
 def test_example_config_stays_out_of_the_registry():

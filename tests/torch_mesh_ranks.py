@@ -272,6 +272,37 @@ def collectives(mesh):
         out["production_mesh"] = str(e)
     out["coords"] = mesh.coords
     out["x"] = x
+    out["grads"] = collective_grads(mesh)
+    return out
+
+
+def collective_grads(mesh):
+    """Each differentiable collective over "model" under autograd: this
+    rank's x (4, 3) and upstream gradient w, both seeded by the rank, and
+    the gradient of sum(w * op(x)) on this rank (the backward runs the
+    op's transpose across the ranks), with the bytes and calls metered at
+    the site's ".grad"."""
+    g = torch.Generator().manual_seed(30 + mesh.rank)
+    x = torch.randn((4, 3), generator=g)
+    ops = {"all_gather": lambda t: C.all_gather(t, mesh, ("model",), 0,
+                                                "g"),
+           "reduce_scatter": lambda t: C.reduce_scatter(
+               t, mesh, ("model",), 0, "g"),
+           "all_reduce": lambda t: C.all_reduce(t, mesh, ("model",), "g"),
+           "copy_to": lambda t: C.copy_to(t, mesh, ("model",), "g"),
+           "reduce_from": lambda t: C.reduce_from(t, mesh, ("model",),
+                                                  "g")}
+    out = {"x": x}
+    m = C.meter(mesh)
+    for name, op in ops.items():
+        xr = x.clone().requires_grad_(True)
+        m.reset()
+        y = op(xr)
+        w = torch.randn(y.shape, generator=g)
+        (dx,) = torch.autograd.grad((w * y).sum(), xr)
+        out[name] = {"y": y.detach(), "w": w, "dx": dx,
+                     "grad_calls": sum(c for (_, s), c in m.calls.items()
+                                       if s == "g.grad")}
     return out
 
 
