@@ -128,10 +128,10 @@ phases; any failure exits non-zero before the result line:
    served on the CPU and register one decode-block program (no buckets),
    and (p) recurrentgemma-9b with ``mode="auto"``, which must resolve to
    drain (no slotted API), complete with no admission while another
-   request decodes, and launch K1 and K3 (and not K4) (19 of 38 layers:
-   6 superblocks and a tail layer); one decode block
+   request decodes, and launch K1 and K3 (and not K4) (12 of 38 layers:
+   4 superblocks); one decode block
    of (o) and three drain steps of (p) are traced, with no synchronising
-   call; then (q) internvl2-76b at full width cut to 8 of 80 layers,
+   call; then (q) internvl2-76b at full width cut to 4 of 80 layers,
    text-only through the engine on (a)'s plan with monolithic admission
    (the family has no chunk lane), which must resolve to continuous,
    complete, launch K1 and K3 once a layer each decode step and never K4,
@@ -183,6 +183,23 @@ phases; any failure exits non-zero before the result line:
    a step by site, peak memory, launches (phase 2 holds K3 with its
    gradient at one rank's shapes, 512 rows of F=4,864 and 1,024 rows of
    F=2,432, against its plain version);
+4d. pipeline-parallel decode and the recurrent and enc-dec families on
+   meshes of two ranks sharing the card over gloo: (z1) llama3.2-3b (int8
+   weights and KV, bf16) at full width, 8 of 28 layers as two stages of 4
+   on a (2, 1, 1) ("pod", "data", "model") mesh, B=8, 24 calls of
+   ``make_step(pod_strategy="pp")``, each stage's logits held to the same
+   stage loop run unsharded on its rank (the int8 rule: stored K/V bytes
+   counted, 1e-4 of max|logit| until a flip, 2e-2 after; tokens exact),
+   the pod axis carrying exactly B * d_model * 2 bytes a call a rank
+   (``pp_hop``) and nothing else, K1 and K4 on both ranks, the wall a
+   call; on (1, 2) under sub_operator in f32, (z2) mamba2-1.3b (4 of 48
+   layers), (z3) recurrentgemma-9b (one superblock: 3 of 38; K1 at G=8
+   hd 256 over the ring, K3 gelu at F=6,144) and (z4) whisper-medium
+   (2 + 2 of 24 + 24, 1,500 frames; K1 at 8 heads a rank, self and
+   cross), each a prefill of 2 x 64 and 16 greedy steps against the
+   unsharded model on rank 0 (1e-4 of max|logit|, tokens exact), and
+   (z2) through the engine on (a)'s plan with the unsharded engine's
+   streams and host syncs (phase 2 holds these K1, K3 and K4 shapes);
 5. time each kernel at the main path's shapes (K1 at B=8 over S=200 and
    at a long context of S=4096, bf16 and int8 KV, in partial mode at one
    shard of 48, the whole split attention of a layer at bucket 192 and the
@@ -207,7 +224,10 @@ phases; any failure exits non-zero before the result line:
    three matmuls and silu; K3 at the training shape (2,048 rows) against
    three matmuls and silu, and its plain-product backward; K3 at one rank's
    training shapes of phase 4c (512 rows of F=4,864, 1,024 rows of
-   F=2,432) against three matmuls and silu.
+   F=2,432) against three matmuls and silu; K1 at phase 4d's shapes (the
+   ring at G=8 hd 256, whisper's 8 heads a rank over 1,500 frames and the
+   self cache, a PP stage's) against SDPA and K3 gelu at F=6,144 against
+   three matmuls and gelu.
 
 It then prints the card (nvidia-smi name, power limit), a ``kernels`` JSON
 line, and last the JSON result line. Without a GPU, or without the rest of
@@ -2278,6 +2298,7 @@ def phase_timing(dev, launches, runs, per_step, errs):
     rows += train_timing_rows(dev, bound)
     rows += mesh_timing_rows(dev, bound, sdpa_args)
     rows += train_mesh_timing_rows(dev, bound)
+    rows += pp_family_timing_rows(dev, bound, sdpa_args)
     for name, shape, ms, plain, b_ms, b_by, lib, host in rows:
         libs = ", ".join(("not measured" if v is None else
                           f"{v * 1e3:.2f} us") + f" ({k})"
@@ -2749,7 +2770,7 @@ def phase_parity_recurrent():
 
 # phase 4's recurrent runs: (o) mamba2 at full width, 6 of 48 layers, on
 # (a)'s plan (no port kernel: the SSD has none, the reference never quantizes
-# its projections); (p) recurrentgemma at full width, 19 of 38 layers, mode
+# its projections); (p) recurrentgemma at full width, 12 of 38 layers, mode
 # "auto", which resolves to drain (no slotted API), 8 slots, prompt 128,
 # 12 x 32 tokens: K1 over the ring (256 slots: min(window, 128 + 128)) and
 # K3 in its gelu mode
@@ -2758,12 +2779,13 @@ RECURRENT_RUNS = {
     #        kernels); (o) at 24 of mamba2's 48 layers since the training
     # run (s) joined the script, 12 since the mesh phase 4b did, 6 since
     # the training mesh phase 4c did; (p) at 19 of recurrentgemma's 38 (6
-    # superblocks and a tail layer) since phase 4c did
+    # superblocks and a tail layer) since phase 4c did, 12 (4 superblocks)
+    # since phase 4d did
     "o_mamba2_chunked_T8": (
         "mamba2-1.3b", dict(n_layers=6), RUNS["a_bf16_chunked_T8"][1], 12,
         64, ()),
     "p_recurrentgemma_auto_drain": (
-        "recurrentgemma-9b", dict(n_layers=19),
+        "recurrentgemma-9b", dict(n_layers=12),
         dict(mode="auto", max_new_cap=72), 12, 32,
         ("flash_decode", "fused_ffn")),
 }
@@ -3256,8 +3278,8 @@ def phase_parity_vlm_encdec():
         f"took {time.monotonic() - t0:.1f}s")
 
 
-# run (q): internvl2-76b at full width, depth cut to 8 of 80 layers (~17.9
-# GB of bf16 weights; 80 layers would be ~141 GB), served text-only as the
+# run (q): internvl2-76b at full width, depth cut to 4 of 80 layers (8
+# until phase 4d joined; 80 layers would be ~141 GB), served text-only as the
 # reference engine serves the family: ``auto`` resolves to continuous with
 # monolithic admission (the family has no chunk lane) on (a)'s plan
 # otherwise (8 slots, prompt 128, 12 x 64 tokens arriving every 4 steps,
@@ -3265,8 +3287,8 @@ def phase_parity_vlm_encdec():
 # full width and depth (24 + 24 layers, ~1.6 GB) at the model level
 # (the engine refuses the family): 8 rows, 1,500 seeded frames, prompt 32,
 # 64 greedy steps through ``api.decode``: K1 48 times a step, no K3
-VLM_RUN = ("q_internvl2_8L_monolithic_T8", "internvl2-76b",
-           dict(n_layers=8), dict(block_size=8, kv_bucket_chunk=64,
+VLM_RUN = ("q_internvl2_4L_monolithic_T8", "internvl2-76b",
+           dict(n_layers=4), dict(block_size=8, kv_bucket_chunk=64,
                                   max_new_cap=72), 12, 64,
            ("flash_decode", "fused_ffn"))
 # (r) at 12 + 12 of whisper's 24 + 24 layers since phase 4c joined
@@ -4507,6 +4529,487 @@ def train_mesh_timing_rows(dev, bound):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 4d: pipeline-parallel decode over the pod axis, and the recurrent
+# and enc-dec families served on a mesh, two ranks sharing the card (gloo)
+# ---------------------------------------------------------------------------
+
+# (z1): llama3.2-3b (the paper's deployment: int8 weights and KV) in bf16
+# at full width, 8 of its 28 layers as two pipeline stages of 4 on a
+# (2, 1, 1) ("pod", "data", "model") mesh, B=8, 24 calls of the PP decode
+# step (``make_step(pod_strategy="pp")``), held on each rank to the same
+# stage loop run unsharded in one process (the hop done locally)
+PP_ARCH, PP_LAYERS, PP_STAGES, PP_B, PP_CALLS, PP_SEQ = (
+    "llama3.2-3b", 8, 2, 8, 24, 64)
+# (z2)-(z4) on (1, 2) in f32, at full width, cut in depth: mamba2 4 of 48
+# layers, recurrentgemma one superblock (r, r, attention: 3 of 38),
+# whisper 2 + 2 of 24 + 24; prefill 2 x 64 (whisper with 1,500 frames),
+# then 16 greedy steps against the unsharded model on rank 0; (z2) also
+# through the engine on run (a)'s plan against the unsharded engine
+FAM_MESH_RUNS = {
+    "z2_mamba2": ("mamba2-1.3b", 4),
+    "z3_recurrentgemma": ("recurrentgemma-9b", 3),
+    "z4_whisper": ("whisper-medium", 2),
+}
+FAM_MESH_B, FAM_MESH_PROMPT, FAM_MESH_STEPS = 2, 64, 16
+FAM_MESH_KERNELS = {"z2_mamba2": (),
+                    "z3_recurrentgemma": ("flash_decode", "fused_ffn"),
+                    "z4_whisper": ("flash_decode",)}
+
+
+def _pp_cfg(reduced):
+    from repro_torch.configs.registry import get_config
+    base = get_config(PP_ARCH)
+    if reduced:
+        base = base.reduced()
+    return base.replace(n_layers=PP_LAYERS, dtype="bfloat16",
+                        kv_dtype="int8")
+
+
+def pp_unsharded(cfg, full, toks, dev):
+    """The PP decode step's stage loop in one process: per call each
+    stage in turn (stage 0 embeds its token row, the others take their
+    carried activation), its layers over its own int8 KV at its cursor,
+    its logits; then each stage's activation moves one stage on. Returns
+    (per call the list of every stage's f32 logits (B, V), the stages'
+    caches)."""
+    from repro_torch.core.pipeline import stage_params
+    from repro_torch.kv.cache import init_kv_cache
+    from repro_torch.models import common
+    from repro_torch.models import transformer as T
+    staged = stage_params(full, PP_STAGES)
+    dt = common.dtype_of(cfg)
+    caches = [init_kv_cache(cfg.n_layers // PP_STAGES, PP_B,
+                            cfg.n_kv_heads, PP_SEQ + 128, cfg.head_dim,
+                            dtype=dt, quantized=True, device=dev)
+              for _ in range(PP_STAGES)]
+    carry = [torch.zeros(PP_B, 1, cfg.d_model, dtype=dt, device=dev)
+             for _ in range(PP_STAGES)]
+    act = torch.ones(PP_B, dtype=torch.bool, device=dev)
+    out = []
+    for t in range(toks.shape[0]):
+        xs, lgs = [], []
+        for s, kv in enumerate(caches):
+            x = common.embed(full["embed"], toks[t, s][:, None]).to(dt) \
+                if s == 0 else carry[s]
+            pos = kv.length
+            for i, lp in enumerate(staged["blocks"][s]):
+                x = T.block_decode_slotted(lp, x, cfg, kv.layer(i),
+                                           pos.expand(PP_B), act,
+                                           kv_limit=(pos + 1).to(
+                                               torch.int32))
+            lgs.append(T.final_logits(full, x, cfg)[:, 0].float())
+            kv.length = (pos + 1).to(torch.int32)
+            xs.append(x)
+        carry = [xs[(s - 1) % PP_STAGES] for s in range(PP_STAGES)]
+        out.append(lgs)
+    return out, caches
+
+
+def pp_rank(mesh, reduced=False):
+    """One rank of (z1): its stage of the PP decode step, PP_CALLS calls
+    (each synchronised: the wall a call), the pod axis's bytes by site,
+    its launches; then the unsharded stage loop on this rank, against
+    which its stage's logits, tokens and stored int8 K/V are held."""
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.core import collectives as C
+    from repro_torch.core.execution import make_step
+    from repro_torch.core.pipeline import stage_params
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.param_specs import shard_params
+    from repro_torch.models.registry import build_model
+    dev = mesh.device
+    t_start = time.monotonic()
+    cfg = _pp_cfg(reduced)
+    full = build_model(cfg, dev).init(0)
+    s = mesh.coords["pod"]
+    bundle = make_step(cfg, ShapeConfig("pp", PP_SEQ, PP_B, "decode"), mesh,
+                       "sub_operator", pod_strategy="pp")
+    params = shard_params(stage_params(full, PP_STAGES, s), bundle.ctx)
+    caches = bundle.init_caches()
+    g = torch.Generator().manual_seed(9)
+    toks = torch.randint(0, cfg.vocab_size, (PP_CALLS, PP_STAGES, PP_B),
+                         generator=g).to(dev)
+    meter = C.meter(mesh)
+    meter.reset()
+    _sync(dev)
+    reset_launch_counts()
+    got, walls = [], []
+    for t in range(PP_CALLS):
+        t0 = time.perf_counter()
+        caches, lg = bundle.fn(params, caches, toks[t])
+        _sync(dev)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        got.append(lg[:, 0].float())
+    counts = launch_counts()
+    pod = {site: b for (k, site), b in meter.bytes.items() if "pod" in k}
+    other = {f"{k}|{site}": b for (k, site), b in meter.bytes.items()
+             if "pod" not in k}
+    # the hop alone: one exchange of this rank's x_carry, synchronised
+    x = caches["x_carry"]
+    buf = torch.empty_like(x)
+    nxt = mesh.rank_at(pod=(s + 1) % PP_STAGES)
+    for i in range(21):
+        if i == 1:
+            t0 = time.perf_counter()
+        C.exchange([(x, nxt)], [(buf, nxt)], mesh, "pod", "hop_probe")
+        _sync(dev)
+    hop_ms = (time.perf_counter() - t0) / 20 * 1e3
+    want, ref = pp_unsharded(cfg, full, toks, dev)
+    got = torch.stack(got)
+    mine = torch.stack([w[s] for w in want])
+    scale = mine.abs().amax(dim=(1, 2)).clamp_min(1e-30)
+    rel = ((got - mine).abs().amax(dim=(1, 2)) / scale).tolist()
+    kv = caches["kv"]
+    flips = int((kv.k != ref[s].k).sum() + (kv.v != ref[s].v).sum())
+    _sync(dev)
+    return {"rank": mesh.rank, "stage": s, "counts": counts,
+            "pod_bytes": pod, "other_bytes": other, "wall_ms": walls,
+            "hop_ms": hop_ms, "rel": rel,
+            "tokens_equal": bool(torch.equal(got.argmax(-1),
+                                             mine.argmax(-1))),
+            "flips": flips, "length": int(kv.length),
+            "itemsize": x.element_size(), "d_model": cfg.d_model,
+            "took_s": time.monotonic() - t_start}
+
+
+def _fam_cfg(arch, layers, reduced):
+    from repro_torch.configs.registry import get_config
+    base = get_config(arch)
+    if reduced:
+        base = base.reduced()
+    over = dict(n_layers=layers, dtype="float32")
+    if base.encoder is not None:
+        over["encoder"] = dataclasses.replace(base.encoder, n_layers=layers)
+    return base.replace(**over)
+
+
+def _fam_drive(api, params, toks, extra, gather):
+    """Prefill, then FAM_MESH_STEPS greedy steps: (logits (steps+1, B, V)
+    whole, tokens (steps+1, B))."""
+    cache, lg = api.prefill(params, toks, *extra)
+    outs, tok = [gather(lg[:, -1])], api.greedy(lg[:, -1])
+    seq = [tok]
+    for _ in range(FAM_MESH_STEPS):
+        cache, lg = api.decode(params, cache, tok)
+        outs.append(gather(lg[:, -1]))
+        tok = api.greedy(lg[:, -1])
+        seq.append(tok)
+    return torch.stack(outs).float(), torch.stack(seq)
+
+
+def fam_mesh_rank(mesh, reduced=False):
+    """One rank of (z2)-(z4) on (1, 2) under sub_operator: each run's
+    sharded model against the unsharded one on rank 0 (per step max
+    |dlogit| / max|logit|, tokens), launches and ms a step; (z2) also
+    through the engine on run (a)'s plan (rank 0 serves it unsharded
+    too)."""
+    from repro_torch.core import collectives as C
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models.param_specs import shard_params
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.sharding import ShardingCtx, sub_operator
+    from repro_torch.runtime.serving import ServingEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device
+    ctx = ShardingCtx(mesh, sub_operator())
+    out = {"rank": mesh.rank}
+    for key, (arch, layers) in FAM_MESH_RUNS.items():
+        t_start = time.monotonic()
+        cfg = _fam_cfg(arch, layers, reduced)
+        full = build_model(cfg, dev).init(0)
+        g = torch.Generator().manual_seed(12)
+        toks = torch.randint(0, cfg.vocab_size,
+                             (FAM_MESH_B, FAM_MESH_PROMPT),
+                             generator=g).to(dev)
+        extra = ()
+        if cfg.encoder is not None:
+            extra = (torch.randn(FAM_MESH_B, cfg.encoder.n_frames,
+                                 cfg.d_model, generator=g).to(dev),)
+        api = build_model(cfg, dev, ctx)
+        params = shard_params(full, ctx)
+        C.meter(mesh).reset()
+        _sync(dev)
+        reset_launch_counts()
+        t0 = time.monotonic()
+        got, got_tok = _fam_drive(api, params, toks, extra, api.full_logits)
+        _sync(dev)
+        res = {"counts": launch_counts(),
+               "ms_per_step": (time.monotonic() - t0) * 1e3
+               / (FAM_MESH_STEPS + 1),
+               "bytes_per_site": C.meter(mesh).stats()["bytes_per_site"],
+               "layers": layers}
+        if mesh.rank == 0:
+            api1 = build_model(cfg, dev)
+            want, want_tok = _fam_drive(api1, full, toks, extra,
+                                        lambda x: x)
+            scale = want.abs().amax(dim=(1, 2)).clamp_min(1e-30)
+            res.update(rel=((got - want).abs().amax(dim=(1, 2))
+                            / scale).tolist(),
+                       tokens_equal=bool(torch.equal(got_tok, want_tok)),
+                       finite=bool(torch.isfinite(got).all()))
+        if key == "z2_mamba2":
+            kw = RUNS["a_bf16_chunked_T8"][1]
+            n_req, max_new = RUNS["a_bf16_chunked_T8"][2:4]
+            reqs = make_requests(cfg, n_req, 128, max_new, seed=0,
+                                 arrival_every=4)
+            eng = ServingEngine(build_model(cfg, dev), 8, 128, device=dev,
+                                ctx=ctx, **kw)
+            t0 = time.monotonic()
+            st = eng.run(params, reqs)
+            _sync(dev)
+            res["engine"] = {"streams": [r.generated for r in reqs],
+                             "host_syncs": st["host_syncs"],
+                             "completed": st["completed"],
+                             "tpot_mean_ms": st["tpot_mean_ms"],
+                             "serve_s": time.monotonic() - t0,
+                             "mesh": st["mesh"]}
+            if mesh.rank == 0:
+                reqs1 = make_requests(cfg, n_req, 128, max_new, seed=0,
+                                      arrival_every=4)
+                st1 = ServingEngine(build_model(cfg, dev), 8, 128,
+                                    device=dev, **kw).run(full, reqs1)
+                res["engine_unsharded"] = {
+                    "streams": [r.generated for r in reqs1],
+                    "host_syncs": st1["host_syncs"],
+                    "tpot_mean_ms": st1["tpot_mean_ms"]}
+        res["took_s"] = time.monotonic() - t_start
+        out[key] = res
+        del full, params, api
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_pp_families(totals, runs, device="cuda", reduced=False):
+    """Runs (z1)-(z4) (the module's constants above) on two ranks sharing
+    the card over gloo: one launch for (z1) on (2, 1, 1), one for
+    (z2)-(z4) on (1, 2). (z1): every stage's logits within the int8 rule
+    of the unsharded stage loop (stored K/V bytes counted; 1e-4 of
+    max|logit| until a flip, 2e-2 after), tokens exact, the pod axis
+    carrying exactly B * d_model * 2 bytes a call a rank at ``pp_hop`` and
+    nothing else, K1 and K4 launched on each rank; (z2)-(z4): f32 logits
+    within 1e-4 of max|logit| at every step, tokens exact, each run's
+    kernels launched (none for mamba2), and (z2)'s engine streams equal
+    to the unsharded engine's."""
+    from repro_torch.launch.mesh import launch
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    kw = dict(device=device, share_device=device == "cuda", threads=4,
+              timeout_s=600, wall_s=900)
+    t0 = time.monotonic()
+    pp = launch(pp_rank, (PP_STAGES, 1, 1), ("pod", "data", "model"),
+                (reduced,), **kw).join()
+    log(f"  (z1): ranks joined after {time.monotonic() - t0:.1f}s")
+    for r in pp:
+        per_call = sorted(r["wall_ms"][1:])
+        log(f"  (z1) PP decode rank {r['rank']} (stage {r['stage']}): "
+            f"{len(r['wall_ms'])} calls, wall a call mean "
+            f"{sum(per_call) / len(per_call):.3f} ms, p50 "
+            f"{per_call[len(per_call) // 2]:.3f} ms (first call "
+            f"{r['wall_ms'][0]:.1f} ms); pod bytes {r['pod_bytes']}, "
+            f"other axes {r['other_bytes']}; one hop alone "
+            f"{r['hop_ms']:.3f} ms; launches {r['counts']}; stage logits "
+            f"max |dlogit|/max|logit| {max(r['rel']):.3e} against the "
+            f"unsharded stage loop, tokens equal {r['tokens_equal']}, "
+            f"stored K/V bytes flipped {r['flips']}; {r['took_s']:.1f}s")
+        hop = PP_CALLS * PP_B * r["d_model"] * r["itemsize"]
+        require(r["pod_bytes"] == {"pp_hop": hop},
+                f"(z1) rank {r['rank']}: the pod axis carried "
+                f"{r['pod_bytes']}, not {hop} B at pp_hop")
+        require(r["length"] == PP_CALLS, "(z1): a stage's cursor is off")
+        require(r["tokens_equal"], f"(z1) stage {r['stage']}: tokens differ")
+        rtol = 1e-4 if r["flips"] == 0 else 2e-2
+        require(max(r["rel"]) <= rtol, f"(z1) stage {r['stage']}: logits "
+                f"beyond the int8 rule ({max(r['rel']):.3e})")
+        require(device != "cuda" or (r["counts"]["flash_decode"] > 0
+                                     and r["counts"]["gemv_int8"] > 0),
+                f"(z1) rank {r['rank']}: K1 or K4 never launched")
+        key = f"z1_pp_decode_rank{r['rank']}"
+        runs[key] = r["counts"]
+        for k, n in r["counts"].items():
+            totals[k] += n
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    fam = launch(fam_mesh_rank, (1, 2), ("data", "model"), (reduced,),
+                 **kw).join()
+    log(f"  (z2)-(z4): ranks joined after {time.monotonic() - t0:.1f}s")
+    r0 = fam[0]
+    for key, (arch, layers) in FAM_MESH_RUNS.items():
+        z = r0[key]
+        log(f"  ({key}) {arch} x {layers} layers (1,2) sub_operator f32: "
+            f"max |dlogit|/max|logit| {max(z['rel']):.3e} over "
+            f"{len(z['rel'])} steps, tokens equal {z['tokens_equal']}, "
+            f"{z['ms_per_step']:.1f} ms a step; bytes by site "
+            f"{json.dumps(z['bytes_per_site'])}; {z['took_s']:.1f}s")
+        require(z["finite"] and z["tokens_equal"],
+                f"({key}): tokens differ from the unsharded run")
+        require(max(z["rel"]) <= 1e-4, f"({key}): logits differ")
+        for r in fam:
+            c = r[key]["counts"]
+            need = FAM_MESH_KERNELS[key]
+            log(f"    rank {r['rank']}: launches {c}")
+            require(device != "cuda" or all((n > 0) == (k in need)
+                                            for k, n in c.items()),
+                    f"({key}) rank {r['rank']}: launched {c}, its path "
+                    f"runs {need}")
+            runs[f"{key}_rank{r['rank']}"] = c
+            for k, n in c.items():
+                totals[k] += n
+    e, e1 = r0["z2_mamba2"]["engine"], r0["z2_mamba2"]["engine_unsharded"]
+    log(f"  (z2) engine on (a)'s plan, (1,2): host syncs {e['host_syncs']}"
+        f" (unsharded {e1['host_syncs']}), TPOT mean "
+        f"{e['tpot_mean_ms']:.3f} ms (unsharded {e1['tpot_mean_ms']:.3f}),"
+        f" serve {e['serve_s']:.1f}s, collective bytes "
+        f"{e['mesh']['bytes_total']:.0f} in {e['mesh']['calls']} calls")
+    require(e["completed"] == RUNS["a_bf16_chunked_T8"][2],
+            "(z2): not every request completed")
+    require(e["streams"] == e1["streams"], "(z2): the engine's streams "
+            "differ from the unsharded engine's")
+    require(e["host_syncs"] == e1["host_syncs"], "(z2): host syncs differ")
+
+
+def phase_compare_pp_families(dev, errs):
+    """Phase 2 at the shapes phase 4d gives the kernels: K1 over the
+    hybrid's ring at G=8 hd 256 (one rank's 8 query heads on the one KV
+    head: two head runs of 4), B 2 and 8, ring 192, cursor at 0, mid,
+    last and wrapped, f32 / bf16 / int8 KV; K1 at whisper's 8 heads a
+    rank (G=1, hd 64, 8 KV heads) over the 1,500 cross frames (every
+    position live) and over the self cache (192 positions, rows live up
+    to 80); K3 gelu at one rank's half of recurrentgemma's F (D=4096,
+    F=6144) in f32 at 2 and 128 rows and bf16 at 8; K1 at one PP stage's
+    llama3.2-3b shape (24 query heads on 8 KV heads of 128, B=8, bf16 q,
+    int8 KV, S=192) and K4 at its projections (3072x3072, 3072x1024,
+    8192x3072; 3072x8192 is phase 2's Llama row) at 8 rows, exact.
+    Tolerances as in ``phase_compare``; every case repeats bit for bit."""
+    from repro_torch.kernels.fused_ffn.ops import fused_ffn
+    from repro_torch.kernels.fused_ffn.ref import fused_ffn_ref
+    from repro_torch.kernels.gemv.ops import gemv_int8_q
+    from repro_torch.kernels.gemv.ref import gemv_int8_ref
+    S = 192
+    for B in (2, 8):
+        for pair in (("float32", "float32"), ("bfloat16", "bfloat16"),
+                     ("bfloat16", "int8")):
+            err = ratio = 0.0
+            same = True
+            for pos, window in ((0, S), (S // 2, S), (S - 1, S),
+                                (S + S // 3, S)):
+                args = ring_inputs(dev, B, S, pair, pos, window, 8, 1,
+                                   seed=B + pos)
+                e, e_p, r, sm = check_k1(args, min(pos + 1, S))
+                err, ratio = max(err, e, e_p), max(ratio, r)
+                same = same and sm
+            errs["flash_decode"] = max(errs["flash_decode"], err)
+            log(f"  K1 ring G=8 hd=256 B={B} S={S} {pair[0]}/{pair[1]}: "
+                f"max|d|={err:.3g}, max|d|/tol={ratio:.3g}, repeat "
+                f"identical={same}")
+            require(ratio <= 1.0 and same, f"K1 ring G=8 B={B} {pair}")
+    for S, lim in ((1500, None), (192, 80)):
+        for pair in (("float32", "float32"), ("bfloat16", "bfloat16")):
+            args = k1_inputs(dev, 2, S, pair, lim, Hq=8, n_kv=8, hd=64)
+            e, e_p, r, sm = check_k1(args, int(args[-1]))
+            errs["flash_decode"] = max(errs["flash_decode"], e)
+            log(f"  K1 whisper rank B=2 Hq=8 n_kv=8 hd=64 S={S} "
+                f"{pair[0]}: max|d|={max(e, e_p):.3g}, max|d|/tol={r:.3g}, "
+                f"repeat identical={sm}")
+            require(r <= 1.0 and sm, f"K1 whisper rank S={S} {pair}")
+    args = k1_inputs(dev, 8, 192, ("bfloat16", "int8"), Hq=24, n_kv=8,
+                     hd=128)
+    e, e_p, r, sm = check_k1(args, int(args[-1]))
+    log(f"  K1 PP stage B=8 Hq=24 n_kv=8 hd=128 S=192 bf16/int8: "
+        f"max|d|={max(e, e_p):.3g}, max|d|/tol={r:.3g}, repeat "
+        f"identical={sm}")
+    require(r <= 1.0 and sm, "K1 at the PP stage's shape")
+    for R, dt in ((2, torch.float32), (128, torch.float32),
+                  (8, torch.bfloat16)):
+        args, _ = k3_inputs(dev, R, seed=R, D=4096, F=6144, dtype=dt)
+        got = fused_ffn(*args, act="gelu")
+        want = fused_ffn_ref(*args, act="gelu")
+        e, tol = max_err(got, want), 1e-4 * max(1, max_abs(want))
+        same = torch.equal(fused_ffn(*args, act="gelu"), got)
+        errs["fused_ffn"] = max(errs["fused_ffn"], e)
+        log(f"  K3 gelu D=4096 F=6144 {str(dt)[6:]} rows={R}: "
+            f"max|d|={e:.3g} (tol {tol:.3g}), repeat identical={same}")
+        require(e <= tol and same, f"K3 gelu F=6144 rows={R}")
+    for K, N in ((3072, 3072), (3072, 1024), (8192, 3072)):
+        args, _ = k4_inputs(dev, 8, K, N)
+        got, want = gemv_int8_q(*args), gemv_int8_ref(*args)
+        log(f"  K4 PP stage rows=8 K={K} N={N}: exact "
+            f"{torch.equal(got, want)}")
+        require(torch.equal(got, want), f"K4 at {K}x{N}")
+    torch.cuda.synchronize()
+
+
+def pp_family_timing_rows(dev, bound, sdpa_args):
+    """Phase 5 rows at phase 4d's shapes: K1 over the ring at G=8 hd 256
+    ((z3): B=2, ring 192, f32), K1 at whisper's 8 heads a rank over the
+    1,500 cross frames and the self cache ((z4): B=2, f32), K3 gelu at
+    D=4096 F=6144 ((z3): f32 at 2 and 128 rows), and K1 at a PP stage's
+    shape ((z1): B=8, Hq=24 n_kv=8 hd=128, bf16 q / int8 KV, S=192)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode.ops import flash_decode
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+    from repro_torch.kernels.fused_ffn.ops import fused_ffn
+    from repro_torch.kernels.fused_ffn.ref import fused_ffn_ref
+    rows = []
+
+    def k1_row(label, make, dt):
+        # K1 loads no tile at or past kv_limit: the bound counts the K/V,
+        # their scales and the mask below it, and the work of those
+        # positions only.
+        args = make(0)
+        q, k, v, mask, ks, vs, lim = args[:7]
+        live = min(int(lim), k.shape[2])
+        below = [None if t is None else t.narrow(2, 0, live)
+                 for t in (k, v, ks, vs)]
+        nb = (nbytes(q, mask.narrow(1, 0, live), lim, *below)
+              + q.numel() * 4)
+        b_ms, b_by = bound(nb, 4 * q.shape[0] * q.shape[1] * live
+                           * q.shape[2], dt)
+        var = variants_of(lambda i: (make(i), {}), nb)
+        lib = {"sdpa(enable_gqa)": time_ms(F.scaled_dot_product_attention,
+                                           sdpa_args(var), 400)}
+        rows.append(("flash_decode", label, time_ms(flash_decode, var, 400),
+                     time_ms(flash_decode_ref, var, 50), b_ms, b_by, lib,
+                     host_ms(flash_decode, var)))
+    k1_row("ring G=8 hd=256 (z3, one rank): B=2 S=192 f32",
+           lambda i: ring_inputs(dev, 2, 192, ("float32", "float32"), 80,
+                                 192, 8, 1, seed=i), torch.float32)
+    k1_row("whisper rank cross (z4): B=2 Hq=8 n_kv=8 hd=64 S=1500 f32",
+           lambda i: k1_inputs(dev, 2, 1500, ("float32", "float32"),
+                               Hq=8, n_kv=8, hd=64, seed=i),
+           torch.float32)
+    k1_row("whisper rank self (z4): B=2 Hq=8 n_kv=8 hd=64 S=192 f32",
+           lambda i: k1_inputs(dev, 2, 192, ("float32", "float32"), 80,
+                               Hq=8, n_kv=8, hd=64, seed=i),
+           torch.float32)
+    k1_row("PP stage (z1): B=8 Hq=24 n_kv=8 hd=128 S=192 bf16/int8",
+           lambda i: k1_inputs(dev, 8, 192, ("bfloat16", "int8"), Hq=24,
+                               n_kv=8, hd=128, seed=i), torch.bfloat16)
+    for R in (2, 128):
+        (x, wg, wu, wd), _ = k3_inputs(dev, R, D=4096, F=6144,
+                                       dtype=torch.float32)
+        nb = nbytes(x, wg, wu, wd) + R * 4096 * 4
+        b_ms, b_by = bound(nb, 2 * R * 4096 * 6144 * 3, torch.float32)
+        var = variants_of(lambda i: ((k3_inputs(
+            dev, R, seed=i, D=4096, F=6144, dtype=torch.float32)[0]),
+            dict(act="gelu")), nb)
+
+        def lib_ffn(x, wg, wu, wd, act="gelu"):
+            return torch.matmul(F.gelu(torch.matmul(x, wg),
+                                       approximate="tanh")
+                                * torch.matmul(x, wu), wd)
+        lib = {"3x torch.matmul + gelu (f32)": time_ms(lib_ffn, var, 100)}
+        rows.append(("fused_ffn", f"gelu, one rank's half of F (z3): "
+                     f"rows={R} D=4096 F=6144 f32",
+                     time_ms(fused_ffn, var, 100),
+                     time_ms(fused_ffn_ref, var, 20), b_ms, b_by, lib,
+                     host_ms(fused_ffn, var)))
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -4536,6 +5039,7 @@ def main() -> int:
     phase_compare_recurrent(dev, errs)
     phase_compare_vlm_encdec(dev, errs)
     phase_compare_train(dev, errs)
+    phase_compare_pp_families(dev, errs)
     log(f"  phase 2 took {time.monotonic() - t0:.1f}s")
 
     log("phase 3: model parity, full width, 2 layers, f32, cpu vs cuda")
@@ -4555,7 +5059,7 @@ def main() -> int:
 
     log("phase 4: engine at full qwen2-0.5b, then qwen3-moe (4 layers), "
         "phi3.5-moe (4 layers), Llama-2-7B, mamba2, recurrentgemma, "
-        "internvl2 (8 layers), whisper (model level) and training (s)")
+        "internvl2 (4 layers), whisper (model level) and training (s)")
     launches = {"flash_decode": 0, "flash_decode_partial": 0,
                 "fused_ffn": 0, "gemv_int8": 0}
     runs = {}
@@ -4585,6 +5089,13 @@ def main() -> int:
     t0 = time.monotonic()
     phase_train_mesh(launches, runs)
     log(f"  phase 4c took {time.monotonic() - t0:.1f}s")
+
+    log("phase 4d: pipeline-parallel decode on a (2, 1, 1) mesh and the "
+        "recurrent and enc-dec families on (1, 2), two ranks sharing the "
+        "card (gloo): runs (z1)-(z4)")
+    t0 = time.monotonic()
+    phase_pp_families(launches, runs)
+    log(f"  phase 4d took {time.monotonic() - t0:.1f}s")
 
     log("phase 5: kernel timing")
     kernels = phase_timing(dev, launches, runs, per_step, errs)

@@ -30,8 +30,14 @@ part of the whole: ``GradPlan`` sums the parts of a leaf replicated on a
 non-batch axis with Megatron's f (``copy_to``) as it enters the model and
 those of a leaf replicated on a batch axis with ``grad_sync`` (a
 hierarchical sum with a pod axis), and ``global_norm`` counts each leaf's
-shards once. The pod axis as a pipeline (``pod_strategy="pp"``) waits for
-the pipeline-parallel slice and raises.
+shards once. The recurrent and enc-dec families (mamba2, recurrentgemma,
+whisper) serve on a mesh; training them on a mesh waits for a later slice
+of the port: their ``api.loss`` raises there (``registry._mesh_fields``).
+
+Pod strategies for a mesh with a "pod" axis: ``dp``, the pod axis joins
+the batch axes; ``pp``, the pod axis is a pipeline of decode stages
+(``core/pipeline.py::make_pp_step``, the transformer family), under the
+sub-operator table whatever the executor, as in the reference.
 """
 from __future__ import annotations
 
@@ -70,12 +76,14 @@ def make_rules(executor: str, mesh) -> ExecutionRules:
 @dataclass
 class StepBundle:
     """One cell's step on this rank: ``fn`` and what it runs under
-    (``plan``: the train step's ``GradPlan``)."""
+    (``plan``: the train step's ``GradPlan``; ``init_caches``: a pipeline
+    step's state on this rank)."""
     name: str
     fn: Callable
     ctx: ShardingCtx
     api: ModelAPI
     plan: Optional["GradPlan"] = None
+    init_caches: Optional[Callable] = None
 
 
 class GradPlan:
@@ -173,7 +181,8 @@ def train_update(params, opt, batch, *, loss: Callable, lr_t,
 def make_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
               executor: str = "sub_operator", pod_strategy: str = "dp",
               kv_int8=None, lr: float = 3e-4) -> StepBundle:
-    """``prefill``: fn(params, tokens (B,S)) -> (cache, logits); ``decode``:
+    """``prefill``: fn(params, tokens (B,S)) -> (cache, logits) (the enc-dec
+    family's fn(params, tokens, frames (B,F,D))); ``decode``:
     fn(params, cache, tokens (B,)) -> (cache, logits); ``train``:
     fn(params, opt, batch) -> (params, opt, {"loss", "grad_norm"}), the
     reference's ``cosine_lr(step, lr, warmup=100, total=10_000)``, the
@@ -182,15 +191,15 @@ def make_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
     tokens and batches the GLOBAL batch (cut here over the batch axes),
     the cache this rank's; logits cover this rank's rows and vocabulary
     block. Serving runs int8 KV by default, as the reference's
-    (``kv_int8=None``; training has no KV)."""
-    if pod_strategy == "pp" and "pod" in mesh.axis_names:
-        raise NotImplementedError(
-            "pod_strategy='pp' waits for the pipeline-parallel slice of the "
-            "port (core/pipeline.py's stage_params and make_pp_step)")
+    (``kv_int8=None``; training has no KV). ``pod_strategy="pp"`` on a
+    mesh with a "pod" axis: ``core/pipeline.py::make_pp_step``."""
     if kv_int8 is None:
         kv_int8 = shape.mode != "train"
-    if kv_int8 and cfg.kv_dtype != "int8":
+    if kv_int8 and shape.mode != "train" and cfg.kv_dtype != "int8":
         cfg = cfg.replace(kv_dtype="int8")
+    if pod_strategy == "pp" and "pod" in mesh.axis_names:
+        from repro_torch.core.pipeline import make_pp_step
+        return make_pp_step(cfg, shape, mesh, executor=executor)
     rules = make_rules(executor, mesh)
     if shape.mode == "train":
         rules = fsdp(rules)     # ZeRO-3: params + f32 moments fully shard
@@ -210,8 +219,11 @@ def make_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
         return StepBundle(name, train_step, ctx, api, plan)
 
     if shape.mode == "prefill":
-        def prefill_step(params, tokens):
-            return api.prefill(params, ctx.batch_local(tokens))
+        def prefill_step(params, tokens, *extra):
+            # the enc-dec family's frames ride beside the tokens, cut over
+            # the batch axes as the reference's batch dict is
+            return api.prefill(params, ctx.batch_local(tokens),
+                               *(ctx.batch_local(e) for e in extra))
         return StepBundle(name, prefill_step, ctx, api)
 
     def decode_step(params, cache, tokens):

@@ -12,7 +12,9 @@ the compute dtype (an MoE router, the SSD's dt_bias, A_log and D_skip, the
 RG-LRU's lam) in float32. ``kv_cache_from_numpy``,
 ``recurrent_state_from_numpy`` and ``encdec_caches_from_numpy`` do the
 same for a cache, a recurrent state and the enc-dec family's caches;
-``adamw_state_from_numpy`` for the reference's optimizer state, and
+``adamw_state_from_numpy`` for the reference's optimizer state,
+``stage_params_from_numpy`` for one pod rank's stage of the reference's
+pipeline-staged parameters (``repro.core.pipeline.stage_params``), and
 ``tree_to_numpy`` turns the port's parameters, gradients or optimizer
 state back into the reference's layout (layers stacked), so the two can
 be compared leaf by leaf. Turning a JAX pytree into numpy is the caller's
@@ -72,6 +74,22 @@ def params_from_numpy(tree: Dict[str, Any], cfg,
                       device: DeviceLike = None) -> Dict[str, Any]:
     dev = resolve_device(device)
     return _split_layers(_convert(tree, dtype_of(cfg), dev))
+
+
+def stage_params_from_numpy(tree: Dict[str, Any], cfg, stage: int,
+                            device: DeviceLike = None) -> Dict[str, Any]:
+    """``tree``: the reference's staged parameters as numpy (its
+    ``stage_params``: every block leaf (n_stages, L / n_stages, ...), the
+    head leaves unstaged) -> the port's parameters of pipeline stage
+    ``stage`` (``core/pipeline.py::stage_params(..., stage=)``): ``blocks``
+    the list of that stage's layers, the head leaves whole."""
+    def pick(node):
+        if isinstance(node, dict):
+            return {k: pick(v) for k, v in node.items()}
+        return np.asarray(node)[stage]
+    out = dict(tree)
+    out["blocks"] = pick(tree["blocks"])
+    return params_from_numpy(out, cfg, device)
 
 
 def _split_layers(out: Dict[str, Any]) -> Dict[str, Any]:

@@ -180,23 +180,28 @@ def init_kv_cache(n_layers: int, batch: int, n_kv: int, max_len: int,
 
 def init_kv_cache_sharded(ctx, n_layers: int, batch: int, n_kv: int,
                           max_len: int, head_dim: int, dtype=torch.bfloat16,
-                          quantized: bool = False, device=None) -> KVCache:
+                          quantized: bool = False, device=None,
+                          window: int = 0) -> KVCache:
     """This rank's part of a flat (float or int8) cache of ``batch`` slots
-    and ``max_len`` positions under ``ctx``'s rules (``cache_specs``):
-    its slots (batch over the data axes), its KV heads (``kv_heads``) or,
-    when the rules cut the sequence (``kv_seq``, +seqkv and the WA
-    attention domain), its block of positions. Tiered and ring caches are
-    not cut (they raise); without a mesh this is ``init_kv_cache``."""
+    and ``max_len`` positions, or of a ring of min(window, max_len) slots
+    (``window`` > 0), under ``ctx``'s rules (``cache_specs``): its slots
+    (batch over the data axes), its KV heads (``kv_heads``) or, when the
+    rules cut the sequence (``kv_seq``, +seqkv and the WA attention
+    domain), its block of positions (of a ring: of its slots). Tiered
+    caches are not cut; without a mesh this is ``init_kv_cache``."""
     from repro_torch.models.param_specs import cache_logical
     from repro_torch.models.sharding import axes_of
-    shape = (n_layers, batch, n_kv, max_len, head_dim)
+    size = min(window, max_len) if window else max_len
+    shape = (n_layers, batch, n_kv, size, head_dim)
     if not ctx.active:
-        return init_kv_cache(*shape, dtype=dtype, quantized=quantized,
-                             device=device)
+        return init_kv_cache(n_layers, batch, n_kv, max_len, head_dim,
+                             dtype=dtype, quantized=quantized, device=device,
+                             window=window)
     spec = ctx.spec(cache_logical(("k",), shape), shape)
     local = [d // ctx.n(e) for d, e in zip(shape, spec)]
     cache = init_kv_cache(*local, dtype=dtype, quantized=quantized,
                           device=device)
+    cache.window = window
     cache.seq_axes = axes_of(spec[3])
     cache.seq_lo = ctx.index(spec[3]) * local[3] if cache.seq_axes else 0
     return cache
@@ -349,6 +354,29 @@ def layer_append_ring(k_l, v_l, k_scale_l, v_scale_l, k_new, v_new,
         pairs = ((k_l, k_new), (v_l, v_new))
     for dst, new in pairs:
         dst.index_copy_(2, slot, new[:, :, None].to(dst.dtype))
+    return k_l, v_l, k_scale_l, v_scale_l
+
+
+def layer_append_ring_block(k_l, v_l, k_scale_l, v_scale_l, k_new, v_new,
+                            pos: torch.Tensor, size: int, lo: int):
+    """``layer_append_ring`` on a rank that holds slots [lo, lo + n) of a
+    ring of ``size`` slots: the rank holding slot ``pos % size`` writes
+    it, every other rank writes its first slot's own bytes back (no host
+    sync: ``pos`` stays on the device)."""
+    n = k_l.shape[2]
+    g = torch.remainder(pos.to(torch.long), size)
+    mine = (g >= lo) & (g < lo + n)
+    slot = torch.clamp(g - lo, 0, n - 1).reshape(1)
+    if k_scale_l is not None:
+        kq, ks = quantize_kv(k_new)
+        vq, vs = quantize_kv(v_new)
+        pairs = ((k_l, kq), (v_l, vq), (k_scale_l, ks), (v_scale_l, vs))
+    else:
+        pairs = ((k_l, k_new), (v_l, v_new))
+    for dst, new in pairs:
+        old = dst.index_select(2, slot)
+        dst.index_copy_(2, slot, torch.where(
+            mine, new[:, :, None].to(dst.dtype), old))
     return k_l, v_l, k_scale_l, v_scale_l
 
 

@@ -6,6 +6,16 @@ As with ``kv/cache.py`` the slot operations work IN PLACE on the tensors
 they are given and return them: admission copies one row, retirement
 zeroes one, and ``mask_slots`` writes a decode step's new state only into
 the active rows, so an inactive row keeps its bytes.
+
+On a mesh a rank holds its data row's slots and its heads' part of the
+state. The RG-LRU's state and conv window are cut over ``lru`` as the
+reference's ``cache_specs`` cuts them. The SSD's conv window holds the
+``xs`` channels, then the ``bc`` channels (``d_inner + 2N`` in all); the
+reference cuts that last dim evenly over ``lru``, which does not line up
+with the heads a rank owns, so here a rank holds its heads' ``xs``
+channels followed by the whole ``bc``: ``ssd_state_local`` cuts a whole
+state into that layout and ``ssd_state_gather`` puts the whole state back
+together on every rank.
 """
 from __future__ import annotations
 
@@ -124,3 +134,61 @@ def causal_conv(x: torch.Tensor, conv_w: torch.Tensor,
     if conv_b is not None:
         y = y + conv_b.to(x.dtype)
     return y
+
+
+# ---------------------------------------------------------------------------
+# On a mesh: a whole state cut into this rank's part, and gathered back
+# ---------------------------------------------------------------------------
+
+def _rows_entry(ctx):
+    from repro_torch.models.sharding import entry_of
+    return entry_of(ctx.batch_axes)
+
+
+def ssd_state_local(state: RecurrentState, ctx, d_inner: int,
+                    cut) -> RecurrentState:
+    """This rank's part of a whole SSD state: its data row's slots, its
+    heads' H (heads cut over the axes ``cut``) and a conv window of its
+    heads' ``xs`` channels followed by every ``bc`` channel."""
+    from repro_torch.models.sharding import entry_of
+    rows, c = _rows_entry(ctx), entry_of(tuple(cut))
+    h = ctx.local(state.h, (None, rows, c))
+    conv = ctx.local(state.conv, (None, rows))
+    xs = ctx.local(conv[..., :d_inner], (None, None, None, c))
+    return RecurrentState(h=h.contiguous(), conv=torch.cat(
+        [xs, conv[..., d_inner:]], dim=-1).contiguous())
+
+
+def ssd_state_gather(state: RecurrentState, ctx, d_inner: int,
+                     cut) -> RecurrentState:
+    """The whole SSD state on every rank from each rank's part
+    (``ssd_state_local``'s layout): collective over the mesh."""
+    from repro_torch.core.collectives import all_gather
+    from repro_torch.models.sharding import axes_of, entry_of
+    cut, rows = tuple(cut), axes_of(_rows_entry(ctx))
+    h, conv = state.h, state.conv
+    n = ctx.n(entry_of(cut))
+    if cut:
+        h = all_gather(h, ctx.mesh, cut, 2, "state_gather")
+        xs = all_gather(conv[..., :d_inner // n], ctx.mesh, cut, 3,
+                        "state_gather")
+        conv = torch.cat([xs, conv[..., d_inner // n:]], dim=-1)
+    if rows:
+        h = all_gather(h, ctx.mesh, rows, 1, "state_gather")
+        conv = all_gather(conv, ctx.mesh, rows, 1, "state_gather")
+    return RecurrentState(h=h, conv=conv)
+
+
+def rglru_state_gather(state: RecurrentState, ctx, cut) -> RecurrentState:
+    """The whole RG-LRU state on every rank (collective over the mesh)."""
+    from repro_torch.core.collectives import all_gather
+    from repro_torch.models.sharding import axes_of
+    cut, rows = tuple(cut), axes_of(_rows_entry(ctx))
+    h, conv = state.h, state.conv
+    if cut:
+        h = all_gather(h, ctx.mesh, cut, 2, "state_gather")
+        conv = all_gather(conv, ctx.mesh, cut, 3, "state_gather")
+    if rows:
+        h = all_gather(h, ctx.mesh, rows, 1, "state_gather")
+        conv = all_gather(conv, ctx.mesh, rows, 1, "state_gather")
+    return RecurrentState(h=h, conv=conv)

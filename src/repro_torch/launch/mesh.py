@@ -27,10 +27,12 @@ ranks on one device).
 from __future__ import annotations
 
 import datetime
+import faulthandler
 import itertools
 import os
 import pickle
 import shutil
+import signal
 import tempfile
 import time
 import traceback
@@ -234,6 +236,10 @@ def _rank_main(rank, fn, shape, axes, device, share_device, tmp, threads,
                timeout_s):
     out = os.path.join(tmp, f"rank{rank}.pkl")
     status = "init_error"
+    # SIGUSR1 writes every thread's Python stack here (the launcher sends
+    # it when the run reaches its wall-clock ceiling, then kills the rank)
+    stacks = open(os.path.join(tmp, f"stack{rank}.txt"), "w")
+    faulthandler.register(signal.SIGUSR1, file=stacks, all_threads=True)
     try:
         with open(os.path.join(tmp, "args.pkl"), "rb") as f:
             args = pickle.load(f)
@@ -265,6 +271,10 @@ def _rank_main(rank, fn, shape, axes, device, share_device, tmp, threads,
 # whose ranks have not all joined their process groups counts as a failed
 # rendezvous
 INIT_S = 120.0
+# the default wall-clock ceiling of one launch, from its start: six times
+# the longest mesh test module's whole run alone (~100 s), and above any
+# progress-based limit a launch can reach first
+WALL_S = 600.0
 
 
 def cpu_seconds(pids) -> float:
@@ -295,9 +305,10 @@ class Launch:
     stops a job's workers when one fails)."""
 
     def __init__(self, start: Callable, shape, world: int,
-                 timeout_s: float):
+                 timeout_s: float, wall_s: float = WALL_S):
         self.start, self.shape, self.world = start, tuple(shape), world
-        self.timeout_s = timeout_s
+        self.timeout_s, self.wall_s = timeout_s, wall_s
+        self.t_start = time.monotonic()
         self.ctx, self.tmp = start()
 
     def _kill(self):
@@ -306,6 +317,26 @@ class Launch:
                 p.kill()
             p.join(5)
         shutil.rmtree(self.tmp, ignore_errors=True)
+
+    def _stacks(self) -> dict:
+        """Every live rank's Python stacks (all threads), asked for by
+        SIGUSR1 (``faulthandler`` in the rank writes them to its file)."""
+        alive = [(r, p) for r, p in enumerate(self.ctx.processes)
+                 if p.is_alive()]
+        for _, p in alive:
+            try:
+                os.kill(p.pid, signal.SIGUSR1)
+            except OSError:
+                pass
+        time.sleep(1.0)
+        out = {}
+        for r, _ in alive:
+            try:
+                with open(os.path.join(self.tmp, f"stack{r}.txt")) as f:
+                    out[r] = f.read() or "(no stack written)"
+            except OSError:
+                out[r] = "(no stack written)"
+        return out
 
     def _failed(self, errors: dict) -> RuntimeError:
         return RuntimeError(f"mesh {self.shape}: rank(s) {sorted(errors)} "
@@ -318,7 +349,8 @@ class Launch:
         # time), not wall time: a machine loaded by other work slows the
         # ranks down without failing them, while a hung mesh still fails
         # (a collective that waits past the process groups' timeout
-        # raises in its rank)
+        # raises in its rank); ranks that keep busy and never finish are
+        # stopped at the wall-clock ceiling ``wall_s`` from the launch
         pids = [p.pid for p in self.ctx.processes]
         cpu, t0 = cpu_seconds(pids), time.monotonic()
         ready = lambda: all(os.path.exists(  # noqa: E731
@@ -346,6 +378,15 @@ class Launch:
             # errors are collected for a moment, then the mesh is stopped
             if failed_at is not None and time.monotonic() - failed_at > 5:
                 raise self._failed(errors)
+            if time.monotonic() - self.t_start > self.wall_s:
+                stacks = self._stacks()
+                raise TimeoutError(
+                    f"mesh {self.shape}: the ranks ran past the wall-clock "
+                    f"ceiling of {self.wall_s:.0f} s and were stopped; "
+                    "their stacks:\n" + "\n".join(
+                        f"-- rank {r}:\n{stacks[r]}" for r in sorted(stacks))
+                    + "".join(f"\n-- rank {r} (failed):\n{errors[r]}"
+                              for r in sorted(errors)))
             now = cpu_seconds(pids)
             if now > cpu + 0.05:
                 cpu, t0 = now, time.monotonic()
@@ -394,7 +435,8 @@ class Launch:
 def launch(fn: Callable, shape: Sequence[int],
            axes: Sequence[str] = ("data", "model"), args: Tuple = (), *,
            device: str = "cpu", share_device: bool = False,
-           threads: int = 1, timeout_s: float = 300.0) -> Launch:
+           threads: int = 1, timeout_s: float = 300.0,
+           wall_s: float = WALL_S) -> Launch:
     """Start ``fn(mesh, *args)`` on every rank of a ``shape`` mesh, one
     spawned process each (``fn`` importable: a module-level function), and
     return at once; ``Launch.join`` collects the results (pickled through
@@ -402,7 +444,9 @@ def launch(fn: Callable, shape: Sequence[int],
     groups time out after ``timeout_s``, so a hung collective fails
     instead of hanging, and ``join`` gives up after ``timeout_s`` in
     which no rank made progress (used CPU time); the ranks must all have
-    joined before ``INIT_S`` passes without progress."""
+    joined before ``INIT_S`` passes without progress. Whatever the ranks
+    do, ``join`` stops them ``wall_s`` seconds after the launch (the
+    wall-clock ceiling) and raises with every rank's Python stacks."""
     world = int(np.prod(shape))
     if device == "cuda" and not share_device and \
             torch.cuda.device_count() < world:
@@ -422,7 +466,7 @@ def launch(fn: Callable, shape: Sequence[int],
                               share_device, tmp, threads, timeout_s),
             nprocs=world, join=False, start_method="spawn")
         return ctx, tmp
-    return Launch(start, shape, world, timeout_s)
+    return Launch(start, shape, world, timeout_s, wall_s)
 
 
 def spawn(fn: Callable, shape: Sequence[int],

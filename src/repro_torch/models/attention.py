@@ -290,7 +290,7 @@ def qkv_project(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
         q = common.apply_rope(q, positions, cfg.rope_theta)
         k = common.apply_rope(k, positions, cfg.rope_theta)
     q = lay.heads(q, qa, lay.act_heads, "q_act_heads")
-    q = lay.heads(q, lay.act_heads, lay.kv_heads, "q_attn")
+    q = lay.heads(q, lay.act_heads, lay.attn_heads, "q_attn")
     k = lay.heads(k, ka, lay.kv_heads, "kv_heads")
     v = lay.heads(v, ka, lay.kv_heads, "kv_heads")
     return q, k, v

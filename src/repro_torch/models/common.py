@@ -176,6 +176,24 @@ def apply_norm(kind: str, p: Params, x: torch.Tensor, eps: float = 1e-6
             + p["bias"].to(torch.float32)).to(x.dtype)
 
 
+def rms_norm_cut(p: Params, x: torch.Tensor, eps: float, ctx: ShardingCtx,
+                 cut, d: int) -> torch.Tensor:
+    """RMSNorm of rows whose last dim (``d`` wide in all) lies cut over
+    the mesh axes ``cut``: x holds this rank's slice, the sum of squares
+    is all-reduced over ``cut`` before the rank scales its part, and
+    ``p["scale"]`` (whole) is sliced to it. Without a cut: ``apply_norm``.
+    """
+    if not (ctx.active and axes_of(cut)):
+        return apply_norm("rmsnorm", p, x, eps)
+    from repro_torch.core.collectives import all_reduce
+    xf = x.to(torch.float32)
+    ss = all_reduce(torch.sum(xf * xf, dim=-1, keepdim=True), ctx.mesh,
+                    axes_of(cut), "norm_sumsq")
+    n = xf * torch.rsqrt(ss / d + eps)
+    scale = ctx.local(p["scale"], (entry_of(cut),))
+    return (n * scale.to(torch.float32)).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Positions: RoPE (rotate-half split) and the sinusoidal table
 # ---------------------------------------------------------------------------

@@ -225,16 +225,17 @@ def abstract_params(cfg):
 
 
 def shard_cache(cache: KVCache, ctx: ShardingCtx) -> KVCache:
-    """This rank's part of a full flat ``cache`` under ``ctx``'s rules (the
-    layout ``init_kv_cache_sharded`` builds): its slots, its KV heads or
-    its block of positions; the cursor stays whole."""
+    """This rank's part of a full flat or ring ``cache`` under ``ctx``'s
+    rules (the layout ``init_kv_cache_sharded`` builds): its slots, its KV
+    heads or its block of positions (of a ring: of its slots); the cursor
+    stays whole."""
     import dataclasses
     from repro_torch.models.sharding import axes_of
     if not ctx.active:
         return cache
-    if cache.is_tiered or cache.window:
-        raise NotImplementedError("tiered and ring caches are not cut over "
-                                  "a mesh in this slice of the port")
+    if cache.is_tiered:
+        raise NotImplementedError("tiered caches are not cut over a mesh "
+                                  "in this slice of the port")
     spec = ctx.spec(cache_logical(("k",), cache.k.shape), cache.k.shape)
 
     def cut(t):

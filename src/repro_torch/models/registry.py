@@ -11,13 +11,14 @@ takes frames: the engine refuses it); the VLM has no chunk lane (its
 prompts put vision embeddings before the text) and no WA backend.
 
 On a mesh (``build_model(cfg, device, ctx)`` with a ``ShardingCtx`` of
-more than one rank) the transformer family's fields run on this rank's
+more than one rank) every family's serving fields run on this rank's
 share: params from ``param_specs.shard_params``, the rows of this data row
 (the caller cuts a batch over the rules' batch axes; a batch-1 program
-runs on the data row that owns its slot), this rank's cache
+runs on the data row that owns its slot), this rank's cache or state
 (``init_caches`` takes the GLOBAL slot count), logits over this rank's
-vocabulary rows (``greedy`` and ``full_logits`` read them). The recurrent
-and enc-dec families on a mesh wait for a later slice and raise.
+vocabulary rows (``greedy`` and ``full_logits`` read them). Training on a
+mesh covers the transformer family; the recurrent and enc-dec families'
+``loss`` on a mesh waits for a later slice and raises.
 """
 from __future__ import annotations
 
@@ -190,67 +191,104 @@ def _build_transformer(cfg: ModelConfig, device: torch.device,
                                                                 vocab))
 
 
-def _build_ssm(cfg: ModelConfig, device: torch.device) -> ModelAPI:
+def _mesh_fields(cfg: ModelConfig, ctx: ShardingCtx):
+    """(greedy, full_logits, loss wrapper) of a family on ``ctx``: the
+    argmax and the whole rows across the vocabulary shards. On a mesh the
+    recurrent and enc-dec families' training is not ported yet: the
+    training (fsdp) rules refuse here and the loss refuses on any mesh."""
+    from repro_torch.models import common
+
+    def refused(*_):
+        raise NotImplementedError(
+            f"training the {cfg.family} family on a mesh is not ported "
+            "yet (ROADMAP Queue 1); serving it on a mesh is")
+    if ctx.active and ctx.rules.rules.get("embed_w"):
+        refused()
+    vocab = layout(cfg, ctx).vocab
+    return (lambda lg: common.greedy(lg, ctx, vocab),
+            lambda lg: common.gather_logits(lg, ctx, vocab),
+            lambda fn: refused if ctx.active else fn)
+
+
+def _build_ssm(cfg: ModelConfig, device: torch.device,
+               ctx: ShardingCtx = NULL_CTX) -> ModelAPI:
     """Mamba-2: slotted decode, chunked and monolithic admission; the
     state is O(1), so no KV buckets, split-KV, tiers or swap pair, and no
-    WA backend (no KV to decouple)."""
+    WA backend (no KV to decouple). On a mesh: the heads cut over the
+    model axis, this data row's slots (``init_caches`` takes the global
+    slot count)."""
     from repro_torch.kv.state import reset_slot_tree, write_slot_tree
     from repro_torch.models import ssm as S
+    greedy, full_logits, loss = _mesh_fields(cfg, ctx)
 
     def decode_slotted(params, state, tokens, positions, active,
                        kv_bucket: int = 0, kv_shards: int = 1):
         return S.decode_step_slotted(params, state, tokens, positions,
-                                     active, cfg, kv_bucket=kv_bucket)
+                                     active, cfg, kv_bucket=kv_bucket,
+                                     ctx=ctx)
 
     def prefill_chunk(params, state, tokens, slot, start, valid_len):
         return S.prefill_chunk(params, state, tokens, slot, start,
-                               valid_len, cfg)
+                               valid_len, cfg, ctx)
 
     return ModelAPI(
         cfg, device, _seeded_init(S, cfg, device),
-        lambda params, tokens: S.prefill(params, tokens, cfg),
+        lambda params, tokens: S.prefill(params, tokens, cfg, ctx),
         lambda params, state, tokens: S.decode_step(params, state, tokens,
-                                                    cfg),
+                                                    cfg, ctx),
         lambda batch, max_len, device=device: S.make_state(cfg, batch,
-                                                           device),
+                                                           device, ctx),
         decode_slotted, write_slot_tree, reset_slot_tree,
-        make_decode_block(decode_slotted), prefill_chunk,
-        loss=lambda params, batch: S.loss_fn(params, batch, cfg))
+        make_decode_block(decode_slotted, greedy), prefill_chunk,
+        loss=loss(lambda params, batch: S.loss_fn(params, batch, cfg)),
+        ctx=ctx, greedy=greedy, full_logits=full_logits)
 
 
-def _build_hybrid(cfg: ModelConfig, device: torch.device) -> ModelAPI:
+def _build_hybrid(cfg: ModelConfig, device: torch.device,
+                  ctx: ShardingCtx = NULL_CTX) -> ModelAPI:
     """RecurrentGemma: prefill, shared-cursor decode and caches only (no
-    slotted API: the engine serves it in drain mode)."""
+    slotted API: the engine serves it in drain mode). On a mesh the RG-LRU
+    channels and the attention's query heads are cut over the model axis;
+    the ring KV (one KV head) replicates, or its slots are cut under
+    +seqkv."""
     from repro_torch.models import rglru as R
     from repro_torch.models import transformer as T
     T.check_supported(cfg)
+    greedy, full_logits, loss = _mesh_fields(cfg, ctx)
 
     return ModelAPI(
         cfg, device, _seeded_init(R, cfg, device),
         lambda params, tokens: R.prefill(params, tokens, cfg,
-                                         tokens.shape[1] + DECODE_SLACK),
+                                         tokens.shape[1] + DECODE_SLACK,
+                                         ctx),
         lambda params, caches, tokens: R.decode_step(params, caches, tokens,
-                                                     cfg),
-        lambda batch, max_len, device=device: R.make_caches(cfg, batch,
-                                                            max_len, device),
-        loss=lambda params, batch: R.loss_fn(params, batch, cfg))
+                                                     cfg, ctx),
+        lambda batch, max_len, device=device: R.make_caches(
+            cfg, batch, max_len, device, ctx),
+        loss=loss(lambda params, batch: R.loss_fn(params, batch, cfg)),
+        ctx=ctx, greedy=greedy, full_logits=full_logits)
 
 
-def _build_encdec(cfg: ModelConfig, device: torch.device) -> ModelAPI:
+def _build_encdec(cfg: ModelConfig, device: torch.device,
+                  ctx: ShardingCtx = NULL_CTX) -> ModelAPI:
     """Whisper: prefill(params, tokens, frames), shared-cursor decode and
-    caches only (no slotted API, as in the reference)."""
+    caches only (no slotted API, as in the reference). On a mesh the
+    attention heads (self and cross) and the FFN's columns are cut over
+    the model axis."""
     from repro_torch.models import encdec as E
     E.check_supported(cfg)
+    greedy, full_logits, loss = _mesh_fields(cfg, ctx)
 
     return ModelAPI(
         cfg, device, _seeded_init(E, cfg, device),
         lambda params, tokens, frames: E.prefill(params, tokens, frames,
-                                                 cfg),
+                                                 cfg, ctx),
         lambda params, caches, tokens: E.decode_step(params, caches, tokens,
-                                                     cfg),
-        lambda batch, max_len, device=device: E.make_caches(cfg, batch,
-                                                            max_len, device),
-        loss=lambda params, batch: E.loss_fn(params, batch, cfg))
+                                                     cfg, ctx),
+        lambda batch, max_len, device=device: E.make_caches(
+            cfg, batch, max_len, device, ctx),
+        loss=loss(lambda params, batch: E.loss_fn(params, batch, cfg)),
+        ctx=ctx, greedy=greedy, full_logits=full_logits)
 
 
 def build_model(cfg: ModelConfig, device: DeviceLike = None,
@@ -262,17 +300,12 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None,
     dev = resolve_device(device)
     if cfg.family in ("dense", "moe", "vlm"):
         return _build_transformer(cfg, dev, ctx)
-    if ctx.active:
-        raise NotImplementedError(
-            f"the {cfg.family} family on a mesh is not ported yet: the "
-            "recurrent and enc-dec families on a mesh wait for a later "
-            "slice of the port (ROADMAP Queue 1)")
     if cfg.family == "ssm":
-        return _build_ssm(cfg, dev)
+        return _build_ssm(cfg, dev, ctx)
     if cfg.family == "hybrid":
-        return _build_hybrid(cfg, dev)
+        return _build_hybrid(cfg, dev, ctx)
     if cfg.family == "audio":
-        return _build_encdec(cfg, dev)
+        return _build_encdec(cfg, dev, ctx)
     raise ValueError(f"unknown family {cfg.family!r}")
 
 

@@ -16,6 +16,17 @@ attention layers' decode attends the ring through K1 and every FFN (GeGLU)
 runs through K3 in its gelu mode; the RG-LRU itself has no TPU kernel in
 the reference and is plain PyTorch. The family has no slotted API (it
 serves in drain mode), as in the reference.
+
+On a mesh (``ctx``) the RG-LRU is cut over ``lru`` on the model axis: the
+rank projects its channels through ``in_a``/``in_b`` (column-parallel),
+runs the conv, ``lam`` and the block-diagonal gates ``w_a``/``w_x`` of its
+heads locally and ``out`` row-parallel onto the residual's placement; the
+GeGLU FFN runs K3 (gelu) on the rank's slice of F. The local attention
+runs the transformer's mesh attention over the ring: its one KV head
+(MQA) replicates and each rank attends its query heads
+(``MeshLayout.attn_heads``); under +seqkv the ring's slots are cut over
+the model axis as the reference's ``cache_specs`` cuts its ``kv_seq`` dim
+(``transformer.attend_ring_seq``).
 """
 from __future__ import annotations
 
@@ -26,13 +37,18 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import RGLRU, ModelConfig
-from repro_torch.kv.cache import init_kv_cache
+from repro_torch.kv.cache import init_kv_cache, init_kv_cache_sharded
 from repro_torch.kv.state import causal_conv, conv_step, init_rglru_state
 from repro_torch.models import common
+from repro_torch.models.sharding import (NULL_CTX, NULL_LAYOUT, MeshLayout,
+                                         ShardingCtx, channel_head_cut,
+                                         entry_of, layout)
 from repro_torch.models.transformer import (block_decode, block_full_seq,
-                                            block_train, ffn_apply,
+                                            block_train, cache_seq,
+                                            ffn_apply, final_logits,
                                             make_block_params,
-                                            make_ffn_params, write_prefill)
+                                            make_ffn_params, row_linear,
+                                            write_prefill)
 
 C_RGLRU = 8.0
 
@@ -43,6 +59,13 @@ C_RGLRU = 8.0
 
 def lru_width(cfg: ModelConfig) -> int:
     return cfg.rglru.lru_width or cfg.d_model
+
+
+def mesh_cut(cfg: ModelConfig, ctx: ShardingCtx) -> Tuple[str, ...]:
+    """The mesh axes this rank's RG-LRU channels (and the gates' heads
+    over them) are cut over: () on one device."""
+    return channel_head_cut(ctx, "RG-LRU", cfg.d_model, lru_width(cfg),
+                            "heads", cfg.n_heads)
 
 
 def make_rglru_params(gen: torch.Generator, cfg: ModelConfig
@@ -103,15 +126,16 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return b
 
 
-def rglru_full_seq(p: Dict, x: torch.Tensor, cfg: ModelConfig
-                   ) -> torch.Tensor:
-    """x: (B,S,D) -> (B,S,D)."""
+def rglru_full_seq(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+                   lay: MeshLayout = NULL_LAYOUT, cut=()) -> torch.Tensor:
+    """x: (B,S,D) -> (B,S,D) (on a mesh: x whole, the rank's channels,
+    ``out`` row-parallel onto the residual's placement)."""
     ya = F.gelu(common.linear(p["in_a"], x).to(torch.float32),
                 approximate="tanh")
     xb = causal_conv(common.linear(p["in_b"], x), p["conv"])
-    a, b = _lru_coeffs(p, xb, cfg.n_heads)
+    a, b = _lru_coeffs(p, xb, p["w_a"].shape[0])
     y = (ya * linear_scan(a, b)).to(x.dtype)
-    return common.linear(p["out"], y)
+    return row_linear(p["out"], y, lay, cut, "rglru_out")
 
 
 def rglru_final_state(p: Dict, x: torch.Tensor, cfg: ModelConfig
@@ -121,12 +145,13 @@ def rglru_final_state(p: Dict, x: torch.Tensor, cfg: ModelConfig
     W = cfg.rglru.conv_width
     xb = common.linear(p["in_b"], x)
     conv_tail = xb[:, -(W - 1):, :].to(torch.float32)
-    a, b = _lru_coeffs(p, causal_conv(xb, p["conv"]), cfg.n_heads)
+    a, b = _lru_coeffs(p, causal_conv(xb, p["conv"]), p["w_a"].shape[0])
     return linear_scan(a, b)[:, -1, :], conv_tail
 
 
 def rglru_decode(p: Dict, x: torch.Tensor, cfg: ModelConfig,
-                 h: torch.Tensor, conv: torch.Tensor
+                 h: torch.Tensor, conv: torch.Tensor,
+                 lay: MeshLayout = NULL_LAYOUT, cut=()
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-token step over one layer's state. x: (B,1,D); h: (B,lw) f32;
     conv: (B,W-1,lw) -> (out, h', conv') in fresh tensors."""
@@ -134,10 +159,11 @@ def rglru_decode(p: Dict, x: torch.Tensor, cfg: ModelConfig,
                 approximate="tanh")[:, 0]
     xb = common.linear(p["in_b"], x)[:, 0]                # (B,lw)
     xb_c, conv_new = conv_step(conv, xb, p["conv"])
-    a, b = _lru_coeffs(p, xb_c[:, None, :], cfg.n_heads)
+    a, b = _lru_coeffs(p, xb_c[:, None, :], p["w_a"].shape[0])
     h_new = a[:, 0] * h + b[:, 0]
     y = (ya * h_new).to(x.dtype)[:, None, :]
-    return common.linear(p["out"], y), h_new, conv_new.to(torch.float32)
+    return row_linear(p["out"], y, lay, cut, "rglru_out"), h_new, \
+        conv_new.to(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -188,27 +214,33 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
     return params
 
 
-def _embed(params, tokens, cfg):
+def _embed(params, tokens, cfg, lay: MeshLayout = NULL_LAYOUT):
     """The embedding scaled by sqrt(d_model), the scale rounded to the
-    compute dtype first (Gemma's)."""
-    x = common.embed(params["embed"], tokens)
+    compute dtype first (Gemma's); on a mesh onto the residual's
+    placement."""
+    x = common.embed(params["embed"], tokens, lay.ctx, lay.vocab,
+                     lay.res_spec())
     # the scale rounded on the host: no host-to-device copy a step
     return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype).item()
 
 
-def _mix_residual(p, h, cfg, state=None):
+def _mix_residual(p, h, cfg, state=None, lay: MeshLayout = NULL_LAYOUT,
+                  cut=()):
     """RG-LRU residual block: ln1, the mix (full sequence, or one decode
     step over ``state`` = (h, conv) slices), the residual, ln2 and the
-    GeGLU FFN. Returns (h', (h_state', conv') or None)."""
-    y = common.apply_norm(cfg.norm, p["ln1"], h, cfg.norm_eps)
+    GeGLU FFN. Returns (h', (h_state', conv') or None). On a mesh h is
+    the residual's slice; each norm reads the whole residual."""
+    y = common.apply_norm(cfg.norm, p["ln1"], lay.to_full(h, "ln1_in"),
+                          cfg.norm_eps)
     if state is None:
-        mix, new = rglru_full_seq(p["mix"], y, cfg), None
+        mix, new = rglru_full_seq(p["mix"], y, cfg, lay, cut), None
     else:
-        mix, hs, cs = rglru_decode(p["mix"], y, cfg, *state)
+        mix, hs, cs = rglru_decode(p["mix"], y, cfg, *state, lay, cut)
         new = (hs, cs)
     h = h + mix
-    y = common.apply_norm(cfg.norm, p["ln2"], h, cfg.norm_eps)
-    return h + ffn_apply(p["ffn"], y, cfg), new
+    y = common.apply_norm(cfg.norm, p["ln2"], lay.to_full(h, "ln2_in"),
+                          cfg.norm_eps)
+    return h + ffn_apply(p["ffn"], y, cfg, lay), new
 
 
 def forward_train(params, tokens: torch.Tensor, cfg: ModelConfig
@@ -243,44 +275,61 @@ def loss_fn(params, batch, cfg: ModelConfig) -> torch.Tensor:
                                   chunk=common.ce_chunk(x.shape[1]))
 
 
-def make_caches(cfg: ModelConfig, batch: int, max_len: int, device=None):
+def make_caches(cfg: ModelConfig, batch: int, max_len: int, device=None,
+                ctx: ShardingCtx = NULL_CTX):
     """{"kv": the ring cache of the n_super attention layers, "state": the
-    RG-LRU state of the 2*n_super + n_tail recurrent layers}."""
+    RG-LRU state of the 2*n_super + n_tail recurrent layers}. On a mesh
+    this rank's part of ``batch`` slots: its data row's rows, its
+    channels of the state; the ring whole over its one KV head, or its
+    block of slots under +seqkv."""
     n_super, n_tail = _layer_plan(cfg)
-    kv = init_kv_cache(n_super, batch, cfg.n_kv_heads, max_len,
-                       cfg.head_dim, dtype=common.dtype_of(cfg),
-                       quantized=(cfg.kv_dtype == "int8"), device=device,
-                       window=cfg.rglru.window)
-    st = init_rglru_state(2 * n_super + n_tail, batch, lru_width(cfg),
-                          cfg.rglru.conv_width, device=device)
+    lw, W = lru_width(cfg), cfg.rglru.conv_width
+    kv_args = (n_super, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+    kv_kw = dict(dtype=common.dtype_of(cfg),
+                 quantized=(cfg.kv_dtype == "int8"), device=device,
+                 window=cfg.rglru.window)
+    if ctx.active:
+        kv = init_kv_cache_sharded(ctx, *kv_args, **kv_kw)
+        batch //= ctx.n(entry_of(ctx.batch_axes))
+        lw //= ctx.n(entry_of(mesh_cut(cfg, ctx)))
+    else:
+        kv = init_kv_cache(*kv_args, **kv_kw)
+    st = init_rglru_state(2 * n_super + n_tail, batch, lw, W, device=device)
     return {"kv": kv, "state": st}
 
 
-def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, max_len: int):
+def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, max_len: int,
+            ctx: ShardingCtx = NULL_CTX):
     """Full-sequence pass that also fills the decode caches (a ring of
-    min(window, max_len) slots). Returns (caches, last logits (B,1,V))."""
+    min(window, max_len) slots). Returns (caches, last logits (B,1,V)).
+    On a mesh tokens are this data row's rows, the logits this rank's
+    vocabulary rows."""
+    lay, cut = layout(cfg, ctx), mesh_cut(cfg, ctx)
     B, S = tokens.shape
-    caches = make_caches(cfg, B, max_len, tokens.device)
-    x = _embed(params, tokens, cfg)
+    rows = ctx.n(entry_of(ctx.batch_axes)) if ctx.active else 1
+    caches = make_caches(cfg, B * rows, max_len, tokens.device, ctx)
+    x = _embed(params, tokens, cfg, lay)
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None].expand(B, S)
     win = cfg.rglru.window
     hs, cs, ks, vs = [], [], [], []
 
     def state_residual(p, h):
-        y = common.apply_norm(cfg.norm, p["ln1"], h, cfg.norm_eps)
+        y = common.apply_norm(cfg.norm, p["ln1"], lay.to_full(h, "ln1_in"),
+                              cfg.norm_eps)
         hst, ctail = rglru_final_state(p["mix"], y, cfg)
         hs.append(hst)
         cs.append(ctail)
-        h = h + rglru_full_seq(p["mix"], y, cfg)
-        y = common.apply_norm(cfg.norm, p["ln2"], h, cfg.norm_eps)
-        return h + ffn_apply(p["ffn"], y, cfg)
+        h = h + rglru_full_seq(p["mix"], y, cfg, lay, cut)
+        y = common.apply_norm(cfg.norm, p["ln2"], lay.to_full(h, "ln2_in"),
+                              cfg.norm_eps)
+        return h + ffn_apply(p["ffn"], y, cfg, lay)
 
     for sp in params["super"]:
         x = state_residual(sp["r1"], x)
         x = state_residual(sp["r2"], x)
         x, (k, v) = block_full_seq(sp["attn"], x, cfg, positions,
-                                   window=win)
+                                   window=win, lay=lay)
         ks.append(k)
         vs.append(v)
     for tp in params.get("tail", []):
@@ -288,25 +337,46 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, max_len: int):
     st = caches["state"]
     st.h.copy_(torch.stack(hs))
     st.conv.copy_(torch.stack(cs))
-    write_prefill(caches["kv"], torch.stack(ks).transpose(2, 3),
-                  torch.stack(vs).transpose(2, 3), S)
-    x = common.apply_norm(cfg.norm, params["ln_f"], x, cfg.norm_eps)
-    return caches, common.unembed_logits(params["embed"]["table"], x[:, -1:])
+    k_all = torch.stack(ks).transpose(2, 3)
+    v_all = torch.stack(vs).transpose(2, 3)
+    kv = caches["kv"]
+    if kv.seq_axes:
+        # the whole ring (every slot of this rank's rows), then this
+        # rank's block of slots
+        whole = init_kv_cache(kv.k.shape[0], B, kv.k.shape[2], max_len,
+                              cfg.head_dim, dtype=common.dtype_of(cfg),
+                              quantized=kv.is_quantized,
+                              device=tokens.device, window=win)
+        write_prefill(whole, k_all, v_all, S)
+        lo, nb = kv.seq_lo, kv.k.shape[3]
+        for dst, src in ((kv.k, whole.k), (kv.v, whole.v),
+                         (kv.k_scale, whole.k_scale),
+                         (kv.v_scale, whole.v_scale)):
+            if dst is not None:
+                dst.copy_(src[..., lo:lo + nb, :])
+        kv.length = whole.length
+    else:
+        write_prefill(kv, k_all, v_all, S)
+    return caches, final_logits(params, x[:, -1:], cfg, lay)
 
 
-def decode_step(params, caches, tokens: torch.Tensor, cfg: ModelConfig):
+def decode_step(params, caches, tokens: torch.Tensor, cfg: ModelConfig,
+                ctx: ShardingCtx = NULL_CTX):
     """Shared-cursor decode step (drain serving): every row appends at
     ``kv.length`` (the ring slot length % size) and advances its recurrent
     state; caches in place. Returns (caches, logits (B,1,V) f32). The
     cursor stays on the device: no host sync."""
+    lay, cut = layout(cfg, ctx), mesh_cut(cfg, ctx)
     kv, st = caches["kv"], caches["state"]
     pos = kv.length
-    x = _embed(params, tokens[:, None], cfg)
+    seq = cache_seq(kv)
+    x = _embed(params, tokens[:, None], cfg, lay)
     layers = iter(range(st.h.shape[0]))
 
     def recur(p, h):
         j = next(layers)
-        h, (hs, cs) = _mix_residual(p, h, cfg, (st.h[j], st.conv[j]))
+        h, (hs, cs) = _mix_residual(p, h, cfg, (st.h[j], st.conv[j]), lay,
+                                    cut)
         st.h[j].copy_(hs)
         st.conv[j].copy_(cs)
         return h
@@ -315,9 +385,8 @@ def decode_step(params, caches, tokens: torch.Tensor, cfg: ModelConfig):
         x = recur(sp["r1"], x)
         x = recur(sp["r2"], x)
         x = block_decode(sp["attn"], x, cfg, kv.layer(i), pos,
-                         cfg.rglru.window)
+                         cfg.rglru.window, lay, seq)
     for tp in params.get("tail", []):
         x = recur(tp, x)
     kv.length = pos + 1
-    x = common.apply_norm(cfg.norm, params["ln_f"], x, cfg.norm_eps)
-    return caches, common.unembed_logits(params["embed"]["table"], x)
+    return caches, final_logits(params, x, cfg, lay)

@@ -211,6 +211,24 @@ def entry_of(axes: Tuple[str, ...]) -> Entry:
     return axes[0] if len(axes) == 1 else tuple(axes)
 
 
+def channel_head_cut(ctx: "ShardingCtx", what: str, d_model: int,
+                     channels: int, heads_name: str, heads: int
+                     ) -> Tuple[str, ...]:
+    """The mesh axes a recurrent block's inner channels (``lru``) and the
+    heads over them (``heads_name``) are cut over: () on one device or
+    where the rules leave them whole. A rank must own whole heads with
+    their channels, so the two cuts must agree."""
+    if not ctx.active:
+        return ()
+    lru = axes_of(ctx.spec(("embed_w", "lru"), (d_model, channels))[1])
+    cut = axes_of(ctx.spec((heads_name,), (heads,))[0])
+    if lru != cut:
+        raise NotImplementedError(
+            f"the {what}'s {channels} inner channels and {heads} heads cut "
+            f"over different axes ({lru} / {cut}) on this mesh")
+    return lru
+
+
 class ShardingCtx:
     """(mesh, rules) carried through the model code. ``spec`` builds a
     placement from logical names and a GLOBAL shape; ``reshard`` moves a
@@ -334,10 +352,14 @@ class MeshLayout:
     and unembedding rows; q_cols / kv_cols: the columns of wq and wk/wv
     (``heads`` / ``kv_heads`` on Hq*hd and Hkv*hd); wo_rows: wo's rows;
     act_heads: q's and the attention output's heads at their sites;
-    kv_heads: the cache's heads, over which attention runs (q is sliced to
-    them; a cache whose positions the rules cut records its own axes,
-    ``KVCache.seq_axes``); mlp: the FFN's F (w_gate/w_up columns, w_down
-    rows); experts / mlp_shard: the MoE experts and their F columns.
+    kv_heads: the cache's heads; attn_heads: the query heads attention
+    runs over, the cache's heads (q is sliced to them; a cache whose
+    positions the rules cut records its own axes, ``KVCache.seq_axes``),
+    except with one KV head (MQA: recurrentgemma), which every rank holds
+    whole, where attention runs over ``act_heads`` (each rank its query
+    heads against the one K/V); mlp: the FFN's F (w_gate/w_up columns,
+    w_down rows); experts / mlp_shard: the MoE experts and their F
+    columns.
 
     Without a mesh every placement is () and every site below returns its
     tensor unchanged (``NULL_LAYOUT``): the model code runs one path on one
@@ -348,6 +370,7 @@ class MeshLayout:
         self.active = ctx.active
         self.res = self.vocab = self.q_cols = self.kv_cols = ()
         self.wo_rows = self.act_heads = self.kv_heads = self.mlp = ()
+        self.attn_heads = ()
         self.experts = self.mlp_shard = ()
         self.fsdp: Dict[str, Dict[Tuple[str, ...], Tuple]] = {}
         if not self.active:
@@ -371,6 +394,8 @@ class MeshLayout:
         self.wo_rows = ax(("heads", "embed_w"), (Hq * hd, D), 0)
         self.act_heads = ax(("act_heads",), (Hq,), 0)
         self.kv_heads = ax(("kv_heads",), (Hkv,), 0)
+        self.attn_heads = self.act_heads if Hkv == 1 and not self.kv_heads \
+            else self.kv_heads
         self.mlp = ax(("embed_w", "mlp"), (D, cfg.d_ff), 1)
         if cfg.moe is not None:
             m = cfg.moe

@@ -14,6 +14,18 @@ einsums outside any Pallas kernel), so everything here is plain PyTorch in
 the reference's dtypes: the state and the conv window in f32, ``y`` cast
 to the compute dtype before the gated RMSNorm. The state is updated IN
 PLACE (``kv/state.py``); ``jnp.repeat(..., axis)`` is ``repeat_interleave``.
+
+On a mesh (``ctx``) the heads are independent and cut over ``model``
+(``ssm_heads``, and their channels as ``lru``): a rank projects its heads'
+``z``, ``xs`` and ``dt`` columns, holds their ``dt_bias``, ``A_log``,
+``D_skip`` and conv taps, and the whole ``bc`` (one group, replicated);
+the gated RMSNorm over all of ``d_inner`` all-reduces the sum of squares
+before the rank scales its part; ``out_proj`` is row-parallel onto the
+residual's placement (all-reduce under operator_centric, reduce-scatter
+under sub_operator). The rank's state holds its heads' H and a conv
+window of its ``xs`` channels followed by the whole ``bc``
+(``kv/state.py::ssd_state_local``). The batch rows are the caller's
+(its data row's), the logits this rank's vocabulary rows.
 """
 from __future__ import annotations
 
@@ -27,6 +39,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kv.state import (RecurrentState, causal_conv, conv_step,
                                   init_ssd_state, mask_rows)
 from repro_torch.models import common
+from repro_torch.models.sharding import (NULL_CTX, NULL_LAYOUT, MeshLayout,
+                                         ShardingCtx, channel_head_cut,
+                                         entry_of, layout)
+from repro_torch.models.transformer import final_logits, row_linear
 
 PAD_DT = -1e4           # softplus(PAD_DT + bias) == 0: a padded step is a no-op
 
@@ -36,6 +52,18 @@ def dims(cfg: ModelConfig):
     d_in = s.d_inner(cfg.d_model)
     nh = s.n_heads(cfg.d_model)
     return d_in, nh, s.head_dim, s.d_state, s.n_groups, s.conv_width
+
+
+def mesh_cut(cfg: ModelConfig, ctx: ShardingCtx) -> Tuple[str, ...]:
+    """The mesh axes this rank's heads (and their inner channels) are cut
+    over: () on one device or where the rules leave them whole."""
+    d_in, nh = dims(cfg)[:2]
+    return channel_head_cut(ctx, "SSD", cfg.d_model, d_in, "ssm_heads", nh)
+
+
+def _local(p):
+    """(inner channels, heads) of this rank's SSD parameters."""
+    return p["conv_x"].shape[1], p["A_log"].shape[0]
 
 
 def make_ssd_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
@@ -73,17 +101,25 @@ def _rep(t: torch.Tensor, n: int, dim: int) -> torch.Tensor:
     return t if n == 1 else t.repeat_interleave(n, dim=dim)
 
 
-def _gated_out(p, y, z, x_dtype, cfg):
+def _gated_out(p, y, z, x_dtype, cfg, lay: MeshLayout = NULL_LAYOUT,
+               cut=()):
     """y (f32, (B,S,d_in)) cast to the compute dtype, the gated RMSNorm
-    (silu(z) rounded to the compute dtype) and the output projection."""
-    y = common.apply_norm("rmsnorm", p["norm"], y.to(x_dtype), cfg.norm_eps)
+    (silu(z) rounded to the compute dtype) and the output projection. On
+    a mesh y holds the rank's channels: the norm's sum of squares is
+    all-reduced over ``cut`` and ``out_proj`` is row-parallel onto the
+    residual's placement."""
+    y = common.rms_norm_cut(p["norm"], y.to(x_dtype), cfg.norm_eps,
+                            lay.ctx, cut, dims(cfg)[0])
     y = y * F.silu(z.to(torch.float32)).to(y.dtype)
-    return common.linear(p["out_proj"], y)
+    return row_linear(p["out_proj"], y, lay, cut, "ssd_out")
 
 
-def ssd_full_seq(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Chunked SSD over a full sequence. x: (B,S,D) -> (B,S,D)."""
-    d_in, nh, hd, N, G, W = dims(cfg)
+def ssd_full_seq(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+                 lay: MeshLayout = NULL_LAYOUT, cut=()) -> torch.Tensor:
+    """Chunked SSD over a full sequence. x: (B,S,D) -> (B,S,D) (on a mesh:
+    x whole, the output on the residual's placement)."""
+    _, _, hd, N, G, W = dims(cfg)
+    d_in, nh = _local(p)
     B, S0, _ = x.shape
     Q = min(cfg.ssm.chunk, S0)
     S = -(-S0 // Q) * Q                                   # pad to chunk multiple
@@ -143,14 +179,16 @@ def ssd_full_seq(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
                            H_prev)
     y = y_intra + y_inter + p["D_skip"][:, None] * xh
     y = y.reshape(B, S, d_in)[:, :S0]
-    return _gated_out(p, y, z, x.dtype, cfg)
+    return _gated_out(p, y, z, x.dtype, cfg, lay, cut)
 
 
 def ssd_final_state(p: Dict, x: torch.Tensor, cfg: ModelConfig
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The state after consuming x (the prefill-to-decode handoff):
-    (H (B,nh,hd,N) f32, conv window (B,W-1,channels) f32)."""
-    d_in, nh, hd, N, G, W = dims(cfg)
+    (H (B,nh,hd,N) f32, conv window (B,W-1,channels) f32), over this
+    rank's heads and channels on a mesh."""
+    _, _, hd, N, G, W = dims(cfg)
+    d_in, nh = _local(p)
     B, S, _ = x.shape
     f32 = torch.float32
     _, xs, bc, dt_raw = _project(p, x)
@@ -169,12 +207,13 @@ def ssd_final_state(p: Dict, x: torch.Tensor, cfg: ModelConfig
 
 
 def ssd_decode(p: Dict, x: torch.Tensor, cfg: ModelConfig, H: torch.Tensor,
-               conv: torch.Tensor
+               conv: torch.Tensor, lay: MeshLayout = NULL_LAYOUT, cut=()
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-token step over one layer's state. x: (B,1,D); H: (B,nh,hd,N);
     conv: (B,W-1,Ch) -> (out (B,1,D), H', conv') with the new state in
     fresh f32 tensors."""
-    d_in, nh, hd, N, G, W = dims(cfg)
+    _, _, hd, N, G, W = dims(cfg)
+    d_in, nh = _local(p)
     B = x.shape[0]
     f32 = torch.float32
     z, xs, bc, dt_raw = _project(p, x)
@@ -193,12 +232,13 @@ def ssd_decode(p: Dict, x: torch.Tensor, cfg: ModelConfig, H: torch.Tensor,
     H = H * a[..., None, None] + torch.einsum("bh,bhp,bhn->bhpn", dt, xh,
                                               Bh)
     y = torch.einsum("bhpn,bhn->bhp", H, Ch) + p["D_skip"][None, :, None] * xh
-    out = _gated_out(p, y.reshape(B, 1, d_in), z, x.dtype, cfg)
+    out = _gated_out(p, y.reshape(B, 1, d_in), z, x.dtype, cfg, lay, cut)
     return out, H, conv_new.to(f32)
 
 
 def ssd_chunk(p: Dict, x: torch.Tensor, cfg: ModelConfig, H0: torch.Tensor,
-              conv0: torch.Tensor, valid_len: int
+              conv0: torch.Tensor, valid_len: int,
+              lay: MeshLayout = NULL_LAYOUT, cut=()
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One prompt chunk of the SSD recurrence with carried state (the
     chunked-prefill lane): the quadratic form of ``ssd_full_seq`` over one
@@ -207,7 +247,8 @@ def ssd_chunk(p: Dict, x: torch.Tensor, cfg: ModelConfig, H0: torch.Tensor,
     ``valid_len`` a host int: chunk positions at or past it are padding and
     exact no-ops on the state. Returns (y (1,C,D), H_end, conv_end), the
     window ending at the last REAL input."""
-    d_in, nh, hd, N, G, W = dims(cfg)
+    _, _, hd, N, G, W = dims(cfg)
+    d_in, nh = _local(p)
     B, C, _ = x.shape
     f32 = torch.float32
     z, xs, bc, dt_raw = _project(p, x)
@@ -252,7 +293,7 @@ def ssd_chunk(p: Dict, x: torch.Tensor, cfg: ModelConfig, H0: torch.Tensor,
         + torch.einsum("bsh,bshp,bshn->bhpn", dec_end * dt, xh, Bh)
 
     y = y_intra + y_inter + p["D_skip"][None, None, :, None] * xh
-    out = _gated_out(p, y.reshape(B, C, d_in), z, x.dtype, cfg)
+    out = _gated_out(p, y.reshape(B, C, d_in), z, x.dtype, cfg, lay, cut)
     return out, H_end, conv_end
 
 
@@ -297,36 +338,56 @@ def loss_fn(params, batch, cfg: ModelConfig) -> torch.Tensor:
                                   chunk=common.ce_chunk(x.shape[1]))
 
 
-def _logits(params, x, cfg):
-    x = common.apply_norm(cfg.norm, params["ln_f"], x, cfg.norm_eps)
-    return common.unembed_logits(params["embed"]["table"], x)
+def _mesh(cfg: ModelConfig, ctx: ShardingCtx):
+    return layout(cfg, ctx), mesh_cut(cfg, ctx)
 
 
-def make_state(cfg: ModelConfig, batch: int, device=None) -> RecurrentState:
+def _embed(params, tokens, lay: MeshLayout):
+    return common.embed(params["embed"], tokens, lay.ctx, lay.vocab,
+                        lay.res_spec())
+
+
+def _norm_in(lp, h, cfg, lay: MeshLayout):
+    """The block's norm of the whole residual (gathered on a mesh)."""
+    return common.apply_norm(cfg.norm, lp["ln"], lay.to_full(h, "ln_in"),
+                             cfg.norm_eps)
+
+
+def make_state(cfg: ModelConfig, batch: int, device=None,
+               ctx: ShardingCtx = NULL_CTX) -> RecurrentState:
+    """A zeroed state of ``batch`` slots; on a mesh this rank's part
+    (its data row's slots, its heads, its conv layout)."""
     d_in, nh, hd, N, G, W = dims(cfg)
+    if ctx.active:
+        rows = ctx.n(ctx.batch_axes)
+        n = ctx.n(entry_of(mesh_cut(cfg, ctx)))
+        batch, nh, d_in = batch // rows, nh // n, d_in // n
     return init_ssd_state(cfg.n_layers, batch, nh, hd, N, W,
                           conv_channels=d_in + 2 * G * N, device=device)
 
 
-def prefill(params, tokens: torch.Tensor, cfg: ModelConfig
+def prefill(params, tokens: torch.Tensor, cfg: ModelConfig,
+            ctx: ShardingCtx = NULL_CTX
             ) -> Tuple[RecurrentState, torch.Tensor]:
     """Encode the prompt (B,S): (state, last-position logits (B,1,V))."""
-    h = common.embed(params["embed"], tokens)
+    lay, cut = _mesh(cfg, ctx)
+    h = _embed(params, tokens, lay)
     Hs, convs = [], []
     for lp in params["blocks"]:
-        y = common.apply_norm(cfg.norm, lp["ln"], h, cfg.norm_eps)
+        y = _norm_in(lp, h, cfg, lay)
         H, conv = ssd_final_state(lp["ssd"], y, cfg)
         Hs.append(H)
         convs.append(conv)
-        h = h + ssd_full_seq(lp["ssd"], y, cfg)
+        h = h + ssd_full_seq(lp["ssd"], y, cfg, lay, cut)
     state = RecurrentState(h=torch.stack(Hs), conv=torch.stack(convs))
-    return state, _logits(params, h[:, -1:], cfg)
+    return state, final_logits(params, h[:, -1:], cfg, lay)
 
 
 def decode_step_slotted(params, state: RecurrentState, tokens: torch.Tensor,
                         positions: Optional[torch.Tensor],
                         active: Optional[torch.Tensor], cfg: ModelConfig,
-                        kv_bucket: int = 0, kv_shards: int = 1
+                        kv_bucket: int = 0, kv_shards: int = 1,
+                        ctx: ShardingCtx = NULL_CTX
                         ) -> Tuple[RecurrentState, torch.Tensor]:
     """Continuous-batching decode step. The recurrence does not depend on
     the position, so the cursors only say which rows commit: each layer's
@@ -336,40 +397,48 @@ def decode_step_slotted(params, state: RecurrentState, tokens: torch.Tensor,
     ``kv_shards`` are accepted for the KV families' signature and ignored.
     Returns (state, logits (B,1,V) f32). No host sync."""
     del positions, kv_bucket, kv_shards
-    h = common.embed(params["embed"], tokens[:, None])
+    lay, cut = _mesh(cfg, ctx)
+    h = _embed(params, tokens[:, None], lay)
     for i, lp in enumerate(params["blocks"]):
-        y = common.apply_norm(cfg.norm, lp["ln"], h, cfg.norm_eps)
+        y = _norm_in(lp, h, cfg, lay)
         o, H, conv = ssd_decode(lp["ssd"], y, cfg, state.h[i],
-                                state.conv[i])
+                                state.conv[i], lay, cut)
         mask_rows(active, H, state.h[i], 0)
         mask_rows(active, conv, state.conv[i], 0)
         h = h + o
-    return state, _logits(params, h, cfg)
+    return state, final_logits(params, h, cfg, lay)
 
 
 def decode_step(params, state: RecurrentState, tokens: torch.Tensor,
-                cfg: ModelConfig) -> Tuple[RecurrentState, torch.Tensor]:
+                cfg: ModelConfig, ctx: ShardingCtx = NULL_CTX
+                ) -> Tuple[RecurrentState, torch.Tensor]:
     """Shared-cursor decode step (drain serving): every row advances."""
-    return decode_step_slotted(params, state, tokens, None, None, cfg)
+    return decode_step_slotted(params, state, tokens, None, None, cfg,
+                               ctx=ctx)
 
 
 def prefill_chunk(params, state: RecurrentState, tokens: torch.Tensor,
-                  slot: int, start: int, valid_len: int, cfg: ModelConfig
+                  slot: int, start: int, valid_len: int, cfg: ModelConfig,
+                  ctx: ShardingCtx = NULL_CTX
                   ) -> Tuple[RecurrentState, torch.Tensor]:
     """Chunked prefill: one (1,C) chunk of slot ``slot``'s prompt advances
     its per-layer (H, conv window) through ``ssd_chunk``. ``start`` == 0
     starts from a zero state (a freed slot may hold its previous occupant's
-    state). ``slot``, ``start`` and ``valid_len`` are host ints. Returns
-    (state, logits (1,1,V)) at the last valid position."""
-    h = common.embed(params["embed"], tokens)
+    state). ``slot``, ``start`` and ``valid_len`` are host ints (on a mesh
+    ``slot`` is this data row's local slot). Returns (state, logits
+    (1,1,V)) at the last valid position."""
+    lay, cut = _mesh(cfg, ctx)
+    h = _embed(params, tokens, lay)
     for i, lp in enumerate(params["blocks"]):
         H_all, conv_all = state.h[i], state.conv[i]
         H0, conv0 = H_all[slot:slot + 1], conv_all[slot:slot + 1]
         if start == 0:
             H0, conv0 = torch.zeros_like(H0), torch.zeros_like(conv0)
-        y = common.apply_norm(cfg.norm, lp["ln"], h, cfg.norm_eps)
-        o, H1, conv1 = ssd_chunk(lp["ssd"], y, cfg, H0, conv0, valid_len)
+        y = _norm_in(lp, h, cfg, lay)
+        o, H1, conv1 = ssd_chunk(lp["ssd"], y, cfg, H0, conv0, valid_len,
+                                 lay, cut)
         H_all[slot].copy_(H1[0])
         conv_all[slot].copy_(conv1[0])
         h = h + o
-    return state, _logits(params, h[:, valid_len - 1:valid_len], cfg)
+    return state, final_logits(params, h[:, valid_len - 1:valid_len], cfg,
+                               lay)

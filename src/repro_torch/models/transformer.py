@@ -57,7 +57,8 @@ from repro_torch.kv.cache import (KVCache, batch_valid_mask, bucket_view,
                                   chunk_hot_image, cold_boundary,
                                   init_kv_cache, init_kv_cache_sharded,
                                   layer_append_slotted,
-                                  layer_append_ring, layer_append_tiered,
+                                  layer_append_ring, layer_append_ring_block,
+                                  layer_append_tiered,
                                   layer_read_slot, layer_read_slot_cold,
                                   layer_read_tiered,
                                   layer_read_tiered_shards, layer_write_chunk,
@@ -263,16 +264,22 @@ def attention_out(p: dict, x: torch.Tensor, o: torch.Tensor,
     ``act_heads`` (an all-gather under operator_centric), to wo's rows (a
     slice), through the row-parallel wo and onto the residual
     (reduce-scatter | all-reduce)."""
-    B, S = x.shape[0], x.shape[1]
+    return wo_out(p["attn"]["wo"], o, x.shape[0], x.shape[1], cfg, lay)
+
+
+def wo_out(wo: dict, o: torch.Tensor, B: int, S: int, cfg: ModelConfig,
+           lay: MeshLayout = NULL_LAYOUT) -> torch.Tensor:
+    """The output projection ``wo`` of o (B,S,h,hd) or (B,h,hd) over the
+    attention's heads, onto the residual's placement (``attention_out``'s
+    body, for a block whose attention parameters are not at ``attn``)."""
     if lay.active:
-        o = lay.heads(o.reshape(B, S, -1, cfg.head_dim), lay.kv_heads,
+        o = lay.heads(o.reshape(B, S, -1, cfg.head_dim), lay.attn_heads,
                       lay.act_heads, "o_act_heads")
         o = lay.ctx.reshard(o.reshape(B, S, -1),
                             (None, None, entry_of(lay.act_heads)),
                             (None, None, entry_of(lay.wo_rows)),
                             site="wo_rows")
-    return row_linear(p["attn"]["wo"], o.reshape(B, S, -1), lay,
-                      lay.wo_rows, "attn_out")
+    return row_linear(wo, o.reshape(B, S, -1), lay, lay.wo_rows, "attn_out")
 
 
 def post_attention(p: dict, x: torch.Tensor, o: torch.Tensor,
@@ -350,15 +357,22 @@ def block_decode_slotted(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 def block_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                 kv_slices: Tuple, pos: torch.Tensor, window: int
-                 ) -> torch.Tensor:
+                 kv_slices: Tuple, pos: torch.Tensor, window: int,
+                 lay: MeshLayout = NULL_LAYOUT, seq=None) -> torch.Tensor:
     """Shared-cursor decode layer over a ring layer (the hybrid's local
     attention): every row appends at slot ``pos % size`` and attends the
     slots holding positions (pos - window, pos] through K1, with the tile
     limit min(pos + 1, size). ``pos`` is a 0-d device int: no host sync.
-    x: (B,1,D); the slices are updated in place."""
+    x: (B,1,D); the slices are updated in place. On a mesh the attention
+    runs over ``lay.attn_heads``; where this rank holds a block of the
+    ring's slots (``seq`` = ``cache_seq(cache)``, +seqkv) the append lands
+    on the rank that holds slot ``pos % size`` and the blocks' partial
+    statistics merge across ranks (``attend_ring_seq``)."""
     B = x.shape[0]
-    q, k, v = pre_attention(p, x, pos.reshape(1, 1).expand(B, 1), cfg)
+    q, k, v = pre_attention(p, x, pos.reshape(1, 1).expand(B, 1), cfg, lay)
+    if seq:
+        o = attend_ring_seq(q, k, v, kv_slices, pos, window, lay.ctx, *seq)
+        return post_attention(p, x, o, cfg, lay)
     k_l, v_l, ks_l, vs_l = layer_append_ring(*kv_slices[:4], k[:, 0],
                                              v[:, 0], pos)
     size = k_l.shape[2]
@@ -367,7 +381,7 @@ def block_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
     kv_limit = torch.clamp_max(pos + 1, size).to(torch.int32)
     o = decode_attention(q[:, 0], k_l, v_l, mask, ks_l, vs_l,
                          kv_limit=kv_limit)
-    return post_attention(p, x, o, cfg)
+    return post_attention(p, x, o, cfg, lay)
 
 
 def chunk_positions(start: int, C: int, device) -> torch.Tensor:
@@ -510,6 +524,33 @@ def attend_decode_seq(q, k, v, kv_slices: Tuple, positions, active,
         .to(q.dtype)
 
 
+def attend_ring_seq(q, k, v, kv_slices: Tuple, pos, window: int,
+                    ctx: ShardingCtx, seq_axes, lo: int):
+    """The KV side of a shared-cursor ring layer when this rank holds
+    slots [lo, lo + n) of a ring of ``n * ranks`` slots (the rules cut
+    ``kv_seq``, which is the ring's slot dim, as the reference's
+    ``cache_specs`` does): the new K/V land in slot ``pos % size`` on the
+    rank that holds it (the others rewrite their own bytes), K1 in
+    partial-statistics mode attends this block under the ring's mask
+    sliced to it and the limit min(pos + 1, size) - lo, and the blocks'
+    (o, m, l) merge across ranks. q (B,1,H,hd) over all heads. Returns o
+    (B,H,hd) in q's dtype."""
+    k_l, v_l, ks_l, vs_l = kv_slices[:4]
+    nb = k_l.shape[2]
+    size = nb * ctx.n(entry_of(seq_axes))
+    layer_append_ring_block(k_l, v_l, ks_l, vs_l, k[:, 0], v[:, 0], pos,
+                            size, lo)
+    B = q.shape[0]
+    mask = slot_valid_mask(size, pos, window)[lo:lo + nb][None] \
+        .expand(B, nb).contiguous()
+    lim = torch.clamp(torch.clamp_max(pos + 1, size) - lo, 0, nb) \
+        .to(torch.int32)
+    o, m, l = flash_decode_partial(q[:, 0].contiguous(), k_l, v_l, mask,
+                                   ks_l, vs_l, kv_limit=lim)
+    return _merge_blocks(o, m, l, ctx, seq_axes, "kv_seq_merge") \
+        .to(q.dtype)
+
+
 def attend_chunk_seq(q, k, v, kv_slices: Tuple, slot: int, start: int,
                      valid_len: int, positions, cfg: ModelConfig,
                      ctx: ShardingCtx, seq_axes, lo: int):
@@ -554,10 +595,10 @@ def cache_seq(cache: KVCache):
 
 
 def check_mesh_cache(cache: KVCache, ctx: ShardingCtx):
-    if ctx.active and (cache.is_tiered or cache.window):
+    if ctx.active and cache.is_tiered:
         raise NotImplementedError(
-            "tiered and ring KV caches are not cut over a mesh in this "
-            "slice of the port (flat float or int8 caches are)")
+            "tiered KV caches are not cut over a mesh in this slice of the "
+            "port (flat and ring caches are)")
 
 
 # ---------------------------------------------------------------------------

@@ -1288,10 +1288,12 @@ class ServingEngine:
     def _check_mesh(self, api, mode, slots, prefill_chunk, backend,
                     preemptible, overlap, kv_budget_bytes):
         """What this slice serves on a mesh: the continuous scheduler, the
-        colocated or WA (routing='sharding') backend, flat caches, slots
-        cut evenly over the batch axes; an MoE only with one data row (its
-        experts' columns are cut over data, so a batch-1 admission on one
-        row would need the others)."""
+        colocated or WA (routing='sharding') backend, flat caches (or the
+        SSD's state: mamba2, colocated), slots cut evenly over the batch
+        axes; an MoE only with one data row (its experts' columns are cut
+        over data, so a batch-1 admission on one row would need the
+        others). recurrentgemma (``auto`` resolves to drain) stays
+        refused here and whisper by the engine itself."""
         ctx = self.ctx
         rows = ctx.n(ctx.batch_axes)
         why = None

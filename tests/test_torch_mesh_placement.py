@@ -234,22 +234,39 @@ def test_residency_defaults_are_the_h100s():
 
 
 def test_make_step_refuses_train_and_pipeline():
-    """Training on a mesh is ported; the pod axis as a pipeline waits for
-    its slice, and so do the recurrent families on a mesh."""
+    """The pod axis as a pipeline serves decode only, as the reference's
+    ``make_pp_step``: train and prefill raise its NotImplementedError and
+    decode builds a bundle. The recurrent families serve on a mesh, and
+    training them there waits for its slice; tiered caches on a mesh wait
+    for theirs."""
     from repro_torch.configs.shapes import SHAPES
     from repro_torch.core.execution import make_rules, make_step
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.sharding import ShardingCtx, sub_operator
     mesh = types.SimpleNamespace(axis_names=("pod", "data", "model"),
                                  shape={"pod": 2, "data": 2, "model": 2},
                                  devices_shape=(2, 2, 2), size=8,
                                  device=torch.device("cpu"))
-    cfg = get_config("qwen2-0.5b").reduced()
-    with pytest.raises(NotImplementedError, match="pipeline-parallel"):
+    cfg = get_config("qwen2-0.5b").reduced().replace(n_layers=4)
+    with pytest.raises(NotImplementedError, match="PP is implemented for "
+                       "decode"):
         make_step(cfg, SHAPES["train_4k"], mesh, pod_strategy="pp")
-    with pytest.raises(NotImplementedError, match="pipeline-parallel"):
-        make_step(cfg, SHAPES["decode_32k"], mesh, pod_strategy="pp")
-    with pytest.raises(NotImplementedError, match="ssm family on a mesh"):
+    with pytest.raises(NotImplementedError, match="PP is implemented for "
+                       "decode"):
+        make_step(cfg, SHAPES["prefill_32k"], mesh, pod_strategy="pp")
+    bundle = make_step(cfg, SHAPES["decode_32k"], mesh, pod_strategy="pp")
+    assert bundle.name.endswith("|sub_operator|pp2|decode")
+    assert bundle.init_caches is not None
+    with pytest.raises(NotImplementedError, match="training the ssm family "
+                       "on a mesh"):
         make_step(get_config("mamba2-1.3b").reduced(), SHAPES["train_4k"],
                   mesh)
+    assert make_step(get_config("mamba2-1.3b").reduced(),
+                     SHAPES["decode_32k"], mesh).api.ctx.active
+    tiered = cfg.replace(hot_window=8, kv_cold_block=4)
+    api = build_model(tiered, "cpu", ShardingCtx(mesh, sub_operator()))
+    with pytest.raises(NotImplementedError, match="tiered"):
+        api.init_caches(8, 64)
     assert make_rules("sub_operator", mesh).rules["batch"] == ("pod", "data")
     with pytest.raises(ValueError, match="unknown executor"):
         make_rules("gspmd", mesh)

@@ -200,7 +200,9 @@ def test_pipeline_and_recurrent_families_on_a_mesh_raise():
         rank = 0
         device = torch.device("cpu")
     shape = ShapeConfig("t", 16, 4, "train")
-    with pytest.raises(NotImplementedError, match="pipeline-parallel"):
+    # the pipeline over the pod axis serves decode only, as the reference's
+    with pytest.raises(NotImplementedError, match="PP is implemented for "
+                       "decode"):
         make_step(get_config(ranks.DENSE).reduced(), shape, Mesh(),
                   pod_strategy="pp")
     with pytest.raises(NotImplementedError, match="ssm family on a mesh"):
