@@ -82,7 +82,7 @@ phases; any failure exits non-zero before the result line:
    loss within 1e-5 relative, each leaf within 1e-3 of its largest
    magnitude plus 1e-5 of the largest gradient;
 4. the serving engine at full qwen2-0.5b width (24 layers; runs (b),
-   (f), (h), (j) and (k) cut to 12, (e) and (g) to 8, to keep the script's
+   (e)-(h), (j) and (k) cut to 8, to keep the script's
    time; seeded random
    bf16 weights): (a) chunked admission + macro-step decode + KV buckets,
    (b) int8 weights and int8 KV with monolithic admission, (c) per-token
@@ -128,8 +128,8 @@ phases; any failure exits non-zero before the result line:
    served on the CPU and register one decode-block program (no buckets),
    and (p) recurrentgemma-9b with ``mode="auto"``, which must resolve to
    drain (no slotted API), complete with no admission while another
-   request decodes, and launch K1 and K3 (and not K4) (12 of 38 layers:
-   4 superblocks); one decode block
+   request decodes, and launch K1 and K3 (and not K4) (6 of 38 layers:
+   2 superblocks); one decode block
    of (o) and three drain steps of (p) are traced, with no synchronising
    call; then (q) internvl2-76b at full width cut to 4 of 80 layers,
    text-only through the engine on (a)'s plan with monolithic admission
@@ -157,7 +157,7 @@ phases; any failure exits non-zero before the result line:
    and 16 greedy decode steps, whose tokens must equal the same weights
    unsharded on the card and whose logits must agree within 1e-4 of
    max|logit|, K1 and K3 launched on both ranks (12 query heads over 4 KV
-   heads of 128, half of F); (u) at 4 of 28 layers, int8 weights and KV
+   heads of 128, half of F); (u) at 2 of 28 layers, int8 weights and KV
    through the engine (``ctx=``) in continuous mode on (a)'s plan,
    sub_operator then operator_centric: the two executors' streams must be
    equal, the requests whose stream differs from the unsharded engine's
@@ -200,6 +200,23 @@ phases; any failure exits non-zero before the result line:
    unsharded model on rank 0 (1e-4 of max|logit|, tokens exact), and
    (z2) through the engine on (a)'s plan with the unsharded engine's
    streams and host syncs (phase 2 holds these K1, K3 and K4 shapes);
+4e. the recurrent and enc-dec families trained on meshes of two ranks
+   sharing the card over gloo, full width, f32, seeded weights,
+   ``launch.train``'s synthetic data, ``make_step(mode="train")`` under
+   sub_operator+fsdp, each step's loss within 2e-5 and grad norm within
+   2e-4 (relative) of the same steps unsharded on rank 0, the fsdp bytes
+   a rank a step printed: (z5) mamba2-1.3b, 2 of 48 layers, on (2, 1),
+   4 x 128, 3 steps (no port kernel: the SSD has none); (z6)
+   recurrentgemma-9b, one superblock (3 of 38), on (1, 2), 2 x 128, 2
+   steps (K3 gelu with a gradient on half of F a rank, the RG-LRU
+   channels and the 256,000-row vocabulary cut over the model axis);
+   (z7) whisper-medium, 2 + 2 of 24 + 24 layers, 1,500 frames, on (2, 1),
+   2 x 64, 2 steps (no port kernel in training); and (z8)
+   recurrentgemma-9b (one superblock, f32) through the engine on (1, 2),
+   ``auto`` resolving to drain, on run (p)'s plan: streams and host syncs
+   equal to the unsharded engine's, K1 over the ring and K3 gelu on both
+   ranks (phase 2 holds K3 with its gradient at (z6)'s rank shape, 256
+   rows of D=4,096 and F=6,144, f32);
 5. time each kernel at the main path's shapes (K1 at B=8 over S=200 and
    at a long context of S=4096, bf16 and int8 KV, in partial mode at one
    shard of 48, the whole split attention of a layer at bucket 192 and the
@@ -227,7 +244,10 @@ phases; any failure exits non-zero before the result line:
    F=2,432) against three matmuls and silu; K1 at phase 4d's shapes (the
    ring at G=8 hd 256, whisper's 8 heads a rank over 1,500 frames and the
    self cache, a PP stage's) against SDPA and K3 gelu at F=6,144 against
-   three matmuls and gelu.
+   three matmuls and gelu; K3 gelu at (z6)'s training rank shape against
+   three f32 matmuls and gelu, and K4 at a PP stage's projections
+   (3072x3072, 3072x1024, 8192x3072; 8 rows) against a bf16 matmul on the
+   dequantized weights.
 
 It then prints the card (nvidia-smi name, power limit), a ``kernels`` JSON
 line, and last the JSON result line. Without a GPU, or without the rest of
@@ -1254,9 +1274,11 @@ def phase_moe_parity():
 # phase 4: the engine at full qwen2-0.5b
 # ---------------------------------------------------------------------------
 
-# runs (b), (e)-(h), (j) and (k) and the WA block walls at half of
-# qwen2-0.5b's 24 layers
-SHORT = dict(n_layers=12)
+# runs (b), (f), (h), (j) and (k), the WA block walls and the block walls
+# of the KV layouts at a third of qwen2-0.5b's 24 layers (half until phase
+# 4e joined the script; the block walls at all 24): their checks compare
+# runs of one depth with each other or with their plan's host syncs
+SHORT = dict(n_layers=8)
 # runs (e) and (g) at a third (8 layers) since the mesh phase 4b joined the
 # script: their checks are their plan's host syncs, equal to (a)'s at any
 # depth, and no stream is compared across depths
@@ -1267,7 +1289,8 @@ RUNS = {
         {}, dict(block_size=8, kv_bucket_chunk=64, prefill_chunk=32,
                  max_new_cap=72), 12, 64, ("flash_decode", "fused_ffn")),
     # (b), (k) and (j) (the int8 runs, their streams compared with each
-    # other) at 12 layers since the training run (s) joined the script
+    # other) at 12 layers since the training run (s) joined the script, 8
+    # since phase 4e did
     "b_int8w_int8kv_monolithic_T8": (
         dict(weight_int8=True, kv_dtype="int8", **SHORT),
         dict(block_size=8, kv_bucket_chunk=64, max_new_cap=72), 12, 32,
@@ -1276,8 +1299,8 @@ RUNS = {
                   ("flash_decode", "fused_ffn")),
     "d_bf16_drain_T1": ({}, dict(mode="drain", max_new_cap=72), 12, 32,
                         ("flash_decode", "fused_ffn")),
-    # cut to 12 of 24 layers (SHORT), as are (f) and (h): the other
-    # configurations' runs below take their time
+    # cut to 8 of 24 layers (SHORTER), as are (f) and (h) (SHORT): the
+    # other configurations' runs below take their time
     "e_int8kv_split4_chunked_T8": (
         dict(kv_dtype="int8", **SHORTER),
         dict(block_size=8, kv_bucket_chunk=64, prefill_chunk=32,
@@ -1415,14 +1438,15 @@ WALLS = (
 
 def block_walls():
     """Wall time (host clock to a synchronise, median of 5) of one decode
-    block at full qwen2-0.5b for bf16 and int8 KV x 1 and 4 shards and the
-    tiered caches of runs (g) and (h), in one process: what split-KV, int8
-    KV and the tiers add to a block."""
+    block at full qwen2-0.5b width, 8 layers (SHORT), for bf16 and int8 KV
+    x 1 and 4 shards and the tiered caches of runs (g) and (h), in one
+    process: what split-KV, int8 KV and the tiers add to a block."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models.registry import build_model
     out = {}
     for label, over, n in WALLS:
-        api = build_model(get_config("qwen2-0.5b").replace(**over))
+        api = build_model(get_config("qwen2-0.5b").replace(**over,
+                                                           **SHORT))
         params = api.init(0)
         block = decode_block_fn(api, params, kv_shards=n)
         block()
@@ -1587,7 +1611,7 @@ H_ENGINE = dict(block_size=8, kv_bucket_chunk=64, max_new_cap=72,
 
 
 def run_budget(totals, runs, card):
-    """Run (h) at full qwen2-0.5b width (12 layers, seeded random bf16
+    """Run (h) at full qwen2-0.5b width (8 layers, seeded random bf16
     weights, int8 cold tier, hot 32 / blocks of 16), 8 slots, 12 requests x 32
     tokens. Both runs must complete every request with the same tokens;
     the budgeted one must preempt and restore; ``serve_admit`` (no
@@ -1655,7 +1679,7 @@ def run_budget(totals, runs, card):
     torch.cuda.empty_cache()
 
 
-# run (f): the failure model at full width, 12 layers. The plan and its
+# run (f): the failure model at full width, 8 layers. The plan and its
 # faults come from FaultPlan.generate(F_SEED); injected stalls and TTFT
 # deadlines are cleared (they depend on wall time, which the card's runs
 # do not share), and one scripted priority-3 arrival (F_SCRIPTED: prompt,
@@ -1672,7 +1696,7 @@ F_ENGINE = dict(block_size=8, kv_bucket_chunk=64, prefill_chunk=32,
 def run_failure(totals, runs, card):
     """Run (f): ``run_chaos`` (a clean run, then the chaos run with the
     plan's injector) through the colocated engine at full qwen2-0.5b width
-    (12 layers, seeded random bf16 weights, int8 KV), 4 slots. Requires no
+    (8 layers, seeded random bf16 weights, int8 KV), 4 slots. Requires no
     invariant violation, completed streams equal to the clean run's, at
     least one injected failure, preemption and restore, K1 and K3 launched
     in both runs, and the swap pair registered once each."""
@@ -2299,6 +2323,7 @@ def phase_timing(dev, launches, runs, per_step, errs):
     rows += mesh_timing_rows(dev, bound, sdpa_args)
     rows += train_mesh_timing_rows(dev, bound)
     rows += pp_family_timing_rows(dev, bound, sdpa_args)
+    rows += fam_train_timing_rows(dev, bound)
     for name, shape, ms, plain, b_ms, b_by, lib, host in rows:
         libs = ", ".join(("not measured" if v is None else
                           f"{v * 1e3:.2f} us") + f" ({k})"
@@ -2484,7 +2509,7 @@ def phase_moe_timing(card):
 
 def wa_block_walls(card):
     """Wall time (host clock to a synchronise) of one decode block (T=8, 8
-    rows at 160, bucket 192) at full qwen2-0.5b width, 12 layers, through
+    rows at 160, bucket 192) at full qwen2-0.5b width, 8 layers, through
     the colocated programs and the WA backend at depths 1 and 2, bf16 and
     int8 weights + int8 KV: 3 rounds, each timing every variant once in
     turn, median per variant; with the kernels each variant launches per
@@ -2770,7 +2795,7 @@ def phase_parity_recurrent():
 
 # phase 4's recurrent runs: (o) mamba2 at full width, 6 of 48 layers, on
 # (a)'s plan (no port kernel: the SSD has none, the reference never quantizes
-# its projections); (p) recurrentgemma at full width, 12 of 38 layers, mode
+# its projections); (p) recurrentgemma at full width, 6 of 38 layers, mode
 # "auto", which resolves to drain (no slotted API), 8 slots, prompt 128,
 # 12 x 32 tokens: K1 over the ring (256 slots: min(window, 128 + 128)) and
 # K3 in its gelu mode
@@ -2780,12 +2805,12 @@ RECURRENT_RUNS = {
     # run (s) joined the script, 12 since the mesh phase 4b did, 6 since
     # the training mesh phase 4c did; (p) at 19 of recurrentgemma's 38 (6
     # superblocks and a tail layer) since phase 4c did, 12 (4 superblocks)
-    # since phase 4d did
+    # since phase 4d did, 6 (2 superblocks) since phase 4e did
     "o_mamba2_chunked_T8": (
         "mamba2-1.3b", dict(n_layers=6), RUNS["a_bf16_chunked_T8"][1], 12,
         64, ()),
     "p_recurrentgemma_auto_drain": (
-        "recurrentgemma-9b", dict(n_layers=12),
+        "recurrentgemma-9b", dict(n_layers=6),
         dict(mode="auto", max_new_cap=72), 12, 32,
         ("flash_decode", "fused_ffn")),
 }
@@ -3494,6 +3519,9 @@ def vlm_encdec_timing_rows(dev, bound, sdpa_args):
 # qwen2-0.5b's D=896, F=4,864
 TRAIN_ROWS, TRAIN_D, TRAIN_F = 8 * 256, 896, 4864
 K3_GRAD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 8e-3}
+# K3 at one rank of phase 4e's (z6): 2 x 128 rows, recurrentgemma's D and
+# half of its F (rows, D, F)
+Z6_K3 = (256, 4096, 6144)
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GRAD_RTOL, TRAIN_GRAD_FLOOR = 1e-3, 1e-5
 # run (s): (name, arch, batch, seq, steps, the checkpointed step)
@@ -3519,44 +3547,51 @@ def phase_compare_train(dev, errs):
     the three weight gradients within 1e-4 of their largest magnitude in
     f32, 8e-3 in bf16 (each side rounds its f32 gradient to bf16 once, at
     most one bf16 ulp apart); the forward within phase 2's 1e-4 and one K3
-    launch a forward."""
+    launch a forward. Also at phase 4c's and phase 4e's rank shapes: (z6)'s
+    gelu, f32, 256 rows of D=4,096 on half of F (6,144 of 12,288)."""
     from repro_torch.kernels.fused_ffn.ops import fused_ffn
     from repro_torch.kernels.fused_ffn.ref import fused_ffn_ref
     # the training shape, no tile multiple, and one rank's shapes in
-    # phase 4c ((w): 512 rows of all of F; (x): 1,024 rows of half of F)
-    for R, D, F in ((TRAIN_ROWS, TRAIN_D, TRAIN_F), (17, 200, 700),
-                    (512, TRAIN_D, TRAIN_F), (1024, TRAIN_D, TRAIN_F // 2)):
-        for dtype in (torch.bfloat16, torch.float32):
-            for act in ("silu", "gelu"):
-                args, _ = k3_inputs(dev, R, seed=R + 1, D=D, F=F,
-                                    dtype=dtype)
-                g = torch.Generator(device=dev).manual_seed(R + 2)
-                dout = torch.randn(R, D, device=dev, generator=g)
-                a1 = [a.clone().requires_grad_(True) for a in args]
-                n0 = fused_ffn.launches
-                out = fused_ffn(*a1, act=act)
-                launched = fused_ffn.launches - n0
-                got = torch.autograd.grad(out, a1, dout)
-                a2 = [a.clone().requires_grad_(True) for a in args]
-                ref = fused_ffn_ref(*a2, act=act)
-                want = torch.autograd.grad(ref, a2, dout)
-                e_fwd = max_err(out.detach(), ref.detach())
-                tol_fwd = 1e-4 * max(1, max_abs(ref.detach()))
-                ratios = [max_err(a, b) / (K3_GRAD_RTOL[dtype] * max_abs(b))
-                          for a, b in zip(got, want)]
-                errs["fused_ffn"] = max(errs["fused_ffn"], e_fwd)
-                log(f"  K3 autograd rows={R} D={D} F={F} "
-                    f"{str(dtype)[6:]} {act}: forward max|d|={e_fwd:.3g} "
-                    f"(tol {tol_fwd:.3g}), launches {launched}; gradients "
-                    f"max|d|/tol dx {ratios[0]:.3g}, dW_gate "
-                    f"{ratios[1]:.3g}, dW_up {ratios[2]:.3g}, dW_down "
-                    f"{ratios[3]:.3g} (tol {K3_GRAD_RTOL[dtype]:g} of max)")
-                require(launched == 1, "K3's autograd forward did not "
-                        "launch the kernel once")
-                require(e_fwd <= tol_fwd, f"K3 autograd forward disagrees "
-                        f"at rows={R} {dtype} {act}")
-                require(all(np.isfinite(r) and r <= 1 for r in ratios),
-                        f"K3 gradients disagree at rows={R} {dtype} {act}")
+    # phase 4c ((w): 512 rows of all of F; (x): 1,024 rows of half of F),
+    # in both dtypes and modes; and phase 4e's (z6) rank shape: gelu, f32,
+    # 2 x 128 rows on recurrentgemma's D and half of its F
+    cases = [(R, D, F, dtype, act)
+             for R, D, F in ((TRAIN_ROWS, TRAIN_D, TRAIN_F), (17, 200, 700),
+                             (512, TRAIN_D, TRAIN_F),
+                             (1024, TRAIN_D, TRAIN_F // 2))
+             for dtype in (torch.bfloat16, torch.float32)
+             for act in ("silu", "gelu")]
+    cases.append(Z6_K3 + (torch.float32, "gelu"))
+    for R, D, F, dtype, act in cases:
+        args, _ = k3_inputs(dev, R, seed=R + 1, D=D, F=F,
+                            dtype=dtype)
+        g = torch.Generator(device=dev).manual_seed(R + 2)
+        dout = torch.randn(R, D, device=dev, generator=g)
+        a1 = [a.clone().requires_grad_(True) for a in args]
+        n0 = fused_ffn.launches
+        out = fused_ffn(*a1, act=act)
+        launched = fused_ffn.launches - n0
+        got = torch.autograd.grad(out, a1, dout)
+        a2 = [a.clone().requires_grad_(True) for a in args]
+        ref = fused_ffn_ref(*a2, act=act)
+        want = torch.autograd.grad(ref, a2, dout)
+        e_fwd = max_err(out.detach(), ref.detach())
+        tol_fwd = 1e-4 * max(1, max_abs(ref.detach()))
+        ratios = [max_err(a, b) / (K3_GRAD_RTOL[dtype] * max_abs(b))
+                  for a, b in zip(got, want)]
+        errs["fused_ffn"] = max(errs["fused_ffn"], e_fwd)
+        log(f"  K3 autograd rows={R} D={D} F={F} "
+            f"{str(dtype)[6:]} {act}: forward max|d|={e_fwd:.3g} "
+            f"(tol {tol_fwd:.3g}), launches {launched}; gradients "
+            f"max|d|/tol dx {ratios[0]:.3g}, dW_gate "
+            f"{ratios[1]:.3g}, dW_up {ratios[2]:.3g}, dW_down "
+            f"{ratios[3]:.3g} (tol {K3_GRAD_RTOL[dtype]:g} of max)")
+        require(launched == 1, "K3's autograd forward did not "
+                "launch the kernel once")
+        require(e_fwd <= tol_fwd, f"K3 autograd forward disagrees "
+                f"at rows={R} {dtype} {act}")
+        require(all(np.isfinite(r) and r <= 1 for r in ratios),
+                f"K3 gradients disagree at rows={R} {dtype} {act}")
 
 
 def train_parity(cfg, B, S, devs=("cuda", "cpu")):
@@ -3868,18 +3903,19 @@ def _leaves(tree):
 # ---------------------------------------------------------------------------
 
 # llama3.2-3b (the paper's deployment) at full width, 8 of its 28 layers
-# in runs (t) and (v), 4 in run (u) (MESH_U_LAYERS):
+# in runs (t) and (v), 2 in run (u) (MESH_U_LAYERS):
 # at (1, 2) each rank holds 12 of 24 query heads over 4 of 8 KV heads (G=3,
 # hd 128), half of F=8192 and half of the vocabulary rows
 MESH_ARCH, MESH_LAYERS = "llama3.2-3b", 8
 MESH_PROMPT, MESH_STEPS, MESH_B = 64, 16, 2
 # run (u): run (a)'s plan (8 slots, prompt 128, 12 requests every 4 steps,
-# 64 new tokens, blocks of 8, buckets of 64, chunks of 32), at 4 of the 28
-# layers: its time is the gloo collectives between two time-sliced ranks
-# (a few ms each, six a layer a token step), which grows with the depth
+# 64 new tokens, blocks of 8, buckets of 64, chunks of 32), at 2 of the 28
+# layers (4 until phase 4e joined the script): its time is the gloo
+# collectives between two time-sliced ranks (a few ms each, six a layer a
+# token step), which grows with the depth
 MESH_U = dict(block_size=8, kv_bucket_chunk=64, prefill_chunk=32,
               max_new_cap=72)
-MESH_U_LAYERS = 4
+MESH_U_LAYERS = 2
 
 
 def _sync(dev):
@@ -4359,11 +4395,11 @@ def train_mesh_rank(mesh, ckpt_dir, reduced=False):
     rehearsal on the CPU."""
     from repro_torch.checkpoint.checkpointer import Checkpointer
     from repro_torch.configs.shapes import ShapeConfig
-    from repro_torch.core.execution import make_step, train_update
+    from repro_torch.core.execution import make_step
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models.param_specs import shard_params
     from repro_torch.models.registry import build_model
-    from repro_torch.optim.adamw import adamw_init, cosine_lr
+    from repro_torch.optim.adamw import adamw_init
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = _train_mesh_cfg(reduced)
     dev = mesh.device
@@ -4383,19 +4419,33 @@ def train_mesh_rank(mesh, ckpt_dir, reduced=False):
         out[name]["wall_s"] = time.monotonic() - t0
         del params, bundle
     if mesh.rank == 0:
-        api = build_model(cfg, dev)
-        params, opt, steps = full, adamw_init(full), []
-        if dev.type == "cuda":
-            torch.cuda.reset_peak_memory_stats()
-        for batch in batches:
-            params, opt, info = train_update(
-                params, opt, batch, loss=api.loss,
-                lr_t=cosine_lr(opt.step, 3e-4, warmup=100, total=10_000))
-            steps.append((float(info["loss"]), float(info["grad_norm"])))
-        out["unsharded"] = {"steps": steps, "peak_gib":
-                            torch.cuda.max_memory_allocated() / 2 ** 30
-                            if dev.type == "cuda" else 0.0}
+        out["unsharded"] = _unsharded_steps(cfg, full, batches, dev)
     return out
+
+
+def _unsharded_steps(cfg, params, batches, dev):
+    """``make_step``'s training steps on one device in this process, from
+    ``params`` (whole) over ``batches``, at the bundle's learning rate:
+    per step (loss, grad_norm), ms a step (host clock to each step's
+    loss on the host) and the peak memory."""
+    from repro_torch.core.execution import train_update
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import adamw_init, cosine_lr
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    api = build_model(cfg, dev)
+    opt, steps = adamw_init(params), []
+    t0 = time.monotonic()
+    for batch in batches:
+        params, opt, info = train_update(
+            params, opt, batch, loss=api.loss,
+            lr_t=cosine_lr(opt.step, 3e-4, warmup=100, total=10_000))
+        steps.append((float(info["loss"]), float(info["grad_norm"])))
+    return {"steps": steps,
+            "ms_per_step": (time.monotonic() - t0) / len(batches) * 1e3,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30
+            if dev.type == "cuda" else 0.0}
 
 
 def train_resume_rank(mesh, ckpt_dir, reduced=False):
@@ -5010,6 +5060,284 @@ def pp_family_timing_rows(dev, bound, sdpa_args):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 4e: the recurrent and enc-dec families trained on a mesh, and
+# recurrentgemma served in drain mode on a mesh, two ranks sharing the
+# card (gloo)
+# ---------------------------------------------------------------------------
+
+# full width, cut in depth, f32, seeded weights, the synthetic data of
+# ``launch.train``; ``make_step(mode="train")`` under sub_operator+fsdp,
+# held each step to the same steps unsharded in one process (rank 0):
+# (z5) mamba2-1.3b 2 of 48 layers on (2, 1), fsdp over the data axis,
+# 4 x 128; (z6) recurrentgemma-9b one superblock (3 of 38 layers) on
+# (1, 2), 2 x 128 (K3 gelu with a gradient on half of F a rank, the
+# RG-LRU channels and the 256,000-row vocabulary cut over the model
+# axis); (z7) whisper-medium 2 + 2 of 24 + 24 layers, 1,500 frames, on
+# (2, 1), 2 x 64. (z8): recurrentgemma-9b (one superblock, f32) through
+# ``ServingEngine`` on (1, 2) (``auto`` resolves to drain) on run (p)'s
+# plan, against the unsharded engine on rank 0
+FAM_TRAIN_RUNS = {
+    # key: (arch, layers, mesh grid, batch, seq, steps, kernels)
+    "z5_mamba2_train": ("mamba2-1.3b", 2, (2, 1), 4, 128, 3, ()),
+    "z6_recurrentgemma_train": ("recurrentgemma-9b", 3, (1, 2), 2, 128, 2,
+                                ("fused_ffn",)),
+    "z7_whisper_train": ("whisper-medium", 2, (2, 1), 2, 64, 2, ()),
+}
+FAM_TRAIN_LOSS_RTOL, FAM_TRAIN_GNORM_RTOL = 2e-5, 2e-4
+DRAIN_MESH_RUN = ("z8_recurrentgemma_drain", "recurrentgemma-9b", 3,
+                  ("flash_decode", "fused_ffn"))
+
+
+def _fam_train_batches(cfg, B, S, steps, dev):
+    from repro_torch.data.synthetic import SyntheticLMData
+    from repro_torch.launch.train import batch_to_torch
+    data = SyntheticLMData(cfg, B, S, seed=0)
+    return [batch_to_torch(data.batch_at(i), dev) for i in range(steps)]
+
+
+def _fam_train_run(mesh, meshes, key, reduced):
+    """One of (z5)-(z7) on this rank: the sharded steps
+    (``_train_mesh_steps``) and, on rank 0, the unsharded steps."""
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.core.execution import make_step
+    from repro_torch.models.param_specs import shard_params
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import adamw_init
+    arch, layers, grid, B, S, steps, _ = FAM_TRAIN_RUNS[key]
+    dev = mesh.device
+    t0 = time.monotonic()
+    cfg = _fam_cfg(arch, layers, reduced)
+    full = build_model(cfg, dev).init(0)
+    batches = _fam_train_batches(cfg, B, S, steps, dev)
+    bundle = make_step(cfg, ShapeConfig("t", S, B, "train"), meshes[grid],
+                       "sub_operator")
+    params = shard_params(full, bundle.ctx)
+    if mesh.rank:
+        del full
+    res = _train_mesh_steps(bundle, cfg, params, adamw_init(params),
+                            batches)
+    res["rules"] = bundle.ctx.rules.name
+    del params, bundle
+    if mesh.rank == 0:
+        # the unsharded steps hold one copy of the weights
+        whole, full = full, None
+        res["unsharded"] = _unsharded_steps(cfg, whole, batches, dev)
+        del whole
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    res["took_s"] = time.monotonic() - t0
+    return res
+
+
+def _drain_mesh_run(mesh, m12, reduced):
+    """(z8) on this rank: recurrentgemma through the engine on (1, 2)
+    under sub_operator, ``mode="auto"``, run (p)'s plan (12 requests of
+    prompt 128 and 32 new tokens, arrivals every 4 steps, 8 slots); on
+    rank 0 the unsharded engine on the same plan."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models.param_specs import shard_params
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.sharding import ShardingCtx, sub_operator
+    from repro_torch.runtime.serving import ServingEngine
+    _, arch, layers, _ = DRAIN_MESH_RUN
+    _, _, kw, n_req, max_new, _ = RECURRENT_RUNS[
+        "p_recurrentgemma_auto_drain"]
+    dev = mesh.device
+    t0 = time.monotonic()
+    cfg = _fam_cfg(arch, layers, reduced)
+    ctx = ShardingCtx(m12, sub_operator())
+    full = build_model(cfg, dev).init(0)
+    params = shard_params(full, ctx)
+    if mesh.rank:
+        del full
+    reqs = make_requests(cfg, n_req, 128, max_new, seed=0, arrival_every=4)
+    eng = ServingEngine(build_model(cfg, dev), 8, 128, device=dev, ctx=ctx,
+                        **kw)
+    _sync(dev)
+    reset_launch_counts()
+    t1 = time.monotonic()
+    st = eng.run(params, reqs)
+    _sync(dev)
+    res = {"streams": [r.generated for r in reqs], "counts": launch_counts(),
+           "host_syncs": st["host_syncs"], "completed": st["completed"],
+           "mode": st["mode"], "tpot_mean_ms": st["tpot_mean_ms"],
+           "decode_steps": st["decode_steps"],
+           "serve_s": time.monotonic() - t1, "mesh": st["mesh"],
+           "programs": {k: v["calls"] for k, v in st["runtime"].items()}}
+    del params, eng
+    if mesh.rank == 0:
+        reqs1 = make_requests(cfg, n_req, 128, max_new, seed=0,
+                              arrival_every=4)
+        st1 = ServingEngine(build_model(cfg, dev), 8, 128, device=dev,
+                            **kw).run(full, reqs1)
+        res["unsharded"] = {"streams": [r.generated for r in reqs1],
+                            "host_syncs": st1["host_syncs"],
+                            "tpot_mean_ms": st1["tpot_mean_ms"]}
+        del full
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    res["took_s"] = time.monotonic() - t0
+    return res
+
+
+def fam_train_rank(mesh, reduced=False):
+    """One rank of phase 4e: (z5)-(z7) on their meshes (the launch's
+    (2, 1) and a (1, 2) mesh over the same two ranks), then (z8).
+    ``reduced``: the reduced configs, for a rehearsal on the CPU."""
+    from repro_torch.launch.mesh import Mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    meshes = {mesh.devices_shape: mesh}
+    meshes[(1, 2)] = Mesh((1, 2), ("data", "model"), mesh.device)
+    out = {"rank": mesh.rank}
+    for key in FAM_TRAIN_RUNS:
+        out[key] = _fam_train_run(mesh, meshes, key, reduced)
+    out[DRAIN_MESH_RUN[0]] = _drain_mesh_run(mesh, meshes[(1, 2)], reduced)
+    return out
+
+
+def phase_fam_train_mesh(totals, runs, device="cuda", reduced=False):
+    """Runs (z5)-(z8) (the module's constants above) on two ranks sharing
+    the card over gloo, one launch: (z5)-(z7) each step's loss within 2e-5
+    and grad norm within 2e-4 (relative) of the same steps unsharded,
+    their kernels launched (K3 in (z6); none in (z5), whose SSD has no
+    kernel, or (z7), whose training attention is autograd of one softmax
+    and whose MLP is ungated), the fsdp bytes a rank a step printed; (z8)
+    ``auto`` resolves to drain, every request completes, the streams and
+    host syncs equal the unsharded engine's, K1 (the ring) and K3 (gelu)
+    launched on each rank."""
+    from repro_torch.launch.mesh import launch
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    kw = dict(device=device, share_device=device == "cuda", threads=4,
+              timeout_s=600, wall_s=900)
+    t0 = time.monotonic()
+    res = launch(fam_train_rank, (2, 1), ("data", "model"), (reduced,),
+                 **kw).join()
+    log(f"  (z5)-(z8): ranks joined after {time.monotonic() - t0:.1f}s")
+    r0 = res[0]
+    for key, (arch, layers, grid, B, S, steps, need) in \
+            FAM_TRAIN_RUNS.items():
+        z, un = r0[key], r0[key]["unsharded"]
+        log(f"  ({key}) {arch} x {layers} layers, {grid} {z['rules']}, "
+            f"f32, {B} x {S}, {steps} steps: losses "
+            f"{[x for x, _ in z['steps']]} (unsharded "
+            f"{[x for x, _ in un['steps']]}), grad norms "
+            f"{[g for _, g in z['steps']]} (unsharded "
+            f"{[g for _, g in un['steps']]}); unsharded "
+            f"{un['ms_per_step']:.1f} ms a step, peak memory "
+            f"{un['peak_gib']:.2f} GiB; {z['took_s']:.1f}s")
+        for i, ((gl, gn), (wl, wn)) in enumerate(zip(z["steps"],
+                                                     un["steps"]), 1):
+            require(np.isfinite(gl) and abs(gl - wl)
+                    <= FAM_TRAIN_LOSS_RTOL * abs(wl),
+                    f"({key}) step {i}: loss {gl} vs unsharded {wl}")
+            require(abs(gn - wn) <= FAM_TRAIN_GNORM_RTOL * abs(wn),
+                    f"({key}) step {i}: grad norm {gn} vs unsharded {wn}")
+        require(len(z["steps"]) == steps == len(un["steps"]),
+                f"({key}): not every step ran")
+        for r in res:
+            run = r[key]
+            fsdp = [run["sites"].get(s, (0, 0.0))
+                    for s in ("fsdp_gather", "fsdp_gather.grad")]
+            log(f"    rank {r['rank']}: {run['ms_per_step']:.1f} ms a step, "
+                f"peak memory {run['peak_gib']:.2f} GiB, launches "
+                f"{run['counts']}; fsdp bytes a step: gathers "
+                f"{fsdp[0][1]:.0f} B in {fsdp[0][0]:g} calls, "
+                f"reduce-scatters {fsdp[1][1]:.0f} B in {fsdp[1][0]:g} "
+                f"calls")
+            log(f"      collectives a step by site (calls, bytes): "
+                + ", ".join(f"{s} {c:g} / {b:.0f}" for s, (c, b) in
+                            sorted(run["sites"].items())))
+            c = run["counts"]
+            require(device != "cuda" or all((n > 0) == (k in need)
+                                            for k, n in c.items()),
+                    f"({key}) rank {r['rank']}: launched {c}, its path "
+                    f"runs {need}")
+            require(grid[0] == 1 or fsdp[0][1] > 0,
+                    f"({key}) rank {r['rank']}: no fsdp gather on {grid}")
+            runs[f"{key}_rank{r['rank']}"] = c
+            for k, n in c.items():
+                totals[k] += n
+    key, arch, layers, need = DRAIN_MESH_RUN
+    z = r0[key]
+    un = z["unsharded"]
+    log(f"  ({key}) {arch} x {layers} layers (1,2) sub_operator f32, run "
+        f"(p)'s plan: mode {z['mode']}, {z['completed']} completed, "
+        f"{z['decode_steps']} decode steps, host syncs {z['host_syncs']} "
+        f"(unsharded {un['host_syncs']}), TPOT mean "
+        f"{z['tpot_mean_ms']:.3f} ms (unsharded {un['tpot_mean_ms']:.3f}),"
+        f" serve {z['serve_s']:.1f}s, collective bytes "
+        f"{z['mesh']['bytes_total']:.0f} in {z['mesh']['calls']} calls, "
+        f"programs {z['programs']}; {z['took_s']:.1f}s")
+    n_req = RECURRENT_RUNS["p_recurrentgemma_auto_drain"][3]
+    require(z["mode"] == "drain", f"({key}): auto resolved to {z['mode']}")
+    require(z["completed"] == n_req, f"({key}): not every request completed")
+    require(z["streams"] == un["streams"], f"({key}): the engine's streams "
+            "differ from the unsharded engine's")
+    require(z["host_syncs"] == un["host_syncs"], f"({key}): host syncs "
+            "differ from the unsharded engine's")
+    for r in res:
+        c = r[key]["counts"]
+        log(f"    rank {r['rank']}: launches {c}")
+        require(r[key]["streams"] == z["streams"],
+                f"({key}): the ranks' streams differ")
+        require(device != "cuda" or all((n > 0) == (k in need)
+                                        for k, n in c.items()),
+                f"({key}) rank {r['rank']}: launched {c}, its path runs "
+                f"{need}")
+        runs[f"{key}_rank{r['rank']}"] = c
+        for k, n in c.items():
+            totals[k] += n
+
+
+def fam_train_timing_rows(dev, bound):
+    """Phase 5 rows at phase 4e's and phase 4d's remaining shapes: K3 gelu
+    at one rank of (z6) (256 rows, D=4,096, F=6,144 of 12,288, f32; the
+    forward, which the ``FusedFFN`` backward does not relaunch) against
+    three f32 matmuls and gelu; K4 at a PP stage's projections of (z1)
+    (llama3.2-3b wq/wo 3072x3072, wk/wv 3072x1024, w_down 8192x3072) at 8
+    rows against a bf16 matmul on the dequantized weights."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.fused_ffn.ops import fused_ffn
+    from repro_torch.kernels.fused_ffn.ref import fused_ffn_ref
+    from repro_torch.kernels.gemv.ops import gemv_int8_q
+    from repro_torch.kernels.gemv.ref import gemv_int8_ref
+    rows = []
+    R, D, Fd = Z6_K3
+    (x, wg, wu, wd), _ = k3_inputs(dev, R, D=D, F=Fd, dtype=torch.float32)
+    nb = nbytes(x, wg, wu, wd) + R * D * 4
+    b_ms, b_by = bound(nb, 2 * R * D * Fd * 3, torch.float32)
+    var = variants_of(lambda i: ((k3_inputs(dev, R, seed=i, D=D, F=Fd,
+                                            dtype=torch.float32)[0]),
+                                 dict(act="gelu")), nb)
+
+    def lib_ffn(x, wg, wu, wd, act="gelu"):
+        return torch.matmul(F.gelu(torch.matmul(x, wg), approximate="tanh")
+                            * torch.matmul(x, wu), wd)
+    lib = {"3x torch.matmul + gelu (f32)": time_ms(lib_ffn, var, 50)}
+    rows.append(("fused_ffn", f"gelu, one training rank of (z6): rows={R} "
+                 f"D={D} F={Fd} f32", time_ms(fused_ffn, var, 50),
+                 time_ms(fused_ffn_ref, var, 10), b_ms, b_by, lib,
+                 host_ms(fused_ffn, var)))
+    for K, N in ((3072, 3072), (3072, 1024), (8192, 3072)):
+        (xq, xs, wq, ws), _ = k4_inputs(dev, 8, K, N)
+        nb = nbytes(xq, xs, wq, ws) + 8 * N * 4
+        b_ms, b_by = bound(nb, 2 * 8 * K * N, torch.int8)
+        var = variants_of(lambda i: k4_inputs(dev, 8, K, N, seed=i), nb)
+        dq = [((a[0].to(torch.bfloat16),
+                (a[2].float() * a[3]).to(torch.bfloat16)), {})
+              for a, _ in var]
+        lib = {"bf16 torch.matmul on dequantized weights":
+               time_ms(torch.matmul, dq, 400)}
+        rows.append(("gemv_int8", f"PP stage (z1): rows=8 K={K} N={N}",
+                     time_ms(gemv_int8_q, var, 400),
+                     time_ms(gemv_int8_ref, var, 50), b_ms, b_by, lib,
+                     host_ms(gemv_int8_q, var)))
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -5021,6 +5349,11 @@ def main() -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
         f"{sys.version.split()[0]}")
+    # the host CPU that runs the plain versions of phase 2's split-KV
+    # check (ROADMAP Queue 3: an intermittent difference there)
+    log(f"host: {os.cpu_count()} CPUs, torch CPU capability "
+        f"{torch.backends.cpu.get_cpu_capability()}, "
+        f"{torch.get_num_threads()} intra-op threads")
     t_start = time.monotonic()
 
     log("phase 1: build")
@@ -5096,6 +5429,13 @@ def main() -> int:
     t0 = time.monotonic()
     phase_pp_families(launches, runs)
     log(f"  phase 4d took {time.monotonic() - t0:.1f}s")
+
+    log("phase 4e: the recurrent and enc-dec families trained on meshes "
+        "and recurrentgemma served in drain mode on (1, 2), two ranks "
+        "sharing the card (gloo): runs (z5)-(z8)")
+    t0 = time.monotonic()
+    phase_fam_train_mesh(launches, runs)
+    log(f"  phase 4e took {time.monotonic() - t0:.1f}s")
 
     log("phase 5: kernel timing")
     kernels = phase_timing(dev, launches, runs, per_step, errs)

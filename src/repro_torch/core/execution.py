@@ -30,9 +30,11 @@ part of the whole: ``GradPlan`` sums the parts of a leaf replicated on a
 non-batch axis with Megatron's f (``copy_to``) as it enters the model and
 those of a leaf replicated on a batch axis with ``grad_sync`` (a
 hierarchical sum with a pod axis), and ``global_norm`` counts each leaf's
-shards once. The recurrent and enc-dec families (mamba2, recurrentgemma,
-whisper) serve on a mesh; training them on a mesh waits for a later slice
-of the port: their ``api.loss`` raises there (``registry._mesh_fields``).
+shards once. Every family trains this way: the transformer's, the SSM's
+and the enc-dec family's layers and the hybrid's superblocks and tail
+layers each gather their fsdp shards inside their rematerialised unit
+(``MeshLayout.weights``), and whisper's frames are cut over the batch
+axes beside its tokens.
 
 Pod strategies for a mesh with a "pod" axis: ``dp``, the pod axis joins
 the batch axes; ``pp``, the pod axis is a pipeline of decode stages

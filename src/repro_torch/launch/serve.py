@@ -41,7 +41,10 @@ group's calls. With ``--device cuda`` each rank takes its own card
 (nccl), and a machine with fewer cards than ranks raises unless
 ``--share-device`` asks for every rank on ``cuda:0`` over gloo (one H100:
 ``--mesh 1x2 --share-device``); ``--device cpu`` runs gloo ranks on the
-CPU.
+CPU. Drain mode runs on a mesh too (``--mode drain``, and
+``--arch recurrentgemma-9b``, whose ``auto`` is drain): each data row
+prefills and decodes its block of the slots, and the host reads every
+row's tokens in the one sync a step.
 """
 from __future__ import annotations
 

@@ -27,9 +27,11 @@ restore, so it restores on any mesh and on one device. ``--mesh DxM``
 starts D*M ranks (``repro_torch.launch.mesh``) and prints rank 0's log.
 
 Runs on ``cuda`` unless ``device="cpu"`` is passed (``--device cpu``).
-Pipeline parallelism waits for its own slice of the port, and the
-recurrent and enc-dec families on a mesh for theirs; asked for, they
-raise. Configs with int8 weights raise too: the reference's ``train``
+Every family trains on a mesh (``--arch mamba2-1.3b``,
+``recurrentgemma-9b`` and ``whisper-medium`` too; whisper's synthetic
+frames are cut over the batch axes with its tokens). Pipeline parallelism
+serves decode only, as the reference's; asked for in training, it
+raises. Configs with int8 weights raise too: the reference's ``train``
 cannot train them either (``jax.grad`` refuses their int8 leaves).
 """
 from __future__ import annotations

@@ -378,6 +378,19 @@ def _ce_sum(table: torch.Tensor, xc: torch.Tensor, lc: torch.Tensor,
     return torch.sum(m + torch.log(se) - gold)
 
 
+def lm_loss(params, key, x: torch.Tensor, labels: torch.Tensor, lay
+            ) -> torch.Tensor:
+    """``chunked_ce_loss`` of x against the (V, D) table at
+    ``params[key[0]][key[1]]`` (the embedding, or an untied unembedding)
+    on the training layout ``lay`` (a ``MeshLayout``): vocabulary-parallel
+    over ``lay.vocab``, the table's fsdp shards gathered inside each
+    chunk's ``remat``."""
+    return chunked_ce_loss(
+        params[key[0]][key[1]], x, labels, lay.ctx,
+        chunk=ce_chunk(x.shape[1]), vocab=lay.vocab,
+        weight=(lambda t: lay.weight(t, key)) if lay.fsdp else None)
+
+
 def chunked_ce_loss(table: torch.Tensor, x: torch.Tensor,
                     labels: torch.Tensor, ctx: ShardingCtx = NULL_CTX,
                     chunk: int = 512, vocab=(), weight=None

@@ -151,7 +151,12 @@ def _norm(p, x, cfg, lay: MeshLayout, site: str):
 
 
 def _enc_block(lp, x: torch.Tensor, cfg: ModelConfig,
-               lay: MeshLayout = NULL_LAYOUT) -> torch.Tensor:
+               lay: MeshLayout = NULL_LAYOUT, train: bool = False
+               ) -> torch.Tensor:
+    """One encoder layer: non-causal self-attention and the FFN. ``train``:
+    the layer's fsdp shards gathered first (``lay.weights``)."""
+    if train:
+        lp = lay.weights(lp, "enc")
     y = _norm(lp["ln1"], x, cfg, lay, "ln1_in")
     o, _ = _mha(lp["attn"], y, cfg, causal=False, lay=lay)
     x = x + o
@@ -164,13 +169,13 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig,
            ) -> torch.Tensor:
     """frames: (B,F,D) stub embeddings -> (B,F,D) after the encoder's
     final norm (whole on every rank of a mesh). ``train``: every layer
-    under ``remat``."""
+    under ``remat``, its fsdp shards gathered inside it."""
     _, F, D = frames.shape
     x = frames.to(common.dtype_of(cfg))
     x = x + common.sinusoidal_pos(F, D, x.device)[None].to(x.dtype)
     x = lay.res_local(x)
     for lp in params["enc_blocks"]:
-        x = (common.remat(_enc_block, lp, x, cfg) if train
+        x = (common.remat(_enc_block, lp, x, cfg, lay, True) if train
              else _enc_block(lp, x, cfg, lay))
     return _norm(params["enc_ln_f"], x, cfg, lay, "enc_ln_f_in")
 
@@ -219,25 +224,34 @@ def decode_full(params, tokens: torch.Tensor, enc_out: torch.Tensor,
 
 
 def decode_train(params, tokens: torch.Tensor, enc_out: torch.Tensor,
-                 cfg: ModelConfig) -> torch.Tensor:
+                 cfg: ModelConfig, lay: MeshLayout = NULL_LAYOUT
+                 ) -> torch.Tensor:
     """The reference's ``decode_full(train=True)``: every decoder layer
-    under ``remat``, no K/V kept; the hidden (B,S,D) after the final
-    norm."""
-    x = _dec_embed(params, tokens)
+    under ``remat`` (its fsdp shards gathered inside it), no K/V kept; the
+    hidden (B,S,D) after the final norm, whole on every rank of a mesh."""
+    def block(lp, h, e):
+        return _dec_block(lay.weights(lp, "dec"), h, e, cfg, lay)[0]
+
+    top = lay.weights({k: params[k] for k in ("embed", "pos_embed")}, "top")
+    x = _dec_embed(top, tokens, lay)
     for lp in params["dec_blocks"]:
-        x = common.remat(lambda p, h, e: _dec_block(p, h, e, cfg)[0], lp, x,
-                         enc_out)
-    return common.apply_norm(cfg.norm, params["ln_f"], x, cfg.norm_eps)
+        x = common.remat(block, lp, x, enc_out)
+    return _norm(params["ln_f"], x, cfg, lay, "ln_f_in")
 
 
-def loss_fn(params, batch, cfg: ModelConfig) -> torch.Tensor:
+def loss_fn(params, batch, cfg: ModelConfig, ctx: ShardingCtx = NULL_CTX
+            ) -> torch.Tensor:
     """Encode the batch's frames, decode its tokens, chunked cross-entropy
-    against the embedding table."""
-    enc_out = encode(params, batch["frames"], cfg, train=True)
-    x = decode_train(params, batch["tokens"], enc_out, cfg)
-    return common.chunked_ce_loss(params["embed"]["table"], x,
-                                  batch["labels"],
-                                  chunk=common.ce_chunk(x.shape[1]))
+    against the embedding table. On a mesh: this rank's rows of tokens and
+    frames, the heads (self and cross) and the FFN's columns over the
+    model axis, and this rank's share of the loss (summed over the batch
+    axes it is the reference's), vocabulary-parallel over the table's rows
+    where they divide the model axis."""
+    lay = layout(cfg, ctx, train=True)
+    enc_out = encode(params, batch["frames"], cfg, train=True, lay=lay)
+    x = decode_train(params, batch["tokens"], enc_out, cfg, lay)
+    return common.lm_loss(params, ("embed", "table"), x, batch["labels"],
+                          lay)
 
 
 # ---------------------------------------------------------------------------

@@ -16,9 +16,10 @@ share: params from ``param_specs.shard_params``, the rows of this data row
 (the caller cuts a batch over the rules' batch axes; a batch-1 program
 runs on the data row that owns its slot), this rank's cache or state
 (``init_caches`` takes the GLOBAL slot count), logits over this rank's
-vocabulary rows (``greedy`` and ``full_logits`` read them). Training on a
-mesh covers the transformer family; the recurrent and enc-dec families'
-``loss`` on a mesh waits for a later slice and raises.
+vocabulary rows (``greedy`` and ``full_logits`` read them). Every
+family's ``loss`` trains on a mesh under the fsdp rules (its layer
+stacks' shards gathered inside each rematerialised unit); the serving
+fields refuse the fsdp rules.
 """
 from __future__ import annotations
 
@@ -144,13 +145,11 @@ def _build_transformer(cfg: ModelConfig, device: torch.device,
     WA backend (its prompts put vision embeddings before the text, which
     the token-only chunk walk cannot cover), so its admission is
     monolithic."""
-    from repro_torch.models import common
     from repro_torch.models import transformer as T
     T.check_supported(cfg)
     is_vlm = cfg.family == "vlm"
     rows = ctx.n(ctx.batch_axes) if ctx.active else 1
-    # fsdp rules (training) are refused by the serving fields' own layout
-    vocab = layout(cfg, ctx, train=True).vocab
+    greedy, full_logits = _mesh_fields(cfg, ctx)
 
     def prefill(params, tokens, vision_embeds=None):
         cache = T.make_cache(cfg, tokens.shape[0] * rows,
@@ -175,9 +174,6 @@ def _build_transformer(cfg: ModelConfig, device: torch.device,
         return T.prefill_chunk(params, caches, tokens, slot, start,
                                valid_len, cfg, ctx)
 
-    def greedy(logits):
-        return common.greedy(logits, ctx, vocab)
-
     return ModelAPI(cfg, device, _seeded_init(T, cfg, device), prefill,
                     decode, init_caches, decode_slotted,
                     write_slot_kv, reset_slot,
@@ -186,28 +182,18 @@ def _build_transformer(cfg: ModelConfig, device: torch.device,
                     wa_servable=not is_vlm,
                     loss=lambda params, batch: T.loss_fn(params, batch, cfg,
                                                          ctx),
-                    ctx=ctx, greedy=greedy,
-                    full_logits=lambda lg: common.gather_logits(lg, ctx,
-                                                                vocab))
+                    ctx=ctx, greedy=greedy, full_logits=full_logits)
 
 
 def _mesh_fields(cfg: ModelConfig, ctx: ShardingCtx):
-    """(greedy, full_logits, loss wrapper) of a family on ``ctx``: the
-    argmax and the whole rows across the vocabulary shards. On a mesh the
-    recurrent and enc-dec families' training is not ported yet: the
-    training (fsdp) rules refuse here and the loss refuses on any mesh."""
+    """(greedy, full_logits) of a family on ``ctx``: the argmax and the
+    whole rows across the vocabulary shards. (The fsdp rules, which the
+    serving fields' own layouts refuse, cut the vocabulary as the serving
+    rules do.)"""
     from repro_torch.models import common
-
-    def refused(*_):
-        raise NotImplementedError(
-            f"training the {cfg.family} family on a mesh is not ported "
-            "yet (ROADMAP Queue 1); serving it on a mesh is")
-    if ctx.active and ctx.rules.rules.get("embed_w"):
-        refused()
-    vocab = layout(cfg, ctx).vocab
+    vocab = layout(cfg, ctx, train=True).vocab
     return (lambda lg: common.greedy(lg, ctx, vocab),
-            lambda lg: common.gather_logits(lg, ctx, vocab),
-            lambda fn: refused if ctx.active else fn)
+            lambda lg: common.gather_logits(lg, ctx, vocab))
 
 
 def _build_ssm(cfg: ModelConfig, device: torch.device,
@@ -219,7 +205,7 @@ def _build_ssm(cfg: ModelConfig, device: torch.device,
     slot count)."""
     from repro_torch.kv.state import reset_slot_tree, write_slot_tree
     from repro_torch.models import ssm as S
-    greedy, full_logits, loss = _mesh_fields(cfg, ctx)
+    greedy, full_logits = _mesh_fields(cfg, ctx)
 
     def decode_slotted(params, state, tokens, positions, active,
                        kv_bucket: int = 0, kv_shards: int = 1):
@@ -240,7 +226,7 @@ def _build_ssm(cfg: ModelConfig, device: torch.device,
                                                            device, ctx),
         decode_slotted, write_slot_tree, reset_slot_tree,
         make_decode_block(decode_slotted, greedy), prefill_chunk,
-        loss=loss(lambda params, batch: S.loss_fn(params, batch, cfg)),
+        loss=lambda params, batch: S.loss_fn(params, batch, cfg, ctx),
         ctx=ctx, greedy=greedy, full_logits=full_logits)
 
 
@@ -254,7 +240,7 @@ def _build_hybrid(cfg: ModelConfig, device: torch.device,
     from repro_torch.models import rglru as R
     from repro_torch.models import transformer as T
     T.check_supported(cfg)
-    greedy, full_logits, loss = _mesh_fields(cfg, ctx)
+    greedy, full_logits = _mesh_fields(cfg, ctx)
 
     return ModelAPI(
         cfg, device, _seeded_init(R, cfg, device),
@@ -265,7 +251,7 @@ def _build_hybrid(cfg: ModelConfig, device: torch.device,
                                                      cfg, ctx),
         lambda batch, max_len, device=device: R.make_caches(
             cfg, batch, max_len, device, ctx),
-        loss=loss(lambda params, batch: R.loss_fn(params, batch, cfg)),
+        loss=lambda params, batch: R.loss_fn(params, batch, cfg, ctx),
         ctx=ctx, greedy=greedy, full_logits=full_logits)
 
 
@@ -277,7 +263,7 @@ def _build_encdec(cfg: ModelConfig, device: torch.device,
     the model axis."""
     from repro_torch.models import encdec as E
     E.check_supported(cfg)
-    greedy, full_logits, loss = _mesh_fields(cfg, ctx)
+    greedy, full_logits = _mesh_fields(cfg, ctx)
 
     return ModelAPI(
         cfg, device, _seeded_init(E, cfg, device),
@@ -287,7 +273,7 @@ def _build_encdec(cfg: ModelConfig, device: torch.device,
                                                      cfg, ctx),
         lambda batch, max_len, device=device: E.make_caches(
             cfg, batch, max_len, device, ctx),
-        loss=loss(lambda params, batch: E.loss_fn(params, batch, cfg)),
+        loss=lambda params, batch: E.loss_fn(params, batch, cfg, ctx),
         ctx=ctx, greedy=greedy, full_logits=full_logits)
 
 
@@ -296,7 +282,7 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None,
     """The family's API (dense, moe, vlm, ssm, hybrid, audio) on
     ``device`` (default ``cuda``; raises without a GPU unless
     ``device="cpu"`` is passed). ``ctx``: this rank's sharding context on
-    a mesh (the transformer family only)."""
+    a mesh."""
     dev = resolve_device(device)
     if cfg.family in ("dense", "moe", "vlm"):
         return _build_transformer(cfg, dev, ctx)

@@ -243,36 +243,55 @@ def _mix_residual(p, h, cfg, state=None, lay: MeshLayout = NULL_LAYOUT,
     return h + ffn_apply(p["ffn"], y, cfg, lay), new
 
 
-def forward_train(params, tokens: torch.Tensor, cfg: ModelConfig
-                  ) -> torch.Tensor:
+def forward_train(params, tokens: torch.Tensor, cfg: ModelConfig,
+                  ctx: ShardingCtx = NULL_CTX, lay=None) -> torch.Tensor:
     """Training forward (the reference's ``forward_hidden(train=True)``):
     each superblock (two RG-LRU residual blocks, then local attention over
-    the window's band) and each tail block under ``remat``; the hidden
-    (B,S,D) after the final norm."""
-    x = _embed(params, tokens, cfg)
+    the window's band) and each tail block under ``remat``, as the
+    reference checkpoints ``super_fwd`` and ``tail_fwd``; the hidden
+    (B,S,D) after the final norm. On a mesh (``ctx``; ``lay`` its training
+    layout) tokens are this rank's rows, each unit gathers its fsdp shards
+    inside its ``remat`` and runs the mesh prefill's sites (the RG-LRU
+    channels and the query heads over the model axis, the one KV head
+    replicated, K3 on the rank's slice of F), and the hidden state is
+    whole over the other axes."""
+    lay = layout(cfg, ctx, train=True) if lay is None else lay
+    cut = mesh_cut(cfg, ctx)
+    x = _embed(lay.weights({"embed": params["embed"]}, "top"), tokens, cfg,
+               lay)
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None].expand(B, S)
 
     def superblock(sp, h):
-        h = _mix_residual(sp["r1"], h, cfg)[0]
-        h = _mix_residual(sp["r2"], h, cfg)[0]
+        sp = lay.weights(sp, "super")
+        h = _mix_residual(sp["r1"], h, cfg, lay=lay, cut=cut)[0]
+        h = _mix_residual(sp["r2"], h, cfg, lay=lay, cut=cut)[0]
         return block_train(sp["attn"], h, cfg, positions,
-                           window=cfg.rglru.window)[0]
+                           window=cfg.rglru.window, lay=lay)[0]
+
+    def tail(tp, h):
+        return _mix_residual(lay.weights(tp, "tail"), h, cfg, lay=lay,
+                             cut=cut)[0]
 
     for sp in params["super"]:
         x = common.remat(superblock, sp, x)
     for tp in params.get("tail", []):
-        x = common.remat(lambda p, h: _mix_residual(p, h, cfg)[0], tp, x)
+        x = common.remat(tail, tp, x)
+    x = lay.to_full(x, "ln_f_in")
     return common.apply_norm(cfg.norm, params["ln_f"], x, cfg.norm_eps)
 
 
-def loss_fn(params, batch, cfg: ModelConfig) -> torch.Tensor:
-    """Chunked cross-entropy against the embedding table."""
-    x = forward_train(params, batch["tokens"], cfg)
-    return common.chunked_ce_loss(params["embed"]["table"], x,
-                                  batch["labels"],
-                                  chunk=common.ce_chunk(x.shape[1]))
+def loss_fn(params, batch, cfg: ModelConfig, ctx: ShardingCtx = NULL_CTX
+            ) -> torch.Tensor:
+    """Chunked cross-entropy against the embedding table. On a mesh: this
+    rank's share of the loss (summed over the batch axes it is the
+    reference's), vocabulary-parallel over the table's rows, which fsdp
+    gathers inside each chunk's ``remat``."""
+    lay = layout(cfg, ctx, train=True)
+    x = forward_train(params, batch["tokens"], cfg, ctx, lay)
+    return common.lm_loss(params, ("embed", "table"), x, batch["labels"],
+                          lay)
 
 
 def make_caches(cfg: ModelConfig, batch: int, max_len: int, device=None,

@@ -407,12 +407,15 @@ class MeshLayout:
             self.fsdp = _fsdp_gathers(cfg, ctx, set(fsdp_axes))
 
     def weights(self, p: dict, where: str = "block") -> dict:
-        """``p`` (a layer's parameters, or with ``where="top"`` the
-        model's) with every leaf that fsdp cuts over the data axes
-        all-gathered whole: the one weight-gather site, called inside the
-        rematerialised block (the recompute gathers again; the gathered
-        weights are not kept) and by the embedding and the loss. The
-        gather's gradient is reduce-scattered back to the shards."""
+        """``p`` (one unit of the stack ``where``: a layer's parameters,
+        a hybrid superblock's (``"super"``) or tail layer's (``"tail"``),
+        an encoder's (``"enc"``) or decoder's (``"dec"``) layer; or with
+        ``where="top"`` the model's) with every leaf that fsdp cuts over
+        the data axes all-gathered whole: the one weight-gather site,
+        called inside the rematerialised unit (the recompute gathers
+        again; the gathered weights are not kept) and by the embedding and
+        the loss. The gather's gradient is reduce-scattered back to the
+        shards."""
         if not self.fsdp:
             return p
 
@@ -477,23 +480,45 @@ def layout(cfg, ctx: ShardingCtx, train: bool = False) -> MeshLayout:
     return MeshLayout(cfg, ctx, train) if ctx.active else NULL_LAYOUT
 
 
+# the port's layer stacks -> the ``where`` of their leaves' gathers
+_STACK_WHERE = {"blocks": "block", "super": "super", "tail": "tail",
+                "enc_blocks": "enc", "dec_blocks": "dec"}
+
+
+def _unit_config(cfg):
+    """``cfg`` with one unit of each of its layer stacks: one layer; the
+    hybrid's one superblock and one recurrent tail layer; the enc-dec
+    family's one encoder and one decoder layer."""
+    if cfg.family == "hybrid":
+        return cfg.replace(n_layers=len(cfg.rglru.block_pattern) + 1)
+    if cfg.family == "audio":
+        return cfg.replace(n_layers=1, encoder=dataclasses.replace(
+            cfg.encoder, n_layers=1))
+    return cfg.replace(n_layers=1)
+
+
 def _fsdp_gathers(cfg, ctx: ShardingCtx, fsdp_axes) -> Dict:
-    """{"block": {leaf keys in a layer's dict: ((dim, axes), ...)}, "top":
-    {leaf keys in the model's tree: ...}}: the dims of every leaf that the
-    rules cut over the fsdp axes (``embed_w``'s, and an expert's F where
-    ``mlp_shard`` takes the data axis first), from the specs of a one-layer
-    model's global shapes."""
+    """{where: {leaf keys: ((dim, axes), ...)}}: the dims of every leaf
+    that the rules cut over the fsdp axes (``embed_w``'s, and an expert's
+    F where ``mlp_shard`` takes the data axis first), from the specs of the
+    global shapes of a model with one unit of each stack
+    (``_unit_config``). ``where`` is the stack a leaf's unit belongs to
+    (``"block"``: the transformer's and the SSM's layers, ``"super"`` /
+    ``"tail"``: the hybrid's superblocks and recurrent tail, ``"enc"`` /
+    ``"dec"``: the enc-dec family's layers), with keys inside one unit's
+    dict, or ``"top"``, with keys in the model's tree."""
     from repro_torch.models.param_specs import (abstract_params,
                                                 leaf_logical, walk)
-    out: Dict[str, Dict] = {"block": {}, "top": {}}
-    for keys, t in walk(abstract_params(cfg.replace(n_layers=1))):
+    out: Dict[str, Dict] = {"top": {}}
+    out.update({w: {} for w in _STACK_WHERE.values()})
+    for keys, t in walk(abstract_params(_unit_config(cfg))):
         spec = ctx.spec(leaf_logical(keys, t.ndim), t.shape)
         dims = tuple((d, axes_of(e)) for d, e in enumerate(spec)
                      if set(axes_of(e)) & fsdp_axes)
         if not dims:
             continue
-        if keys[0] == "blocks":
-            out["block"][keys[2:]] = dims
+        if keys[0] in _STACK_WHERE:
+            out[_STACK_WHERE[keys[0]]][keys[2:]] = dims
         else:
             out["top"][keys] = dims
     return out

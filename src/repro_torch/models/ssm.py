@@ -315,27 +315,41 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
     }
 
 
-def forward_train(params, tokens: torch.Tensor, cfg: ModelConfig
-                  ) -> torch.Tensor:
+def forward_train(params, tokens: torch.Tensor, cfg: ModelConfig,
+                  ctx: ShardingCtx = NULL_CTX, lay=None) -> torch.Tensor:
     """Training forward (the reference's ``forward_hidden(train=True)``):
     every block (norm, SSD, residual) under ``remat``; the hidden (B,S,D)
-    after the final norm."""
-    def block(lp, h):
-        y = common.apply_norm(cfg.norm, lp["ln"], h, cfg.norm_eps)
-        return h + ssd_full_seq(lp["ssd"], y, cfg)
+    after the final norm. On a mesh (``ctx``; ``lay`` its training
+    layout) tokens are this rank's rows, each block gathers its fsdp
+    shards inside the ``remat`` and runs the mesh prefill's sites (the
+    heads over the model axis, the gated norm's sum of squares
+    all-reduced, ``out_proj`` row-parallel onto the residual), and the
+    hidden state is whole over the other axes."""
+    lay = layout(cfg, ctx, train=True) if lay is None else lay
+    cut = mesh_cut(cfg, ctx)
 
-    h = common.embed(params["embed"], tokens)
+    def block(lp, h):
+        lp = lay.weights(lp)
+        return h + ssd_full_seq(lp["ssd"], _norm_in(lp, h, cfg, lay), cfg,
+                                lay, cut)
+
+    h = _embed(lay.weights({"embed": params["embed"]}, "top"), tokens, lay)
     for lp in params["blocks"]:
         h = common.remat(block, lp, h)
+    h = lay.to_full(h, "ln_f_in")
     return common.apply_norm(cfg.norm, params["ln_f"], h, cfg.norm_eps)
 
 
-def loss_fn(params, batch, cfg: ModelConfig) -> torch.Tensor:
-    """Chunked cross-entropy against the embedding table (no aux term)."""
-    x = forward_train(params, batch["tokens"], cfg)
-    return common.chunked_ce_loss(params["embed"]["table"], x,
-                                  batch["labels"],
-                                  chunk=common.ce_chunk(x.shape[1]))
+def loss_fn(params, batch, cfg: ModelConfig, ctx: ShardingCtx = NULL_CTX
+            ) -> torch.Tensor:
+    """Chunked cross-entropy against the embedding table (no aux term).
+    On a mesh: this rank's share of the loss (summed over the batch axes
+    it is the reference's), vocabulary-parallel over the table's rows,
+    which fsdp gathers inside each chunk's ``remat``."""
+    lay = layout(cfg, ctx, train=True)
+    x = forward_train(params, batch["tokens"], cfg, ctx, lay)
+    return common.lm_loss(params, ("embed", "table"), x, batch["labels"],
+                          lay)
 
 
 def _mesh(cfg: ModelConfig, ctx: ShardingCtx):

@@ -735,13 +735,7 @@ def loss_fn(params, batch, cfg: ModelConfig, ctx: ShardingCtx = NULL_CTX
     if vis is not None:
         x = x[:, vis.shape[1]:]                  # loss over text positions
     key = ("embed" if cfg.tie_embeddings else "unembed", "table")
-    ce = common.chunked_ce_loss(unembed_table(params, cfg), x,
-                                batch["labels"], ctx,
-                                chunk=common.ce_chunk(x.shape[1]),
-                                vocab=lay.vocab,
-                                weight=(lambda t: lay.weight(t, key))
-                                if lay.fsdp else None)
-    return ce + 0.01 * aux
+    return common.lm_loss(params, key, x, batch["labels"], lay) + 0.01 * aux
 
 
 def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, cache: KVCache,

@@ -657,15 +657,15 @@ class ColocatedBackend(ExecutorBackend):
     def _build_drain(self):
         api = self.api
 
+        # on a mesh the rows are this rank's block of the slots and the
+        # tokens the argmax across the vocabulary shards (``api.greedy``)
         def prefill_fn(p, toks):
             caches, logits = api.prefill(p, toks)
-            return caches, torch.argmax(logits[:, -1], dim=-1).to(
-                torch.int32)
+            return caches, self._greedy(logits[:, -1])
 
         def decode_fn(p, caches, tokens):
             caches, logits = api.decode(p, caches, tokens)
-            return caches, torch.argmax(logits[:, 0], dim=-1).to(
-                torch.int32)
+            return caches, self._greedy(logits[:, 0])
 
         self._prefill_b = self.rt.compile_step("serve_prefill_batch",
                                                prefill_fn)
@@ -689,8 +689,13 @@ class ColocatedBackend(ExecutorBackend):
 
     def drain_prefill(self, params, toks: np.ndarray):
         """Full-batch prefill of the (slots, prompt_len) prompt rows: fresh
-        caches sized prompt_len + DECODE_SLACK and the first tokens."""
-        return self._prefill_b(params, torch.from_numpy(toks).to(self.device))
+        caches sized prompt_len + DECODE_SLACK and the first tokens (on a
+        mesh, of this rank's block of the slots)."""
+        if self.slot_rows > 1:
+            lo = self.my_row * self.local_slots
+            toks = toks[lo:lo + self.local_slots]
+        return self._prefill_b(params, torch.from_numpy(
+            np.ascontiguousarray(toks)).to(self.device))
 
     def drain_decode(self, params, caches, last):
         return self._decode_b(params, caches, last)
@@ -1287,19 +1292,17 @@ class ServingEngine:
 
     def _check_mesh(self, api, mode, slots, prefill_chunk, backend,
                     preemptible, overlap, kv_budget_bytes):
-        """What this slice serves on a mesh: the continuous scheduler, the
-        colocated or WA (routing='sharding') backend, flat caches (or the
-        SSD's state: mamba2, colocated), slots cut evenly over the batch
-        axes; an MoE only with one data row (its experts' columns are cut
-        over data, so a batch-1 admission on one row would need the
-        others). recurrentgemma (``auto`` resolves to drain) stays
-        refused here and whisper by the engine itself."""
+        """What this slice serves on a mesh: the continuous scheduler (the
+        colocated or WA (routing='sharding') backend) and drain mode
+        (colocated, as everywhere: recurrentgemma's ``auto``), flat
+        caches, rings and the recurrent states, slots cut evenly over the
+        batch axes; an MoE only with one data row (its experts' columns
+        are cut over data, so a batch-1 admission on one row would need
+        the others). whisper stays refused by the engine itself."""
         ctx = self.ctx
         rows = ctx.n(ctx.batch_axes)
         why = None
-        if mode != "continuous":
-            why = "drain mode"
-        elif preemptible or kv_budget_bytes or api.config.hot_window:
+        if preemptible or kv_budget_bytes or api.config.hot_window:
             why = "preemption, tiered KV and KV budgets"
         elif overlap > 1:
             why = "the overlap schedule (two streams of one card)"
@@ -1307,8 +1310,8 @@ class ServingEngine:
             why = f"{slots} slots over {rows} data rows (must divide)"
         elif api.config.moe is not None and rows > 1:
             why = "an MoE with more than one data row"
-        elif backend == "colocated" and not prefill_chunk \
-                and ctx.rules.rules.get("kv_seq"):
+        elif mode == "continuous" and backend == "colocated" \
+                and not prefill_chunk and ctx.rules.rules.get("kv_seq"):
             why = ("monolithic admission under a sequence-cut cache "
                    "(+seqkv; use prefill_chunk)")
         if why:
@@ -1404,8 +1407,14 @@ class ServingEngine:
     def _host_sync(self, *tensors: torch.Tensor):
         """THE counted device-to-host round-trip of the decode loop: all
         operands travel in one packed int32 copy (one synchronisation) and
-        come back as numpy arrays of their own shapes."""
+        come back as numpy arrays of their own shapes (``_to_host``)."""
         self.host_syncs += 1
+        return self._to_host(*tensors)
+
+    def _to_host(self, *tensors: torch.Tensor):
+        """Device tensors as numpy arrays in one packed int32 copy; on a
+        mesh of several data rows, every row's slots (the slot axis
+        last). Not counted: ``_host_sync`` is the decode loop's."""
         flat = torch.cat([t.reshape(-1).to(torch.int32) for t in tensors])
         host = flat.cpu()
         rows = None
@@ -1979,7 +1988,10 @@ class ServingEngine:
         """The drain-then-refill baseline: the whole batch is prefilled
         only once every slot has drained, so one long request holds every
         queued request back. One decode step per boundary, one counted
-        host sync per step."""
+        host sync per step. On a mesh every rank runs this loop in lock
+        step over all the slots; its programs run on its data row's block
+        of them, and the host reads every row's tokens (gathered over the
+        control group within the one sync)."""
         ex = self._ex
         pending = sorted(requests, key=lambda r: r.arrival_step)
         active_req: List[Optional[Request]] = [None] * self.slots
@@ -2013,7 +2025,7 @@ class ServingEngine:
                     continue
                 t0 = time.monotonic()
                 caches, last = ex.drain_prefill(params, toks)
-                first = last.cpu().numpy()       # blocks: prefill time
+                first = self._to_host(last)      # blocks: prefill time
                 now = time.monotonic()
                 self._prefill_time += now - t0
                 for i, r in enumerate(active_req):

@@ -10,6 +10,7 @@ images). Depth is cut to 4 layers (the hybrid's kept whole: its layer
 plan depends on it): every layer's leaves have the same shapes and
 specs."""
 import functools
+import math
 import types
 
 import pytest
@@ -138,6 +139,52 @@ def test_param_and_cache_placement_equals_reference(arch, mesh):
                    cache_specs(p_caches, pctx), p_cshapes, what + ("caches",))
 
 
+@pytest.mark.parametrize("mesh", MESHES,
+                         ids=lambda m: "x".join(map(str, m[0])))
+@pytest.mark.parametrize("arch", ("mamba2-1.3b", "recurrentgemma-9b",
+                                  "whisper-medium"))
+def test_fsdp_gathers_of_each_layer_stack_equal_reference(arch, mesh):
+    """The fsdp weight gathers (``MeshLayout.weights``) of the recurrent
+    and enc-dec families: for every executor, each leaf's entry in its
+    stack's table (``"block"``, the hybrid's ``"super"`` and ``"tail"``,
+    the enc-dec family's ``"enc"`` and ``"dec"``, or ``"top"``) names
+    exactly the dims that the reference's ``param_specs`` under
+    ``fsdp(rules)`` cuts over the data axes, and the tables hold no other
+    leaf."""
+    shape, axes = mesh
+    fake = types.SimpleNamespace(shape=dict(zip(axes, shape)),
+                                 axis_names=axes, size=math.prod(shape))
+    r_params, _ = _ref_trees(arch)
+    p_params, _ = _port_trees(arch)
+    from repro_torch.models.param_specs import walk
+    shapes = _ref_paths(r_params)
+    for executor in EXECUTORS:
+        pod = "pod" in axes
+        rctx = jsh.ShardingCtx(fake, _rules(jsh, executor, pod, True))
+        pctx = sh.ShardingCtx(fake, _rules(sh, executor, pod, True))
+        fsdp_axes = {a for a in pctx.rules.rules["embed_w"]
+                     if fake.shape.get(a, 1) > 1}
+        ref = _ref_paths(jps.param_specs(r_params, rctx))
+        tables = sh.MeshLayout(get_config(arch), pctx, train=True).fsdp
+        want = {w: {} for w in tables} if tables else {}
+        for keys, t in walk(p_params):
+            r_keys, _ = _strip_index("/".join(keys))
+            r_nd = len(shapes[r_keys].shape)
+            spec = _norm(ref[r_keys], r_nd)[r_nd - t.ndim:]
+            dims = tuple((d, e) for d, e in enumerate(spec)
+                         if e and set(e) & fsdp_axes)
+            if not dims:
+                continue
+            where = sh._STACK_WHERE.get(keys[0])
+            leaf = keys[2:] if where else keys
+            want[where or "top"][leaf] = dims
+        want = {w: t for w, t in want.items() if t}
+        got = {w: t for w, t in tables.items() if t}
+        assert got == want, (arch, shape, executor)
+        if fsdp_axes:
+            assert "top" in got and len(got) >= 2, (arch, sorted(got))
+
+
 def test_qwen2_heads_drop_to_replicated_on_four_ranks():
     """qwen2: 14 query heads and 2 KV heads on a 4-wide model axis: the
     KV cache's head axis and the per-head activations replicate, while the
@@ -236,9 +283,8 @@ def test_residency_defaults_are_the_h100s():
 def test_make_step_refuses_train_and_pipeline():
     """The pod axis as a pipeline serves decode only, as the reference's
     ``make_pp_step``: train and prefill raise its NotImplementedError and
-    decode builds a bundle. The recurrent families serve on a mesh, and
-    training them there waits for its slice; tiered caches on a mesh wait
-    for theirs."""
+    decode builds a bundle. The recurrent and enc-dec families serve and
+    train on a mesh; tiered caches on a mesh wait for their slice."""
     from repro_torch.configs.shapes import SHAPES
     from repro_torch.core.execution import make_rules, make_step
     from repro_torch.models.registry import build_model
@@ -257,10 +303,20 @@ def test_make_step_refuses_train_and_pipeline():
     bundle = make_step(cfg, SHAPES["decode_32k"], mesh, pod_strategy="pp")
     assert bundle.name.endswith("|sub_operator|pp2|decode")
     assert bundle.init_caches is not None
-    with pytest.raises(NotImplementedError, match="training the ssm family "
-                       "on a mesh"):
-        make_step(get_config("mamba2-1.3b").reduced(), SHAPES["train_4k"],
-                  mesh)
+    # the recurrent and enc-dec families train on a mesh: the step builds
+    # here and, on a (1, 2) mesh of ranks, returns a finite loss
+    for arch in ("mamba2-1.3b", "recurrentgemma-9b", "whisper-medium"):
+        train = make_step(get_config(arch).reduced(), SHAPES["train_4k"],
+                          mesh)
+        assert train.plan is not None and train.ctx.rules.name.endswith(
+            "+fsdp"), arch
+    import numpy as np
+    import torch_mesh_train_ranks
+    from repro_torch.launch.mesh import spawn
+    loss = spawn(torch_mesh_train_ranks.one_step_loss, (1, 2),
+                 ("data", "model"), ("mamba2-1.3b", 2, 16),
+                 timeout_s=300)[0]
+    assert np.isfinite(loss) and loss > 0
     assert make_step(get_config("mamba2-1.3b").reduced(),
                      SHAPES["decode_32k"], mesh).api.ctx.active
     tiered = cfg.replace(hot_window=8, kv_cold_block=4)

@@ -446,7 +446,7 @@ def test_train_refuses_int8_weights_and_multi_device():
     """The reference's train raises TypeError on an int8-weight config
     (jax.grad of int8 leaves); the port says so in a ValueError. Training
     on a mesh is ported: an executor needs a mesh, and the recurrent
-    families on a mesh wait for their slice."""
+    families train on one."""
     with pytest.raises(ValueError, match="int8 weights cannot be trained"):
         ttrain.train("llama2-7b", steps=1, batch=1, seq=8, device="cpu")
     with pytest.raises(ValueError, match="an executor needs a mesh"):
@@ -454,9 +454,11 @@ def test_train_refuses_int8_weights_and_multi_device():
                      executor="sub_operator")
     with pytest.raises(SystemExit, match="need --mesh"):
         ttrain.main(["--executor", "sub_operator", "--device", "cpu"])
-    mesh = _FakeMesh()
-    with pytest.raises(NotImplementedError, match="ssm family on a mesh"):
-        ttrain.train("mamba2-1.3b", steps=1, batch=2, seq=8, mesh=mesh)
+    # the recurrent families train on a mesh: one step on a (1, 2) mesh
+    # of ranks gives a finite loss
+    losses = ttrain.train_on_mesh((1, 2), "mamba2-1.3b", 1, 2, 8,
+                                  device="cpu", timeout_s=300)
+    assert len(losses) == 1 and np.isfinite(losses[0][1])
 
 
 class _FakeMesh:

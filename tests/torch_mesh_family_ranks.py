@@ -282,3 +282,61 @@ def spin_forever(mesh):
     x = 0
     while True:
         x = (x + mesh.rank + 1) % 1_000_003
+
+
+# ---------------------------------------------------------------------------
+# Drain mode on a mesh
+# ---------------------------------------------------------------------------
+
+DRAIN_ARCHS = {"qwen2": ("qwen2-0.5b", "drain"),
+               "hybrid": ("recurrentgemma-9b", "auto"),
+               "mamba2": ("mamba2-1.3b", "drain")}
+DRAIN_SLOTS = 2
+# (new tokens, arrival step, prompt length) per request: the second wave
+# is admitted only once the first has drained; the hybrid's prompts pass
+# the reduced window of 32 (the ring rolls at prefill)
+DRAIN_PLAN = [(6, 0, 7), (9, 0, 5), (4, 2, 6), (7, 3, 8)]
+DRAIN_PROMPT = {"qwen2": 8, "hybrid": 36, "mamba2": 8}
+DRAIN_KEYS = ("mode", "completed", "decode_steps", "macro_steps",
+              "decode_tokens", "admissions")
+
+
+def drain_requests(cfg, name, request_cls):
+    """The plan's requests (prompts from a seeded generator; the hybrid's
+    28 tokens longer), built with the engine's ``Request`` class."""
+    rng = np.random.default_rng(5)
+    extra = DRAIN_PROMPT[name] - 8
+    return [request_cls(rid=i, prompt=rng.integers(
+                0, cfg.vocab_size, p + extra, dtype=np.int32),
+                max_new_tokens=n, arrival_step=a)
+            for i, (n, a, p) in enumerate(DRAIN_PLAN)]
+
+
+def engine_drain(mesh, name, tree, executor):
+    """``name`` through the engine in drain mode (``auto`` for the
+    hybrid) on this mesh under ``executor``: (token streams, host syncs,
+    stats, program calls, the mesh's stats)."""
+    from repro_torch.core.execution import make_rules
+    from repro_torch.interop import params_from_numpy
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.sharding import ShardingCtx
+    from repro_torch.runtime.serving import Request, ServingEngine
+    arch, mode = DRAIN_ARCHS[name]
+    cfg = get_config(arch).reduced().replace(dtype="float32")
+    ctx = ShardingCtx(mesh, make_rules(executor, mesh))
+    params = shard_params(params_from_numpy(tree, cfg, "cpu"), ctx)
+    reqs = drain_requests(cfg, name, Request)
+    eng = ServingEngine(build_model(cfg, "cpu"), DRAIN_SLOTS,
+                        DRAIN_PROMPT[name], device="cpu", ctx=ctx,
+                        max_new_cap=32, mode=mode)
+    st = eng.run(params, reqs, max_steps=400)
+    return ([r.generated for r in reqs], eng.host_syncs,
+            {k: st[k] for k in DRAIN_KEYS},
+            {k: v["calls"] for k, v in st["runtime"].items()}, st["mesh"])
+
+
+def drain_rank(mesh, trees, executors):
+    """Every DRAIN_ARCHS entry through the drain engine under each of
+    ``executors`` on this mesh."""
+    return {(name, ex): engine_drain(mesh, name, trees[name], ex)
+            for name in DRAIN_ARCHS for ex in executors}
