@@ -17,9 +17,10 @@ phases; any failure exits non-zero before the result line:
    launches of 8 heads), 4 (at B 1, 2, 4 and 8), 3 and 1;
    split-KV attention, one K1 partial launch per shard plus the LSE
    combine, over buckets 64/128/192/200 x 2 and 4 shards x bf16 and int8
-   KV; K3 fused FFN up to 1,024 rows, also at Llama-2-7B's D=4096
-   F=11008; K4 int8 GEMV at 1 to 128 rows (2 and 4 included) and at the
-   paper's Llama projections (4096x4096, 4096x11008, 11008x4096,
+   KV, against a float64 evaluation of the same function on the host;
+   K3 fused FFN up to 1,024 rows, also at Llama-2-7B's D=4096 F=11008;
+   K4 int8 GEMV at 1 to 128 rows (2 and 4 included) and at the paper's
+   Llama projections (4096x4096, 4096x11008, 11008x4096,
    3072x8192) and phi3.5-moe's k/v (4096x1024) at 1 to 128 rows — K4
    must be bit-exact; K1 over recurrentgemma's ring at hd 256 (16 query
    heads on one KV head: four launches of 4 heads; and G=4, one launch)
@@ -161,8 +162,10 @@ phases; any failure exits non-zero before the result line:
    through the engine (``ctx=``) in continuous mode on (a)'s plan,
    sub_operator then operator_centric: the two executors' streams must be
    equal, the requests whose stream differs from the unsharded engine's
-   (served once, on rank 0) are counted and replayed
-   teacher-forced, within 2e-2 of max|logit| at every step, K1 and K4 on
+   (served once, on rank 0) are counted and every one replayed
+   teacher-forced through the engine's chunk and slotted decode programs
+   (``_flip_rule``, phase 4f's too), within 2e-2 of max|logit| at every
+   step, K1 and K4 on
    both ranks; each executor's collective bytes per token step and TPOT
    are printed; (v) WA ``device_put`` on a (2, 1) mesh, W on rank 0 and A
    on rank 1, 8 layers: 4 staggered slotted steps equal colocated within
@@ -217,6 +220,22 @@ phases; any failure exits non-zero before the result line:
    equal to the unsharded engine's, K1 over the ring and K3 gelu on both
    ranks (phase 2 holds K3 with its gradient at (z6)'s rank shape, 256
    rows of D=4,096 and F=6,144, f32);
+4f. preemption, the tiered KV cache and KV budgets on meshes of two ranks
+   sharing the card: qwen2-0.5b at full width, 2 of 24 layers, f32, hot
+   window 64 and cold blocks of 16, through the engine, each run against
+   the same engine and plan unsharded on rank 0 (streams equal, or held
+   to the int8 rule: counted and every one replayed teacher-forced
+   against the unsharded replay over a data row's slots within 2e-2 of
+   max|logit|; preemptions, statuses, swap calls, demotions and peak
+   bytes equal): (z9) an int4 cold tier under sub_operator+seqkv on (1,
+   2) (K1 in partial mode over a rank's block of positions, merged across
+   the ranks), run (h)'s plan through the chunk lane under a byte budget
+   that preempts; (z10) int8 weights (K4) over an int8 cold tier under
+   sub_operator on (2, 1), a priority plan whose restore lands on the
+   other data row (the swap image moved rank to rank); (z11) the WA
+   backend over an int8 cold tier on (1, 2), the swap pair on the A
+   domain; (z12) run (f)'s chaos schedule on (1, 2) over 4 slots, its
+   report equal to the unsharded one's;
 5. time each kernel at the main path's shapes (K1 at B=8 over S=200 and
    at a long context of S=4096, bf16 and int8 KV, in partial mode at one
    shard of 48, the whole split attention of a layer at bucket 192 and the
@@ -247,7 +266,8 @@ phases; any failure exits non-zero before the result line:
    three matmuls and gelu; K3 gelu at (z6)'s training rank shape against
    three f32 matmuls and gelu, and K4 at a PP stage's projections
    (3072x3072, 3072x1024, 8192x3072; 8 rows) against a bf16 matmul on the
-   dequantized weights.
+   dequantized weights; K1 at phase 4f's rank shapes (float mode over
+   (z10)'s resolved image, partial mode over (z9)'s block) against SDPA.
 
 It then prints the card (nvidia-smi name, power limit), a ``kernels`` JSON
 line, and last the JSON result line. Without a GPU, or without the rest of
@@ -427,6 +447,31 @@ def split_plain(q, k, v, mask, ks, vs, lim):
     return combine_partial_stats(o, m, l, axis=0).to(q.dtype)
 
 
+def split_f64(q, k, v, mask, ks, vs, lim):
+    """The function the split path computes, evaluated in float64 on the
+    host: the masked single-query softmax over the whole bucket (the
+    shards' views put back in order) under ``kv_limit``, int8 values and
+    their scales dequantized in float64, the query in float64, scaled by
+    1/sqrt(hd); each query head reads the KV head of its group. Returns
+    (B, Hq, hd) float64. Rows with no live position are NaN (the caller
+    compares live rows)."""
+    B, n_kv, n, Sb, hd = k.shape
+    S = n * Sb
+
+    def deq(x, sc):
+        x = x.detach().cpu().reshape(B, n_kv, S, hd).double()
+        return x if sc is None else x * sc.detach().cpu().reshape(
+            B, n_kv, S, 1).double()
+    kd, vd = deq(k, ks), deq(v, vs)
+    qd = q.detach().cpu().double().reshape(B, n_kv, -1, hd)
+    s = torch.einsum("bkgh,bksh->bkgs", qd, kd) / math.sqrt(hd)
+    live = mask.detach().cpu().reshape(B, S) & (
+        torch.arange(S) < int(lim))[None]
+    s = s.masked_fill(~live[:, None, None], -math.inf)
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bkgs,bksh->bkgh", w, vd).reshape(B, -1, hd)
+
+
 def k3_inputs(dev, R, seed=0, D=896, F=4864, dtype=torch.bfloat16):
     g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn(R, D, device=dev, generator=g).to(dtype)
@@ -459,6 +504,53 @@ def max_abs(t) -> float:
     if isinstance(t, tuple):
         return max(max_abs(a) for a in t)
     return float(t.float().abs().max())
+
+
+def check_split(dev, errs):
+    """Phase 2's split-KV attention as the engine runs it (B=8, Hq=14,
+    n_kv=2, hd=64): one K1 launch per shard in partial mode (shard views
+    of the cache, the mask sliced per shard, kv_limit element s of
+    shard_kv_limits on the device), merged by the LSE combine, against a
+    float64 evaluation of the same function on the host (``split_f64``);
+    f32 before the final cast, active rows; Sb = 50 is no multiple of 16.
+    The same function on CPU copies (the plain route, float32 on the
+    host's CPU) is logged beside it and decides nothing: in one call it
+    was the side that was off (ROADMAP Queue 3)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.attention import split_flash_decode
+    for bucket in (64, 128, 192, 200):
+        for n in (2, 4):
+            for kv in ("bfloat16", "int8"):
+                args, active = split_inputs(dev, bucket, n, kv,
+                                            seed=bucket + n)
+                reset_launch_counts()
+                got = split_flash_decode(*args[:4], *args[4:6],
+                                         kv_limit=args[6])
+                launched = launch_counts()["flash_decode_partial"]
+                again = split_flash_decode(*args[:4], *args[4:6],
+                                           kv_limit=args[6])
+                cpu = [None if t is None else t.cpu() for t in args]
+                plain = split_flash_decode(*cpu[:6], kv_limit=cpu[6])
+                act = active.cpu()
+                want = split_f64(*args)[act]
+                e = float((got.cpu()[act].double() - want).abs().max())
+                e_plain = max_err(got.cpu()[act], plain[act])
+                tol = 1e-5 * max(1.0, max_abs(want))
+                same = torch.equal(got, again)
+                errs["flash_decode_partial"] = max(
+                    errs["flash_decode_partial"], e)
+                log(f"  split attention bucket={bucket} shards={n} "
+                    f"(Sb={bucket // n}) kv={kv}: {launched} partial "
+                    f"launches, max|d| against float64 {e:.3g} (tol "
+                    f"{tol:.3g}), against the plain route on the host's "
+                    f"CPU {e_plain:.3g} (logged only), repeat "
+                    f"identical={same}")
+                require(launched == n, f"split attention launched "
+                        f"{launched} partial K1 calls for {n} shards")
+                require(e <= tol, f"split attention disagrees at bucket "
+                        f"{bucket} shards {n} kv {kv}")
+                require(same, f"split attention not deterministic at "
+                        f"bucket {bucket} shards {n}")
 
 
 def phase_compare(dev):
@@ -528,44 +620,7 @@ def phase_compare(dev):
                 f"G={Hq // n_kv}")
         require(same, f"K1 not deterministic at B={B} S={S} {pair} "
                 f"G={Hq // n_kv}")
-    # Split-KV attention as the engine runs it (B=8, Hq=14, n_kv=2, hd=64):
-    # one K1 launch per shard in partial mode (shard views of the cache,
-    # the mask sliced per shard, kv_limit element s of shard_kv_limits on
-    # the device), merged by the LSE combine, against the same function on
-    # CPU copies (the plain route); f32 before the final cast, active rows
-    # (a shard past kv_limit is skipped by K1 and computed by the plain
-    # einsum, so rows dead in it may differ); Sb = 50 is no multiple of 16.
-    from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.models.attention import split_flash_decode
-    for bucket in (64, 128, 192, 200):
-        for n in (2, 4):
-            for kv in ("bfloat16", "int8"):
-                args, active = split_inputs(dev, bucket, n, kv,
-                                            seed=bucket + n)
-                reset_launch_counts()
-                got = split_flash_decode(*args[:4], *args[4:6],
-                                         kv_limit=args[6])
-                launched = launch_counts()["flash_decode_partial"]
-                again = split_flash_decode(*args[:4], *args[4:6],
-                                           kv_limit=args[6])
-                cpu = [None if t is None else t.cpu() for t in args]
-                want = split_flash_decode(*cpu[:6], kv_limit=cpu[6])
-                act = active.cpu()
-                e = max_err(got.cpu()[act], want[act])
-                tol = 1e-5 * max(1.0, max_abs(want[act]))
-                same = torch.equal(got, again)
-                errs["flash_decode_partial"] = max(
-                    errs["flash_decode_partial"], e)
-                log(f"  split attention bucket={bucket} shards={n} "
-                    f"(Sb={bucket // n}) kv={kv}: {launched} partial "
-                    f"launches, max|d|={e:.3g} (tol {tol:.3g}), repeat "
-                    f"identical={same}")
-                require(launched == n, f"split attention launched "
-                        f"{launched} partial K1 calls for {n} shards")
-                require(e <= tol, f"split attention disagrees at bucket "
-                        f"{bucket} shards {n} kv {kv}")
-                require(same, f"split attention not deterministic at "
-                        f"bucket {bucket} shards {n}")
+    check_split(dev, errs)
     # K3: f32 through the intermediate in both; different summation order.
     # Rows across the 16/32/64-row tiles and the drain batch prefill's
     # 1,024 rows (8 x 128); D=200 F=700 divides no tile.
@@ -2324,6 +2379,7 @@ def phase_timing(dev, launches, runs, per_step, errs):
     rows += train_mesh_timing_rows(dev, bound)
     rows += pp_family_timing_rows(dev, bound, sdpa_args)
     rows += fam_train_timing_rows(dev, bound)
+    rows += tier_mesh_timing_rows(dev, bound, sdpa_args)
     for name, shape, ms, plain, b_ms, b_by, lib, host in rows:
         libs = ", ".join(("not measured" if v is None else
                           f"{v * 1e3:.2f} us") + f" ({k})"
@@ -4003,38 +4059,131 @@ def _mesh_run_u(mesh, cfg, executor, full, dev):
     return out
 
 
-def _mesh_replay(mesh, cfg, full, rid, stream):
-    """The int8 rule for a request whose (u) stream flipped: its prompt,
-    then the UNSHARDED stream teacher-forced, through the sharded model
-    (sub_operator) and, on rank 0, the unsharded one. Returns (rank 0) the
-    per-step max |dlogit| / max |logit|."""
-    from repro_torch.core.execution import make_rules
-    from repro_torch.launch.serve import make_requests
-    from repro_torch.models.param_specs import shard_params
-    from repro_torch.models.registry import build_model
-    from repro_torch.models.sharding import ShardingCtx
-    dev = mesh.device
-    prompt = make_requests(cfg, 12, 128, 64, seed=0,
-                           arrival_every=4)[rid].prompt
-    toks = torch.tensor(np.asarray(prompt, np.int64)[None], device=dev)
-    steps = torch.tensor(np.asarray(stream, np.int32), device=dev)
+# the repo's int8 rule (runs (u) and 4f): where int8 weights, int8 KV or a
+# quantized cold tier lie on a run's path, a last-bit difference of a
+# reduction moves an int8 rounding and then a token. On the card RMSNorm's
+# mean and the unembedding's product depend on the batch's shape (a data
+# row's 4 rows against the unsharded engine's 8; measured on the H100),
+# K4 does not; on (1, 2) the sharded sums differ too. A request whose
+# stream differs from the unsharded engine's is counted, and replayed
+# (every one): its prompt through the chunk program, then the UNSHARDED
+# stream teacher-forced through the run's programs on the mesh (slot 0
+# of its data row's slots live) and unsharded over as many slots as a
+# data row holds (the same batch shape); every step's logits within
+# INT8_RULE_RTOL of max|logit|, the steps over 1e-4 counted. Where a data
+# row holds fewer than the engine's 8 slots, the replay unsharded over 8
+# is printed beside it: the batch shape's own share. Everything else is
+# held exactly.
+INT8_RULE_RTOL = 2e-2
 
-    def drive(api, params, gather):
-        cache, lg = api.prefill(params, toks)
-        out = [gather(lg[:, -1])]
-        for t in steps[:-1]:
-            cache, lg = api.decode(params, cache, t.reshape(1))
-            out.append(gather(lg[:, -1]))
-        return torch.stack(out)
-    ctx = ShardingCtx(mesh, make_rules("sub_operator", mesh))
-    api = build_model(cfg, dev, ctx)
-    got = drive(api, shard_params(full, ctx), api.full_logits)
-    if mesh.rank != 0:
-        return None
-    want = drive(build_model(cfg, dev), full, lambda x: x)
-    scale = want.abs().amax(dim=(1, 2))
-    rel = ((got - want).abs().amax(dim=(1, 2)) / scale).tolist()
-    return {"rid": rid, "rel": rel}
+
+def _replay(cfg, params, ctx, backend, prompt, stream, dev,
+                 slots=8):
+    """The int8 rule's replay of one request through ``backend``'s chunk
+    and slotted decode programs on ``ctx`` (``NULL_CTX``: unsharded) over
+    a fresh cache of ``slots`` slots and extent 200 (the engines of (u)
+    and 4f: prompt width 128 and 72 new tokens at most): the prompt in chunks
+    of 32 at slot 0, then ``stream`` teacher-forced with slot 0 live and
+    the others idle. Returns the (steps, V) whole-vocabulary logits of
+    slot 0: the last chunk's, then each decode step's."""
+    from repro_torch.core.wa import WADisaggregated
+    from repro_torch.models.registry import build_model
+    if backend == "wa":
+        wa = WADisaggregated(cfg, dev, mesh=ctx.mesh if ctx.active
+                             else None)
+        cache = wa.init_cache(slots, 200)
+        chunk, step = wa.prefill_chunk, wa.decode_step_slotted
+        gather = build_model(cfg, dev, wa.w_ctx).full_logits
+    else:
+        api = build_model(cfg, dev, ctx)
+        cache = api.init_caches(slots, 200)
+        chunk, step, gather = (api.prefill_chunk, api.decode_slotted,
+                               api.full_logits)
+    B = cache.k.shape[1]
+    out = []
+    for start in range(0, len(prompt), 32):
+        valid = min(32, len(prompt) - start)
+        row = np.zeros((1, 32), np.int64)
+        row[0, :valid] = prompt[start:start + valid]
+        cache, lg = chunk(params, cache, torch.from_numpy(row).to(dev), 0,
+                          start, valid)
+    out.append(gather(lg[:, -1])[0])
+    act = torch.zeros(B, dtype=torch.bool, device=dev)
+    act[0] = True
+    for i, t in enumerate(stream[:-1]):
+        tok = torch.zeros(B, dtype=torch.int32, device=dev)
+        pos = torch.zeros(B, dtype=torch.int32, device=dev)
+        tok[0], pos[0] = int(t), len(prompt) + i
+        cache, lg = step(params, cache, tok, pos, act)
+        out.append(gather(lg[:, 0])[0])
+    return torch.stack(out).float()
+
+
+def _flip_rule(mesh, cfg, params, full, ctx, backend, prompts, streams,
+               unsharded, dev):
+    """The int8 rule on every rank of ``mesh`` (the launch's): rank 0
+    finds the requests whose stream differs from ``unsharded`` (its
+    streams) and broadcasts every one of them with its unsharded stream;
+    every rank replays them on ``ctx``, rank 0 also
+    unsharded over as many slots as a data row holds. Returns (rank 0)
+    [{"rid", "rel", "rel8"}]: per step max |dlogit| / max |logit|, and
+    against the unsharded replay over 8 slots where a row holds fewer
+    (else None)."""
+    from repro_torch.core.collectives import control_broadcast
+    from repro_torch.models.sharding import NULL_CTX
+    flips = torch.full((len(prompts), 1 + 128), -1, dtype=torch.int64)
+    if mesh.rank == 0:
+        bad = [i for i, (a, b) in enumerate(zip(streams, unsharded))
+               if a != b]
+        for n, i in enumerate(bad):
+            flips[n, 0] = i
+            flips[n, 1:1 + len(unsharded[i])] = torch.tensor(unsharded[i])
+    flips = control_broadcast(flips, mesh, 0)
+    out = []
+    for f in flips:
+        if f[0] < 0:
+            continue
+        rid = int(f[0])
+        stream = [int(t) for t in f[1:] if t >= 0]
+        got = _replay(cfg, params, ctx, backend, prompts[rid], stream,
+                           dev)
+        if mesh.rank != 0:
+            continue
+
+        def rel(want):
+            return ((got - want).abs().amax(dim=-1)
+                    / want.abs().amax(dim=-1)).tolist()
+        local = 8 // ctx.n(ctx.batch_axes)
+        out.append({"rid": rid, "rel": rel(_replay(
+            cfg, full, NULL_CTX, backend, prompts[rid], stream, dev, local)),
+            "rel8": None if local == 8 else rel(_replay(
+                cfg, full, NULL_CTX, backend, prompts[rid], stream, dev))})
+    return out
+
+
+def _hold_streams(key, by_rank, unsharded, replays):
+    """Every rank's streams equal; those that differ from the unsharded
+    engine's counted and held to the int8 rule by their replays."""
+    got = by_rank[0]
+    require(all(s == got for s in by_rank), f"({key}): the ranks' streams "
+            "differ")
+    flipped = [i for i, (a, b) in enumerate(zip(got, unsharded)) if a != b]
+    log(f"    streams equal to the unsharded engine's: "
+        f"{len(got) - len(flipped)} of {len(got)}; differing {flipped}")
+    require([x["rid"] for x in replays] == flipped,
+            f"({key}): a differing request was not replayed")
+    for x in replays:
+        over = sum(v > 1e-4 for v in x["rel"])
+        log(f"    replay of request {x['rid']} (int8 rule): max "
+            f"|dlogit|/max|logit| {max(x['rel']):.3e} over "
+            f"{len(x['rel'])} steps, {over} steps above 1e-4"
+            + ("" if x["rel8"] is None else
+               f"; against one device over 8 slots "
+               f"{max(x['rel8']):.3e}, "
+               f"{sum(v > 1e-4 for v in x['rel8'])} steps above 1e-4"))
+        require(max(x["rel"]) <= INT8_RULE_RTOL, f"({key}) request "
+                f"{x['rid']}: logits beyond the int8 rule's "
+                f"{INT8_RULE_RTOL}")
 
 
 def _mesh_run_v(mesh2, full, cfg):
@@ -4186,8 +4335,12 @@ def mesh_rank(mesh, reduced=False):
     """One rank of phase 4b (runs (t), (u), (v)) on the shared card.
     ``reduced``: the reduced config, for a rehearsal on the CPU."""
     from repro_torch.configs.registry import get_config
+    from repro_torch.core.execution import make_rules
     from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models.param_specs import shard_params
     from repro_torch.models.registry import build_model
+    from repro_torch.models.sharding import ShardingCtx
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.monotonic()
     base = get_config(MESH_ARCH)
@@ -4210,24 +4363,19 @@ def mesh_rank(mesh, reduced=False):
     full = build_model(cfg_u, mesh.device).init(0)
     out["u"] = {ex: _mesh_run_u(mesh, cfg_u, ex, full, mesh.device)
                 for ex in ("sub_operator", "operator_centric")}
-    # the unsharded run once, on rank 0, which sends the other ranks the
-    # unsharded streams of (at most two) requests whose sharded stream
-    # differs; all ranks then replay them under the int8 rule
-    from repro_torch.core.collectives import control_broadcast
-    flips = torch.full((2, 65), -1, dtype=torch.int64)
+    # the unsharded run once, on rank 0; the int8 rule over the streams
+    # of sub_operator that differ from it
+    un = None
     if mesh.rank == 0:
         un = out["u"]["unsharded"] = _mesh_run_u(None, cfg_u, None, full,
                                                  mesh.device)
-        flipped = [i for i, (a, b) in enumerate(zip(
-            out["u"]["sub_operator"]["streams"], un["streams"])) if a != b]
-        for n, i in enumerate(flipped[:2]):
-            flips[n, 0] = i
-            flips[n, 1:1 + len(un["streams"][i])] = torch.tensor(
-                un["streams"][i])
-    flips = control_broadcast(flips, mesh, 0)
-    out["u_replay"] = [_mesh_replay(mesh, cfg_u, full, int(f[0]),
-                                    [int(t) for t in f[1:] if t >= 0])
-                       for f in flips if f[0] >= 0]
+    ctx = ShardingCtx(mesh, make_rules("sub_operator", mesh))
+    out["u_replay"] = _flip_rule(
+        mesh, cfg_u, shard_params(full, ctx), full, ctx, "colocated",
+        [r.prompt for r in make_requests(cfg_u, 12, 128, 64, seed=0,
+                                         arrival_every=4)],
+        out["u"]["sub_operator"]["streams"], un["streams"] if un else None,
+        mesh.device)
     out["u_s"] = time.monotonic() - t0
     out["rank"] = mesh.rank
     return out
@@ -4294,19 +4442,8 @@ def phase_mesh(totals, runs):
     require(r0["u"]["sub_operator"]["streams"]
             == r0["u"]["operator_centric"]["streams"],
             "(u): the two executors' streams differ")
-    # the int8 rule: a flip is counted, and the flipped request replayed
-    # teacher-forced along the unsharded stream stays within 2e-2 of
-    # max|logit| at every step (steps over 1e-4 counted)
-    for rep in r0["u_replay"]:
-        over = sum(x > 1e-4 for x in rep["rel"])
-        log(f"  (u) replay of flipped request {rep['rid']}: max "
-            f"|dlogit|/max|logit| {max(rep['rel']):.3e} over "
-            f"{len(rep['rel'])} steps, {over} steps above 1e-4")
-        require(max(rep["rel"]) <= 2e-2, f"(u) request {rep['rid']}: "
-                "logits beyond the int8 rule's 2e-2")
-    require(flips["sub_operator"] == len(r0["u_replay"])
-            or len(r0["u_replay"]) == 2,
-            "(u): a flipped request was not replayed")
+    _hold_streams("u", [r["u"]["sub_operator"]["streams"] for r in res],
+                  un["streams"], r0["u_replay"])
     for r in res:
         for name, c in (("t_mesh_f32_sub_operator", r["t"]["counts"]),
                         ("v_mesh_wa_device_put", r["v"]["counts"]),
@@ -5338,6 +5475,437 @@ def fam_train_timing_rows(dev, bound):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 4f: preemption, the tiered KV cache and KV budgets on a mesh of two
+# ranks sharing the card (gloo)
+# ---------------------------------------------------------------------------
+
+# qwen2-0.5b at full width (D 896, 14 query heads on 2 KV heads of 64, F
+# 4,864, V 151,936), 2 of its 24 layers, f32 (no TF32), seeded weights, a
+# tiered cache of hot window 64 and cold blocks of 16 (a ring of 80), 8
+# slots, prompt width 128, blocks of 8, buckets of 64, chunks of 32, the
+# KV extent 200. Each run is held to the same engine and plan unsharded on
+# rank 0: streams exact, the same preemptions, swaps, demotions and peak
+# bytes.
+TIER_MESH_LAYERS = 2
+TIER_MESH_TIERS = dict(hot_window=64, kv_cold_block=16)
+TIER_MESH_KW = dict(block_size=8, kv_bucket_chunk=64, prefill_chunk=32,
+                    max_new_cap=72, preemptible=True)
+# (z9) serves (h)'s plan (12 requests of prompt 128 and 32 new tokens,
+# arrivals every 4 steps) through the chunk lane, which admits one chunk a
+# boundary while a slot decodes: at most two slots decode at once, one
+# near cursor 160 and one just admitted (1.07 slot prices at cursor 160 at
+# the peak, in the plan's CPU rehearsal). A budget of 1.06 such prices
+# binds whenever two do (12 preemptions and restores in the rehearsal).
+Z9_BUDGET_PRICES = 1.06
+# (z10) and (z11)'s priority plan: 8 requests of priority 0 (prompt 64; 48
+# new tokens in slots 0-3, 16 in slots 4-7) at step 0, then 2 of priority
+# 5 (prompt 32, 16 new tokens) at step 24: the two most recently admitted
+# decoders (slots 1 and 0, data row 0 on (2, 1)) are swapped out, and one
+# is restored into slot 4, on the other data row (the CPU rehearsal)
+PRIO_NEW, PRIO_ARRIVAL, PRIO_HI = (48,) * 4 + (16,) * 4, 24, (2, 32, 16)
+TIER_MESH_RUNS = {
+    # key: (mesh grid, executor, backend, cold dtype, int8 weights, plan,
+    #       kernels of its path; ``flash_decode`` counts every K1 launch,
+    #       the partial ones too)
+    "z9_tiered_int4_seqkv_budget": (
+        (1, 2), "sub_operator+seqkv", "colocated", "int4", False, "h",
+        ("flash_decode", "flash_decode_partial", "fused_ffn")),
+    "z10_int8w_int8cold_priority": (
+        (2, 1), "sub_operator", "colocated", "int8", True, "priority",
+        ("flash_decode", "gemv_int8")),
+    "z11_wa_tiered_int8_priority": (
+        (1, 2), "sub_operator", "wa", "int8", False, "priority",
+        ("flash_decode", "flash_decode_partial", "fused_ffn")),
+}
+# (f)'s chaos schedule on (1, 2) under sub_operator over 4 slots: the plan
+# of F_SEED with its scripted priority-3 arrival, int8 KV, F_ENGINE
+CHAOS_MESH_KEY = "z12_chaos_int8kv_sub_operator"
+CHAOS_MESH_KERNELS = ("flash_decode", "fused_ffn")
+def _tier_mesh_cfg(reduced, **over):
+    """qwen2-0.5b at TIER_MESH_LAYERS layers in f32; ``reduced``: the
+    reduced config with the full config's KV heads and head_dim (the
+    arbiter's prices and so the schedule are the full width's), for a
+    rehearsal on the CPU."""
+    from repro_torch.configs.registry import get_config
+    base = get_config("qwen2-0.5b")
+    if reduced:
+        base = base.reduced().replace(head_dim=64)
+    return base.replace(n_layers=TIER_MESH_LAYERS, dtype="float32", **over)
+
+
+def _tier_plan(cfg, plan):
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.runtime.serving import Request
+    if plan == "h":
+        return make_requests(cfg, 12, 128, 32, seed=0, arrival_every=4)
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, 64,
+                                               dtype=np.int32),
+                    max_new_tokens=n, arrival_step=0)
+            for i, n in enumerate(PRIO_NEW)]
+    n_hi, plen, new = PRIO_HI
+    reqs += [Request(rid=len(PRIO_NEW) + j, prompt=rng.integers(
+        0, cfg.vocab_size, plen, dtype=np.int32), max_new_tokens=new,
+        arrival_step=PRIO_ARRIVAL, priority=5) for j in range(n_hi)]
+    return reqs
+
+
+def _swap_clock(eng):
+    """Host ms of each swap-out (export + copy to the host + the ranks'
+    vote) and swap-in (staging + copy back + masked write) of ``eng``."""
+    ms = {"out": [], "in": []}
+
+    def timed(fn, key):
+        def wrapper(*a):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            ms[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return wrapper
+    eng._preempt_slot = timed(eng._preempt_slot, "out")
+    eng._restore = timed(eng._restore, "in")
+    return ms
+
+
+def _count_moves():
+    """Count the swap images restored into another data row than the one
+    that swapped them out (``ExecutorBackend.stage_image``)."""
+    from repro_torch.runtime import serving
+    moves = [0]
+    inner = serving.ExecutorBackend.stage_image
+
+    def stage(self, saved, slot):
+        if isinstance(saved, serving.RankImage) and \
+                saved.row != slot // self.local_slots:
+            moves[0] += 1
+        return inner(self, saved, slot)
+    serving.ExecutorBackend.stage_image = stage
+    return moves
+
+
+def _tier_serve(cfg, params, ctx, dev, kw, plan, moves=None):
+    """One engine run of ``plan``: what phase 4f compares and prints."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.registry import build_model
+    from repro_torch.runtime.serving import ServingEngine
+    reqs = _tier_plan(cfg, plan)
+    eng = ServingEngine(build_model(cfg, dev), 8, 128, device=dev, ctx=ctx,
+                        **kw)
+    swaps = _swap_clock(eng)
+    n0 = moves[0] if moves else 0
+    _sync(dev)
+    reset_launch_counts()
+    t0 = time.monotonic()
+    st = eng.run(params, reqs)
+    _sync(dev)
+    rt = st["runtime"]
+    pre = eng._ex.program_prefix
+    return {"streams": [list(r.generated) for r in reqs],
+            "statuses": [r.status for r in reqs],
+            "preemptions": [r.preemptions for r in reqs],
+            "counts": launch_counts(), "serve_s": time.monotonic() - t0,
+            "stats": {k: st[k] for k in ("completed", "preemptions",
+                                         "restores", "host_syncs",
+                                         "tpot_mean_ms", "decode_steps")},
+            "swap_calls": [rt[pre + "swap_out"]["calls"],
+                           rt[pre + "swap_in"]["calls"]],
+            "swap_ms": {k: float(np.mean(v)) if v else float("nan")
+                        for k, v in swaps.items()},
+            "tiered": {k: st["tiered"][k] for k in
+                       ("demotions", "peak_kv_bytes", "cold_bytes_saved",
+                        "kv_budget_bytes")},
+            "mesh": st.get("mesh"),
+            "moves": (moves[0] - n0) if moves else 0}
+
+
+def _tier_mesh_run(mesh, meshes, key, reduced, moves):
+    """One of (z9)-(z11) on this rank and, on rank 0, unsharded."""
+    from repro_torch.core.execution import make_rules
+    from repro_torch.models.param_specs import shard_params
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.sharding import ShardingCtx
+    from repro_torch.runtime.serving import KVArbiter
+    grid, executor, backend, cold, int8w, plan, _ = TIER_MESH_RUNS[key]
+    dev = mesh.device
+    t0 = time.monotonic()
+    cfg = _tier_mesh_cfg(reduced, kv_cold_dtype=cold, weight_int8=int8w,
+                         **TIER_MESH_TIERS)
+    m = meshes[grid]
+    ctx = ShardingCtx(m, make_rules(executor, m))
+    full = build_model(cfg, dev).init(0)
+    params = shard_params(full, ctx)
+    kw = dict(TIER_MESH_KW, backend=backend)
+    if plan == "h":
+        arb = KVArbiter(build_model(cfg, dev).init_caches(8, 200,
+                                                          device="meta"))
+        arb.observe(0, 160)
+        kw["kv_budget_bytes"] = int(Z9_BUDGET_PRICES
+                                    * arb.slot_occupancy(0)["kv_bytes"])
+    else:
+        kw["strict_invariants"] = True
+    res = _tier_serve(cfg, params, ctx, dev, kw, plan, moves)
+    res["rules"] = ctx.rules.name
+    un = None
+    if mesh.rank == 0:
+        res["unsharded"] = un = _tier_serve(cfg, full, None, dev, kw, plan)
+    res["replays"] = _flip_rule(
+        mesh, cfg, params, full if mesh.rank == 0 else None, ctx, backend,
+        [r.prompt for r in _tier_plan(cfg, plan)], res["streams"],
+        un["streams"] if un else None, dev)
+    del params, full
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    res["took_s"] = time.monotonic() - t0
+    return res
+
+
+def _chaos_mesh_run(mesh, reduced):
+    """(f)'s chaos schedule through ``run_chaos`` on (1, 2) under
+    sub_operator, 4 slots, int8 KV; on rank 0 also unsharded. Returns the
+    report, both runs' streams, statuses and launch counts."""
+    import dataclasses
+    from repro_torch.core.execution import make_rules
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.param_specs import shard_params
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.sharding import ShardingCtx
+    from repro_torch.runtime import faults
+    from repro_torch.runtime.serving import Request, ServingEngine
+    dev = mesh.device
+    t0 = time.monotonic()
+    cfg = _tier_mesh_cfg(reduced, kv_dtype="int8")
+    full = build_model(cfg, dev).init(0)
+    plan = dataclasses.replace(faults.FaultPlan.generate(F_SEED,
+                                                         n_requests=10),
+                               slow_s=0.0, deadline_frac=0.0)
+
+    def requests():
+        reqs = plan.requests(cfg.vocab_size, prompt_lo=16, prompt_hi=128)
+        plen, new, arrival = F_SCRIPTED
+        reqs.append(Request(rid=len(reqs), prompt=np.random.default_rng(
+            F_SEED).integers(0, cfg.vocab_size, plen, dtype=np.int32),
+            max_new_tokens=new, arrival_step=arrival, priority=3))
+        return reqs
+
+    def chaos(ctx, params):
+        reqs = requests()
+        eng = ServingEngine(build_model(cfg, dev), 4, 128, device=dev,
+                            ctx=ctx, **F_ENGINE)
+        per_run = []
+        inner = eng.run
+
+        def counted(p, rs, **kw):
+            _sync(dev)
+            reset_launch_counts()
+            st = inner(p, rs, **kw)
+            _sync(dev)
+            per_run.append({"streams": [list(r.generated) for r in rs],
+                            "statuses": [r.status for r in rs],
+                            "reasons": [r.reject_reason for r in rs],
+                            "counts": launch_counts(),
+                            "tpot_mean_ms": st["tpot_mean_ms"]})
+            return st
+        eng.run = counted
+        rep = faults.run_chaos(eng, params, plan, reqs)
+        return {"report": rep, "clean": per_run[0], "chaos": per_run[1]}
+    ctx = ShardingCtx(mesh, make_rules("sub_operator", mesh))
+    params = shard_params(full, ctx)
+    res = chaos(ctx, params)
+    un = None
+    if mesh.rank == 0:
+        res["unsharded"] = un = chaos(None, full)
+    # the int8 rule over the clean run (a completed chaos stream is its
+    # engine's clean stream: ``check_invariants``)
+    res["replays"] = _flip_rule(
+        mesh, cfg, params, full, ctx, "colocated",
+        [r.prompt for r in requests()], res["clean"]["streams"],
+        un["clean"]["streams"] if un else None, dev)
+    del params, full
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    res["took_s"] = time.monotonic() - t0
+    return res
+
+
+def tier_mesh_rank(mesh, reduced=False):
+    """One rank of phase 4f: (z9)-(z11) on their meshes (the launch's
+    (1, 2) and a (2, 1) mesh over the same two ranks), then the chaos
+    schedule (z12) on (1, 2). ``reduced``: the reduced config, for a
+    rehearsal on the CPU."""
+    from repro_torch.launch.mesh import Mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    meshes = {mesh.devices_shape: mesh}
+    meshes[(2, 1)] = Mesh((2, 1), ("data", "model"), mesh.device)
+    moves = _count_moves()
+    out = {"rank": mesh.rank}
+    for key in TIER_MESH_RUNS:
+        out[key] = _tier_mesh_run(mesh, meshes, key, reduced, moves)
+    out[CHAOS_MESH_KEY] = _chaos_mesh_run(mesh, reduced)
+    return out
+
+
+def phase_tier_mesh(totals, runs, device="cuda", reduced=False):
+    """Runs (z9)-(z11) and the chaos schedule (z12) (the module's constants
+    above) on two ranks sharing the card over gloo, one launch: every
+    request completes (z12: every request is terminally accounted), each
+    rank's streams equal the unsharded engine's or are held to the int8
+    rule (``_hold_streams``), its per-request preemptions and statuses
+    equal the unsharded engine's, as do the preemption, restore and
+    swap-call counts, the arbiter's demotions and peak bytes; (z9)
+    preempts under its budget, (z10) and (z11) under the priority
+    arrivals, and (z10)
+    restores a slot on the other data row; (z12)'s report (injected
+    failures, preemptions and restores included) equals the unsharded
+    one's and has no violation; every rank launches exactly its path's
+    kernels. Returns the swap and TPOT numbers phase 5 prints."""
+    from repro_torch.launch.mesh import launch
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    kw = dict(device=device, share_device=device == "cuda", threads=4,
+              timeout_s=600, wall_s=900)
+    t0 = time.monotonic()
+    res = launch(tier_mesh_rank, (1, 2), ("data", "model"), (reduced,),
+                 **kw).join()
+    log(f"  (z9)-(z12): ranks joined after {time.monotonic() - t0:.1f}s")
+    r0 = res[0]
+    for key, (grid, executor, backend, cold, int8w, plan, need) in \
+            TIER_MESH_RUNS.items():
+        z, un = r0[key], r0[key]["unsharded"]
+        log(f"  ({key}) qwen2-0.5b x {TIER_MESH_LAYERS} layers f32, {grid} "
+            f"{z['rules']} {backend}, cold {cold}"
+            f"{', int8 weights' if int8w else ''}, plan {plan}: "
+            + json.dumps(z["stats"]) + f", swap calls {z['swap_calls']}, "
+            f"tiered {json.dumps(z['tiered'])}, cross-row restores "
+            f"{z['moves']}, serve {z['serve_s']:.1f}s; unsharded "
+            + json.dumps(un["stats"]) + f", swap calls {un['swap_calls']}, "
+            f"tiered {json.dumps(un['tiered'])}; {z['took_s']:.1f}s")
+        log(f"    host ms a swap-out / swap-in: rank 0 "
+            f"{z['swap_ms']['out']:.3f} / {z['swap_ms']['in']:.3f}, rank 1 "
+            f"{res[1][key]['swap_ms']['out']:.3f} / "
+            f"{res[1][key]['swap_ms']['in']:.3f}, unsharded "
+            f"{un['swap_ms']['out']:.3f} / {un['swap_ms']['in']:.3f}; TPOT "
+            f"mean {z['stats']['tpot_mean_ms']:.3f} ms (unsharded "
+            f"{un['stats']['tpot_mean_ms']:.3f}); collective bytes "
+            f"{z['mesh']['bytes_total']:.0f} in {z['mesh']['calls']} calls, "
+            f"control calls {z['mesh']['control_calls']}")
+        require(z["stats"]["completed"] == len(z["streams"]),
+                f"({key}): not every request completed")
+        require(z["stats"]["preemptions"] >= 1
+                and z["stats"]["restores"] >= 1,
+                f"({key}): no preemption and restore")
+        require(z["tiered"]["demotions"] > 0,
+                f"({key}): the cold boundary never moved")
+        if grid[0] > 1:
+            require(z["moves"] >= 1, f"({key}): no slot was restored on "
+                    "the other data row")
+        _hold_streams(key, [r[key]["streams"] for r in res], un["streams"],
+                      z["replays"])
+        for r in res:
+            got = r[key]
+            for what in ("statuses", "preemptions", "swap_calls", "tiered"):
+                require(got[what] == un[what], f"({key}) rank {r['rank']}: "
+                        f"{what} differ from the unsharded engine's")
+            for what in ("preemptions", "restores", "host_syncs",
+                         "completed"):
+                require(got["stats"][what] == un["stats"][what],
+                        f"({key}) rank {r['rank']}: {what} differ from the "
+                        "unsharded engine's")
+            c = got["counts"]
+            log(f"    rank {r['rank']}: launches {c}")
+            require(device != "cuda" or all((n > 0) == (k in need)
+                                            for k, n in c.items()),
+                    f"({key}) rank {r['rank']}: launched {c}, its path runs "
+                    f"{need}")
+            runs[f"{key}_rank{r['rank']}"] = c
+            for k, n in c.items():
+                totals[k] += n
+    z = r0[CHAOS_MESH_KEY]
+    un = z["unsharded"]
+    rep = z["report"]
+    log(f"  ({CHAOS_MESH_KEY}) (f)'s schedule (seed {F_SEED}) on (1, 2) "
+        f"sub_operator, 4 slots, int8 KV, {TIER_MESH_LAYERS} layers f32: "
+        f"report {json.dumps(rep)}; TPOT mean clean "
+        f"{z['clean']['tpot_mean_ms']:.3f} ms, chaos "
+        f"{z['chaos']['tpot_mean_ms']:.3f} ms (unsharded "
+        f"{un['clean']['tpot_mean_ms']:.3f} / "
+        f"{un['chaos']['tpot_mean_ms']:.3f}); {z['took_s']:.1f}s")
+    require(rep["violations"] == [], f"({CHAOS_MESH_KEY}): invariant "
+            f"violations {rep['violations']}")
+    require(rep["injected"]["injected_failures"] >= 1
+            and rep["preemptions"] >= 1 and rep["restores"] >= 1,
+            f"({CHAOS_MESH_KEY}): no injected failure, preemption and "
+            "restore")
+    require(rep == un["report"], f"({CHAOS_MESH_KEY}): the report differs "
+            "from the unsharded engine's")
+    _hold_streams(CHAOS_MESH_KEY, [r[CHAOS_MESH_KEY]["clean"]["streams"]
+                                   for r in res], un["clean"]["streams"],
+                  z["replays"])
+    for r in res:
+        require(r[CHAOS_MESH_KEY]["chaos"]["streams"]
+                == z["chaos"]["streams"], f"({CHAOS_MESH_KEY}) rank "
+                f"{r['rank']}: the chaos run's streams differ from rank 0's")
+    n_req = len(z["clean"]["streams"])
+    require(rep["completed"] + rep["rejections"] + rep["deadline_misses"]
+            == n_req, f"({CHAOS_MESH_KEY}): a request was not terminally "
+            "accounted")
+    for r in res:
+        got = r[CHAOS_MESH_KEY]
+        require(got["report"] == rep, f"({CHAOS_MESH_KEY}) rank "
+                f"{r['rank']}: the report differs from rank 0's")
+        for which in ("clean", "chaos"):
+            for what in ("statuses", "reasons"):
+                require(got[which][what] == un[which][what],
+                        f"({CHAOS_MESH_KEY}) rank {r['rank']} {which} run: "
+                        f"{what} differ from the unsharded engine's")
+            c = got[which]["counts"]
+            log(f"    rank {r['rank']} {which} run: launches {c}")
+            require(device != "cuda" or all(
+                (n > 0) == (k in CHAOS_MESH_KERNELS) for k, n in c.items()),
+                f"({CHAOS_MESH_KEY}) rank {r['rank']}: launched {c}")
+            runs[f"{CHAOS_MESH_KEY}_{which}_rank{r['rank']}"] = c
+            for k, n in c.items():
+                totals[k] += n
+    return {key: {"swap_ms": {f"rank{r['rank']}": r[key]["swap_ms"]
+                              for r in res},
+                  "unsharded_swap_ms": r0[key]["unsharded"]["swap_ms"],
+                  "tpot_mean_ms": r0[key]["stats"]["tpot_mean_ms"]}
+            for key in TIER_MESH_RUNS}
+
+
+def tier_mesh_timing_rows(dev, bound, sdpa_args):
+    """Phase 5 rows of K1 at phase 4f's rank shapes: in float mode over the
+    resolved f32 image one rank of (z10) attends (its data row's 4 slots,
+    14 query heads on 2 KV heads of 64, bucket 192 of the extent 200), and
+    in partial mode over the block of 100 positions one rank of (z9) holds
+    of every slot (all 8 slots, the heads whole under +seqkv), f32."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode.ops import (flash_decode,
+                                                      flash_decode_partial)
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+    rows = []
+    pair = ("float32", "float32")
+    for name, B, S, fn, plain, what in (
+            ("flash_decode", 4, 192, flash_decode, flash_decode_ref,
+             "float mode over the resolved image, one rank of (z10)"),
+            ("flash_decode_partial", 8, 100, flash_decode_partial,
+             lambda *a: flash_decode_ref(*a, partial_stats=True),
+             "partial mode over a kv_seq block, one rank of (z9)")):
+        q, k, v, mask, ks, vs, lim = k1_inputs(dev, B, S, pair)
+        Hq, hd = q.shape[1], q.shape[2]
+        nb = nbytes(q, k, v, mask, ks, vs) + B * Hq * (
+            hd + (2 if fn is flash_decode_partial else 0)) * 4
+        b_ms, b_by = bound(nb, 4 * B * Hq * S * hd, torch.float32)
+        var = variants_of(lambda i: (k1_inputs(dev, B, S, pair, seed=i),
+                                     {}), nb)
+        lib = {"sdpa(enable_gqa), f32": time_ms(
+            F.scaled_dot_product_attention, sdpa_args(var), 400)}
+        rows.append((name, f"{what}: B={B} Hq=14 n_kv=2 hd=64 S={S} f32",
+                     time_ms(fn, var, 400), time_ms(plain, var, 50), b_ms,
+                     b_by, lib, host_ms(fn, var)))
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -5437,8 +6005,15 @@ def main() -> int:
     phase_fam_train_mesh(launches, runs)
     log(f"  phase 4e took {time.monotonic() - t0:.1f}s")
 
+    log("phase 4f: preemption, the tiered KV cache and KV budgets on "
+        "meshes of two ranks sharing the card (gloo): runs (z9)-(z12)")
+    t0 = time.monotonic()
+    tier_mesh = phase_tier_mesh(launches, runs)
+    log(f"  phase 4f took {time.monotonic() - t0:.1f}s")
+
     log("phase 5: kernel timing")
     kernels = phase_timing(dev, launches, runs, per_step, errs)
+    log("  phase 4f swaps and TPOT: " + json.dumps(tier_mesh))
     phase_hops(card)
     phase_moe_timing(card)
     log(f"total {time.monotonic() - t_start:.1f}s")

@@ -429,3 +429,23 @@ def control_all_gather(x: torch.Tensor, mesh, axes: Sequence[str]
     m.control_bytes += _nbytes(x) * (mesh.size - 1)
     return out[list(mesh.group_ranks(axes))] if _key(mesh, axes) else \
         out[[mesh.rank]]
+
+
+def control_exchange(sends: Sequence[Tuple[torch.Tensor, int]],
+                     recvs: Sequence[Tuple[torch.Tensor, int]], mesh
+                     ) -> None:
+    """Point-to-point over the control group: every (CPU tensor, global
+    rank) of ``sends`` is sent and every (CPU buffer, global rank) of
+    ``recvs`` received into, all posted together (the peer posts the
+    matching operations in the same order)."""
+    ops = [dist.P2POp(dist.isend, x.contiguous(), dst, group=mesh.control)
+           for x, dst in sends]
+    ops += [dist.P2POp(dist.irecv, buf, src, group=mesh.control)
+            for buf, src in recvs]
+    if not ops:
+        return
+    for w in dist.batch_isend_irecv(ops):
+        w.wait()
+    m = meter(mesh)
+    m.control_calls += 1
+    m.control_bytes += sum(_nbytes(x) for x, _ in sends)

@@ -76,7 +76,6 @@ from repro_torch.models.transformer import (attend_chunk,
                                             attend_chunk_seq,
                                             attend_decode_seq,
                                             attend_decode_slotted,
-                                            check_mesh_cache,
                                             check_supported,
                                             chunk_positions, embed_tokens,
                                             final_logits, make_cache,
@@ -451,8 +450,6 @@ class WADisaggregated:
         if self.routing == "device_put":
             return self._decode_device_put(params, cache, tokens, positions,
                                            active, kv_bucket)
-        if self.mesh is not None:
-            check_mesh_cache(cache, self.a_ctx)
         slices = micro_batch_slices(tokens.shape[0], self.overlap)
         with self._program():
             with self._on_a():

@@ -19,6 +19,14 @@ hot-to-cold boundary ``cold_boundary(count)`` is read-side arithmetic on
 the device cursors, so demotion moves no bytes and needs no host round
 trip.
 
+On a mesh (``init_kv_cache_sharded``) a rank holds its part of a cache:
+its slots, and its KV heads or, when the rules cut the sequence, its block
+[seq_lo, seq_lo + S) of every slot's positions. A tiered cache's hot ring
+is never cut over the sequence (its axis is position mod H): every rank
+holds the whole ring of its slots and heads. The tiered functions take the
+block's offset (``lo``), so that on a block they give that block of what
+they give on the whole cache.
+
 A RING cache (``window`` > 0, the hybrid family's local attention) holds
 min(window, max_len) slots; position p lives in slot p % size, and the
 valid mask of a query resolves which absolute position each slot holds.
@@ -181,14 +189,20 @@ def init_kv_cache(n_layers: int, batch: int, n_kv: int, max_len: int,
 def init_kv_cache_sharded(ctx, n_layers: int, batch: int, n_kv: int,
                           max_len: int, head_dim: int, dtype=torch.bfloat16,
                           quantized: bool = False, device=None,
-                          window: int = 0) -> KVCache:
+                          window: int = 0, hot_window: int = 0,
+                          cold_block: int = 0,
+                          cold_dtype: str = "bfloat16") -> KVCache:
     """This rank's part of a flat (float or int8) cache of ``batch`` slots
-    and ``max_len`` positions, or of a ring of min(window, max_len) slots
-    (``window`` > 0), under ``ctx``'s rules (``cache_specs``): its slots
-    (batch over the data axes), its KV heads (``kv_heads``) or, when the
-    rules cut the sequence (``kv_seq``, +seqkv and the WA attention
-    domain), its block of positions (of a ring: of its slots). Tiered
-    caches are not cut; without a mesh this is ``init_kv_cache``."""
+    and ``max_len`` positions, of a ring of min(window, max_len) slots
+    (``window`` > 0), or of a tiered cache (``hot_window`` > 0), under
+    ``ctx``'s rules (``cache_specs``): its slots (batch over the data
+    axes), its KV heads (``kv_heads``) or, when the rules cut the sequence
+    (``kv_seq``, +seqkv and the WA attention domain), its block of
+    positions (of a ring: of its slots). A tiered cache's cold tier and
+    scales are cut as a flat cache is; its hot ring only over the slots
+    and the KV heads (the ring axis holds positions mod H, never a block
+    of them); the tier geometry stays whole. Without a mesh this is
+    ``init_kv_cache``."""
     from repro_torch.models.param_specs import cache_logical
     from repro_torch.models.sharding import axes_of
     size = min(window, max_len) if window else max_len
@@ -196,11 +210,13 @@ def init_kv_cache_sharded(ctx, n_layers: int, batch: int, n_kv: int,
     if not ctx.active:
         return init_kv_cache(n_layers, batch, n_kv, max_len, head_dim,
                              dtype=dtype, quantized=quantized, device=device,
-                             window=window)
+                             hot_window=hot_window, cold_block=cold_block,
+                             cold_dtype=cold_dtype, window=window)
     spec = ctx.spec(cache_logical(("k",), shape), shape)
     local = [d // ctx.n(e) for d, e in zip(shape, spec)]
     cache = init_kv_cache(*local, dtype=dtype, quantized=quantized,
-                          device=device)
+                          device=device, hot_window=hot_window,
+                          cold_block=cold_block, cold_dtype=cold_dtype)
     cache.window = window
     cache.seq_axes = axes_of(spec[3])
     cache.seq_lo = ctx.index(spec[3]) * local[3] if cache.seq_axes else 0
@@ -380,7 +396,7 @@ def layer_append_ring_block(k_l, v_l, k_scale_l, v_scale_l, k_new, v_new,
     return k_l, v_l, k_scale_l, v_scale_l
 
 
-def _check_window(start: int, C: int, S: int):
+def check_window(start: int, C: int, S: int):
     if start < 0 or start + C > S:
         raise ValueError(f"chunk window [{start}, {start + C}) does not fit "
                          f"the KV extent {S}")
@@ -403,7 +419,7 @@ def layer_write_chunk(k_l, v_l, k_scale_l, v_scale_l, k_new, v_new,
     (the scheduler shifts the final window left; nothing clamps
     silently). Quantizes per position for int8 caches."""
     C = k_new.shape[1]
-    _check_window(start, C, k_l.shape[2])
+    check_window(start, C, k_l.shape[2])
     keep = (torch.arange(C, device=k_new.device) < valid_len)[None, :, None]
     if k_scale_l is not None:
         kq, ks = quantize_kv(k_new)
@@ -430,45 +446,59 @@ def layer_write_chunk(k_l, v_l, k_scale_l, v_scale_l, k_new, v_new,
 def layer_append_tiered(k_l, v_l, k_scale_l, v_scale_l, hot_k_l, hot_v_l,
                         k_new, v_new, positions: torch.Tensor,
                         cold_dtype: str,
-                        active: Optional[torch.Tensor] = None):
+                        active: Optional[torch.Tensor] = None,
+                        lo: int = 0):
     """Decode append for a tiered layer: row b stages ``k_new[b]`` into
     the cold tier at ``positions[b]`` (quantized at ``cold_dtype``) and
     writes it exactly into the hot ring at ``positions[b] % H``; inactive
     rows keep every byte. k_l/v_l: (B,n_kv,S,hd_c); rings (B,n_kv,H,hd);
-    k_new/v_new: (B,n_kv,hd). No host sync."""
+    k_new/v_new: (B,n_kv,hd). No host sync.
+
+    ``lo``: this rank holds cold positions [lo, lo + S) of a cache whose
+    sequence is cut over ranks (``KVCache.seq_lo``; 0 on one device); a
+    row's cold store lands only on the rank whose block holds its cursor,
+    while every rank writes the ring (whole on each)."""
     rows, active = _row_operands(positions, active)
     pos = positions.to(torch.long)
-    slots = pos.clamp(0, k_l.shape[2] - 1)
+    rel = pos - lo
+    cold_act = active & (rel >= 0) & (rel < k_l.shape[2])
+    slots = rel.clamp(0, k_l.shape[2] - 1)
     ring = torch.remainder(pos, hot_k_l.shape[2])
     kq, ks = quantize_cold(k_new, cold_dtype)
     vq, vs = quantize_cold(v_new, cold_dtype)
-    _put_rows(k_l, kq, rows, slots, active)
-    _put_rows(v_l, vq, rows, slots, active)
+    _put_rows(k_l, kq, rows, slots, cold_act)
+    _put_rows(v_l, vq, rows, slots, cold_act)
     if k_scale_l is not None:
-        _put_rows(k_scale_l, ks, rows, slots, active)
-        _put_rows(v_scale_l, vs, rows, slots, active)
+        _put_rows(k_scale_l, ks, rows, slots, cold_act)
+        _put_rows(v_scale_l, vs, rows, slots, cold_act)
     _put_rows(hot_k_l, k_new, rows, ring, active)
     _put_rows(hot_v_l, v_new, rows, ring, active)
     return k_l, v_l, k_scale_l, v_scale_l, hot_k_l, hot_v_l
 
 
-def _ring_tile(h: torch.Tensor, extent: int) -> torch.Tensor:
-    """The ring (...,n_kv,H,hd) tiled over ``extent`` positions: position
-    j reads ring slot j % H (a copy)."""
-    idx = torch.arange(extent, device=h.device)
+def _ring_tile(h: torch.Tensor, extent: int, lo: int = 0) -> torch.Tensor:
+    """The ring (...,n_kv,H,hd) tiled over ``extent`` positions from
+    ``lo``: local position j (global lo + j) reads ring slot (lo + j) % H
+    (a copy)."""
+    idx = lo + torch.arange(extent, device=h.device)
     return h.index_select(-2, torch.remainder(idx, h.shape[-2]))
 
 
 def layer_read_tiered(k_l, v_l, k_scale_l, v_scale_l, hot_k_l, hot_v_l,
                       counts: torch.Tensor, bucket: int, hot_window: int,
                       cold_block: int, cold_dtype: str,
-                      dtype=torch.bfloat16):
+                      dtype=torch.bfloat16, lo: int = 0):
     """The resolved (B,n_kv,Se,hd) image of the first ``bucket`` positions
     (0 or >= S: all) in the compute dtype: position j of row b is the hot
     ring's exact value when j >= cold_boundary(counts[b]) and the
     dequantized cold bytes below it. ``counts``: (B,) tokens stored per
     row (cursors + 1, after the append). Only the bucket prefix of the
-    cold tier is dequantized."""
+    cold tier is dequantized.
+
+    ``lo``: the cold tier is this rank's block [lo, lo + S) of a
+    sequence-cut cache; local position j is global position lo + j (hot
+    from the global boundary on, ring slot (lo + j) % H) and ``bucket``
+    counts local positions."""
     S = k_l.shape[2]
     Se = bucket if (bucket and bucket < S) else S
 
@@ -478,10 +508,10 @@ def layer_read_tiered(k_l, v_l, k_scale_l, v_scale_l, hot_k_l, hot_v_l,
     kc, vc = cold_read(cut(k_l), cut(v_l), cut(k_scale_l), cut(v_scale_l),
                        cold_dtype, dtype)
     cb = cold_boundary(counts, hot_window, cold_block)            # (B,)
-    hot = (torch.arange(Se, device=cb.device)[None, :]
+    hot = (lo + torch.arange(Se, device=cb.device)[None, :]
            >= cb[:, None])[:, None, :, None]                      # (B,1,Se,1)
-    return (torch.where(hot, _ring_tile(hot_k_l, Se).to(dtype), kc),
-            torch.where(hot, _ring_tile(hot_v_l, Se).to(dtype), vc))
+    return (torch.where(hot, _ring_tile(hot_k_l, Se, lo).to(dtype), kc),
+            torch.where(hot, _ring_tile(hot_v_l, Se, lo).to(dtype), vc))
 
 
 def layer_read_tiered_shards(k_l, v_l, k_scale_l, v_scale_l, hot_k_l,
@@ -502,25 +532,35 @@ def layer_read_tiered_shards(k_l, v_l, k_scale_l, v_scale_l, hot_k_l,
 
 def layer_write_chunk_tiered(k_l, v_l, k_scale_l, v_scale_l, hot_k_l,
                              hot_v_l, k_new, v_new, slot: int, start: int,
-                             valid_len: int, cold_dtype: str):
+                             valid_len: int, cold_dtype: str,
+                             lo: Optional[int] = None):
     """Chunked-prefill write into both tiers. The chunk (n_kv,C,hd) is
     staged into the cold tier at [start, start+C) (quantized, positions
     >= ``valid_len`` keep their bytes; a window that does not fit raises)
     and ring slot s takes the LAST valid chunk position congruent to s
     (mod H): chunk index r + H*floor((valid-1-r)/H) with r = (s - start)
     mod H. Ring slots the chunk does not reach (r >= valid_len) keep
-    their bytes: they hold hot positions of earlier chunks."""
+    their bytes: they hold hot positions of earlier chunks.
+
+    ``lo``: the cold tier is this rank's block [lo, lo + S) of a
+    sequence-cut cache: only the chunk's valid positions inside the block
+    are staged (quantized per position, so the bytes are the whole
+    cache's), and the caller checks the window against the global
+    extent; the ring is written whole, as on one device."""
     C = k_new.shape[1]
-    _check_window(start, C, k_l.shape[2])
     dev = k_new.device
-    keep = (torch.arange(C, device=dev) < valid_len)[None, :, None]
-    kq, ks = quantize_cold(k_new, cold_dtype)
-    vq, vs = quantize_cold(v_new, cold_dtype)
-    _put_window(k_l, kq, slot, start, keep)
-    _put_window(v_l, vq, slot, start, keep)
-    if k_scale_l is not None:
-        _put_window(k_scale_l, ks, slot, start, keep)
-        _put_window(v_scale_l, vs, slot, start, keep)
+    if lo is None:
+        check_window(start, C, k_l.shape[2])
+        lo = 0
+    a = max(start, lo)
+    b = min(start + min(valid_len, C), lo + k_l.shape[2])
+    if a < b:
+        kq, ks = quantize_cold(k_new[:, a - start:b - start], cold_dtype)
+        vq, vs = quantize_cold(v_new[:, a - start:b - start], cold_dtype)
+        for dst, new in ((k_l, kq), (v_l, vq), (k_scale_l, ks),
+                         (v_scale_l, vs)):
+            if dst is not None:
+                dst[slot, :, a - lo:b - lo] = new.to(dst.dtype)
     H = hot_k_l.shape[2]
     r = torch.remainder(torch.arange(H, device=dev) - start, H)
     i_star = torch.clamp(
@@ -545,18 +585,29 @@ def layer_read_slot_cold(k_l, v_l, k_scale_l, v_scale_l, slot: int,
 
 
 def chunk_hot_image(hot_k_l, hot_v_l, k_new, v_new, slot: int, start: int,
-                    valid_len: int, extent: int, dtype=torch.bfloat16):
+                    valid_len: int, extent: int, dtype=torch.bfloat16,
+                    lo: Optional[int] = None):
     """(1,n_kv,extent,hd) exact-value image for the chunk program's hot
     reads, built from the PRE-write ring: every position tiles from the
     ring except [start, start+valid_len), which comes from the incoming
     chunk. The pre-write ring holds every position >= cold_boundary(start),
     a superset of each query's hot tail. A chunk window that does not fit
-    the extent raises (the reference clamps it)."""
-    _check_window(start, k_new.shape[1], extent)
+    the extent raises (the reference clamps it).
+
+    ``lo``: the image of this rank's block, global positions [lo, lo +
+    extent) of a sequence-cut cache, the chunk's window clipped to it (the
+    caller checks the window against the global extent)."""
+    if lo is None:
+        check_window(start, k_new.shape[1], extent)
+    base = lo or 0
+    a = max(start, base)
+    b = min(start + valid_len, base + extent)
 
     def one(h_l, new):
-        img = _ring_tile(h_l[slot:slot + 1], extent).to(dtype)
-        img[0, :, start:start + valid_len] = new[:, :valid_len].to(dtype)
+        img = _ring_tile(h_l[slot:slot + 1], extent, base).to(dtype)
+        if a < b:
+            img[0, :, a - base:b - base] = new[:, a - start:b - start] \
+                .to(dtype)
         return img
 
     return one(hot_k_l, k_new), one(hot_v_l, v_new)
@@ -600,9 +651,20 @@ def export_slot_kv(cache: KVCache, slot: int):
     (L,1,n_kv,H,hd)); ``None`` for what the cache lacks. Quantized tiers
     export their values and scales verbatim (packed int4 nibbles
     included), never a dequantized image. Read-only, and the tensors are
-    COPIES: the slot is reused while the image is held."""
+    COPIES: the slot is reused while the image is held. On a mesh: this
+    rank's part of the slot (its heads or its block of positions, and its
+    ring)."""
     return tuple(None if a is None else a[:, slot:slot + 1].clone()
                  for a in _slot_buffers(cache))
+
+
+def empty_slot_image(cache: KVCache):
+    """Host buffers of ``export_slot_kv``'s shapes and dtypes for one slot
+    of ``cache`` (None where the cache lacks a buffer): where a rank
+    receives another rank's part of a swapped-out slot."""
+    return tuple(None if a is None else torch.empty(
+        (a.shape[0], 1) + tuple(a.shape[2:]), dtype=a.dtype)
+        for a in _slot_buffers(cache))
 
 
 def import_slot_kv(cache: KVCache, saved, slot: int,
@@ -615,12 +677,16 @@ def import_slot_kv(cache: KVCache, saved, slot: int,
     positions of the restored row's hot region, and the export holds the
     victim's ring as it was. The image may lie on another device (the
     engine hosts it); the stored bytes land verbatim. ``length`` rises to
-    max(length, valid_len)."""
+    max(length, valid_len). On a rank holding positions [seq_lo, seq_lo +
+    S) the cold part below the GLOBAL ``valid_len`` lands, the ring
+    verbatim."""
     hk_s, hv_s = saved[4:]
     if (hk_s is not None or hv_s is not None) and not cache.is_tiered:
         raise ValueError("a swap image with a hot ring needs a tiered "
                          "cache")
-    n = max(0, min(int(valid_len), cache.k.shape[3]))
+    # a rank holding positions [seq_lo, seq_lo + S) of a sequence-cut
+    # cache restores the part of its block below the global valid_len
+    n = max(0, min(int(valid_len) - cache.seq_lo, cache.k.shape[3]))
     for i, (dst, src) in enumerate(zip(_slot_buffers(cache), saved)):
         if dst is None or src is None:
             continue

@@ -44,7 +44,28 @@ group's calls. With ``--device cuda`` each rank takes its own card
 CPU. Drain mode runs on a mesh too (``--mode drain``, and
 ``--arch recurrentgemma-9b``, whose ``auto`` is drain): each data row
 prefills and decodes its block of the slots, and the host reads every
-row's tokens in the one sync a step.
+row's tokens in the one sync a step. A tiered, preemptible engine with a
+KV budget serves on a mesh too (``--hot-window``, ``--kv-cold-dtype``,
+``--kv-cold-block``, ``--preemptible``, ``--kv-budget-bytes``, under
+every executor, ``--backend wa`` included): each rank holds its part of
+the hot ring (its slots and KV heads) and of the cold tier (its slots and
+KV heads, or under ``sub_operator+seqkv`` its block of positions), swaps
+its part of a preempted slot, and the arbiter prices the whole cache, as
+on one device. One H100:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --mesh 1x2 \
+        --share-device --executor sub_operator+seqkv --arch qwen2-0.5b \
+        --full-width --requests 12 --batch 8 --prompt-len 128 --max-new 32 \
+        --arrival-every 4 --block-size 8 --kv-bucket-chunk 64 \
+        --prefill-chunk 32 --hot-window 64 --kv-cold-dtype int4 \
+        --kv-cold-block 16 --preemptible --kv-budget-bytes 1118208
+
+(1,118,208 B is the arbiter's price of one slot at cursor 160 in bf16 at
+24 layers. Unbudgeted, two decoding slots peak at 1,161,216 B, so this
+budget binds: the plan preempts 12 times in a CPU run, the arbiter
+pricing bytes, not values. Phase 4f's (z9) sets 1.06 such prices, which
+binds at 2 layers in f32 but not here: the f32 hot ring weighs more
+against the int4 cold tier.)
 """
 from __future__ import annotations
 

@@ -225,24 +225,25 @@ def abstract_params(cfg):
 
 
 def shard_cache(cache: KVCache, ctx: ShardingCtx) -> KVCache:
-    """This rank's part of a full flat or ring ``cache`` under ``ctx``'s
-    rules (the layout ``init_kv_cache_sharded`` builds): its slots, its KV
-    heads or its block of positions (of a ring: of its slots); the cursor
-    stays whole."""
+    """This rank's part of a full flat, ring or tiered ``cache`` under
+    ``ctx``'s rules (the layout ``init_kv_cache_sharded`` builds): its
+    slots, its KV heads or its block of positions (of a ring: of its
+    slots; of a tiered cache: of its cold tier, the hot ring cut over the
+    slots and heads only); the cursor stays whole."""
     import dataclasses
     from repro_torch.models.sharding import axes_of
     if not ctx.active:
         return cache
-    if cache.is_tiered:
-        raise NotImplementedError("tiered caches are not cut over a mesh "
-                                  "in this slice of the port")
     spec = ctx.spec(cache_logical(("k",), cache.k.shape), cache.k.shape)
+    hot = None if cache.hot_k is None else ctx.spec(
+        cache_logical(("hot_k",), cache.hot_k.shape), cache.hot_k.shape)
 
-    def cut(t):
-        return None if t is None else ctx.local(t, spec)
+    def cut(t, s=spec):
+        return None if t is None else ctx.local(t, s)
     seq = axes_of(spec[3])
     return dataclasses.replace(
         cache, k=cut(cache.k), v=cut(cache.v), k_scale=cut(cache.k_scale),
-        v_scale=cut(cache.v_scale), seq_axes=seq,
+        v_scale=cut(cache.v_scale), hot_k=cut(cache.hot_k, hot),
+        hot_v=cut(cache.hot_v, hot), seq_axes=seq,
         seq_lo=ctx.index(spec[3]) * (cache.k.shape[3] // ctx.n(spec[3]))
         if seq else 0)

@@ -63,7 +63,7 @@ from repro_torch.kv.cache import (KVCache, batch_valid_mask, bucket_view,
                                   layer_read_tiered,
                                   layer_read_tiered_shards, layer_write_chunk,
                                   layer_write_chunk_tiered, shard_view,
-                                  slot_valid_mask)
+                                  slot_valid_mask, check_window)
 from repro_torch.models import common
 from repro_torch.models.attention import (chunk_attention,
                                           chunk_attention_tiered,
@@ -483,12 +483,25 @@ def attend_decode_seq(q, k, v, kv_slices: Tuple, positions, active,
     cursor falls in the block append here; K1 in partial-statistics mode
     walks the block's part of the bucket (in ``kv_shards`` // ranks
     sub-blocks when they divide it), and the blocks merge across ranks.
-    q (B,1,H,hd) over all heads. Returns o (B,H,hd) in q's dtype."""
+    q (B,1,H,hd) over all heads. Returns o (B,H,hd) in q's dtype.
+
+    Six slices are a tiered layer: every rank writes the new K/V into its
+    whole hot ring, the rank whose block holds the cursor stages the cold
+    store, and K1 walks the block's resolved image (global position lo +
+    j hot from ``cold_boundary(positions + 1)`` on, read from ring slot
+    (lo + j) % H), so every position, ring positions included, is
+    attended once across the group."""
     k_l, v_l, ks_l, vs_l = kv_slices[:4]
     S = k_l.shape[2]
-    rel = positions - lo
-    mine = active & (rel >= 0) & (rel < S)
-    layer_append_slotted(k_l, v_l, ks_l, vs_l, k[:, 0], v[:, 0], rel, mine)
+    tiered = len(kv_slices) == 6
+    if tiered:
+        layer_append_tiered(*kv_slices, k[:, 0], v[:, 0], positions,
+                            cfg.kv_cold_dtype, active, lo=lo)
+    else:
+        rel = positions - lo
+        mine = active & (rel >= 0) & (rel < S)
+        layer_append_slotted(k_l, v_l, ks_l, vs_l, k[:, 0], v[:, 0], rel,
+                             mine)
     nb = S if not kv_bucket else max(0, min(S, kv_bucket - lo))
     B, H, hd = q.shape[0], q.shape[2], q.shape[3]
     if nb == 0:
@@ -497,7 +510,13 @@ def attend_decode_seq(q, k, v, kv_slices: Tuple, positions, active,
                        device=q.device)
         l = torch.zeros((B, H), dtype=torch.float32, device=q.device)
     else:
-        kc, vc, ksc, vsc = bucket_view(k_l, v_l, ks_l, vs_l, nb)
+        if tiered:
+            kc, vc = layer_read_tiered(
+                *kv_slices, positions + 1, nb, cfg.hot_window,
+                cfg.kv_cold_block, cfg.kv_cold_dtype, dtype=q.dtype, lo=lo)
+            ksc = vsc = None
+        else:
+            kc, vc, ksc, vsc = bucket_view(k_l, v_l, ks_l, vs_l, nb)
         mask = (lo + torch.arange(nb, device=q.device))[None, :] \
             <= positions[:, None]
         lim = torch.clamp(torch.as_tensor(kv_limit, device=q.device) - lo,
@@ -559,29 +578,62 @@ def attend_chunk_seq(q, k, v, kv_slices: Tuple, slot: int, start: int,
     quantized per position), the slot's block is read back and each
     query's partial softmax statistics over it merge across ranks (the
     reference's weights rounded to the value dtype before the PV
-    product)."""
+    product).
+
+    Six slices are a tiered layer: the block's hot image is built from
+    the PRE-write ring (whole on every rank) and the chunk, the chunk is
+    staged into both tiers (the cold store clipped to the block), and
+    each key of the block scores against the hot image from the query's
+    own ``cold_boundary(start + i + 1)`` on and against the dequantized
+    cold block below it, as ``chunk_attention_tiered`` does on one
+    device."""
     k_l, v_l, ks_l, vs_l = kv_slices[:4]
     S = k_l.shape[2]
-    a, b = max(start, lo), min(start + valid_len, lo + S)
-    if a < b:
-        k_ch = k[0, a - start:b - start].transpose(0, 1)   # (n_kv,c,hd)
-        v_ch = v[0, a - start:b - start].transpose(0, 1)
-        layer_write_chunk(k_l, v_l, ks_l, vs_l, k_ch, v_ch, slot, a - lo,
-                          b - a)
-    kc, vc = layer_read_slot(k_l, v_l, ks_l, vs_l, slot, dtype=q.dtype)
+    idx = lo + torch.arange(S, device=q.device)
     _, C, Hq, hd = q.shape
+    if len(kv_slices) == 6:
+        check_window(start, C, S * ctx.n(entry_of(seq_axes)))
+        k_ch, v_ch = k[0].transpose(0, 1), v[0].transpose(0, 1)
+        kh, vh = chunk_hot_image(*kv_slices[4:], k_ch, v_ch, slot, start,
+                                 valid_len, S, dtype=q.dtype, lo=lo)
+        layer_write_chunk_tiered(*kv_slices, k_ch, v_ch, slot, start,
+                                 valid_len, cfg.kv_cold_dtype, lo=lo)
+        kc, vc = layer_read_slot_cold(k_l, v_l, ks_l, vs_l, slot,
+                                      cfg.kv_cold_dtype, dtype=q.dtype)
+        hot = (idx[None, :] >= cold_boundary(
+            positions[0] + 1, cfg.hot_window, cfg.kv_cold_block)[:, None]
+        )[None, None, None]                                   # (1,1,1,C,S)
+    else:
+        a, b = max(start, lo), min(start + valid_len, lo + S)
+        if a < b:
+            k_ch = k[0, a - start:b - start].transpose(0, 1)  # (n_kv,c,hd)
+            v_ch = v[0, a - start:b - start].transpose(0, 1)
+            layer_write_chunk(k_l, v_l, ks_l, vs_l, k_ch, v_ch, slot,
+                              a - lo, b - a)
+        kc, vc = layer_read_slot(k_l, v_l, ks_l, vs_l, slot, dtype=q.dtype)
+        hot = None
     n_kv = kc.shape[1]
-    qg = q.reshape(1, C, n_kv, Hq // n_kv, hd)
-    sc = torch.einsum("bqkgh,bksh->bkgqs", qg.to(torch.float32),
-                      kc.to(torch.float32)) / math.sqrt(hd)
-    mask = (lo + torch.arange(S, device=q.device))[None, :] \
-        <= positions[0][:, None]                                   # (C,S)
+    qg = q.reshape(1, C, n_kv, Hq // n_kv, hd).to(torch.float32)
+    eq = "bqkgh,bksh->bkgqs"
+    sc = torch.einsum(eq, qg, kc.to(torch.float32))
+    if hot is not None:
+        sc = torch.where(hot, torch.einsum(eq, qg, kh.to(torch.float32)), sc)
+    sc = sc / math.sqrt(hd)
+    mask = idx[None, :] <= positions[0][:, None]                  # (C,S)
     sc = torch.where(mask[None, None, None], sc, torch.full_like(sc, NEG_INF))
     m = torch.amax(sc, dim=-1)                                # (1,kv,G,C)
     p = torch.exp(sc - m[..., None])
     l = p.sum(-1)
-    o = torch.einsum("bkgqs,bksh->bkgqh", p.to(vc.dtype).to(torch.float32),
-                     vc.to(torch.float32))
+    pv = "bkgqs,bksh->bkgqh"
+    if hot is None:
+        o = torch.einsum(pv, p.to(vc.dtype).to(torch.float32),
+                         vc.to(torch.float32))
+    else:
+        zero = torch.zeros((), dtype=p.dtype, device=p.device)
+        o = torch.einsum(pv, torch.where(hot, p, zero).to(vh.dtype)
+                         .to(torch.float32), vh.to(torch.float32)) \
+            + torch.einsum(pv, torch.where(hot, zero, p).to(vc.dtype)
+                           .to(torch.float32), vc.to(torch.float32))
     out = _merge_blocks(o.reshape(-1, C, hd), m.reshape(-1, C),
                         l.reshape(-1, C), ctx, seq_axes, "kv_seq_merge")
     out = out.reshape(n_kv, Hq // n_kv, C, hd).permute(2, 0, 1, 3)
@@ -592,13 +644,6 @@ def cache_seq(cache: KVCache):
     """(the mesh axes, this rank's first position) of a cache whose
     positions the rules cut over ranks, else None."""
     return (cache.seq_axes, cache.seq_lo) if cache.seq_axes else None
-
-
-def check_mesh_cache(cache: KVCache, ctx: ShardingCtx):
-    if ctx.active and cache.is_tiered:
-        raise NotImplementedError(
-            "tiered KV caches are not cut over a mesh in this slice of the "
-            "port (flat and ring caches are)")
 
 
 # ---------------------------------------------------------------------------
@@ -821,7 +866,6 @@ def decode_step_slotted(params, cache: KVCache, tokens: torch.Tensor,
     the device. ``kv_shards`` > 1: split-KV decode (block_decode_slotted).
     On a mesh: this data row's slots, this rank's cache; the logits cover
     this rank's vocabulary rows."""
-    check_mesh_cache(cache, ctx)
     lay, seq = layout(cfg, ctx), cache_seq(cache)
     x = embed_tokens(params, tokens[:, None], positions[:, None], cfg, lay)
     live = torch.where(active, positions, torch.full_like(positions, -1))
@@ -849,7 +893,6 @@ def prefill_chunk(params, cache: KVCache, tokens: torch.Tensor, slot: int,
     if cache.window:
         raise ValueError("chunked prefill requires a non-windowed cache "
                          "(ring order has no per-position write offset)")
-    check_mesh_cache(cache, ctx)
     lay, seq = layout(cfg, ctx), cache_seq(cache)
     x = embed_tokens(params, tokens,
                      chunk_positions(start, tokens.shape[1], tokens.device),
@@ -865,23 +908,12 @@ def prefill_chunk(params, cache: KVCache, tokens: torch.Tensor, slot: int,
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, device,
                ctx: ShardingCtx = NULL_CTX) -> KVCache:
     """The config's slot cache: flat, or tiered when ``hot_window`` > 0. On
-    a mesh, this rank's part of a flat cache of ``batch`` slots
-    (``init_kv_cache_sharded``)."""
+    a mesh, this rank's part of it (``init_kv_cache_sharded``)."""
     check_supported(cfg)
     tiered = cfg.hot_window > 0
-    if ctx.active:
-        if tiered:
-            raise NotImplementedError(
-                "a tiered KV cache is not cut over a mesh in this slice of "
-                "the port")
-        return init_kv_cache_sharded(
-            ctx, cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim,
-            dtype=common.dtype_of(cfg), quantized=(cfg.kv_dtype == "int8"),
-            device=device)
-    return init_kv_cache(cfg.n_layers, batch, cfg.n_kv_heads, max_len,
-                         cfg.head_dim, dtype=common.dtype_of(cfg),
-                         quantized=(cfg.kv_dtype == "int8"), device=device,
-                         hot_window=cfg.hot_window if tiered else 0,
-                         cold_block=cfg.kv_cold_block if tiered else 0,
-                         cold_dtype=cfg.kv_cold_dtype if tiered
-                         else "bfloat16")
+    return init_kv_cache_sharded(
+        ctx, cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim,
+        dtype=common.dtype_of(cfg), quantized=(cfg.kv_dtype == "int8"),
+        device=device, hot_window=cfg.hot_window if tiered else 0,
+        cold_block=cfg.kv_cold_block if tiered else 0,
+        cold_dtype=cfg.kv_cold_dtype if tiered else "bfloat16")

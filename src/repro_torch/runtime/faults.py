@@ -273,7 +273,11 @@ def run_chaos(engine: ServingEngine, params, plan: FaultPlan,
 
     The same engine serves both (programs compile once); the injector is
     cleared afterwards so the engine is reusable. Returns a report dict —
-    ``report["violations"] == []`` is the green condition."""
+    ``report["violations"] == []`` is the green condition. On a mesh every
+    rank calls this with its own engine and an injector of the same plan:
+    every rank dispatches every program in the same order, so the
+    injector draws one stream on all of them, and each rank's report is
+    the same."""
     clean = clone_requests(requests)
     engine.fault_injector = None
     clean_stats = engine.run(params, clean, max_steps=max_steps)

@@ -68,12 +68,14 @@ import numpy as np
 import torch
 
 from repro_torch.core.collectives import (control_all_gather,
-                                          control_broadcast, meter)
+                                          control_broadcast,
+                                          control_exchange, meter)
 from repro_torch.core.pipeline import wa_schedule_occupancy
 from repro_torch.core.wa import (WADisaggregated, micro_batch_slices,
                                  routing_bytes)
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.kv.cache import KVCache, export_slot_kv, import_slot_kv
+from repro_torch.kv.cache import (KVCache, empty_slot_image, export_slot_kv,
+                                  import_slot_kv)
 from repro_torch.models.attention import bucket_for, kv_buckets
 from repro_torch.models.common import dtype_of
 from repro_torch.models.registry import DECODE_SLACK, ModelAPI, build_model
@@ -108,12 +110,24 @@ class DispatchFailure(RuntimeError):
 class SwapState:
     """Host-side image of a preempted slot: the full-extent STORED bytes
     (the ``export_slot_kv`` tuple on the CPU, int8 values and scales
-    verbatim) plus the cursor triple that makes the restore token-exact.
-    The true KV length travels here, not in the buffer."""
-    saved: Tuple                     # export_slot_kv tuple, host tensors
+    verbatim; on a mesh a ``RankImage``, this rank's part) plus the cursor
+    triple that makes the restore token-exact. The true KV length travels
+    here, not in the buffer."""
+    saved: Any                       # export_slot_kv tuple, host tensors
     kv_len: int                      # TRUE length: the cursor at swap-out
     last_tok: int                    # last emitted token (KV not written)
     remaining: int                   # decode budget left
+
+
+@dataclass
+class RankImage:
+    """A swapped-out slot on a mesh: the data row whose ranks hold it and
+    this rank's part of its ``export_slot_kv`` tuple on the host (its KV
+    heads or its block of positions; None on the ranks of other rows).
+    Nothing is gathered: a restore into another row moves each part to
+    the rank of that row at the same coordinates on the other axes."""
+    row: int
+    parts: Optional[Tuple]
 
 
 @dataclass
@@ -547,25 +561,53 @@ class ExecutorBackend:
         packed = torch.from_numpy(np.ascontiguousarray(packed))
         return list(packed.to(self.device).unbind(0))
 
+    def _row_coords(self, row: int) -> Dict[str, int]:
+        """The batch axes' coordinates of data row ``row``."""
+        axes = self.ctx.batch_axes
+        mesh = self.ctx.mesh
+        coords = np.unravel_index(row, [mesh.shape[a] for a in axes])
+        return {a: int(c) for a, c in zip(axes, coords)}
+
     def on_owner(self, slot: int, fn: Callable) -> torch.Tensor:
         """Run ``fn(local_slot)`` -> a device token tensor where the slot
         lives and return the token as a (1,) tensor. On a mesh the ranks
-        of the slot's row run ``fn`` (a batch-1 program: admission), the
-        others skip it, and the token is broadcast from the row's first
-        rank over the control group (a CPU tensor) to every rank."""
+        of the slot's row run ``fn`` (batch-1 programs: admission); the
+        row's first rank broadcasts the token and the names of the
+        programs ``fn`` dispatched over the control group (a CPU tensor),
+        and the other rows dispatch those programs without their bodies,
+        so a seeded fault injector draws the same stream on every rank and
+        a refused dispatch raises ``DispatchError`` on every rank."""
         if self.slot_rows == 1:
             return fn(slot)
         row, local = divmod(slot, self.local_slots)
-        tok = torch.zeros(1, dtype=torch.int64)
+        names = self.rt.step_names()
+        # [token (-1: refused), indices of the dispatched programs, -1...]
+        msg = torch.full((1 + len(names),), -1, dtype=torch.int64)
+        refused = None
         if row == self.my_row:
-            tok = fn(local).reshape(-1)[:1].to(torch.int64).cpu()
+            with self.rt.recording() as ran:
+                try:
+                    msg[0] = int(fn(local).reshape(-1)[0])
+                except DispatchError as e:
+                    refused = e
+            msg[1:1 + len(ran)] = torch.tensor([names.index(n)
+                                                for n in ran])
         mesh = self.ctx.mesh
-        axes = self.ctx.batch_axes
-        coords = np.unravel_index(row, [mesh.shape[a] for a in axes])
-        src = mesh.rank_at(**{a: int(c) for a, c in zip(axes, coords)},
+        src = mesh.rank_at(**self._row_coords(row),
                            **{a: 0 for a in mesh.axis_names
-                              if a not in axes})
-        return control_broadcast(tok, mesh, src)
+                              if a not in self.ctx.batch_axes})
+        msg = control_broadcast(msg, mesh, src)
+        if refused is not None:
+            raise refused
+        if row != self.my_row:
+            for i in msg[1:].tolist():
+                if i >= 0:
+                    self.rt.step(names[i]).dispatch_elsewhere()
+            if msg[0] < 0:
+                raise RuntimeError("a dispatch refused on the slot's row "
+                                   "passed here: the ranks' fault streams "
+                                   "diverged")
+        return msg[:1]
 
     def fresh(self):
         self.caches = self.api.init_caches(self.slots,
@@ -605,15 +647,69 @@ class ExecutorBackend:
         row, local = divmod(slot, self.local_slots)
         if row == self.my_row:
             self.caches = self._reset(self.caches, local)
+        else:
+            self._reset.dispatch_elsewhere()
 
     def swap_out(self, slot: int):
-        """Export one slot's stored KV (device tensors; the caller hosts
-        them). The resident caches are not modified."""
-        return self._swap_out_p(self.caches, slot)
+        """Export one slot's stored KV to the host. The resident caches
+        are not modified. On a mesh every rank dispatches the program;
+        the ranks of the slot's data row export their part (a
+        ``RankImage``), the others only count the dispatch."""
+        if not self.ctx.active:
+            return _hosted(self._swap_out_p(self.caches, slot))
+        row, local = divmod(slot, self.local_slots)
+        if row != self.my_row:
+            self._swap_out_p.dispatch_elsewhere()
+            return RankImage(row, None)
+        return RankImage(row, _hosted(self._swap_out_p(self.caches, local)))
+
+    def stage_image(self, saved, slot: int):
+        """The image ``saved`` where ``slot``'s data row can restore it.
+        Collective on a mesh of several data rows, outside any dispatch:
+        when the slot lies in another row than the image, each rank of the
+        image's row sends its part to the rank of the slot's row at the
+        same coordinates on the other axes (point to point over the
+        control group), so every part lands where the same cut of the
+        cache lives. One device, or one row: ``saved`` itself."""
+        if self.slot_rows == 1:
+            return saved
+        row = slot // self.local_slots
+        if saved.row == row:
+            return saved
+        mesh = self.ctx.mesh
+        if self.my_row == saved.row:
+            peer = mesh.rank_at(**self._row_coords(row))
+            control_exchange([(t, peer) for t in saved.parts
+                              if t is not None], [], mesh)
+            return RankImage(row, None)
+        if self.my_row != row:
+            return RankImage(row, None)
+        peer = mesh.rank_at(**self._row_coords(saved.row))
+        parts = empty_slot_image(self.caches)
+        control_exchange([], [(t, peer) for t in parts if t is not None],
+                         mesh)
+        return RankImage(row, parts)
 
     def swap_in(self, saved, slot: int, valid_len: int):
-        """Restore an exported slot image below its true length."""
-        self.caches = self._swap_in_p(self.caches, saved, slot, valid_len)
+        """Restore an exported slot image below its true length (on a
+        mesh: a ``RankImage`` already staged to the slot's row, restored
+        there; the other rows only count the dispatch)."""
+        if not self.ctx.active:
+            self.caches = self._swap_in_p(self.caches, saved, slot,
+                                          valid_len)
+            return
+        row, local = divmod(slot, self.local_slots)
+        if row != self.my_row:
+            self._swap_in_p.dispatch_elsewhere()
+            return
+        self.caches = self._swap_in_p(self.caches, saved.parts, local,
+                                      valid_len)
+
+
+def _hosted(saved):
+    """An exported image on the host, as the reference's np.asarray (not
+    a counted sync)."""
+    return tuple(None if a is None else a.cpu() for a in saved)
 
 
 class ColocatedBackend(ExecutorBackend):
@@ -1064,7 +1160,13 @@ class ServingEngine:
     mesh's from it). Every rank runs the same loop in lock step on its
     share (its data row's slots; ``run``'s params are this rank's,
     ``param_specs.shard_params``); rank 0 decides TTFT shedding and the
-    control group carries host results (``stats()["mesh"]``).
+    control group carries host results (``stats()["mesh"]``). Every rank
+    dispatches every program, the ranks outside a slot's data row
+    without its body, so a seeded fault injector draws one stream on all
+    of them; a swap that fails on any rank fails on every rank. A
+    preempted slot's image stays in parts on the ranks that held it
+    (``RankImage``) and moves rank to rank only when it is restored into
+    another data row.
 
     A ``run()`` may be repeated: per-run accumulators reset and the slot
     caches are allocated fresh, while the registered programs persist.
@@ -1181,7 +1283,7 @@ class ServingEngine:
             raise ValueError(f"max_retries must be >= 0, got {max_retries}")
         if self.ctx.active:
             self._check_mesh(api, resolved, batch_slots, prefill_chunk,
-                             backend, preemptible, overlap, kv_budget_bytes)
+                             backend, overlap)
         self.api = api
         self.slots = batch_slots
         self.prompt_len = prompt_len
@@ -1291,20 +1393,21 @@ class ServingEngine:
                     rules=self.ctx.rules.name, rank=mesh.rank)
 
     def _check_mesh(self, api, mode, slots, prefill_chunk, backend,
-                    preemptible, overlap, kv_budget_bytes):
+                    overlap):
         """What this slice serves on a mesh: the continuous scheduler (the
         colocated or WA (routing='sharding') backend) and drain mode
         (colocated, as everywhere: recurrentgemma's ``auto``), flat
-        caches, rings and the recurrent states, slots cut evenly over the
-        batch axes; an MoE only with one data row (its experts' columns
-        are cut over data, so a batch-1 admission on one row would need
-        the others). whisper stays refused by the engine itself."""
+        caches, rings and the recurrent states, tiered caches, preemption
+        and KV budgets (each rank swaps its part of a slot; the arbiter
+        prices the whole cache from cursors every rank holds), slots cut
+        evenly over the batch axes; an MoE only with one data row (its
+        experts' columns are cut over data, so a batch-1 admission on one
+        row would need the others). whisper stays refused by the engine
+        itself."""
         ctx = self.ctx
         rows = ctx.n(ctx.batch_axes)
         why = None
-        if preemptible or kv_budget_bytes or api.config.hot_window:
-            why = "preemption, tiered KV and KV budgets"
-        elif overlap > 1:
+        if overlap > 1:
             why = "the overlap schedule (two streams of one card)"
         elif slots % rows:
             why = f"{slots} slots over {rows} data rows (must divide)"
@@ -1679,6 +1782,17 @@ class ServingEngine:
             if not self._preempt_slot(sched, v):
                 break
 
+    def _any_rank(self, flag: bool) -> bool:
+        """``flag`` on one device; on a mesh, whether any rank raised it
+        (gathered over the control group), so that a swap that failed on
+        one rank only counts as failed on every rank before any acts on
+        it, and no rank enters a collective that another skips."""
+        if not self.ctx.active:
+            return flag
+        got = control_all_gather(torch.tensor([int(flag)]), self.ctx.mesh,
+                                 self.ctx.mesh.axis_names)
+        return bool(got.any())
+
     def _preempt_slot(self, sched: SlotScheduler, slot: int) -> bool:
         """Swap one decoding slot out: export its stored bytes (read-only,
         so a failed dispatch leaves the victim decoding), host the image
@@ -1687,13 +1801,14 @@ class ServingEngine:
         ex = self._ex
         r = sched.req[slot]
         t0 = time.monotonic()
+        failed = False
         try:
             saved = self._dispatch(ex.program_prefix + "swap_out",
                                    ex.swap_out, slot)
         except DispatchFailure:
+            failed = True
+        if self._any_rank(failed):
             return False                 # the victim keeps its slot
-        # to the host, as the reference's np.asarray (not a counted sync)
-        saved = tuple(None if a is None else a.cpu() for a in saved)
         self._swap_time += time.monotonic() - t0
         r.swap = SwapState(saved=saved,
                            kv_len=int(sched.positions[slot]),
@@ -1713,13 +1828,18 @@ class ServingEngine:
         ex = self._ex
         st = r.swap
         t0 = time.monotonic()
+        name = ex.program_prefix + "swap_in"
+        saved = ex.stage_image(st.saved, slot)
+        failed = False
         try:
-            self._dispatch(ex.program_prefix + "swap_in", ex.swap_in,
-                           st.saved, slot, st.kv_len)
-        except DispatchFailure as e:
-            # the restore never ran (DispatchError fires before the body):
-            # the slot stays clean and FREE, the request is rejected
-            self._reject(r, f"dispatch_failed:{e.name}")
+            self._dispatch(name, ex.swap_in, saved, slot, st.kv_len)
+        except DispatchFailure:
+            failed = True
+        if self._any_rank(failed):
+            # the restore never ran (DispatchError fires before the body;
+            # on a mesh, on at least one rank): the slot is FREE and will
+            # be rewritten before it is read, the request is rejected
+            self._reject(r, f"dispatch_failed:{name}")
             return False
         self._swap_time += time.monotonic() - t0
         r.swap = None

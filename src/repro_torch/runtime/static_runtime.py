@@ -11,8 +11,9 @@ Every step runs through an optional dispatch interceptor (fault injection,
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 
 class DispatchError(RuntimeError):
@@ -39,10 +40,18 @@ class CompiledStep:
     meta: Optional[Dict[str, Any]] = None
 
     def __call__(self, *args, **kw):
+        self.dispatch_elsewhere()
+        return self.fn(*args, **kw)
+
+    def dispatch_elsewhere(self):
+        """This rank's side of a dispatch whose body runs on other ranks
+        of a mesh (a slot of another data row): the interceptor runs and
+        the call counts, as on the ranks that run the body, so a seeded
+        fault injector draws the same stream and counts the same calls on
+        every rank."""
         if self.interceptor is not None:
             self.interceptor(self.name)
         self.calls += 1
-        return self.fn(*args, **kw)
 
 
 class StaticRuntime:
@@ -61,6 +70,33 @@ class StaticRuntime:
         self._interceptor = fn
         for step in self._steps.values():
             step.interceptor = fn
+
+    @contextlib.contextmanager
+    def recording(self):
+        """Yield a list that collects, in order, the names of the steps
+        dispatched inside the block (a dispatch the interceptor refused
+        included): what a rank that ran a program's body tells the ranks
+        that did not (``CompiledStep.dispatch_elsewhere``)."""
+        names: List[str] = []
+        inner = self._interceptor
+
+        def record(name):
+            names.append(name)
+            if inner is not None:
+                inner(name)
+        self.set_interceptor(record)
+        try:
+            yield names
+        finally:
+            self.set_interceptor(inner)
+
+    def step(self, name: str) -> CompiledStep:
+        return self._steps[name]
+
+    def step_names(self) -> List[str]:
+        """The registered names in registration order (the same on every
+        rank of a mesh, which builds the same programs)."""
+        return list(self._steps)
 
     def compile_step(self, name: str, fn: Callable,
                      meta: Optional[Dict[str, Any]] = None) -> CompiledStep:

@@ -556,6 +556,62 @@ def test_tiered_cache_functions_cuda_match_cpu(dev, cold):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("cold", ["int8", "int4"])
+def test_tiered_block_functions_cuda_match_cpu(dev, cold):
+    """The tiered functions on a rank's block of a sequence-cut cache
+    (``lo``: the two blocks of 20 of a 40-position extent, the ring
+    whole), on CUDA against the CPU on the same bytes: ragged appends
+    landing in either block, the resolved read of the block's part of a
+    bucket, the hot image and the chunk write of a window across the
+    block edge, and the import of the block's part below a global
+    valid_len: bit for bit."""
+    import dataclasses
+    from repro_torch.kv import cache as kc
+    cfg = get_config("qwen2-0.5b").reduced().replace(
+        dtype="float32", kv_cold_dtype=cold, **TIERS)
+    g = torch.Generator().manual_seed(1)
+    base = build_model(cfg, device="cpu").init_caches(3, 40)
+    fields = ("k", "v", "k_scale", "v_scale", "hot_k", "hot_v")
+    for name in fields:
+        t = getattr(base, name)
+        t.copy_(torch.randint(-128, 128, t.shape, generator=g)
+                if t.dtype == torch.int8 else torch.rand(t.shape, generator=g))
+    n_kv, hd = cfg.n_kv_heads, cfg.head_dim
+    appends = [(torch.randn(3, n_kv, hd, generator=g),
+                torch.randn(3, n_kv, hd, generator=g),
+                torch.tensor([3, 15, 30], dtype=torch.int32) + t,
+                torch.tensor([True, t % 3 != 1, True])) for t in range(9)]
+    kn_ch = torch.randn(n_kv, 12, hd, generator=g)
+    vn_ch = torch.randn(n_kv, 12, hd, generator=g)
+    out = {}
+    for d in ("cpu", "cuda"):
+        res = []
+        for lo in (0, 20):
+            c = dataclasses.replace(base, **{
+                n: (getattr(base, n) if n.startswith("hot")
+                    else getattr(base, n)[:, :, :, lo:lo + 20]).clone().to(d)
+                for n in fields}, seq_lo=lo, seq_axes=("model",))
+            lay = c.layer(0)
+            for kn, vn, pos, act in appends:
+                kc.layer_append_tiered(*lay, kn.to(d), vn.to(d), pos.to(d),
+                                       cold, act.to(d), lo=lo)
+            counts = torch.tensor([12, 24, 39], dtype=torch.int32, device=d)
+            res += kc.layer_read_tiered(*lay, counts, 32 - lo, 4, 4, cold,
+                                        dtype=torch.float32, lo=lo)
+            kn, vn = kn_ch.to(d), vn_ch.to(d)
+            res += kc.chunk_hot_image(lay[4], lay[5], kn, vn, 1, 14, 11, 20,
+                                      dtype=torch.float32, lo=lo)
+            kc.layer_write_chunk_tiered(*lay, kn, vn, 1, 14, 11, cold, lo=lo)
+            res += [t.clone() for t in lay]
+            image = tuple(a.cpu() for a in kc.export_slot_kv(c, 1))
+            c = kc.import_slot_kv(c, image, 2, 27)
+            res += [getattr(c, n) for n in fields]
+        out[d] = [t.cpu() for t in res]
+    assert len(out["cpu"]) == len(out["cuda"])
+    for a, b in zip(out["cpu"], out["cuda"]):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("shards", [1, 2])
 @pytest.mark.parametrize("cold", ["int8", "int4"])
 def test_tiered_decode_block_cuda_matches_cpu(dev, cold, shards):

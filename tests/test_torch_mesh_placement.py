@@ -139,6 +139,56 @@ def test_param_and_cache_placement_equals_reference(arch, mesh):
                    cache_specs(p_caches, pctx), p_cshapes, what + ("caches",))
 
 
+TIERED_MESHES = [((1, 2), ("data", "model")), ((2, 1), ("data", "model")),
+                 ((2, 2), ("data", "model"))]
+
+
+@pytest.mark.parametrize("cold", ("int8", "int4"))
+@pytest.mark.parametrize("mesh", TIERED_MESHES,
+                         ids=lambda m: "x".join(map(str, m[0])))
+def test_tiered_cache_placement_equals_reference(mesh, cold):
+    """A tiered cache's leaves (the cold tier and its scales, the hot
+    ring) under every executor: the port's ``cache_specs`` equal the
+    reference's, and the part ``init_kv_cache_sharded`` allocates (through
+    the model's ``init_caches``) has the shapes those specs cut."""
+    from repro_torch.models.param_specs import walk
+    from repro_torch.models.sharding import axes_of
+    shape, axes = mesh
+    over = dict(hot_window=64, kv_cold_dtype=cold, kv_cold_block=16,
+                n_layers=2)
+    jcfg = jax_get_config("qwen2-0.5b").replace(**over)
+    tcfg = get_config("qwen2-0.5b").replace(**over)
+    r_caches = jax.eval_shape(
+        lambda: jax_build_model(jcfg).init_caches(CACHE_B, CACHE_S))
+    p_caches = build_model(tcfg, "cpu").init_caches(CACHE_B, CACHE_S,
+                                                    device="meta")
+    p_cshapes = {"/".join(k): t.shape for k, t in walk(p_caches)}
+    assert {"hot_k", "hot_v", "k_scale"} <= {k.split("/")[0]
+                                             for k in p_cshapes}
+    mesh_obj = types.SimpleNamespace(
+        axis_names=axes, shape=dict(zip(axes, shape)),
+        size=math.prod(shape), devices_shape=shape,
+        device=torch.device("cpu"), index=lambda a: 0)
+    for executor in EXECUTORS:
+        rctx = jsh.ShardingCtx(types.SimpleNamespace(
+            shape=dict(zip(axes, shape))), _rules(jsh, executor, False,
+                                                  False))
+        pctx = sh.ShardingCtx(mesh_obj, _rules(sh, executor, False, False))
+        specs = cache_specs(p_caches, pctx)
+        _check(jps.cache_specs(r_caches, rctx), r_caches, specs,
+               p_cshapes, (shape, executor, cold))
+        part = build_model(tcfg, "cpu", pctx).init_caches(
+            CACHE_B, CACHE_S, device="meta")
+        for k, t in walk(part):
+            whole = p_cshapes["/".join(k)]
+            spec = specs["/".join(k)]
+            want = tuple(d // math.prod(shape[axes.index(a)]
+                                        for a in axes_of(e))
+                         for d, e in zip(whole, tuple(spec)
+                                         + (None,) * len(whole)))
+            assert tuple(t.shape) == want, (executor, k, t.shape, want)
+
+
 @pytest.mark.parametrize("mesh", MESHES,
                          ids=lambda m: "x".join(map(str, m[0])))
 @pytest.mark.parametrize("arch", ("mamba2-1.3b", "recurrentgemma-9b",
@@ -284,7 +334,8 @@ def test_make_step_refuses_train_and_pipeline():
     """The pod axis as a pipeline serves decode only, as the reference's
     ``make_pp_step``: train and prefill raise its NotImplementedError and
     decode builds a bundle. The recurrent and enc-dec families serve and
-    train on a mesh; tiered caches on a mesh wait for their slice."""
+    train on a mesh; a tiered cache on a mesh is this rank's part (its
+    slots and KV heads of the cold tier and of the hot ring)."""
     from repro_torch.configs.shapes import SHAPES
     from repro_torch.core.execution import make_rules, make_step
     from repro_torch.models.registry import build_model
@@ -321,8 +372,10 @@ def test_make_step_refuses_train_and_pipeline():
                      SHAPES["decode_32k"], mesh).api.ctx.active
     tiered = cfg.replace(hot_window=8, kv_cold_block=4)
     api = build_model(tiered, "cpu", ShardingCtx(mesh, sub_operator()))
-    with pytest.raises(NotImplementedError, match="tiered"):
-        api.init_caches(8, 64)
+    part = api.init_caches(8, 64, device="meta")
+    assert part.is_tiered and part.seq_axes == ()
+    assert tuple(part.k.shape) == (4, 2, 1, 64, 32)
+    assert tuple(part.hot_k.shape) == (4, 2, 1, 12, 32)
     assert make_rules("sub_operator", mesh).rules["batch"] == ("pod", "data")
     with pytest.raises(ValueError, match="unknown executor"):
         make_rules("gspmd", mesh)
